@@ -1,0 +1,8 @@
+"""HDOT core on PyTorch.
+
+- :mod:`repro_torch.core.domain`     hierarchical domain over-decomposition
+- :mod:`repro_torch.core.cost`       measured-cost model for re-cuts
+- :mod:`repro_torch.core.halo`       halo exchange with interior/boundary overlap
+- :mod:`repro_torch.core.reduction`  hierarchical task->process reductions
+- :mod:`repro_torch.core.stencil`    Heat2D on the core
+"""

@@ -1,0 +1,171 @@
+"""Multi-rank runs of the port for the tests. Imports no jax.
+
+:func:`spawn` starts one process per rank, each running this file:
+
+    python tests/_torch_dist.py <workdir> <rank> <world>
+
+A rank reads ``<workdir>/job.json`` (the mesh, the backend and what to run)
+and ``<workdir>/u0.npy`` (the global grid), joins the process group through
+the FileStore ``<workdir>/store``, runs the job and writes the gathered
+global results and its message counts to ``<workdir>/rank<r>.npz``. With
+``"backend": "gloo"`` the ranks run on the CPU with one thread each; with
+``"nccl"`` rank r runs on CUDA device r.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import halo
+from repro_torch.core.stencil import gather_global, heat2d_solve, local_block
+from repro_torch.kernels.heat2d.ops import heat2d_sweep_sharded
+from repro_torch.launch.mesh import make_mesh, rank_coords
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _star(p):
+    """5-point Jacobi on a block padded by 1 on both dims (the 2-D stencil
+    of the scan job)."""
+    return 0.25 * (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:])
+
+
+def _sum3(p):
+    """width-1 smoothing along dim 0 (the 1-D stencil of the scan job):
+    additions, then one multiplication, so no backend can fuse an FMA."""
+    return 0.25 * (p[:-2] + p[1:-1] + p[2:])
+
+
+class _SendLog:
+    """Counts ``batch_isend_irecv`` calls per mesh axis (one call is one
+    exchange of one axis)."""
+
+    def __init__(self, mesh):
+        self.mesh, self.calls = mesh, []
+        self._orig = dist.batch_isend_irecv
+
+    def __call__(self, ops):
+        me = self.mesh.coords
+        peer = rank_coords(ops[0].peer, self.mesh.sizes)
+        axis = [k for k, (a, b) in enumerate(zip(me, peer)) if a != b]
+        self.calls.append(axis[0])
+        return self._orig(ops)
+
+    def per_axis(self):
+        return np.bincount(np.asarray(self.calls, np.int64),
+                           minlength=len(self.mesh.sizes))
+
+
+def run(job, u0, device):
+    mesh = make_mesh(tuple(job["mesh"]), tuple(job["axes"]), device)
+    axes = tuple(job["axes"])
+    ut = torch.from_numpy(u0)
+    out = {}
+
+    def gathered(block):
+        return gather_global(block, mesh, axes, u0.shape).cpu().numpy()
+
+    for mode in ("two_phase", "hdot"):
+        u, res = heat2d_solve(ut, mesh, axes, job["iters"], mode, 4,
+                              chunk_weights=job.get("chunk_weights"))
+        out[f"solve_{mode}"] = gathered(u)
+        out[f"res_{mode}"] = res.cpu().numpy()
+    if "sweep_tile" in job:
+        out["sweep"] = gathered(heat2d_sweep_sharded(
+            ut, mesh, axes, tuple(job["sweep_tile"]), job["sweep_sweeps"]))
+
+    # the peeled hdot scan (on its own mesh where the job names one): count
+    # its exchanges per axis
+    axes = tuple(job.get("scan_axes", job["axes"]))
+    if "scan_mesh" in job:
+        mesh = make_mesh(tuple(job["scan_mesh"]), axes, device)
+    fn = _star if len(axes) == 2 else _sum3
+    scan_axes = tuple((a, d) for d, a in enumerate(axes))
+    for periodic in (False, True):
+        log = _SendLog(mesh)
+        halo.dist.batch_isend_irecv = log
+        try:
+            u, _ = halo.halo_scan_nd(local_block(ut, mesh, axes), fn, mesh,
+                                     scan_axes, 1, job["scan_steps"],
+                                     periodic, "hdot", 2)
+        finally:
+            halo.dist.batch_isend_irecv = log._orig
+        tag = "periodic" if periodic else "open"
+        out[f"scan_{tag}"] = gathered(u)
+        out[f"sends_{tag}"] = log.per_axis()
+    return out
+
+
+def spawn(job: dict, u0: np.ndarray, workdir: Path, deadline_s: float):
+    """Run `job` on ``prod(job["mesh"])`` ranks, one process each, with a
+    FileStore of their own in `workdir`; the whole spawn must finish within
+    `deadline_s` or its ranks are killed. Returns each rank's results, or
+    raises AssertionError with the failing rank's log."""
+    world = int(np.prod(job["mesh"]))
+    np.save(workdir / "u0.npy", u0)
+    (workdir / "job.json").write_text(json.dumps(job))
+    path = [str(REPO / "src"), str(REPO / "tests")]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   path + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs, logs = [], []
+    for r in range(world):
+        log = open(workdir / f"rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(REPO / "tests" / "_torch_dist.py"),
+             str(workdir), str(r), str(world)],
+            env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + deadline_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(
+                f"rank {r} exited {p.returncode}:\n"
+                + (workdir / f"rank{r}.log").read_text()[-4000:])
+    return [dict(np.load(workdir / f"rank{r}.npz")) for r in range(world)]
+
+
+def main(argv) -> int:
+    workdir, rank, world = Path(argv[0]), int(argv[1]), int(argv[2])
+    job = json.loads((workdir / "job.json").read_text())
+    backend = job.get("backend", "gloo")
+    if backend == "nccl":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+        torch.set_num_threads(1)
+    u0 = np.load(workdir / "u0.npy")
+    store = dist.FileStore(str(workdir / "store"), world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world)
+    try:
+        out = run(job, u0, device)
+    finally:
+        dist.destroy_process_group()
+    np.savez(workdir / f"rank{rank}.npz", **out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
