@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's main path — Heat2D under the HDOT schedule — at a
-16384 x 16384 float32 grid (1 GiB a buffer) through the entry points a user
-calls, and holds the hand-written CUDA kernel of that path against its plain
-PyTorch version:
+Drives the port's two paths through the entry points a user calls, and
+holds each hand-written CUDA kernel against its plain PyTorch version:
+Heat2D under the HDOT schedule at a 16384 x 16384 float32 grid (1 GiB a
+buffer), phases 2-6, and serving Qwen3-8B at its published widths in bf16
+(36 layers, d_model 4096, GQA 32/8, head dim 128, vocab 151936; random
+weights from a seeded generator), phases 7-9:
 
-  1. build    nvcc builds every kernel of the path from the checkout's
-              sources; prints the build seconds and the card's name and
-              power limit as nvidia-smi gives them.
+  1. build    nvcc builds every kernel of both paths from the checkout's
+              sources, one process per source, all started together;
+              prints the build seconds and the card's name and power limit
+              as nvidia-smi gives them.
   2. kernel   heat2d_sweep's CUDA kernel against its plain version on the
               same inputs: f32 tile (256, 256) with sweeps 1 and 4, tile
               (128, 64) with a random halo ring, and bf16. f32 must be
               bit-equal (same IEEE operations in the same order, no FMA);
               bf16 within one bf16 ulp after the cast. Kernel and plain
-              times are CUDA-event medians of 10 runs after warm-up;
+              times are CUDA-event means of 10 back-to-back runs, the
+              median of 3 such batches, after warm-up;
               bound_ms is the least time for the bytes the sweep must move.
   3-5. main   launch counts set to 0, then: heat2d_solve for 100 iterations
               on a (1,) slab mesh and a (1, 1) grid mesh in both schedules
@@ -27,6 +31,26 @@ PyTorch version:
   6. profile  a separate traced run of 5 solver steps per schedule on the
               (1, 1) mesh: device time by CUDA kernel and the device's idle
               share of the traced window.
+  7. flash    flash_attention's CUDA kernel against its plain version at
+              the serving path's shapes (an admission prefill, a wave
+              prefill, a ragged prompt, a 1024 window at 4096) and an f32
+              non-causal case; tolerance 2e-2 in bf16, 2e-5 in f32 (the JAX
+              suite's). Kernel, plain and library (scaled_dot_product_
+              attention, timed here only) times come from CUDA events
+              around back-to-back runs;
+              bound_ms is the larger of 4·b·hq·d·(visible pairs) flops over
+              the tensor-core peak and the bytes of q, k, v and o over HBM.
+  8. serve    launch counts set to 0, then Qwen3-8B serves 16 requests
+              (prompts uniform in 128-2048 from numpy seed 0, 64 new tokens
+              each) on BatchServer(slots=8, max_len=2176), through
+              run_continuous and then run_wave, counts read after each:
+              flash must launch 36 times per prefill and every request gets
+              its 64 tokens. Then: last-token prefill logits under flash and
+              under dense attention for one 2048-token prompt, teacher-forced
+              decode logits of two requests in the 8-slot layout against a
+              1-slot one, and the reduced config on the card against the CPU.
+  9. serve_profile  a traced admission prefill and a traced window of 5
+              decode steps: top device ops and the device's idle share.
 
 Each phase prints one JSON line; then the nvidia-smi line, the kernels line
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -53,8 +77,32 @@ ITERS = 100                 # heat2d_solve iterations per mode
 PROFILE_ITERS = 5           # solver steps in each traced window
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 KERNEL_SOURCE = "src/repro_torch/kernels/heat2d/csrc/heat2d.cu"
 REPLACES = "src/repro/kernels/heat2d/heat2d.py:72"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:75"
+FLASH_CASES = [  # (dtype, b, s_q, s_k, hq, hkv, d, causal, window)
+    ("bf16", 1, 2048, 2048, 32, 8, 128, True, None),   # admission prefill
+    ("bf16", 8, 2048, 2048, 32, 8, 128, True, None),   # wave prefill
+    ("bf16", 1, 1000, 1000, 32, 8, 128, True, None),   # ragged prompt
+    ("bf16", 1, 4096, 4096, 32, 8, 128, True, 1024),   # window 1024
+    ("f32", 2, 256, 256, 8, 2, 64, False, None),        # f32, no mask
+]
+FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}  # tests/test_kernels.py's
+SLOTS, MAX_LEN, REQUESTS, NEW_TOKENS = 8, 2176, 16, 64
+# Bounds on |logit difference| between two bf16 runs of the full-width
+# model that differ only in where they round (flash vs dense attention; the
+# batch-8 vs batch-1 decode GEMMs). Logits here have a standard deviation
+# of about 1 (random weights, rms-normed activations). One bf16 rounding is
+# 2^-9 relative, and 36 residual layers carry a difference made in the first
+# layer forward without damping it, so rounding alone moves a few percent of
+# a logit on average and a few tenths at the worst of 151936 entries. A
+# broken kernel (a wrong mask, a missed tile, a wrong head) moves logits by
+# a whole standard deviation on average.
+LOGIT_MEAN_BOUND = 0.1
+LOGIT_MAX_BOUND = 1.0
 
 
 def emit(obj) -> None:
@@ -74,20 +122,23 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of `fn` over `reps` runs after `warmup`."""
+def time_ms(fn, reps: int = 10, warmup: int = 2, batches: int = 3) -> float:
+    """CUDA-event time of one call of `fn`: `reps` calls back to back
+    between two events (so the host's launch work overlaps the device's),
+    divided by `reps`; the median of `batches` such runs after `warmup`."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -103,12 +154,11 @@ def sweep_bound_ms(nx: int, ny: int, itemsize: int, sweeps: int,
                                  "operations")
 
 
-def profile_solve(solve, u0, mesh, mode: str, card: str) -> dict:
-    """A separate traced run of PROFILE_ITERS solver steps on the (1, 1)
-    mesh (the timed runs above are untraced): device time per CUDA kernel
-    from torch.profiler, and the device's busy time against the wall clock
-    of the traced window (which the tracing itself lengthens, so the idle
-    share is an upper bound)."""
+def traced(fn) -> dict:
+    """Run `fn` once under torch.profiler (after the caller's warm-up):
+    device time per CUDA kernel, and the device's busy time against the
+    wall clock of the traced window (which the tracing itself lengthens, so
+    the idle share is an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -116,24 +166,33 @@ def profile_solve(solve, u0, mesh, mode: str, card: str) -> dict:
         t = getattr(e, "self_device_time_total", None)
         return t if t is not None else e.self_cuda_time_total
 
-    solve(u0, mesh, ("rows", "cols"), 1, mode)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(u0, mesh, ("rows", "cols"), PROFILE_ITERS, mode)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    return {"phase": "profile", "mesh": "1x1", "mode": mode,
-            "iters": PROFILE_ITERS, "wall_s": wall, "device_busy_s": busy,
+    return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall,
             "top_kernels": [{"name": e.key[:100], "count": e.count,
-                             "ms": dev_us(e) / 1e3} for e in top],
-            "gpu": card}
+                             "ms": dev_us(e) / 1e3} for e in top]}
+
+
+def profile_solve(solve, u0, mesh, mode: str, card: str) -> dict:
+    """A separate traced run of PROFILE_ITERS solver steps on the (1, 1)
+    mesh (the timed runs above are untraced)."""
+    solve(u0, mesh, ("rows", "cols"), 1, mode)
+    row = {"phase": "profile", "mesh": "1x1", "mode": mode,
+           "iters": PROFILE_ITERS}
+    row.update(traced(lambda: solve(u0, mesh, ("rows", "cols"),
+                                    PROFILE_ITERS, mode)))
+    row["gpu"] = card
+    return row
 
 
 def bf16_ulp(x):
@@ -141,6 +200,278 @@ def bf16_ulp(x):
     _, e = torch.frexp(x.float().abs())
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
                        (e - 8).to(torch.int32))
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave visible (positions arange)."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_case(flash_ops, dev, card, dtype_name, b, sq, sk, hq, hkv, d,
+               causal, window) -> dict:
+    """The flash kernel against its plain version (and SDPA's time) at one
+    shape: CUDA-event times (time_ms); bound from the visible pairs."""
+    import torch.nn.functional as F
+
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(sq + 7 * b)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dtype)
+    got = flash_ops.flash_attention(q, k, v, causal, window, "kernel")
+    want = flash_ops.flash_attention(q, k, v, causal, window, "plain")
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err, tol = float(diff.max()), FLASH_TOL[dtype_name]
+    check(bool(torch.isfinite(got).all()), f"flash: non-finite output {sq}")
+    check(bool((diff <= tol + tol * want.float().abs()).all()),
+          f"flash kernel off plain by {err} at {(b, sq, sk, hq, hkv, d)}")
+    del diff
+    del got, want
+    k_ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, causal, window,
+                                                     "kernel"))
+    p_ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, causal, window,
+                                                     "plain"), reps=3)
+    # the library's attention on the same inputs, (b, h, s, d) views; a
+    # window needs an explicit mask (True = attend)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if window is not None:
+        qp = torch.arange(sq, device=dev)[:, None]
+        kp = torch.arange(sk, device=dev)[None, :]
+        mask = (kp > qp - window) & ((kp <= qp) if causal else True)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True))
+    pairs = visible_pairs(sq, sk, causal, window)
+    flops = 4 * b * hq * d * pairs
+    nbytes = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * q.element_size()
+    t_ops = flops / (BF16_FLOPS if dtype_name == "bf16" else F32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "flash", "dtype": dtype_name,
+           "shape": [b, sq, sk, hq, hkv, d], "causal": causal,
+           "window": window, "max_abs_err": err, "kernel_ms": k_ms,
+           "plain_ms": p_ms, "library_ms": lib_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gflop": flops / 1e9, "kernel_tflops": flops / k_ms / 1e9,
+           "gpu": card}
+    emit(row)
+    return row
+
+
+class StepTimer:
+    """Times each call of a model entry point on the host clock, ending in a
+    synchronize (the server reads the chosen ids back every step anyway)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.calls.append(time.perf_counter() - t0)
+        return out
+
+
+def serve_run(flash_ops, model, params, prompts, scheduler: str, dev,
+              card) -> dict:
+    """One counted run of the main serving path: the flash count is set to
+    0 just before and read just after."""
+    from repro_torch.runtime.server import BatchServer, Request
+
+    server = BatchServer(model, params, slots=SLOTS, max_len=MAX_LEN)
+    for pr in prompts:
+        server.submit(Request(prompt=pr, max_new_tokens=NEW_TOKENS))
+    prefill, decode = StepTimer(model.prefill), StepTimer(model.decode_step)
+    model.prefill, model.decode_step = prefill, decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    served = (server.run_continuous() if scheduler == "continuous"
+              else server.run_all())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_ops.flash_attention.launches
+    del model.prefill, model.decode_step      # back to the class's methods
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    n_prefills = server.stats["prefills"]
+    check(len(served) == len(prompts), f"{scheduler}: served {len(served)}")
+    check(all(len(r.output) == NEW_TOKENS for r in served),
+          f"{scheduler}: a request missed its {NEW_TOKENS} tokens")
+    check(all(0 <= t < model.cfg.vocab_size for r in served
+              for t in r.output), f"{scheduler}: token id out of range")
+    check(launches == model.cfg.num_layers * n_prefills,
+          f"{scheduler}: {launches} flash launches for {n_prefills} "
+          f"prefills of {model.cfg.num_layers} layers")
+    prompt_tokens = sum(len(p) for p in prompts)
+    out_tokens = sum(len(r.output) for r in served)
+    row = {"phase": "serve", "scheduler": scheduler,
+           "requests": len(served), "prefills": n_prefills,
+           "decode_steps": server.stats["decode_steps"],
+           "prompt_tokens": prompt_tokens, "output_tokens": out_tokens,
+           "wall_s": wall, "prefill_s": sum(prefill.calls),
+           "decode_s": sum(decode.calls),
+           "prefill_tokens_per_s": prompt_tokens / sum(prefill.calls),
+           "output_tokens_per_s": out_tokens / wall,
+           "decode_step_ms_median": 1e3 * statistics.median(decode.calls),
+           "peak_mem_gib": peak, "flash_launches": launches, "gpu": card}
+    emit(row)
+    return {"row": row, "served": {r.rid: r.output for r in served}}
+
+
+def teacher_forced(model, params, prompts, forced, slots: int, rows, dev):
+    """Decode logits of slots `rows` when every slot of a `slots`-slot cache
+    is admitted from `prompts` (batch-1 prefills) and fed `forced` tokens."""
+    from repro_torch.runtime.server import (
+        _mark_prefill_tail,
+        _scatter_slot,
+        make_slot_caches,
+    )
+
+    caches = make_slot_caches(model, slots, MAX_LEN, dev)
+    for i, pr in enumerate(prompts):
+        _, pc = model.prefill(params, {"tokens": torch.tensor([pr],
+                                                              device=dev)},
+                              max_len=MAX_LEN)
+        _scatter_slot(caches, _mark_prefill_tail(pc, len(pr)), i, slots)
+    pos = torch.tensor([len(p) for p in prompts], device=dev)
+    steps = min(len(f) for f in forced) - 1
+    out = []
+    for n in range(steps):
+        tok = torch.tensor([[f[n]] for f in forced], device=dev)
+        logits, caches = model.decode_step(params, tok, caches, pos + n)
+        out.append(logits[rows, -1].float())
+    return torch.stack(out, 1)          # (len(rows), steps, vocab)
+
+
+def serve_phase(flash_ops, dev, card) -> dict:
+    """Phase 8: Qwen3-8B at full width, bf16, random weights from seed 0."""
+    import numpy as np
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions, build_model
+
+    cfg = get_arch("qwen3-8b")
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.bfloat16))
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 2049, REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    emit({"phase": "serve_setup", "arch": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+          "params": n_params, "init_s": init_s,
+          "prompt_lens": lens.tolist(), "gpu": card})
+    # warm-up (kernel build is done; cuBLAS handles, allocator)
+    model.prefill(params, {"tokens": torch.tensor([prompts[0][:128]],
+                                                  device=dev)})
+    runs = {sch: serve_run(flash_ops, model, params, prompts, sch, dev, card)
+            for sch in ("continuous", "wave")}
+
+    # flash vs dense attention on one 2048-token prompt (last-token logits)
+    toks = torch.tensor([rng.integers(1, cfg.vocab_size, 2048).tolist()],
+                        device=dev)
+    lf, _ = model.prefill(params, {"tokens": toks})
+    dense = build_model(cfg, ModelOptions(attn_impl="dense",
+                                          dtype=torch.bfloat16))
+    ld, _ = dense.prefill(params, {"tokens": toks})
+    check(bool(torch.isfinite(lf).all()) and lf.shape == (1, 1, cfg.vocab_size),
+          "flash prefill logits: non-finite or wrong shape")
+    fd = (lf - ld).abs()
+    fd_mean, fd_max = float(fd.mean()), float(fd.max())
+    del ld, fd
+
+    # teacher-forced decode: requests 0 and 1 in the 8-slot layout (with
+    # the first 8 requests) against each alone in a 1-slot layout
+    forced = [runs["continuous"]["served"][i][:17] for i in range(SLOTS)]
+    eight = teacher_forced(model, params, prompts[:SLOTS], forced, SLOTS,
+                           [0, 1], dev)
+    one = torch.cat([teacher_forced(model, params, [prompts[i]], [forced[i]],
+                                    1, [0], dev) for i in (0, 1)])
+    td = (eight - one).abs()
+    td_mean, td_max = float(td.mean()), float(td.max())
+    bit_identical = bool(torch.equal(eight, one))
+    del eight, one, td
+
+    # the reduced config on the card against the CPU (float32, plain
+    # versions on the CPU), on a small input
+    small = get_arch("qwen3-8b").reduced()
+    sm = build_model(small, ModelOptions(attn_impl="flash",
+                                         dtype=torch.float32))
+    sp = sm.init(0, "cpu")
+    st = torch.tensor([rng.integers(1, small.vocab_size, 100).tolist()])
+    want, _ = sm.prefill(sp, {"tokens": st})
+    got, _ = sm.prefill(sp.to(dev), {"tokens": st.to(dev)})
+    small_err = float((got.cpu() - want).abs().max())
+
+    row = {"phase": "serve_checks",
+           "flash_vs_dense_logits": {"mean_abs": fd_mean, "max_abs": fd_max},
+           "teacher_forced_8_vs_1_slot": {"mean_abs": td_mean,
+                                          "max_abs": td_max,
+                                          "bit_identical": bit_identical,
+                                          "steps": len(forced[0]) - 1},
+           "bounds": {"mean_abs": LOGIT_MEAN_BOUND,
+                      "max_abs": LOGIT_MAX_BOUND},
+           "reduced_card_vs_cpu_f32_max_abs": small_err, "gpu": card}
+    emit(row)
+    check(fd_mean <= LOGIT_MEAN_BOUND and fd_max <= LOGIT_MAX_BOUND,
+          f"flash vs dense logits: mean {fd_mean}, max {fd_max}")
+    check(td_mean <= LOGIT_MEAN_BOUND and td_max <= LOGIT_MAX_BOUND,
+          f"8-slot vs 1-slot decode logits: mean {td_mean}, max {td_max}")
+    check(small_err <= 1e-4, f"reduced model card vs CPU: {small_err}")
+    return {"model": model, "params": params, "prompts": prompts,
+            "launches": sum(r["row"]["flash_launches"]
+                            for r in runs.values())}
+
+
+def serve_profile(serve, dev, card) -> dict:
+    """Phase 9: a traced admission prefill (the longest prompt) and a
+    traced window of 5 decode steps over all 8 slots."""
+    from repro_torch.runtime.server import (
+        _mark_prefill_tail,
+        _scatter_slot,
+        make_slot_caches,
+    )
+
+    model, params = serve["model"], serve["params"]
+    prompt = max(serve["prompts"], key=len)
+    tokens = torch.tensor([prompt], device=dev)
+    caches = make_slot_caches(model, SLOTS, MAX_LEN, dev)
+
+    def admit():
+        _, pc = model.prefill(params, {"tokens": tokens}, max_len=MAX_LEN)
+        for i in range(SLOTS):
+            _scatter_slot(caches, _mark_prefill_tail(pc, len(prompt)), i,
+                          SLOTS)
+
+    pos = torch.full((SLOTS,), len(prompt), device=dev)
+    tok = torch.ones((SLOTS, 1), dtype=torch.int64, device=dev)
+
+    def decode():
+        for n in range(5):
+            model.decode_step(params, tok, caches, pos + n)
+
+    admit()
+    decode()  # warm
+    row = {"phase": "serve_profile", "prompt_len": len(prompt),
+           "prefill": traced(lambda: model.prefill(
+               params, {"tokens": tokens}, max_len=MAX_LEN)),
+           "decode_5_steps": traced(decode), "gpu": card}
+    return row
 
 
 def main() -> int:
@@ -156,22 +487,25 @@ def main() -> int:
 
     from repro_torch.core.stencil import heat2d_init, heat2d_solve
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.heat2d import ops as heat_ops
     from repro_torch.launch.mesh import make_grid_mesh, make_mesh
     from repro_torch.runtime.rebalance import heat2d_solve_rebalanced
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
     card = gpu_line()
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
-    built = _build.build([heat_ops.SOURCE])
+    built = _build.build([heat_ops.SOURCE, flash_ops.SOURCE])
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for _, log in built.values()
              for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": build_s, "sources": [KERNEL_SOURCE],
-          "ptxas": ptxas, "gpu": card})
+    emit({"phase": "build", "seconds": build_s,
+          "sources": [KERNEL_SOURCE, FLASH_SOURCE], "ptxas": ptxas,
+          "gpu": card})
 
     # ------------------------------------------- 2. kernel vs plain version
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -302,15 +636,33 @@ def main() -> int:
     for mode in ("two_phase", "hdot"):
         emit(profile_solve(heat2d_solve, u0, grid, mode, card))
 
+    del u, u0, ur, rr, x, parts, ring, zeros   # the serving phases need room
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------- 7. flash kernel vs plain
+    flash_rows = [flash_case(flash_ops, dev, card, *c) for c in FLASH_CASES]
+
+    # ------------------------------------- 8. serve Qwen3-8B, counted
+    serve = serve_phase(flash_ops, dev, card)
+
+    # ------------------------------------------------ 9. serve_profile
+    emit(serve_profile(serve, dev, card))
+
     # -------------------------------------------------------------- results
-    main_row = kernel_rows[0]
+    main_row, flash_row = kernel_rows[0], flash_rows[0]
     print(f"nvidia-smi: {card}", flush=True)
     emit({"kernels": [{
         "name": "heat2d_sweep", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": main_row["max_abs_err"], "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": None}]})
+        "bound_by": main_row["bound_by"], "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": serve["launches"],
+        "max_abs_err": flash_row["max_abs_err"],
+        "ms": flash_row["kernel_ms"], "plain_ms": flash_row["plain_ms"],
+        "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
+        "library_ms": flash_row["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

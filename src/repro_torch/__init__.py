@@ -6,15 +6,18 @@ sends, and each Pallas TPU kernel on a ported path is a CUDA kernel written
 by hand for ``sm_90a`` with a plain PyTorch version beside it.
 
 Public API (lazy — importing ``repro_torch`` touches no device):
+    repro_torch.config   -- model configs and the --arch registry
     repro_torch.core     -- domain / cost / halo / reduction / stencil
     repro_torch.kernels  -- hand-written Hopper kernels (+ plain versions)
-    repro_torch.launch   -- process meshes over torch.distributed ranks
-    repro_torch.runtime  -- the measured-cost re-cut driver
+    repro_torch.launch   -- process meshes; the serving launcher
+    repro_torch.models   -- dense GQA language models
+    repro_torch.runtime  -- the re-cut driver; the batched server
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["core", "kernels", "launch", "runtime", "__version__"]
+__all__ = ["config", "core", "kernels", "launch", "models", "runtime",
+           "__version__"]
 
 
 def __getattr__(name):

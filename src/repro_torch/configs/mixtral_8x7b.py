@@ -1,0 +1,17 @@
+"""mixtral-8x7b [moe] — 8 experts top-2, SWA. [arXiv:2401.04088; hf]"""
+from repro_torch.config.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x7b",
+    family="moe",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab_size=32000,
+    sliding_window=4096,
+    rope_theta=1e6,
+    moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=14336),
+)

@@ -78,9 +78,11 @@ def build(sources: Iterable[Path]) -> Dict[Path, Tuple[float, str]]:
 
 
 def load(source: Path) -> ctypes.CDLL:
-    """The shared library of `source`, built first if it is stale."""
-    lib = library_path(source)
-    if lib not in _LOADED:
+    """The shared library of `source`, built first if it is stale. Kept for
+    the life of the process, so a launch does not hash the source again."""
+    source = Path(source)
+    if source not in _LOADED:
+        lib = library_path(source)
         build([source])
-        _LOADED[lib] = ctypes.CDLL(str(lib))
-    return _LOADED[lib]
+        _LOADED[source] = ctypes.CDLL(str(lib))
+    return _LOADED[source]

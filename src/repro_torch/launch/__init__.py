@@ -1,1 +1,1 @@
-"""Process meshes over torch.distributed ranks."""
+"""Process meshes over torch.distributed ranks, and the serving launcher."""

@@ -1,0 +1,229 @@
+"""Attention: GQA (+qk-norm, +sliding window), prefill and decode paths.
+
+The port of ``repro/models/attention.py``. Implementations (``impl``):
+
+  dense  -- full-score einsum attention (oracle; decode path)
+  flash  -- the flash attention kernel (:mod:`repro_torch.kernels.
+            flash_attention`): the hand-written Hopper kernel for a CUDA
+            tensor, its plain version on the CPU
+
+``blockwise`` and the sharded flash-decode wait for later slices
+(``ROADMAP.md``) and raise. Both implementations share the projection, rope
+and mask logic, so they are interchangeable and cross-checked in tests.
+
+KV caches are dicts of tensors. Unlike the JAX package (whose arrays are
+immutable), prefill and decode write the cache IN PLACE and return the same
+dict: a decode step then moves one token's keys and values, not the ring.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.launch.mesh import resolve_device
+from repro_torch.models.layers import ParamSpec, apply_rope, rms_norm
+
+Cache = Dict[str, torch.Tensor]
+NEG = -1e30
+
+
+# ---------------------------------------------------------------------- specs
+def attention_specs(cfg: ModelConfig,
+                    dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
+    hd = cfg.resolved_head_dim
+    s: Dict[str, ParamSpec] = {
+        "wq": ParamSpec((cfg.d_model, cfg.num_heads, hd), dtype),
+        "wk": ParamSpec((cfg.d_model, cfg.num_kv_heads, hd), dtype),
+        "wv": ParamSpec((cfg.d_model, cfg.num_kv_heads, hd), dtype),
+        "wo": ParamSpec((cfg.num_heads, hd, cfg.d_model), dtype),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((hd,), torch.float32, "ones")
+        s["k_norm"] = ParamSpec((hd,), torch.float32, "ones")
+    return s
+
+
+# ---------------------------------------------------------------- projections
+def project_q(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
+def project_kv(p, x, cfg: ModelConfig, positions
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return apply_rope(k, positions, cfg.rope_theta), v
+
+
+# ------------------------------------------------------------------ core sdpa
+def _mask(q_pos, k_pos, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """(..., q, k) boolean mask. window counts the current token (SWA)."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= kp <= qp
+    if window is not None:
+        m &= kp > qp - window
+    return m
+
+
+def _sdpa_dense(q, k, v, q_pos, k_pos, causal, window,
+                kv_valid=None) -> torch.Tensor:
+    """q: (b,sq,hq,d); k,v: (b,sk,hkv,d); q_pos (b,sq), k_pos (b,sk). GQA
+    by grouping query heads over their KV head (the JAX package repeats the
+    KV heads instead: the same products and sums, without the copy)."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float()) / math.sqrt(d)
+    m = _mask(q_pos, k_pos, causal, window)[:, None, None]   # (b,1,1,sq,sk)
+    if kv_valid is not None:
+        m = m & kv_valid[:, None, None, None, :]
+    scores = torch.where(m, scores, NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def sdpa(q, k, v, q_pos, k_pos, causal=True, window=None, impl="dense",
+         kv_valid=None) -> torch.Tensor:
+    if impl == "dense":
+        return _sdpa_dense(q, k, v, q_pos, k_pos, causal, window, kv_valid)
+    if impl == "flash":
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+
+        # positions are arange on both sides, as in the JAX package's flash
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+    if impl in ("blockwise", "blockwise_unrolled"):
+        raise NotImplementedError(
+            f"attention impl {impl!r} is not ported yet (ROADMAP.md, "
+            f"Queue 1 item 10)")
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+# ---------------------------------------------------------------- full blocks
+def self_attention(p, x, cfg: ModelConfig, positions, causal=True,
+                   impl="dense", window=None) -> torch.Tensor:
+    """Self-attention over the full sequence, without a cache."""
+    q = project_q(p, x, cfg, positions)
+    k, v = project_kv(p, x, cfg, positions)
+    out = sdpa(q, k, v, positions, positions, causal=causal, window=window,
+               impl=impl)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> Cache:
+    """Ring-buffer KV cache. For SWA archs max_len may be min(seq, window)."""
+    device = resolve_device(device)
+    hd = cfg.resolved_head_dim
+    shape = (batch, max_len, cfg.num_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # absolute position stored in each ring slot (-1 = empty)
+        "pos": torch.full((max_len,), -1, dtype=torch.int64, device=device),
+    }
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16):
+    """As in the JAX package, ``pos`` starts at 0, not -1: a prefill shorter
+    than the ring leaves its tail claiming position 0, and the servers mark
+    it empty (:func:`repro_torch.runtime.server._mark_prefill_tail`)."""
+    hd = cfg.resolved_head_dim
+    shape = (batch, max_len, cfg.num_kv_heads, hd)
+    return {
+        "k": ParamSpec(shape, dtype, "zeros"),
+        "v": ParamSpec(shape, dtype, "zeros"),
+        "pos": ParamSpec((max_len,), torch.int64, "zeros"),
+    }
+
+
+def prefill_attention(p, x, cfg: ModelConfig, positions, cache: Cache,
+                      impl="dense", window=None
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """Full-sequence attention that also fills `cache` in place."""
+    q = project_q(p, x, cfg, positions)
+    k, v = project_kv(p, x, cfg, positions)
+    out = sdpa(q, k, v, positions, positions, causal=True, window=window,
+               impl=impl)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+    w = cache["k"].shape[1]
+    s = k.shape[1]
+    pos1 = positions[0] if positions.dim() > 1 else positions
+    if s >= w:  # keep the last w entries, placed at their ring slots
+        # decode writes position p at slot p % w: prefill must agree, else
+        # the next eviction removes the wrong token
+        ps = pos1[-w:]
+        slots = ps % w
+        cache["k"].zero_()
+        cache["v"].zero_()
+        cache["pos"].fill_(-1)
+        cache["k"][:, slots] = k[:, -w:].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, -w:].to(cache["v"].dtype)
+        cache["pos"][slots] = ps.to(cache["pos"].dtype)
+    else:
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        cache["pos"][:s] = pos1.to(cache["pos"].dtype)
+    return y, cache
+
+
+def decode_attention(p, x, cfg: ModelConfig, cache: Cache, pos,
+                     window=None) -> Tuple[torch.Tensor, Cache]:
+    """One-token step against the ring cache. `pos` is a scalar (an int or
+    a 0-d tensor: the same position for every sequence in the batch, the
+    wave scheduler) or a per-slot (b,) tensor (continuous batching: every
+    slot decodes at its own position; the cache then carries a per-slot
+    ``pos`` of shape (b, w)). Single-device path (``_decode_dense``); the
+    sharded flash-decode waits for the multi-card slice."""
+    b = x.shape[0]
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        pos = pos.long()
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((b, 1), pos, dtype=torch.int64,
+                               device=x.device)
+    q = project_q(p, x, cfg, positions)
+    k, v = project_kv(p, x, cfg, positions)
+    out, cache = _decode_dense(q, k, v, cache, pos, positions, window)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, cache
+
+
+def _decode_dense(q, k, v, cache: Cache, pos, positions, window
+                  ) -> Tuple[torch.Tensor, Cache]:
+    """An int `pos` writes one shared ring slot; a per-slot (b,) `pos`
+    scatters row-wise into a per-slot (b, w) ring. In place."""
+    b = q.shape[0]
+    w = cache["k"].shape[1]
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    slot = pos % w
+    if torch.is_tensor(pos):
+        rows = torch.arange(b, device=q.device)
+        ck[rows, slot] = k[:, 0].to(ck.dtype)
+        cv[rows, slot] = v[:, 0].to(cv.dtype)
+        cpos[rows, slot] = pos.to(cpos.dtype)
+        k_pos = cpos                                            # (b, w)
+    else:
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
+        cpos[slot] = pos
+        k_pos = cpos.expand(b, w)
+    out = _sdpa_dense(q, ck, cv, positions, k_pos, causal=True,
+                      window=window, kv_valid=k_pos >= 0)
+    return out, cache

@@ -1,0 +1,166 @@
+"""Param specs and common layers (norms, rope, SwiGLU MLP).
+
+The port of ``repro/models/layers.py``. A module publishes a tree of
+:class:`ParamSpec` (shape, dtype, initializer) in the JAX package's layout —
+``wq`` is (d_model, heads, head_dim), a scanned stack carries a leading
+layer dim — so the einsums and the conversion from JAX parameters
+(:mod:`repro_torch.models.convert`) stay one-to-one. Materialized
+parameters are a :class:`ParamTree`, an ``nn.Module`` that is indexed like
+the JAX dict (``p["attn"]["wq"]``).
+
+Each leaf's seed comes from a stable hash of its tree path (CRC-32 of its
+string), so any subset of leaves inits as in the full tree, and the same
+seed gives the same parameters in every process. (The JAX package's
+``init_leaf`` folds in Python's ``hash`` of the path, which is salted per
+process for strings: port and reference parameters are therefore compared
+by converting one tree, never by initializing both.)
+"""
+from __future__ import annotations
+
+import math
+import zlib
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.launch.mesh import resolve_device
+
+PyTree = Any
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"                     # normal | zeros | ones
+    scale: Optional[float] = None            # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if self.init not in ("normal", "zeros", "ones"):
+            raise ValueError(f"unknown init {self.init!r}")
+
+
+class ParamTree(nn.Module):
+    """Nested parameters as an ``nn.Module``: a dict of tensors, dicts and
+    lists becomes parameters, child trees and ``nn.ModuleList``s under the
+    same keys, read back with ``tree[key]``. Parameters never require
+    grad (this slice serves; training waits, see ``ROADMAP.md``)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            elif isinstance(val, (list, tuple)):
+                self.add_module(key, nn.ModuleList(ParamTree(v) for v in val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def leaf_paths(tree: PyTree, prefix=()) -> Dict[Tuple, Any]:
+    """{path: leaf} over nested dicts and lists."""
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(leaf_paths(tree[k], prefix + (k,)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(leaf_paths(v, prefix + (i,)))
+    else:
+        out[prefix] = tree
+    return out
+
+
+def rebuild(tree: PyTree, leaves: Dict[Tuple, Any], prefix=()) -> PyTree:
+    """`tree`'s structure (dicts and lists) with `leaves[path]` at each leaf."""
+    if isinstance(tree, dict):
+        return {k: rebuild(v, leaves, prefix + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [rebuild(v, leaves, prefix + (i,)) for i, v in enumerate(tree)]
+    return leaves[prefix]
+
+
+def leaf_seed(seed: int, path: Tuple) -> int:
+    """A 32-bit seed for one leaf (the CPU generator keeps 32 bits), stable
+    across processes and runs: CRC-32 of the path, started from `seed`."""
+    return zlib.crc32(repr(path).encode(), int(seed) % 2**32)
+
+
+def init_leaf(seed: int, path: Tuple, spec: ParamSpec,
+              device="cuda") -> torch.Tensor:
+    """Materialize ONE leaf from its path's seed: normal(0, 1) draws in f32
+    times `scale` (default 1/sqrt(fan_in)), cast to the spec's dtype."""
+    device = resolve_device(device)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    gen = torch.Generator(device=device).manual_seed(leaf_seed(seed, path))
+    fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[-1], 1)
+    scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
+    n = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return (n * scale).to(spec.dtype)
+
+
+def init_from_specs(specs: PyTree, seed: int = 0, device="cuda") -> PyTree:
+    """Materialize every leaf of a spec tree (nested dicts/lists of
+    tensors, in the spec tree's structure)."""
+    leaves = {p: init_leaf(seed, p, s, device)
+              for p, s in leaf_paths(specs).items()}
+    return rebuild(specs, leaves)
+
+
+# ------------------------------------------------------------------- layers
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq). Half-split
+    rotation in f32, cast back to x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                       # (hd/2,)
+    angles = positions[..., :, None].float() * freqs             # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- dense MLP
+def mlp_specs(d_model: int, d_ff: int,
+              dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
+    return {
+        "gate": ParamSpec((d_model, d_ff), dtype),
+        "up": ParamSpec((d_model, d_ff), dtype),
+        "down": ParamSpec((d_ff, d_model), dtype),
+    }
+
+
+def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP."""
+    h = torch.nn.functional.silu(x @ p["gate"]) * (x @ p["up"])
+    return h @ p["down"]

@@ -1,14 +1,17 @@
-"""The port on the card: the CUDA tile-sweep kernel against its plain
-PyTorch version, the solver on CUDA against the CPU, and (given 4 cards)
-NCCL ranks against one rank. Marked ``gpu``;
+"""The port on the card: the CUDA tile-sweep and flash attention kernels
+against their plain PyTorch versions, the solver and the server on CUDA
+against the CPU, and (given 4 cards) NCCL ranks against one rank. Marked
+``gpu``;
 without a card every test here skips. Imports no jax, so it runs where the
 JAX package is not installed:
 
     python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
-f32 is compared bit for bit (the kernel does the plain version's IEEE
-operations in the same order, with no FMA contraction); bf16 within one
-bf16 ulp after the cast.
+The tile sweep: f32 is compared bit for bit (the kernel does the plain
+version's IEEE operations in the same order, with no FMA contraction); bf16
+within one bf16 ulp after the cast. Flash attention: 2e-5 in f32 and 2e-2
+in bf16, the JAX suite's tolerances (the kernel sums in another order and
+rounds P to bf16 before P @ V).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.core.halo import halo_scan_nd
 from repro_torch.core.stencil import heat2d_init, heat2d_solve
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.heat2d import ops
 from repro_torch.launch.mesh import make_grid_mesh, make_mesh
 
@@ -120,3 +124,72 @@ def test_nccl_2x2_ranks_match_one_rank(cuda, tmp_path):
         for tag, scan in scans.items():
             np.testing.assert_array_equal(out[f"scan_{tag}"], scan.numpy())
             assert out[f"sends_{tag}"].tolist() == [4, 4]
+
+
+FLASH_CASES = [  # (b, sq, sk, hq, hkv, d, causal, window)
+    (1, 1, 1, 4, 4, 64, True, None),           # one query, one key
+    (2, 63, 63, 8, 2, 64, True, None),         # ragged, GQA 4:1
+    (1, 1000, 1000, 32, 8, 128, True, None),   # ragged admission prefill
+    (1, 1000, 1000, 32, 1, 128, True, 256),    # MQA 32:1, window
+    (2, 63, 130, 4, 4, 128, False, None),      # sq < sk, bidirectional
+    (1, 130, 63, 8, 2, 32, True, None),        # sq > sk, head dim 32
+    (1, 16, 8, 2, 1, 64, False, 4),            # rows that see no key
+    (1, 1, 70, 8, 2, 128, False, None),        # one query over 70 keys
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, b, sq, sk, hq, hkv, d, causal,
+                                    window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + sk)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    before = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, causal, window, "kernel")
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == before + 1
+    want = flash_ops.flash_attention(q, k, v, causal, window, "plain")
+    assert flash_ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_needs_a_cuda_tensor():
+    q = torch.zeros(1, 8, 4, 32)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash_ops.flash_attention(q, q, q, impl="kernel")
+
+
+def test_served_on_card_equals_cpu(cuda):
+    """The reduced qwen3-8b (float32, flash attention) served continuously
+    on the card gives the CPU's greedy tokens, its prefill logits within
+    1e-4, and one kernel launch per layer per prefill."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions, build_model
+    from repro_torch.runtime.server import BatchServer, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("qwen3-8b").reduced()
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.float32))
+    params = model.init(0, "cpu")
+    prompts = [[5, 9, 3, 200, 17], [7, 1], list(range(1, 70)), [11] * 33]
+    outs, logits = {}, {}
+    for dev in ("cpu", cuda):
+        p = params.to(dev)
+        logits[str(dev)] = model.prefill(
+            p, {"tokens": torch.tensor([prompts[2]], device=dev)})[0].cpu()
+        srv = BatchServer(model, p, slots=3, max_len=96)
+        for pr in prompts:
+            srv.submit(Request(prompt=list(pr), max_new_tokens=8))
+        before = flash_ops.flash_attention.launches
+        served = srv.run_continuous()
+        launched = flash_ops.flash_attention.launches - before
+        assert launched == (cfg.num_layers * srv.stats["prefills"]
+                            if dev != "cpu" else 0)
+        outs[str(dev)] = {r.rid: r.output for r in served}
+    assert outs["cpu"] == outs[str(cuda)]
+    torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)

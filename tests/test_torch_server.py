@@ -1,0 +1,249 @@
+"""The port's BatchServer on the CPU: the properties of the JAX package's
+``tests/test_server.py``, the port's greedy outputs against JAX's on the
+same parameters (reduced qwen3-8b, 2 layers, float32), and the wave
+scheduler's empty cache slots, where the port and the JAX package disagree.
+
+The load-bearing property: admission prefills at the exact prompt width
+(batch 1, no padding) and replaces the freed slot's cache rows wholesale,
+so each request's greedy output equals serving it alone on a 1-slot server,
+for any interleaving of arrivals.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+from _torch_jax import both_models, f32, jitted
+
+from repro.runtime.server import BatchServer as JaxServer
+from repro.runtime.server import Request as JaxRequest
+from repro_torch.runtime.server import (
+    BatchServer,
+    Request,
+    _mark_prefill_tail,
+    _scatter_slot,
+    make_slot_caches,
+)
+
+PROMPTS = [[5, 9, 3], [7, 1], [2, 2, 2, 2, 8], [11], [4, 6]]
+MAX_NEW = [4, 6, 2, 1, 5]
+
+
+@pytest.fixture(scope="module")
+def models():
+    return both_models("qwen3-8b", "f32", num_layers=2)
+
+
+@pytest.fixture(scope="module")
+def solo_outputs(models):
+    """Each request served alone on a 1-slot continuous server: the oracle
+    every interleaving must reproduce."""
+    _, _, model, params = models
+    outs = []
+    for p, m in zip(PROMPTS, MAX_NEW):
+        srv = BatchServer(model, params, slots=1, max_len=16)
+        srv.submit(Request(prompt=list(p), max_new_tokens=m))
+        [r] = srv.run_continuous()
+        outs.append(r.output)
+    return outs
+
+
+def _server(models, **kw):
+    kw.setdefault("max_len", 16)
+    return BatchServer(models[2], models[3], **kw)
+
+
+def test_continuous_matches_solo_for_any_interleaving(models, solo_outputs):
+    """Arrivals submitted up-front, reversed, and staggered mid-decode via
+    the poll hook: per-request outputs equal the 1-slot server's."""
+
+    def run(slots, order, stagger):
+        srv = _server(models, slots=slots)
+        pending = [Request(prompt=list(PROMPTS[j]), max_new_tokens=MAX_NEW[j],
+                           rid=j) for j in order]
+        if stagger is None:
+            for r in pending:
+                srv.submit(r)
+            served = srv.run_continuous()
+        else:
+            it = {"n": -1}
+
+            def poll():
+                it["n"] += 1
+                for r, at in zip(pending, stagger):
+                    if at == it["n"]:
+                        srv.submit(r)
+                return any(at > it["n"] for at in stagger)
+
+            served = srv.run_continuous(poll)
+        assert len(served) == len(PROMPTS)
+        return {r.rid: r.output for r in served}
+
+    for got in (run(2, range(len(PROMPTS)), None),
+                run(3, reversed(range(len(PROMPTS))), None),
+                run(2, range(len(PROMPTS)), [0, 0, 2, 3, 5])):
+        for j, exp in enumerate(solo_outputs):
+            assert got[j] == exp
+
+
+def test_greedy_outputs_match_jax(models, solo_outputs):
+    """The JAX package's continuous server on the same parameters gives the
+    same tokens as the port's."""
+    jm, jp, _, _ = models
+    srv = JaxServer(jm, jp, slots=2, max_len=16)
+    for j, (p, m) in enumerate(zip(PROMPTS, MAX_NEW)):
+        srv.submit(JaxRequest(prompt=list(p), max_new_tokens=m, rid=j))
+    got = {r.rid: r.output for r in srv.run_continuous()}
+    assert [got[j] for j in range(len(PROMPTS))] == solo_outputs
+
+
+def test_eos_on_first_decoded_token(models, solo_outputs):
+    srv = _server(models, slots=1)
+    for p, out in zip(PROMPTS[:3], solo_outputs[:3]):
+        srv.submit(Request(prompt=list(p), max_new_tokens=8, eos_id=out[0]))
+    served = srv.run_continuous()
+    assert [r.output for r in served] == [[o[0]] for o in solo_outputs[:3]]
+    assert srv.stats["decode_steps"] == 0
+    assert srv.stats["admitted"] == 3
+
+
+def test_all_slots_finish_same_step(models):
+    srv = _server(models, slots=2)
+    for _ in range(2):
+        srv.submit(Request(prompt=[5, 9, 3], max_new_tokens=4))
+    served = srv.run_continuous()
+    assert len(served) == 2
+    assert served[0].output == served[1].output      # identical requests
+    # lockstep: one admission token + (max_new - 1) shared decode steps
+    assert srv.stats["decode_steps"] == 3
+
+
+def test_queue_longer_than_slots_across_refills(models):
+    srv = _server(models, slots=2)
+    want = []
+    for i in range(7):
+        m = 1 + (i % 3)
+        want.append(m)
+        srv.submit(Request(prompt=[3 + i], max_new_tokens=m))
+    served = srv.run_continuous()
+    assert len(served) == 7
+    assert sorted(len(r.output) for r in served) == sorted(want)
+    assert srv.stats["admitted"] == 7 == srv.stats["prefills"]
+
+
+def test_max_new_tokens_one(models):
+    srv = _server(models, slots=2)
+    srv.submit(Request(prompt=[5, 9, 3], max_new_tokens=1))
+    [r] = srv.run_continuous()
+    assert len(r.output) == 1
+    assert srv.stats["decode_steps"] == 0
+
+
+def test_nongreedy_sampling_deterministic_under_fixed_seed(models):
+    """Non-greedy draws are keyed by (seed, request id, #generated), so a
+    fixed seed pins the sampled streams whatever the slot count, and the
+    wave scheduler draws the same streams."""
+
+    def run(slots, seed, wave=False):
+        srv = _server(models, slots=slots, greedy=False, seed=seed)
+        for p in PROMPTS[:3]:
+            srv.submit(Request(prompt=list(p), max_new_tokens=5))
+        served = srv.run_all() if wave else srv.run_continuous()
+        return {r.rid: r.output for r in served}
+
+    assert run(1, seed=7) == run(3, seed=7) == run(1, seed=7, wave=True)
+    assert run(3, seed=7) != run(3, seed=8)
+
+
+def test_wave_scheduler_serves(models):
+    srv = _server(models, slots=2)
+    for p, m in zip(PROMPTS, MAX_NEW):
+        srv.submit(Request(prompt=list(p), max_new_tokens=m))
+    served = srv.run_all()
+    assert [len(r.output) for r in served] == MAX_NEW
+    assert srv.stats["waves"] == 3                   # ceil(5 / 2)
+
+
+def test_submit_rejects_what_the_cache_cannot_hold(models):
+    srv = _server(models, slots=1, max_len=8)
+    for bad in (Request(prompt=[], max_new_tokens=2),
+                Request(prompt=[1, 2], max_new_tokens=0),
+                Request(prompt=[1] * 6, max_new_tokens=3)):
+        with pytest.raises(ValueError):
+            srv.submit(bad)
+    with pytest.raises(ValueError):
+        BatchServer(models[2], models[3], slots=0)
+
+
+def test_scatter_slot_touches_only_its_rows(models):
+    """Admission surgery writes exactly the freed slot's rows: every other
+    slot's k/v/pos rows are unchanged (the port writes in place, so the
+    'before' state is a copy)."""
+    _, _, model, params = models
+    slots, max_len, slot = 3, 16, 1
+    live = make_slot_caches(model, slots, max_len, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    for leaf in (live["k"], live["v"]):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen))
+    before = {k: v.clone() for k, v in live.items()}
+    _, pc = model.prefill(params, {"tokens": torch.tensor([[5, 9, 3]])},
+                          max_len=max_len)
+    pc = _mark_prefill_tail(pc, 3)
+    after = _scatter_slot(live, pc, slot, slots)
+    assert after is live
+    for key in ("k", "v", "pos"):          # slot axis: 1 in every leaf here
+        for other in (0, 2):
+            assert torch.equal(after[key][:, other], before[key][:, other])
+        want = pc[key][:, 0] if key != "pos" else pc[key]
+        assert torch.equal(after[key][:, slot], want.to(after[key].dtype))
+    assert after["pos"][:, slot, :3].tolist() == [[0, 1, 2]] * 2
+    assert bool((after["pos"][:, slot, 3:] == -1).all())
+
+
+def test_slot_caches_pos_initialized_empty(models):
+    caches = make_slot_caches(models[2], 4, 16, "cpu")
+    assert caches["pos"].shape == (2, 4, 16)        # (layers, slots, w)
+    assert bool((caches["pos"] == -1).all())
+    assert caches["k"].shape[:3] == (2, 4, 16)
+
+
+def test_wave_marks_empty_cache_slots(models):
+    """The JAX package's wave prefills into a ring longer than the prompt
+    and leaves the tail's ``pos`` at 0, so decode attends to empty slots
+    (ROADMAP.md Queue 3): at max_len 64 its outputs and first decode logits
+    are off a full forward. The port marks the tail empty and equals it."""
+    jm, jp, model, params = models
+    prompt = [217, 163, 131, 69, 79, 11]
+
+    def full_forward_greedy(n):
+        out = []
+        for _ in range(n):
+            logits, _ = model.prefill(params,
+                                      {"tokens": torch.tensor([prompt + out])})
+            out.append(int(logits[0, -1].argmax()))
+        return out
+
+    want = full_forward_greedy(4)
+    jsrv = JaxServer(jm, jp, slots=1, max_len=64)
+    jsrv.submit(JaxRequest(prompt=list(prompt), max_new_tokens=4))
+    assert jsrv.run_all()[0].output != want
+    for max_len in (64, 10):
+        srv = BatchServer(model, params, slots=1, max_len=max_len)
+        srv.submit(Request(prompt=list(prompt), max_new_tokens=4))
+        assert srv.run_all()[0].output == want
+    # the first decode step's logits, both packages, against a full forward
+    full, _ = model.prefill(params,
+                            {"tokens": torch.tensor([prompt + want[:1]])})
+    prefill, decode = jitted(jm)
+    _, jc = prefill(jp, {"tokens": np.asarray([prompt], np.int32)},
+                    max_len=64)
+    jl, _ = decode(jp, np.asarray([want[:1]], np.int32), jc,
+                   np.asarray(len(prompt), np.int32))
+    assert np.abs(f32(jl)[0, -1] - f32(full)[0, -1]).max() > 0.5
+    _, tc = model.prefill(params, {"tokens": torch.tensor([prompt])},
+                          max_len=64)
+    tl, _ = model.decode_step(params, torch.tensor([want[:1]]),
+                              _mark_prefill_tail(tc, len(prompt)),
+                              len(prompt))
+    np.testing.assert_allclose(f32(tl)[0, -1], f32(full)[0, -1], rtol=1e-4,
+                               atol=1e-4)
