@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's two paths through the entry points a user calls, and
-holds each hand-written CUDA kernel against its plain PyTorch version:
-Heat2D under the HDOT schedule at a 16384 x 16384 float32 grid (1 GiB a
-buffer), phases 2-6, and serving Qwen3-8B at its published widths in bf16
-(36 layers, d_model 4096, GQA 32/8, head dim 128, vocab 151936; random
-weights from a seeded generator), phases 7-9:
+Drives the port's paths through the entry points a user calls, and holds
+each hand-written CUDA kernel against its plain PyTorch version: Heat2D
+under the HDOT schedule at a 16384 x 16384 float32 grid (1 GiB a buffer),
+phases 2-6; serving at the published widths in bf16 with random weights
+from a seeded generator: Qwen3-8B (36 layers, d_model 4096, GQA 32/8, head
+dim 128, vocab 151936), phases 7-9; RecurrentGemma-2B (26 layers, d_model
+2560, RG-LRU width 2560, local attention 10/1 heads of 256 with a 2048
+window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
+(48 layers, d_model 1536, 48 SSD heads of 64, state 128, chunk 256, vocab
+50280), phases 11 and 14-15:
 
-  1. build    nvcc builds every kernel of both paths from the checkout's
-              sources, one process per source, all started together;
-              prints the build seconds and the card's name and power limit
-              as nvidia-smi gives them.
+  1. build    nvcc builds every kernel of all paths from the checkout's
+              sources (four), one process per source, all started together;
+              prints the build seconds, ptxas's registers and spills, and
+              the card's name and power limit as nvidia-smi gives them.
   2. kernel   heat2d_sweep's CUDA kernel against its plain version on the
               same inputs: f32 tile (256, 256) with sweeps 1 and 4, tile
               (128, 64) with a random halo ring, and bf16. f32 must be
@@ -32,8 +36,10 @@ weights from a seeded generator), phases 7-9:
               (1, 1) mesh: device time by CUDA kernel and the device's idle
               share of the traced window.
   7. flash    flash_attention's CUDA kernel against its plain version at
-              the serving path's shapes (an admission prefill, a wave
-              prefill, a ragged prompt, a 1024 window at 4096) and an f32
+              the serving paths' shapes (Qwen3-8B: an admission prefill, a
+              wave prefill, a ragged prompt, a 1024 window at 4096;
+              RecurrentGemma-2B at head dim 256, MQA 10/1: a 2048 prefill,
+              a 2048 window at 4096, a ragged prompt) and an f32
               non-causal case; tolerance 2e-2 in bf16, 2e-5 in f32 (the JAX
               suite's). Kernel, plain and library (scaled_dot_product_
               attention, timed here only) times come from CUDA events
@@ -51,9 +57,34 @@ weights from a seeded generator), phases 7-9:
               1-slot one, and the reduced config on the card against the CPU.
   9. serve_profile  a traced admission prefill and a traced window of 5
               decode steps: top device ops and the device's idle share.
+ 10. lru      lru_scan's CUDA kernel against its plain version: (1, 2048,
+              2560) f32 (a RecurrentGemma admission prefill), (8, 1000,
+              2560) with a random h0, a width of 100, length 1, bf16 b;
+              tolerance 1e-5 (the JAX suite's), bf16 h within one bf16 ulp
+              plus 1e-5; bound_ms from the bytes (a, b in, h out).
+ 11. ssd      ssd_scan's CUDA kernel against its plain version: (1, 2048,
+              48, 64, 128) chunk 256 with bf16 x/B/C and f32 dt/A (a
+              Mamba-2 admission prefill), a ragged 1000, a small all-f32
+              case; y and the final state of ops.ssd within 5e-2 (bf16) or
+              1e-4 (f32), the JAX suite's; kernel_ms and plain_ms time the
+              within-chunk terms alone; bound_ms is the larger of their
+              bytes over HBM and the flops of the causal half over the peak
+              for the input type (bf16 tensor cores, or f32 CUDA cores);
+              both versions' y_diag error against a float64 computation is
+              reported.
+ 12. serve    RecurrentGemma-2B as phase 8 (same traffic and checks; the
+              counts: 18 lru_scan and 8 flash launches per prefill), plus a
+              2047-token prefill and one decode step against the
+              2048-token prefill, in bf16 and (the model in float32)
+              within 1e-3.
+ 13. serve_profile  as phase 9, for RecurrentGemma-2B.
+ 14. serve    Mamba-2 780M, scanned layout, as phase 12 (48 ssd_scan
+              launches per prefill; no attention, so no flash-vs-dense).
+ 15. serve_profile  as phase 9, for Mamba-2 780M.
 
-Each phase prints one JSON line; then the nvidia-smi line, the kernels line
-and, last, ``{"ok": true, "device": {...}}``. Any failure raises and exits
+Each phase prints one JSON line (a serve phase one per scheduler and one of
+checks); then the nvidia-smi line, the kernels line and, last,
+``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero; without CUDA, or without the repository beside it, the script
 exits non-zero before printing any result.
 
@@ -83,26 +114,61 @@ REPLACES = "src/repro/kernels/heat2d/heat2d.py:72"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:75"
+LRU_SOURCE = "src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu"
+LRU_REPLACES = "src/repro/kernels/lru_scan/lru_scan.py:44"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:50"
 FLASH_CASES = [  # (dtype, b, s_q, s_k, hq, hkv, d, causal, window)
     ("bf16", 1, 2048, 2048, 32, 8, 128, True, None),   # admission prefill
     ("bf16", 8, 2048, 2048, 32, 8, 128, True, None),   # wave prefill
     ("bf16", 1, 1000, 1000, 32, 8, 128, True, None),   # ragged prompt
     ("bf16", 1, 4096, 4096, 32, 8, 128, True, 1024),   # window 1024
     ("f32", 2, 256, 256, 8, 2, 64, False, None),        # f32, no mask
+    ("bf16", 1, 2048, 2048, 10, 1, 256, True, 2048),   # RecurrentGemma
+    ("bf16", 1, 4096, 4096, 10, 1, 256, True, 2048),   # window 2048
+    ("bf16", 1, 1000, 1000, 10, 1, 256, True, 2048),   # ragged prompt
 ]
+LRU_CASES = [  # (b, l, w, b dtype, h0)
+    (1, 2048, 2560, "f32", False),     # RecurrentGemma admission prefill
+    (8, 1000, 2560, "f32", True),      # ragged, with a carried state
+    (2, 300, 100, "f32", True),        # width not a multiple of 32
+    (4, 1, 2560, "f32", True),         # length 1
+    (1, 2048, 2560, "bf16", False),    # bf16 b (and h)
+]
+LRU_TOL = 1e-5                          # tests/test_kernels.py's
+SSD_CASES = [  # (b, l, h, p, n, chunk, dtype)
+    (1, 2048, 48, 64, 128, 256, "bf16"),   # Mamba-2 admission prefill
+    (1, 1000, 48, 64, 128, 256, "bf16"),   # ragged: padded with dt = 0
+    (2, 256, 4, 32, 16, 64, "f32"),        # small, all f32
+]
+SSD_TOL = {"bf16": 5e-2, "f32": 1e-4}   # tests/test_kernels.py's
+# serving phases: (arch, phase number of the serve rows, of the trace)
+SERVE_ARCHS = [("qwen3-8b", 8, 9), ("recurrentgemma-2b", 12, 13),
+               ("mamba2-780m", 14, 15)]
+# launches per prefill the published configs must give (block_kinds)
+PER_PREFILL = {"qwen3-8b": {"flash_attention": 36},
+               "recurrentgemma-2b": {"lru_scan": 18, "flash_attention": 8},
+               "mamba2-780m": {"ssd_scan": 48}}
 FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}  # tests/test_kernels.py's
 SLOTS, MAX_LEN, REQUESTS, NEW_TOKENS = 8, 2176, 16, 64
-# Bounds on |logit difference| between two bf16 runs of the full-width
-# model that differ only in where they round (flash vs dense attention; the
-# batch-8 vs batch-1 decode GEMMs). Logits here have a standard deviation
-# of about 1 (random weights, rms-normed activations). One bf16 rounding is
-# 2^-9 relative, and 36 residual layers carry a difference made in the first
-# layer forward without damping it, so rounding alone moves a few percent of
-# a logit on average and a few tenths at the worst of 151936 entries. A
-# broken kernel (a wrong mask, a missed tile, a wrong head) moves logits by
-# a whole standard deviation on average.
+# Bounds on |logit difference| between two bf16 runs of a full-width model
+# that differ only in where they round (flash vs dense attention; the
+# batch-8 vs batch-1 decode GEMMs; a chunked prefill vs the step-by-step
+# recurrence of decode). Logits here have a standard deviation of about 1
+# (random weights, rms-normed activations). One bf16 rounding is 2^-9
+# relative, and 26 to 48 residual layers carry a difference made in the
+# first layer forward without damping it, so rounding alone moves a few
+# percent of a logit on average and a few tenths at the worst of the
+# vocabulary's entries. A broken kernel (a wrong mask, a missed tile, a
+# wrong head, a state that is not carried) moves logits by a whole standard
+# deviation on average.
 LOGIT_MEAN_BOUND = 0.1
 LOGIT_MAX_BOUND = 1.0
+# In float32 a recurrent model's chunked prefill (the SSD or LRU kernel)
+# and its step-by-step decode recurrence must give the same last-token
+# logits within the JAX suite's tolerance for the chunked SSD against the
+# sequential recurrence (tests/test_kernels.py, 1e-3).
+F32_RECURRENCE_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -238,10 +304,10 @@ def flash_case(flash_ops, dev, card, dtype_name, b, sq, sk, hq, hkv, d,
     p_ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, causal, window,
                                                      "plain"), reps=3)
     # the library's attention on the same inputs, (b, h, s, d) views; a
-    # window needs an explicit mask (True = attend)
+    # window that hides a key needs an explicit mask (True = attend)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
-    if window is not None:
+    if window is not None and window < max(sq, sk):
         qp = torch.arange(sq, device=dev)[:, None]
         kp = torch.arange(sk, device=dev)[None, :]
         mask = (kp > qp - window) & ((kp <= qp) if causal else True)
@@ -280,9 +346,29 @@ class StepTimer:
         return out
 
 
-def serve_run(flash_ops, model, params, prompts, scheduler: str, dev,
-              card) -> dict:
-    """One counted run of the main serving path: the flash count is set to
+def counted_wrappers():
+    """{name: the kernel wrapper whose ``launches`` counts its kernel}."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    return {"flash_attention": flash_ops.flash_attention,
+            "lru_scan": lru_ops.lru_scan, "ssd_scan": ssd_ops.ssd}
+
+
+def per_prefill(cfg) -> dict:
+    """Kernel launches one prefill makes: one a layer of each kind."""
+    from repro_torch.models.transformer import block_kinds
+
+    kinds = block_kinds(cfg)
+    got = {"flash_attention": sum(k in ("attn", "local_attn") for k in kinds),
+           "lru_scan": kinds.count("rglru"), "ssd_scan": kinds.count("ssm")}
+    return {k: v for k, v in got.items() if v}
+
+
+def serve_run(model, params, prompts, scheduler: str, dev, card,
+              phase: int) -> dict:
+    """One counted run of a main serving path: every kernel count is set to
     0 just before and read just after."""
     from repro_torch.runtime.server import BatchServer, Request
 
@@ -291,15 +377,17 @@ def serve_run(flash_ops, model, params, prompts, scheduler: str, dev,
         server.submit(Request(prompt=pr, max_new_tokens=NEW_TOKENS))
     prefill, decode = StepTimer(model.prefill), StepTimer(model.decode_step)
     model.prefill, model.decode_step = prefill, decode
+    wrappers = counted_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    flash_ops.flash_attention.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     served = (server.run_continuous() if scheduler == "continuous"
               else server.run_all())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_ops.flash_attention.launches
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     del model.prefill, model.decode_step      # back to the class's methods
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     n_prefills = server.stats["prefills"]
@@ -308,12 +396,16 @@ def serve_run(flash_ops, model, params, prompts, scheduler: str, dev,
           f"{scheduler}: a request missed its {NEW_TOKENS} tokens")
     check(all(0 <= t < model.cfg.vocab_size for r in served
               for t in r.output), f"{scheduler}: token id out of range")
-    check(launches == model.cfg.num_layers * n_prefills,
-          f"{scheduler}: {launches} flash launches for {n_prefills} "
-          f"prefills of {model.cfg.num_layers} layers")
+    per = per_prefill(model.cfg)
+    for name in wrappers:
+        want = per.get(name, 0) * n_prefills
+        check(launches[name] == want,
+              f"{model.cfg.name} {scheduler}: {launches[name]} {name} "
+              f"launches for {n_prefills} prefills, expected {want}")
     prompt_tokens = sum(len(p) for p in prompts)
     out_tokens = sum(len(r.output) for r in served)
-    row = {"phase": "serve", "scheduler": scheduler,
+    row = {"phase": "serve", "n": phase, "arch": model.cfg.name,
+           "scheduler": scheduler,
            "requests": len(served), "prefills": n_prefills,
            "decode_steps": server.stats["decode_steps"],
            "prompt_tokens": prompt_tokens, "output_tokens": out_tokens,
@@ -322,7 +414,9 @@ def serve_run(flash_ops, model, params, prompts, scheduler: str, dev,
            "prefill_tokens_per_s": prompt_tokens / sum(prefill.calls),
            "output_tokens_per_s": out_tokens / wall,
            "decode_step_ms_median": 1e3 * statistics.median(decode.calls),
-           "peak_mem_gib": peak, "flash_launches": launches, "gpu": card}
+           "peak_mem_gib": peak,
+           "launches": {k: v for k, v in launches.items() if k in per},
+           "gpu": card}
     emit(row)
     return {"row": row, "served": {r.rid: r.output for r in served}}
 
@@ -352,14 +446,28 @@ def teacher_forced(model, params, prompts, forced, slots: int, rows, dev):
     return torch.stack(out, 1)          # (len(rows), steps, vocab)
 
 
-def serve_phase(flash_ops, dev, card) -> dict:
-    """Phase 8: Qwen3-8B at full width, bf16, random weights from seed 0."""
+def logit_diff(a, b) -> dict:
+    d = (a.float() - b.float()).abs()
+    return {"mean_abs": float(d.mean()), "max_abs": float(d.max())}
+
+
+def within_bounds(diff: dict, what: str) -> None:
+    check(diff["mean_abs"] <= LOGIT_MEAN_BOUND
+          and diff["max_abs"] <= LOGIT_MAX_BOUND, f"{what}: {diff}")
+
+
+def serve_phase(arch: str, phase: int, dev, card) -> dict:
+    """Serve `arch` at its published widths, bf16, random weights from seed
+    0, under both schedulers (counted); then the checks."""
     import numpy as np
 
     from repro_torch.config.registry import get_arch
     from repro_torch.models.model import ModelOptions, build_model
+    from repro_torch.runtime.server import _mark_prefill_tail
 
-    cfg = get_arch("qwen3-8b")
+    cfg = get_arch(arch)
+    check(per_prefill(cfg) == PER_PREFILL[arch],
+          f"{arch}: launches per prefill {per_prefill(cfg)}")
     model = build_model(cfg, ModelOptions(attn_impl="flash",
                                           dtype=torch.bfloat16))
     t0 = time.perf_counter()
@@ -370,30 +478,54 @@ def serve_phase(flash_ops, dev, card) -> dict:
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 2049, REQUESTS)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
-    emit({"phase": "serve_setup", "arch": cfg.name,
-          "layers": cfg.num_layers, "d_model": cfg.d_model,
-          "heads": [cfg.num_heads, cfg.num_kv_heads],
+    emit({"phase": "serve_setup", "n": phase, "arch": cfg.name,
+          "family": cfg.family, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
           "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
-          "params": n_params, "init_s": init_s,
-          "prompt_lens": lens.tolist(), "gpu": card})
+          "per_prefill": per_prefill(cfg), "params": n_params,
+          "init_s": init_s, "prompt_lens": lens.tolist(), "gpu": card})
     # warm-up (kernel build is done; cuBLAS handles, allocator)
     model.prefill(params, {"tokens": torch.tensor([prompts[0][:128]],
                                                   device=dev)})
-    runs = {sch: serve_run(flash_ops, model, params, prompts, sch, dev, card)
+    runs = {sch: serve_run(model, params, prompts, sch, dev, card, phase)
             for sch in ("continuous", "wave")}
 
-    # flash vs dense attention on one 2048-token prompt (last-token logits)
+    # one 2048-token prompt: last-token logits of the prefill, under dense
+    # attention where the model has attention, and from a 2047-token
+    # prefill and one decode step
     toks = torch.tensor([rng.integers(1, cfg.vocab_size, 2048).tolist()],
                         device=dev)
     lf, _ = model.prefill(params, {"tokens": toks})
-    dense = build_model(cfg, ModelOptions(attn_impl="dense",
-                                          dtype=torch.bfloat16))
-    ld, _ = dense.prefill(params, {"tokens": toks})
     check(bool(torch.isfinite(lf).all()) and lf.shape == (1, 1, cfg.vocab_size),
-          "flash prefill logits: non-finite or wrong shape")
-    fd = (lf - ld).abs()
-    fd_mean, fd_max = float(fd.mean()), float(fd.max())
-    del ld, fd
+          f"{arch} prefill logits: non-finite or wrong shape")
+    checks = {}
+    if "flash_attention" in per_prefill(cfg):
+        dense = build_model(cfg, ModelOptions(attn_impl="dense",
+                                              dtype=torch.bfloat16))
+        ld, _ = dense.prefill(params, {"tokens": toks})
+        checks["flash_vs_dense_logits"] = logit_diff(lf, ld)
+        del ld
+    last = toks.shape[1] - 1
+    _, pc = model.prefill(params, {"tokens": toks[:, :last]},
+                          max_len=last + 1)
+    lp, _ = model.decode_step(params, toks[:, last:],
+                              _mark_prefill_tail(pc, last), last)
+    checks["prefill_2047_plus_decode_vs_prefill_2048"] = logit_diff(lp, lf)
+    del pc, lp
+    f32_diff = None
+    if set(per_prefill(cfg)) & {"lru_scan", "ssd_scan"}:
+        # the same in float32: the chunked prefill against the recurrence
+        m32 = build_model(cfg, ModelOptions(attn_impl="flash",
+                                            dtype=torch.float32))
+        p32 = m32.init(0, dev)
+        l32, _ = m32.prefill(p32, {"tokens": toks})
+        _, pc = m32.prefill(p32, {"tokens": toks[:, :last]},
+                            max_len=last + 1)
+        lp, _ = m32.decode_step(p32, toks[:, last:],
+                                _mark_prefill_tail(pc, last), last)
+        f32_diff = logit_diff(lp, l32)
+        del m32, p32, l32, pc, lp
+        torch.cuda.empty_cache()
 
     # teacher-forced decode: requests 0 and 1 in the 8-slot layout (with
     # the first 8 requests) against each alone in a 1-slot layout
@@ -402,14 +534,14 @@ def serve_phase(flash_ops, dev, card) -> dict:
                            [0, 1], dev)
     one = torch.cat([teacher_forced(model, params, [prompts[i]], [forced[i]],
                                     1, [0], dev) for i in (0, 1)])
-    td = (eight - one).abs()
-    td_mean, td_max = float(td.mean()), float(td.max())
-    bit_identical = bool(torch.equal(eight, one))
-    del eight, one, td
+    checks["teacher_forced_8_vs_1_slot"] = dict(
+        logit_diff(eight, one), bit_identical=bool(torch.equal(eight, one)),
+        steps=len(forced[0]) - 1)
+    del eight, one
 
     # the reduced config on the card against the CPU (float32, plain
     # versions on the CPU), on a small input
-    small = get_arch("qwen3-8b").reduced()
+    small = cfg.reduced()
     sm = build_model(small, ModelOptions(attn_impl="flash",
                                          dtype=torch.float32))
     sp = sm.init(0, "cpu")
@@ -418,29 +550,27 @@ def serve_phase(flash_ops, dev, card) -> dict:
     got, _ = sm.prefill(sp.to(dev), {"tokens": st.to(dev)})
     small_err = float((got.cpu() - want).abs().max())
 
-    row = {"phase": "serve_checks",
-           "flash_vs_dense_logits": {"mean_abs": fd_mean, "max_abs": fd_max},
-           "teacher_forced_8_vs_1_slot": {"mean_abs": td_mean,
-                                          "max_abs": td_max,
-                                          "bit_identical": bit_identical,
-                                          "steps": len(forced[0]) - 1},
+    row = {"phase": "serve_checks", "n": phase, "arch": cfg.name, **checks,
            "bounds": {"mean_abs": LOGIT_MEAN_BOUND,
                       "max_abs": LOGIT_MAX_BOUND},
+           "f32_prefill_plus_decode_vs_prefill": f32_diff,
+           "f32_bound_max_abs": F32_RECURRENCE_TOL,
            "reduced_card_vs_cpu_f32_max_abs": small_err, "gpu": card}
     emit(row)
-    check(fd_mean <= LOGIT_MEAN_BOUND and fd_max <= LOGIT_MAX_BOUND,
-          f"flash vs dense logits: mean {fd_mean}, max {fd_max}")
-    check(td_mean <= LOGIT_MEAN_BOUND and td_max <= LOGIT_MAX_BOUND,
-          f"8-slot vs 1-slot decode logits: mean {td_mean}, max {td_max}")
-    check(small_err <= 1e-4, f"reduced model card vs CPU: {small_err}")
+    for what, diff in checks.items():
+        within_bounds(diff, f"{arch} {what}")
+    check(f32_diff is None or f32_diff["max_abs"] <= F32_RECURRENCE_TOL,
+          f"{arch} f32 prefill + decode vs prefill: {f32_diff}")
+    check(small_err <= 1e-4, f"{arch} reduced model card vs CPU: {small_err}")
     return {"model": model, "params": params, "prompts": prompts,
-            "launches": sum(r["row"]["flash_launches"]
-                            for r in runs.values())}
+            "launches": {k: sum(r["row"]["launches"].get(k, 0)
+                                for r in runs.values())
+                         for k in per_prefill(cfg)}}
 
 
-def serve_profile(serve, dev, card) -> dict:
-    """Phase 9: a traced admission prefill (the longest prompt) and a
-    traced window of 5 decode steps over all 8 slots."""
+def serve_profile(serve, phase: int, dev, card) -> dict:
+    """A traced admission prefill (the longest prompt) and a traced window
+    of 5 decode steps over all 8 slots."""
     from repro_torch.runtime.server import (
         _mark_prefill_tail,
         _scatter_slot,
@@ -467,11 +597,139 @@ def serve_profile(serve, dev, card) -> dict:
 
     admit()
     decode()  # warm
-    row = {"phase": "serve_profile", "prompt_len": len(prompt),
+    row = {"phase": "serve_profile", "n": phase, "arch": model.cfg.name,
+           "prompt_len": len(prompt),
            "prefill": traced(lambda: model.prefill(
                params, {"tokens": tokens}, max_len=MAX_LEN)),
            "decode_5_steps": traced(decode), "gpu": card}
     return row
+
+
+def lru_case(lru_ops, dev, card, b, l, w, b_dtype, with_h0) -> dict:
+    """The lru_scan kernel against its plain version at one shape:
+    CUDA-event times (time_ms); bound from the bytes (a and b read, h
+    written, h0 read and h_last written once)."""
+    dtype = torch.bfloat16 if b_dtype == "bf16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(l + w + b)
+    a = 0.5 + 0.49 * torch.rand((b, l, w), generator=gen, device=dev)
+    x = torch.randn((b, l, w), generator=gen, device=dev).to(dtype)
+    h0 = (torch.randn((b, w), generator=gen, device=dev) if with_h0
+          else None)
+    gh, gl = lru_ops.lru_scan(a, x, h0, "kernel")
+    wh, wl = lru_ops.lru_scan(a, x, h0, "plain")
+    torch.cuda.synchronize()
+    dh = (gh.float() - wh.float()).abs()
+    dl = (gl - wl).abs()
+    err = max(float(dh.max()), float(dl.max()))
+    slack = bf16_ulp(wh) if dtype == torch.bfloat16 else 0.0
+    check(bool(torch.isfinite(gh).all()) and gh.dtype == dtype,
+          f"lru: non-finite or wrong dtype at {(b, l, w)}")
+    check(bool((dh <= slack + LRU_TOL + LRU_TOL * wh.float().abs()).all())
+          and bool((dl <= LRU_TOL + LRU_TOL * wl.abs()).all()),
+          f"lru kernel off plain by {err} at {(b, l, w, b_dtype)}")
+    del gh, gl, wh, wl, dh, dl
+    k_ms = time_ms(lambda: lru_ops.lru_scan(a, x, h0, "kernel"))
+    p_ms = time_ms(lambda: lru_ops.lru_scan(a, x, h0, "plain"), reps=3)
+    nbytes = (a.numel() * a.element_size() + 2 * x.numel() * x.element_size()
+              + (2 if with_h0 else 1) * b * w * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * l * w / F32_FLOPS * 1e3
+    row = {"phase": "lru", "shape": [b, l, w], "b_dtype": b_dtype,
+           "h0": with_h0, "max_abs_err": err, "kernel_ms": k_ms,
+           "plain_ms": p_ms, "library_ms": None,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "mbytes": nbytes / 1e6, "kernel_gb_per_s": nbytes / k_ms / 1e6,
+           "gpu": card}
+    emit(row)
+    return row
+
+
+def y_diag_f64(xc, dtc, A, Bc, Cc):
+    """The SSD within-chunk output (C B^T o L) @ (x dt) in float64."""
+    xc, dtc, A, Bc, Cc = (t.double() for t in (xc, dtc, A, Bc, Cc))
+    cs = torch.cumsum(dtc * A, dim=2).transpose(-1, -2)        # (b,c,h,q)
+    q = cs.shape[-1]
+    lower = torch.ones(q, q, dtype=torch.bool, device=cs.device).tril()
+    L = torch.exp((cs[..., :, None] - cs[..., None, :]).masked_fill(
+        ~lower, float("-inf")))
+    att = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
+    xdt = (xc * dtc[..., None]).permute(0, 1, 3, 2, 4)
+    return torch.matmul(att[:, :, None] * L, xdt).permute(0, 1, 3, 2, 4)
+
+
+def ssd_case(ssd_ops, ssd_ref, dev, card, b, l, h, p, n, chunk,
+             dtype_name) -> dict:
+    """ops.ssd through the kernel against the plain version (y and the
+    final state), and the within-chunk terms alone timed both ways."""
+    import torch.nn.functional as F
+
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(l + h + p)
+    x = torch.randn((b, l, h, p), generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device=dev))
+    A = -torch.exp(0.2 * torch.randn((h,), generator=gen, device=dev))
+    B = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
+    C = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
+    yk, sk = ssd_ops.ssd(x, dt, A, B, C, chunk, impl="kernel")
+    yp, sp = ssd_ops.ssd(x, dt, A, B, C, chunk, impl="plain")
+    torch.cuda.synchronize()
+    tol = SSD_TOL[dtype_name]
+    dy = (yk.float() - yp.float()).abs()
+    ds = (sk - sp).abs()
+    err = max(float(dy.max()), float(ds.max()))
+    check(bool(torch.isfinite(yk).all()) and bool(torch.isfinite(sk).all()),
+          f"ssd: non-finite output at {(b, l, h, p, n)}")
+    check(bool((dy <= tol + tol * yp.float().abs()).all())
+          and bool((ds <= tol + tol * sp.abs()).all()),
+          f"ssd kernel off plain by {err} at {(b, l, h, p, n, dtype_name)}")
+    del yk, sk, yp, sp, dy, ds
+    # the within-chunk terms alone, on the chunk-padded inputs
+    pad = (-l) % chunk
+    lp = l + pad
+    xq, dq, Bq, Cq = (F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad])
+                      for t in (x, dt, B, C))
+    c = lp // chunk
+    k_ms = time_ms(lambda: ssd_ops.chunk_terms_kernel(xq, dq, A, Bq, Cq,
+                                                      chunk))
+    parts = (xq.reshape(b, c, chunk, h, p), dq.reshape(b, c, chunk, h), A,
+             Bq.reshape(b, c, chunk, n), Cq.reshape(b, c, chunk, n))
+    p_ms = time_ms(lambda: ssd_ref.ssd_chunk_terms(*parts), reps=3)
+    exact = y_diag_f64(*parts)
+    vs_f64 = {name: float((y.double() - exact).abs().mean()) for name, y in (
+        ("kernel", ssd_ops.chunk_terms_kernel(xq, dq, A, Bq, Cq, chunk)[0]),
+        ("plain", ssd_ref.ssd_chunk_terms(*parts)[0]))}
+    del exact
+    path_ms = time_ms(lambda: ssd_ops.ssd(x, dt, A, B, C, chunk,
+                                          impl="kernel"))
+    q = chunk
+    # flops of the causal half: C B^T once per chunk (j <= i), then per head
+    # (C B^T o L) @ (x dt) over j <= i and the (n x p) states product
+    flops = b * c * (q * (q + 1) * n + h * (q * (q + 1) * p + 2 * q * n * p))
+    nbytes = ((xq.numel() + Bq.numel() + Cq.numel()) * x.element_size()
+              + 4 * (dq.numel() + h)
+              + 4 * (b * lp * h * p + b * c * h * n * p + b * lp * h))
+    peak = BF16_FLOPS if dtype_name == "bf16" else F32_FLOPS
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "ssd", "shape": [b, l, h, p, n], "chunk": chunk,
+           "dtype": dtype_name, "max_abs_err": err, "kernel_ms": k_ms,
+           "plain_ms": p_ms, "library_ms": None, "ssd_path_ms": path_ms,
+           "y_diag_mean_abs_err_vs_f64": vs_f64,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "kernel_tflops": flops / k_ms / 1e9, "gpu": card}
+    emit(row)
+    return row
+
+
+def kernel_entry(name, source, replaces, launches, row) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
 
 def main() -> int:
@@ -489,6 +747,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.heat2d import ops as heat_ops
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.launch.mesh import make_grid_mesh, make_mesh
     from repro_torch.runtime.rebalance import heat2d_solve_rebalanced
 
@@ -499,13 +760,17 @@ def main() -> int:
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
-    built = _build.build([heat_ops.SOURCE, flash_ops.SOURCE])
+    sources = [heat_ops.SOURCE, flash_ops.SOURCE, lru_ops.SOURCE,
+               ssd_ops.SOURCE]
+    built = _build.build(sources)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for _, log in built.values()
-             for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {Path(src).name: [ln.strip() for ln in log.splitlines()
+                              if "Compiling entry" in ln
+                              or "registers" in ln or "spill" in ln]
+             for src, (_, log) in built.items()}
     emit({"phase": "build", "seconds": build_s,
-          "sources": [KERNEL_SOURCE, FLASH_SOURCE], "ptxas": ptxas,
-          "gpu": card})
+          "sources": [KERNEL_SOURCE, FLASH_SOURCE, LRU_SOURCE, SSD_SOURCE],
+          "ptxas": ptxas, "gpu": card})
 
     # ------------------------------------------- 2. kernel vs plain version
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -642,27 +907,38 @@ def main() -> int:
     # -------------------------------------------- 7. flash kernel vs plain
     flash_rows = [flash_case(flash_ops, dev, card, *c) for c in FLASH_CASES]
 
-    # ------------------------------------- 8. serve Qwen3-8B, counted
-    serve = serve_phase(flash_ops, dev, card)
+    served = {}
 
-    # ------------------------------------------------ 9. serve_profile
-    emit(serve_profile(serve, dev, card))
+    def serve_and_trace(arch, phase, profile_phase):
+        serve = serve_phase(arch, phase, dev, card)
+        emit(serve_profile(serve, profile_phase, dev, card))
+        served[arch] = serve["launches"]
+        del serve                      # the next model needs the room
+        torch.cuda.empty_cache()
+
+    # ------------------------- 8-9. serve Qwen3-8B, counted, then traced
+    serve_and_trace(*SERVE_ARCHS[0])
+
+    # --------------------------------------- 10-11. lru, ssd kernel vs plain
+    lru_rows = [lru_case(lru_ops, dev, card, *c) for c in LRU_CASES]
+    ssd_rows = [ssd_case(ssd_ops, ssd_ref, dev, card, *c) for c in SSD_CASES]
+
+    # ---------- 12-15. serve RecurrentGemma-2B and Mamba-2 780M, likewise
+    for arch_phases in SERVE_ARCHS[1:]:
+        serve_and_trace(*arch_phases)
 
     # -------------------------------------------------------------- results
-    main_row, flash_row = kernel_rows[0], flash_rows[0]
+    flash_launches = sum(v.get("flash_attention", 0) for v in served.values())
     print(f"nvidia-smi: {card}", flush=True)
-    emit({"kernels": [{
-        "name": "heat2d_sweep", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": main_row["max_abs_err"], "ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": None}, {
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": serve["launches"],
-        "max_abs_err": flash_row["max_abs_err"],
-        "ms": flash_row["kernel_ms"], "plain_ms": flash_row["plain_ms"],
-        "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
-        "library_ms": flash_row["library_ms"]}]})
+    emit({"kernels": [
+        kernel_entry("heat2d_sweep", KERNEL_SOURCE, REPLACES, launches,
+                     dict(kernel_rows[0], library_ms=None)),
+        kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
+                     flash_launches, flash_rows[0]),
+        kernel_entry("lru_scan", LRU_SOURCE, LRU_REPLACES,
+                     served["recurrentgemma-2b"]["lru_scan"], lru_rows[0]),
+        kernel_entry("ssd_scan", SSD_SOURCE, SSD_REPLACES,
+                     served["mamba2-780m"]["ssd_scan"], ssd_rows[0])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

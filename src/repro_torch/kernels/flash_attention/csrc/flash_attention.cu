@@ -16,7 +16,8 @@
 // bytes (q, k, v in, o out: 50 MB) take 0.015 ms at 3.35 TB/s.
 //
 // Design, simple first (wgmma/TMA and warp specialisation are later work):
-//   * bf16: one block of 4 warps per (q tile of 64 rows, q head, batch);
+//   * bf16, head dims 32 to 128: one block of 4 warps per (q tile of 64
+//     rows, q head, batch);
 //     each warp owns 16 query rows. Q is held in registers as mma.sync A
 //     fragments. K/V tiles of 64 keys stream through shared memory with
 //     cp.async, two stages, so tile j+1 loads while tile j computes; three
@@ -29,6 +30,11 @@
 //     kernel multiplies in f32 - the difference is within the bf16
 //     tolerance). The softmax statistics stay in f32 registers; the row sum
 //     is kept per thread and reduced across the row's 4 lanes at the end.
+//   * bf16, head dim 256 (RecurrentGemma): the O accumulator alone takes 128
+//     registers a thread, so Q stays in shared memory (64 x 264 halves) and
+//     its A fragments come from ldmatrix at each 16-wide step of d; K/V
+//     tiles hold 32 keys (S is 16 registers), and two blocks share an SM
+//     (launch bounds: at most 255 registers; 2 x 99 KB of shared memory).
 //   * f32: no tensor-core path keeps f32 accuracy (TF32 keeps ~3 digits),
 //     so one warp per query row, lane j scoring key j of a 32-key tile with
 //     f32 FMAs from shared memory. Not on the serving path (bf16).
@@ -88,8 +94,17 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ------------------------------------------------------------------ bf16
 constexpr int kBM = 64;     // query rows per block
-constexpr int kBN = 64;     // keys per tile
 constexpr int kWarps = 4;   // 16 query rows each
+
+// Per head dim: keys per K/V tile, Q in shared memory (else registers), and
+// blocks per SM for the launch bounds.
+template <int D>
+struct Tiling {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kBN = kWide ? 32 : 64;
+  static constexpr bool kQInSmem = kWide;
+  static constexpr int kMinBlocks = kWide ? 2 : 3;
+};
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -155,7 +170,9 @@ __device__ __forceinline__ void cp_async_wait() {
 
 template <int D>
 constexpr int smem_bytes() {
-  return 2 * 2 * kBN * (D + 8) * (int)sizeof(__nv_bfloat16);  // K, V x 2
+  // K, V x 2 stages, and Q where it stays in shared memory
+  return (2 * 2 * Tiling<D>::kBN + (Tiling<D>::kQInSmem ? kBM : 0)) *
+         (D + 8) * (int)sizeof(__nv_bfloat16);
 }
 
 // One K tile and one V tile of kBN keys into shared memory (row stride
@@ -166,7 +183,7 @@ __device__ __forceinline__ void load_kv(const __nv_bfloat16* kb,
                                         __nv_bfloat16* ks, __nv_bfloat16* vs,
                                         int key0, int sk, long long stride,
                                         int tid) {
-  constexpr int LD = D + 8, CHUNKS = D / 8;
+  constexpr int LD = D + 8, CHUNKS = D / 8, kBN = Tiling<D>::kBN;
   for (int c = tid; c < kBN * CHUNKS; c += kWarps * 32) {
     const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
     const bool ok = key0 + r < sk;
@@ -177,15 +194,18 @@ __device__ __forceinline__ void load_kv(const __nv_bfloat16* kb,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32, 3)
+__global__ void __launch_bounds__(kWarps * 32, Tiling<D>::kMinBlocks)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ o, Problem p) {
+  constexpr int kBN = Tiling<D>::kBN;
+  constexpr bool kQInSmem = Tiling<D>::kQInSmem;
   constexpr int LD = D + 8, KT = D / 16, NT = kBN / 8, OT = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* vs = ks + 2 * kBN * LD;
+  __nv_bfloat16* qs = vs + 2 * kBN * LD;  // [kBM][LD] where kQInSmem
 
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -200,16 +220,27 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
   __nv_bfloat16* ob = o + ((long long)b * p.sq * p.hq + h) * D;
 
   // Q as A fragments: rows row_a / row_b, columns 2t, 2t+1 (+8) of each
-  // 16-wide slice of d; rows past sq are zeros.
-  uint32_t qa[KT][4];
+  // 16-wide slice of d; rows past sq are zeros. At head dim 256 Q goes to
+  // shared memory with the first K/V tile instead, and each 16-wide slice
+  // is loaded by ldmatrix where it is used.
+  uint32_t qa[kQInSmem ? 1 : KT][4];
+  if constexpr (kQInSmem) {
+    for (int c = tid; c < kBM * (D / 8); c += kWarps * 32) {
+      const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+      const bool ok = q0 + r < p.sq;
+      cp_async16(qs + r * LD + col,
+                 qb + (ok ? (long long)(q0 + r) * q_stride + col : 0), ok);
+    }
+  } else {
 #pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    const int c = kt * 16 + 2 * t;
-    const bool a_ok = row_a < p.sq, b_ok = row_b < p.sq;
-    qa[kt][0] = a_ok ? ld32(qb + row_a * q_stride + c) : 0u;
-    qa[kt][1] = b_ok ? ld32(qb + row_b * q_stride + c) : 0u;
-    qa[kt][2] = a_ok ? ld32(qb + row_a * q_stride + c + 8) : 0u;
-    qa[kt][3] = b_ok ? ld32(qb + row_b * q_stride + c + 8) : 0u;
+    for (int kt = 0; kt < KT; ++kt) {
+      const int c = kt * 16 + 2 * t;
+      const bool a_ok = row_a < p.sq, b_ok = row_b < p.sq;
+      qa[kt][0] = a_ok ? ld32(qb + row_a * q_stride + c) : 0u;
+      qa[kt][1] = b_ok ? ld32(qb + row_b * q_stride + c) : 0u;
+      qa[kt][2] = a_ok ? ld32(qb + row_a * q_stride + c + 8) : 0u;
+      qa[kt][3] = b_ok ? ld32(qb + row_b * q_stride + c + 8) : 0u;
+    }
   }
 
   float acc[OT][4];
@@ -244,14 +275,33 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
     const int mi = lane / 8;
     const __nv_bfloat16* krow =
         kt_s + ((mi >> 1) * 8 + lane % 8) * LD + (mi & 1) * 8;
+    if constexpr (kQInSmem) {
+      // A fragments from shared Q: matrices (rows 0-7 | 8-15) x (dims 0-7
+      // | 8-15) of the warp's 16 rows, in a[0..3] order
+      const __nv_bfloat16* qrow =
+          qs + (warp * 16 + (mi & 1) * 8 + lane % 8) * LD + (mi >> 1) * 8;
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
+      for (int kt = 0; kt < KT; ++kt) {
+        uint32_t qf[4];
+        ldmatrix_x4(qf, qrow + kt * 16);
 #pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t kb2[4];
-        ldmatrix_x4(kb2, krow + nt * 8 * LD + kt * 16);
-        mma16816(s[nt], qa[kt], kb2[0], kb2[1]);
-        mma16816(s[nt + 1], qa[kt], kb2[2], kb2[3]);
+        for (int nt = 0; nt < NT; nt += 2) {
+          uint32_t kb2[4];
+          ldmatrix_x4(kb2, krow + nt * 8 * LD + kt * 16);
+          mma16816(s[nt], qf, kb2[0], kb2[1]);
+          mma16816(s[nt + 1], qf, kb2[2], kb2[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {
+          uint32_t kb2[4];
+          ldmatrix_x4(kb2, krow + nt * 8 * LD + kt * 16);
+          mma16816(s[nt], qa[kt], kb2[0], kb2[1]);
+          mma16816(s[nt + 1], qa[kt], kb2[2], kb2[3]);
+        }
       }
     }
 
@@ -339,6 +389,7 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
     }
     __syncthreads();  // buffer `buf` is refilled by the next iteration
   }
+  if constexpr (kQInSmem) cp_async_wait<0>();  // Q's copy, if no tile ran
 
 #pragma unroll
   for (int o2 = 1; o2 < 4; o2 *= 2) {
@@ -368,9 +419,13 @@ __global__ void __launch_bounds__(kRows * 32)
                   const float* __restrict__ v, float* __restrict__ o,
                   Problem p) {
   constexpr int PER = D / 32;  // output dims per lane
-  __shared__ float qs[kRows][D];
-  __shared__ float ks[kKeys][D + 1];
-  __shared__ float vs[kKeys][D];
+  // q rows [kRows][D], K tile [kKeys][D + 1], V tile [kKeys][D]: dynamic,
+  // since head dim 256 needs 73 KB
+  extern __shared__ float fsm[];
+  float(*qs)[D] = reinterpret_cast<float(*)[D]>(fsm);
+  float(*ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fsm + kRows * D);
+  float(*vs)[D] =
+      reinterpret_cast<float(*)[D]>(fsm + kRows * D + kKeys * (D + 1));
 
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -446,8 +501,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
         static_cast<const __nv_bfloat16*>(v),
         static_cast<__nv_bfloat16*>(o), p);
   } else {
+    constexpr int smem = (kRows * D + kKeys * (D + 1) + kKeys * D) *
+                         (int)sizeof(float);
+    if (smem > 48 * 1024) {  // head dim 256 only
+      cudaError_t e = cudaFuncSetAttribute(
+          flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (e != cudaSuccess) return (int)e;
+    }
     const dim3 grid((p.sq + kRows - 1) / kRows, p.hq, b);
-    flash_fwd_f32<D><<<grid, kRows * 32, 0, st>>>(
+    flash_fwd_f32<D><<<grid, kRows * 32, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), p);
   }
@@ -480,6 +543,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 128:
       p.scale_log2 = kLog2e / sqrtf(128.f);
       return launch<128>(q, k, v, o, b, p, dtype, st);
+    case 256:
+      p.scale_log2 = kLog2e / sqrtf(256.f);
+      return launch<256>(q, k, v, o, b, p, dtype, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -24,7 +24,7 @@ from repro_torch.kernels.flash_attention import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _check(q, k, v):

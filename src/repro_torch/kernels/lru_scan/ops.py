@@ -1,0 +1,100 @@
+"""Wrapper for the gated linear recurrence scan ``h_t = a_t h_{t-1} + b_t``.
+
+``impl="auto"`` launches the hand-written Hopper kernel
+(``csrc/lru_scan.cu``) for a CUDA tensor and runs the plain PyTorch version
+(:mod:`.ref`) for a CPU tensor; ``"plain"`` forces the plain version and
+``"kernel"`` on a CPU tensor raises. There is no fallback from the kernel to
+the plain version. ``lru_scan.launches`` counts the kernel launches.
+
+Any sequence length is taken. The Pallas kernel raises unless its chunk
+(``min(256, seq)``) divides the length, so on a TPU the JAX package cannot
+prefill, say, a 1000-token prompt through it (``ROADMAP.md`` Queue 3).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lru_scan import ref as _ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "lru_scan.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(a, b, h0):
+    if a.dim() != 3 or a.shape != b.shape:
+        raise ValueError(
+            f"lru_scan: a and b must be (batch, seq, width) of one shape; "
+            f"got {tuple(a.shape)}, {tuple(b.shape)}")
+    if min(a.shape) < 1:
+        raise ValueError(f"lru_scan: empty input {tuple(a.shape)}")
+    if a.dtype not in _DTYPES or b.dtype not in _DTYPES:
+        raise ValueError(
+            f"lru_scan: a and b must be float32 or bfloat16; got {a.dtype}, "
+            f"{b.dtype}")
+    if a.device != b.device:
+        raise ValueError(
+            f"lru_scan: a and b on different devices: {a.device}, {b.device}")
+    if h0 is not None:
+        if tuple(h0.shape) != (a.shape[0], a.shape[2]):
+            raise ValueError(
+                f"lru_scan: h0 must be (batch, width) = "
+                f"{(a.shape[0], a.shape[2])}; got {tuple(h0.shape)}")
+        if h0.device != a.device:
+            raise ValueError(
+                f"lru_scan: h0 on {h0.device}, a and b on {a.device}")
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor,
+             h0: Optional[torch.Tensor] = None, impl: str = "auto"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a, b: (batch, seq, width), f32 or bf16; h0: (batch, width) or None.
+    The carry is float32. Returns (h in b.dtype, h_last (batch, width)
+    f32)."""
+    _check(a, b, h0)
+    if impl == "auto":
+        impl = "kernel" if a.is_cuda else "plain"
+    if impl == "plain":
+        return _ref.lru_scan_ref(a, b, h0)
+    if impl == "kernel":
+        if not a.is_cuda:
+            raise ValueError(
+                "lru_scan: impl='kernel' needs CUDA tensors; the CPU runs "
+                "impl='plain'")
+        return _launch(a, b, h0)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+lru_scan.launches = 0
+
+
+def _kernel_fn():
+    fn = _build.load(SOURCE).lru_scan_fwd  # nvcc at first use
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+    return fn
+
+
+def _launch(a, b, h0):
+    fn = _kernel_fn()
+    a, b = a.contiguous(), b.contiguous()
+    bsz, l, w = a.shape
+    h = torch.empty_like(b)
+    h_last = torch.empty((bsz, w), dtype=torch.float32, device=a.device)
+    h0 = None if h0 is None else h0.float().contiguous()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(),
+                 None if h0 is None else h0.data_ptr(), h.data_ptr(),
+                 h_last.data_ptr(), bsz, l, w, _DTYPES[a.dtype],
+                 _DTYPES[b.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"lru_scan kernel launch failed: CUDA error {err}")
+    lru_scan.launches += 1
+    return h, h_last

@@ -4,7 +4,8 @@
 dicts and lists of numpy arrays (``jax.tree.map(np.asarray, params)``),
 scanned (stacked layers) or unrolled (a list of layers), and returns the
 port's :class:`~repro_torch.models.layers.ParamTree` in the layout that
-``options.scan_layers`` asks for. The layouts are the same tree by
+``options.scan_layers`` asks for (a stack whose layers differ in kind,
+RecurrentGemma's, is unrolled in both). The layouts are the same tree by
 construction, so the conversion is a check and a copy: a missing or extra
 leaf, or a leaf of the wrong shape, raises ``ValueError``.
 """
@@ -19,6 +20,7 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models.layers import ParamTree, leaf_paths, rebuild
 from repro_torch.models.model import ModelOptions, build_model
+from repro_torch.models.transformer import uniform_stack
 
 
 def _relayout(layers: Any, scan: bool) -> Any:
@@ -63,7 +65,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
     if not isinstance(tree, dict) or "layers" not in tree:
         raise ValueError("params_from_jax: expected the JAX model's params "
                          "dict (with 'layers')")
-    tree = dict(tree, layers=_relayout(tree["layers"], model.opt.scan_layers))
+    # a stack that is not uniform (hybrid) is unrolled in either layout
+    scan = model.opt.scan_layers and uniform_stack(cfg)
+    tree = dict(tree, layers=_relayout(tree["layers"], scan))
     want, got = leaf_paths(specs), leaf_paths(tree)
     missing = sorted(map(str, set(want) - set(got)))
     extra = sorted(map(str, set(got) - set(want)))

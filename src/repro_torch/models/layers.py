@@ -23,6 +23,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.launch.mesh import resolve_device
@@ -148,6 +149,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def conv_tail(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The last k-1 inputs of x (b, l, c) as the decode conv state,
+    left-padded with zeros when l < k-1: the full-sequence conv zero-pads
+    the same rows, so decode continues exactly. (The JAX package keeps
+    ``x[:, -(k-1):]``, fewer rows than its cache holds for such prompts;
+    ``ROADMAP.md`` Queue 3.)"""
+    tail = x[:, -(k - 1):]
+    short = (k - 1) - tail.shape[1]
+    if short > 0:
+        tail = F.pad(tail, (0, 0, short, 0))
+    return tail
 
 
 # ---------------------------------------------------------------- dense MLP

@@ -8,8 +8,9 @@ The port of ``repro/models/model.py`` for dense attention models:
 Parameters are a :class:`~repro_torch.models.layers.ParamTree` in the JAX
 package's layout (``init``, or :func:`repro_torch.models.convert.
 params_from_jax`); caches are dicts of tensors that prefill and decode
-update in place. Families other than ``dense`` and training (``train_loss``)
-wait for later slices (``ROADMAP.md``) and raise ``NotImplementedError``.
+update in place. The families ported are ``dense``, ``ssm`` (Mamba-2) and
+``hybrid`` (RecurrentGemma); the others and training (``train_loss``) wait
+for later slices (``ROADMAP.md``) and raise ``NotImplementedError``.
 
 float32 runs on the card assume full-precision matmuls
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default); the
@@ -41,9 +42,12 @@ class ModelOptions:
     dtype: torch.dtype = torch.bfloat16
 
 
+FAMILIES = ("dense", "ssm", "hybrid")
+
+
 class LanguageModel:
     def __init__(self, cfg: ModelConfig, options: Optional[ModelOptions] = None):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise tfm._not_ported(f"model family {cfg.family!r}")
         self.cfg = cfg
         self.opt = options or ModelOptions()

@@ -1,0 +1,118 @@
+"""Griffin/RecurrentGemma recurrent block: conv1d -> RG-LRU, gated
+[arXiv:2402.19427]. The port of ``repro/models/rglru.py``.
+
+    r_t = sigmoid(x_t Wr + br)            (recurrence gate)
+    i_t = sigmoid(x_t Wi + bi)            (input gate)
+    a_t = exp(-c * softplus(L) * r_t)     (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+The linear recurrence runs through :mod:`repro_torch.kernels.lru_scan` (the
+CUDA kernel on the card, its plain version on the CPU); the one-token
+decode step stays plain PyTorch, as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.kernels.lru_scan import ops as lru_ops
+from repro_torch.models.layers import ParamSpec, conv_tail
+
+_C = 8.0
+
+
+def rglru_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
+    hb = cfg.hybrid
+    d = cfg.d_model
+    w = hb.lru_width or d
+    k = hb.conv_kernel
+    return {
+        "w_gate": ParamSpec((d, w), dtype),
+        "w_in": ParamSpec((d, w), dtype),
+        "conv": ParamSpec((k, w), dtype),
+        "wr": ParamSpec((w, w), dtype),
+        "br": ParamSpec((w,), torch.float32, "zeros"),
+        "wi": ParamSpec((w, w), dtype),
+        "bi": ParamSpec((w,), torch.float32, "zeros"),
+        "a_log": ParamSpec((w,), torch.float32, "zeros"),
+        "w_out": ParamSpec((w, d), dtype),
+    }
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def _gates(p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, gated input), both float32."""
+    xf = x.float()
+    r = torch.sigmoid(xf @ p["wr"].float() + p["br"])
+    i = torch.sigmoid(xf @ p["wi"].float() + p["bi"])
+    log_a = -_C * F.softplus(p["a_log"]) * r                  # (b,l,w)
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    return a, gated
+
+
+def _conv1d(x: torch.Tensor, w: torch.Tensor,
+            state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal depthwise conv over the sequence: x (b, l, c), w (k, c);
+    `state` is the last k-1 inputs before x (zeros if None)."""
+    k = w.shape[0]
+    pad = (torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                       device=x.device)
+           if state is None else state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)
+    out = torch.zeros_like(x)
+    for j in range(k):
+        out = out + xp[:, j:j + x.shape[1]] * w[j]
+    return out
+
+
+def rglru_block(p, x: torch.Tensor, cfg: ModelConfig,
+                impl: str = "auto") -> torch.Tensor:
+    """Full-sequence Griffin recurrent block. x: (b, l, d)."""
+    y, _ = rglru_prefill(p, x, cfg, impl)
+    return y
+
+
+def rglru_prefill(p, x: torch.Tensor, cfg: ModelConfig, impl: str = "auto"
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence block and the state decode continues from: h (b, w)
+    f32 and conv (b, k-1, w)."""
+    gate = _gelu(x @ p["w_gate"])
+    u = x @ p["w_in"]
+    a, b = _gates(p, _conv1d(u, p["conv"]))
+    h, h_last = lru_ops.lru_scan(a, b, impl=impl)
+    y = gate.float() * h.float()
+    out = y.to(x.dtype) @ p["w_out"]
+    return out, {"h": h_last, "conv": conv_tail(u, cfg.hybrid.conv_kernel)}
+
+
+def rglru_cache_specs(cfg: ModelConfig, batch: int, dtype=torch.bfloat16):
+    hb = cfg.hybrid
+    w = hb.lru_width or cfg.d_model
+    k = hb.conv_kernel
+    return {
+        "h": ParamSpec((batch, w), torch.float32, "zeros"),
+        "conv": ParamSpec((batch, k - 1, w), dtype, "zeros"),
+    }
+
+
+def rglru_decode_step(p, x: torch.Tensor, cfg: ModelConfig, cache: Dict
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (b, 1, d). Returns (out (b, 1, d), the new state {h, conv}); the
+    caller writes the state into its cache."""
+    gate = _gelu(x @ p["w_gate"])
+    u = x @ p["w_in"]
+    new_conv = torch.cat([cache["conv"].to(u.dtype), u], dim=1)[:, 1:]
+    u = _conv1d(u, p["conv"], state=cache["conv"])
+    a, b = _gates(p, u)
+    h = a[:, 0] * cache["h"] + b[:, 0]
+    y = gate[:, 0].float() * h
+    out = (y.to(x.dtype) @ p["w_out"])[:, None, :]
+    return out, {"h": h, "conv": new_conv}

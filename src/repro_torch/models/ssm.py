@@ -1,0 +1,142 @@
+"""Mamba-2 block (SSD, state-space duality) [arXiv:2405.21060]. The port of
+``repro/models/ssm.py``.
+
+Separate z/x/B/C/dt projections, as in the JAX package (its parameter
+tree is loaded unchanged). The SSD scan of a full sequence runs through
+:mod:`repro_torch.kernels.ssd_scan` (the CUDA kernel for the within-chunk
+terms on the card, the plain version on the CPU); the one-token decode
+step stays plain PyTorch, as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models.layers import ParamSpec, conv_tail, rms_norm
+
+
+def ssm_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    h = s.num_heads(d)
+    n = s.state_dim
+    k = s.conv_kernel
+    return {
+        "wz": ParamSpec((d, di), dtype),
+        "wx": ParamSpec((d, di), dtype),
+        "wB": ParamSpec((d, n), dtype),
+        "wC": ParamSpec((d, n), dtype),
+        "wdt": ParamSpec((d, h), dtype),
+        "dt_bias": ParamSpec((h,), torch.float32, "zeros"),
+        "A_log": ParamSpec((h,), torch.float32, "zeros"),
+        "D": ParamSpec((h,), torch.float32, "ones"),
+        "conv_x": ParamSpec((k, di), dtype),
+        "conv_B": ParamSpec((k, n), dtype),
+        "conv_C": ParamSpec((k, n), dtype),
+        "norm": ParamSpec((di,), torch.float32, "ones"),
+        "wo": ParamSpec((di, d), dtype),
+    }
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
+                           state: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """x: (b, l, c); w: (k, c). Causal depthwise conv then silu; `state` is
+    the last k-1 inputs before x (zeros if None)."""
+    k = w.shape[0]
+    pad = (torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                       device=x.device)
+           if state is None else state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)
+    out = torch.zeros_like(x)
+    for j in range(k):
+        out = out + xp[:, j:j + x.shape[1]] * w[j]
+    return F.silu(out)
+
+
+def _project(p, u: torch.Tensor, cfg: ModelConfig):
+    z = u @ p["wz"]
+    x = u @ p["wx"]
+    B = u @ p["wB"]
+    C = u @ p["wC"]
+    dt = F.softplus(u.float() @ p["wdt"].float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    return z, x, B, C, dt, A
+
+
+def _out(p, y, xh, z, cfg: ModelConfig):
+    """D skip, gate by silu(z), norm, out projection."""
+    b, l = z.shape[:2]
+    y = y + xh * p["D"][:, None].to(xh.dtype)
+    y = y.reshape(b, l, -1)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    return y @ p["wo"]
+
+
+def ssm_prefill(p, u: torch.Tensor, cfg: ModelConfig, impl: str = "auto"
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence Mamba-2 block and the state decode continues from:
+    the final SSD state (b, h, p, n) f32 and the conv inputs (b, k-1, .)."""
+    s = cfg.ssm
+    b, l, d = u.shape
+    z, x, B, C, dt, A = _project(p, u, cfg)
+    xc = _causal_depthwise_conv(x, p["conv_x"])
+    Bc = _causal_depthwise_conv(B, p["conv_B"])
+    Cc = _causal_depthwise_conv(C, p["conv_C"])
+    xh = xc.reshape(b, l, s.num_heads(d), s.head_dim)
+    y, final = ssd_ops.ssd(xh, dt, A, Bc, Cc, min(s.chunk_size, l),
+                           impl=impl)
+    k = s.conv_kernel
+    cache = {"state": final, "conv_x": conv_tail(x, k),
+             "conv_B": conv_tail(B, k), "conv_C": conv_tail(C, k)}
+    return _out(p, y, xh, z, cfg), cache
+
+
+def ssm_apply(p, u: torch.Tensor, cfg: ModelConfig,
+              impl: str = "auto") -> torch.Tensor:
+    """Full-sequence Mamba-2 block. u: (b, l, d)."""
+    y, _ = ssm_prefill(p, u, cfg, impl)
+    return y
+
+
+# ----------------------------------------------------------------- decode path
+def ssm_cache_specs(cfg: ModelConfig, batch: int, dtype=torch.bfloat16):
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    h = s.num_heads(cfg.d_model)
+    k = s.conv_kernel
+    return {
+        "state": ParamSpec((batch, h, s.head_dim, s.state_dim),
+                           torch.float32, "zeros"),
+        "conv_x": ParamSpec((batch, k - 1, di), dtype, "zeros"),
+        "conv_B": ParamSpec((batch, k - 1, s.state_dim), dtype, "zeros"),
+        "conv_C": ParamSpec((batch, k - 1, s.state_dim), dtype, "zeros"),
+    }
+
+
+def ssm_decode_step(p, u: torch.Tensor, cfg: ModelConfig, cache: Dict
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """u: (b, 1, d). Returns (out (b, 1, d), the new state); the caller
+    writes the state into its cache."""
+    s = cfg.ssm
+    b = u.shape[0]
+    z, x, B, C, dt, A = _project(p, u, cfg)
+
+    def conv_step(x1, w, st):
+        y = _causal_depthwise_conv(x1, w, state=st)
+        return y, torch.cat([st.to(x1.dtype), x1], dim=1)[:, 1:]
+
+    x, cx = conv_step(x, p["conv_x"], cache["conv_x"])
+    B, cB = conv_step(B, p["conv_B"], cache["conv_B"])
+    C, cC = conv_step(C, p["conv_C"], cache["conv_C"])
+    xh = x.reshape(b, 1, s.num_heads(cfg.d_model), s.head_dim)
+    y, new_state = ssd_ops.ssd_decode_step(cache["state"], xh[:, 0],
+                                           dt[:, 0], A, B[:, 0], C[:, 0])
+    out = _out(p, y[:, None], xh, z, cfg)
+    return out, {"state": new_state, "conv_x": cx, "conv_B": cB,
+                 "conv_C": cC}

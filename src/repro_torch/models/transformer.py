@@ -1,11 +1,19 @@
 """Layer stacks: the port of ``repro/models/transformer.py`` for dense
-attention models.
+attention models (kind ``"attn"``), Mamba-2 (``"ssm"``) and RecurrentGemma
+(``"rglru"`` and ``"local_attn"``).
 
 A stack runs :func:`layer_apply` either over a scanned layout (every leaf
 stacked with a leading layer dim, as ``lax.scan`` takes it in the JAX
 package) or over an unrolled list of per-layer trees; here both are a Python
-loop. Block kinds other than ``"attn"`` (MoE, SSM, RG-LRU, encoder-decoder)
-wait for their slices and raise ``NotImplementedError``.
+loop. A hybrid stack is never uniform, so it is always unrolled. Block kinds
+``"attn_moe"`` (MoE) and ``"decoder"`` (encoder-decoder) wait for their
+slices and raise ``NotImplementedError``.
+
+Decode caches are written in place through per-layer views (of the stacked
+tensors, in the scanned layout): the attention rings by the attention
+code, the recurrent state (``h``/``conv``, ``state``/``conv_*``) here,
+copied from what the block returns. The JAX package returns new cache
+trees instead.
 """
 from __future__ import annotations
 
@@ -16,6 +24,8 @@ from torch import nn
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamSpec,
     ParamTree,
@@ -24,6 +34,7 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 
+PORTED_KINDS = ("attn", "local_attn", "ssm", "rglru")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -62,11 +73,17 @@ def _norm_specs(cfg: ModelConfig, name: str) -> Dict[str, ParamSpec]:
 
 def layer_specs(cfg: ModelConfig, kind: str,
                 dtype=torch.bfloat16) -> Dict[str, Any]:
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise _not_ported(f"block kind {kind!r}")
     s: Dict[str, Any] = {}
     s.update(_norm_specs(cfg, "norm1"))
-    s["attn"] = attn.attention_specs(cfg, dtype)
+    if kind == "ssm":
+        s["ssm"] = ssm_mod.ssm_specs(cfg, dtype)
+        return s  # the Mamba-2 block has no separate MLP
+    if kind == "rglru":
+        s["rglru"] = rglru_mod.rglru_specs(cfg, dtype)
+    else:
+        s["attn"] = attn.attention_specs(cfg, dtype)
     s.update(_norm_specs(cfg, "norm2"))
     s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, dtype)
     return s
@@ -78,10 +95,20 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 attn_impl: str):
     """One block, `mode` "train" (full sequence, no cache), "prefill" or
     "decode". Returns (x, cache), the cache updated in place."""
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise _not_ported(f"block kind {kind!r}")
-    window = cfg.sliding_window
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind in ("ssm", "rglru"):
+        y, cache = _recurrent(p, h, cfg, kind, mode, cache)
+        x = x + y
+        if kind == "ssm":
+            return x, cache
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], h), cache
+    window = (cfg.hybrid.local_window if kind == "local_attn"
+              else cfg.sliding_window)
     if mode == "train":
         y = attn.self_attention(p["attn"], h, cfg, positions, causal=True,
                                 impl=attn_impl, window=window)
@@ -91,11 +118,30 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     elif mode == "decode":
         y, cache = attn.decode_attention(p["attn"], h, cfg, cache, pos,
                                          window=window)
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
     x = x + y
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h), cache
+
+
+def _recurrent(p, h, cfg: ModelConfig, kind: str, mode: str, cache):
+    """The temporal-mixing half of an "ssm" or "rglru" block. In "prefill"
+    and "decode" the new recurrent state is copied into `cache` (views of
+    the stacked caches in the scanned layout): the block returns it, and
+    the caller keeps only the cache it passed in."""
+    if kind == "ssm":
+        p_k, prefill, step = (p["ssm"], ssm_mod.ssm_prefill,
+                              ssm_mod.ssm_decode_step)
+    else:
+        p_k, prefill, step = (p["rglru"], rglru_mod.rglru_prefill,
+                              rglru_mod.rglru_decode_step)
+    if mode == "decode":
+        y, new = step(p_k, h, cfg, cache)
+    else:
+        y, new = prefill(p_k, h, cfg)
+    if mode != "train":
+        for key, val in new.items():
+            cache[key].copy_(val)
+    return y, cache
 
 
 # ----------------------------------------------------------------- the stacks
@@ -158,10 +204,16 @@ def stack_cache_specs(cfg: ModelConfig, batch: int, max_len: int, scan: bool,
     kinds = block_kinds(cfg)
 
     def one(kind: str):
-        if kind != "attn":
+        if kind == "ssm":
+            return ssm_mod.ssm_cache_specs(cfg, batch, dtype)
+        if kind == "rglru":
+            return rglru_mod.rglru_cache_specs(cfg, batch, dtype)
+        if kind not in PORTED_KINDS:
             raise _not_ported(f"the decode cache of block kind {kind!r}")
         w = max_len
-        if cfg.sliding_window is not None:
+        if kind == "local_attn":
+            w = min(max_len, cfg.hybrid.local_window)
+        elif cfg.sliding_window is not None:
             w = min(max_len, cfg.sliding_window)
         return attn.cache_specs(cfg, batch, w, dtype)
 

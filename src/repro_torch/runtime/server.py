@@ -27,7 +27,12 @@ decode would read as "position 0, attended". Both schedulers mark it empty
 admission, so its ``run_wave`` attends to empty slots whenever ``max_len``
 exceeds the prompt (``ROADMAP.md`` Queue 3); the port's wave does not.
 
-Caches are updated in place, as everywhere in the port.
+Caches are updated in place, as everywhere in the port. Besides attention
+rings they may hold recurrent state (Mamba-2's ``state`` and ``conv_*``,
+RecurrentGemma's ``h`` and ``conv``): admission replaces a slot's rows of
+every leaf, so a refilled slot starts from its new prompt's state. In the
+wave scheduler the left-padding enters that state, so a short prompt's wave
+output is not its solo output (as in the JAX package).
 """
 from __future__ import annotations
 
@@ -111,7 +116,10 @@ def _mark_prefill_tail(caches: PyTree, plen: int) -> PyTree:
 def _scatter_slot(dst: PyTree, src: PyTree, slot: int, slots: int) -> PyTree:
     """Write a batch-1 prefill cache into row `slot` of the server caches,
     in place. Per-slot ``pos`` leaves gain the slot axis at -2; every other
-    leaf already carries the slot batch axis and is replaced row-wise."""
+    leaf already carries the slot batch axis and is replaced row-wise. The
+    slot axis is the first where the prefill leaf has 1 and the server leaf
+    `slots`: the batch axis, after the layer axis of a stacked leaf and
+    before an MQA ring's kv-head axis of 1."""
 
     def one(key, d, s):
         s = s.to(d.dtype)

@@ -1,7 +1,7 @@
-"""The port on the card: the CUDA tile-sweep and flash attention kernels
-against their plain PyTorch versions, the solver and the server on CUDA
-against the CPU, and (given 4 cards) NCCL ranks against one rank. Marked
-``gpu``;
+"""The port on the card: the CUDA tile-sweep, flash attention, LRU scan and
+SSD scan kernels against their plain PyTorch versions, the solver and the
+server (dense, Mamba-2, RecurrentGemma) on CUDA against the CPU, and (given
+4 cards) NCCL ranks against one rank. Marked ``gpu``;
 without a card every test here skips. Imports no jax, so it runs where the
 JAX package is not installed:
 
@@ -11,7 +11,10 @@ The tile sweep: f32 is compared bit for bit (the kernel does the plain
 version's IEEE operations in the same order, with no FMA contraction); bf16
 within one bf16 ulp after the cast. Flash attention: 2e-5 in f32 and 2e-2
 in bf16, the JAX suite's tolerances (the kernel sums in another order and
-rounds P to bf16 before P @ V).
+rounds P to bf16 before P @ V). LRU scan: 1e-5 (the JAX suite's), bf16 h
+within one bf16 ulp more (both round the f32 carry once, from carries a few
+f32 ulps apart). SSD scan: y and the final state within 1e-4 for f32
+inputs and 5e-2 for bf16 (the JAX suite's).
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from repro_torch.core.halo import halo_scan_nd
 from repro_torch.core.stencil import heat2d_init, heat2d_solve
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.heat2d import ops
+from repro_torch.kernels.lru_scan import ops as lru_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.mesh import make_grid_mesh, make_mesh
 
 pytestmark = pytest.mark.gpu
@@ -135,6 +140,8 @@ FLASH_CASES = [  # (b, sq, sk, hq, hkv, d, causal, window)
     (1, 130, 63, 8, 2, 32, True, None),        # sq > sk, head dim 32
     (1, 16, 8, 2, 1, 64, False, 4),            # rows that see no key
     (1, 1, 70, 8, 2, 128, False, None),        # one query over 70 keys
+    (1, 300, 300, 10, 1, 256, True, 128),      # head dim 256, MQA, window
+    (2, 70, 70, 4, 2, 256, True, None),        # head dim 256, ragged
 ]
 
 
@@ -188,6 +195,123 @@ def test_served_on_card_equals_cpu(cuda):
         served = srv.run_continuous()
         launched = flash_ops.flash_attention.launches - before
         assert launched == (cfg.num_layers * srv.stats["prefills"]
+                            if dev != "cpu" else 0)
+        outs[str(dev)] = {r.rid: r.output for r in served}
+    assert outs["cpu"] == outs[str(cuda)]
+    torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+LRU_CASES = [  # (b, l, w, a dtype, b dtype, h0)
+    (1, 1, 5, torch.float32, torch.float32, True),        # length 1
+    (3, 77, 100, torch.float32, torch.float32, True),     # width % 32 != 0
+    (2, 513, 64, torch.float32, torch.bfloat16, False),   # bf16 b
+    (1, 2048, 33, torch.bfloat16, torch.bfloat16, True),  # bf16 a and b
+    (2, 31, 2560, torch.float32, torch.float32, False),   # fewer steps than
+]                                                         # segments
+
+
+@pytest.mark.parametrize("b,l,w,a_dtype,b_dtype,h0", LRU_CASES)
+def test_lru_kernel_matches_plain(cuda, b, l, w, a_dtype, b_dtype, h0):
+    gen = torch.Generator(device=cuda).manual_seed(l * 7 + w)
+    a = (0.5 + 0.49 * torch.rand((b, l, w), generator=gen,
+                                 device=cuda)).to(a_dtype)
+    x = torch.randn((b, l, w), generator=gen, device=cuda).to(b_dtype)
+    h = torch.randn((b, w), generator=gen, device=cuda) if h0 else None
+    before = lru_ops.lru_scan.launches
+    gh, gl = lru_ops.lru_scan(a, x, h, "kernel")
+    torch.cuda.synchronize()
+    assert lru_ops.lru_scan.launches == before + 1
+    wh, wl = lru_ops.lru_scan(a, x, h, "plain")
+    assert lru_ops.lru_scan.launches == before + 1
+    assert gh.dtype == b_dtype and gl.dtype == torch.float32
+    slack = 0.0
+    if b_dtype == torch.bfloat16:
+        _, e = torch.frexp(wh.float().abs())
+        slack = torch.ldexp(torch.ones_like(wh, dtype=torch.float32),
+                            (e - 8).to(torch.int32))
+    d = (gh.float() - wh.float()).abs()
+    assert bool((d <= slack + 1e-5 + 1e-5 * wh.float().abs()).all())
+    torch.testing.assert_close(gl, wl, rtol=1e-5, atol=1e-5)
+
+
+def test_lru_kernel_needs_a_cuda_tensor():
+    a = torch.ones(1, 4, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        lru_ops.lru_scan(a, a, impl="kernel")
+
+
+SSD_CASES = [  # (b, l, h, p, n, chunk, dtype, initial state)
+    (1, 100, 3, 16, 8, 32, torch.float32, True),     # ragged, carried state
+    (2, 64, 5, 8, 4, 16, torch.float32, False),      # a partial head group
+    (1, 300, 6, 64, 32, 128, torch.bfloat16, True),  # bf16, ragged
+    (1, 64, 2, 128, 16, 32, torch.float32, False),   # head dim 128
+    (1, 40, 1, 256, 8, 40, torch.float32, False),    # head dim 256, 1 chunk
+    (1, 7, 4, 32, 130, 7, torch.float32, False),     # odd state and chunk
+]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,dtype,state", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, b, l, h, p, n, chunk, dtype, state):
+    gen = torch.Generator(device=cuda).manual_seed(l * 7 + h)
+    x = torch.randn((b, l, h, p), generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, h), generator=gen, device=cuda))
+    A = -torch.exp(0.2 * torch.randn((h,), generator=gen, device=cuda))
+    B, C = (torch.randn((b, l, n), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    s0 = (torch.randn((b, h, p, n), generator=gen, device=cuda) if state
+          else None)
+    before = ssd_ops.ssd.launches
+    gy, gs = ssd_ops.ssd(x, dt, A, B, C, chunk, s0, impl="kernel")
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches == before + 1
+    wy, ws = ssd_ops.ssd(x, dt, A, B, C, chunk, s0, impl="plain")
+    assert ssd_ops.ssd.launches == before + 1
+    assert gy.dtype == dtype and gs.dtype == torch.float32
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(gy.float(), wy.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(gs, ws, rtol=tol, atol=tol)
+
+
+def test_ssd_kernel_needs_a_cuda_tensor():
+    x = torch.zeros(1, 8, 2, 8)
+    dt, A, B = torch.zeros(1, 8, 2), -torch.ones(2), torch.zeros(1, 8, 4)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        ssd_ops.ssd(x, dt, A, B, B, 8, impl="kernel")
+
+
+@pytest.mark.parametrize("arch,kernel,per_prefill", [
+    ("mamba2-780m", "ssd", 4), ("recurrentgemma-2b", "lru", 3)])
+def test_recurrent_served_on_card_equals_cpu(cuda, arch, kernel,
+                                             per_prefill):
+    """The reduced Mamba-2 and RecurrentGemma (float32) served continuously
+    on the card give the CPU's greedy tokens and prefill logits within
+    1e-4, with one recurrent-kernel launch per recurrent layer per
+    prefill."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions, build_model
+    from repro_torch.runtime.server import BatchServer, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrapper = ssd_ops.ssd if kernel == "ssd" else lru_ops.lru_scan
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.float32))
+    params = model.init(0, "cpu")
+    prompts = [[5, 9, 3, 200, 17], [7], list(range(1, 70)), [11] * 33]
+    outs, logits = {}, {}
+    for dev in ("cpu", cuda):
+        p = params.to(dev)
+        logits[str(dev)] = model.prefill(
+            p, {"tokens": torch.tensor([prompts[2]], device=dev)})[0].cpu()
+        srv = BatchServer(model, p, slots=3, max_len=96)
+        for pr in prompts:
+            srv.submit(Request(prompt=list(pr), max_new_tokens=8))
+        before = wrapper.launches
+        served = srv.run_continuous()
+        launched = wrapper.launches - before
+        assert launched == (per_prefill * srv.stats["prefills"]
                             if dev != "cpu" else 0)
         outs[str(dev)] = {r.rid: r.output for r in served}
     assert outs["cpu"] == outs[str(cuda)]

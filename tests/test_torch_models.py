@@ -1,6 +1,7 @@
-"""The port's dense GQA models against the JAX package on the CPU: layers,
-attention prefill/decode, and prefill/decode_step logits of reduced configs,
-with one numpy-drawn parameter tree loaded into both (``_torch_jax.py``).
+"""The port's models against the JAX package on the CPU: layers, attention
+prefill/decode, and prefill/decode_step logits of reduced configs (dense
+GQA, Mamba-2, RecurrentGemma), with one numpy-drawn parameter tree loaded
+into both (``_torch_jax.py``).
 
 Tolerances: float32 1e-4 (the two frameworks order float32 sums
 differently; logits here are O(1)); bf16 the JAX suite's own 3e-2 / 6e-2
@@ -127,7 +128,8 @@ def test_attention_prefill_and_decode_match_jax(window):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("arch", ["qwen3-8b", "internlm2-1.8b",
-                                  "granite-3-2b"])
+                                  "granite-3-2b", "mamba2-780m",
+                                  "recurrentgemma-2b"])
 def test_prefill_and_decode_logits_match_jax(arch, dtype):
     """prefill then three decode steps, port (flash: the plain version on
     the CPU) against JAX's attn_impl="flash" (its ref oracle on the CPU).
@@ -262,11 +264,80 @@ def test_init_is_seeded_by_a_stable_path_hash():
 
 
 def test_unported_families_raise():
-    for arch in ("mixtral-8x7b", "mamba2-780m", "recurrentgemma-2b",
-                 "whisper-base", "llava-next-34b"):
+    for arch in ("mixtral-8x7b", "whisper-base", "llava-next-34b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_model(get_arch(arch).reduced())
     q = torch.zeros(1, 4, 4, 32)
     kv = torch.zeros(1, 4, 2, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         attn.sdpa(q, kv, kv, None, None, impl="blockwise")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
+def test_recurrent_unrolled_logits_match_jax(arch):
+    """The unrolled layout (Mamba-2's other layout; RecurrentGemma's only
+    one, its stack is never uniform) against JAX's, prefill then two decode
+    steps, float32."""
+    jm, jp, tm, tp = both_models(arch, "f32", scan=False)
+    assert isinstance(tp["layers"], torch.nn.ModuleList)
+    prefill, decode = jitted(jm)
+    toks = np.random.default_rng(5).integers(1, tm.cfg.vocab_size, (2, 40))
+    tl, tc = tm.prefill(tp, {"tokens": _t(toks[:, :38])}, max_len=40)
+    jl, jc = prefill(jp, {"tokens": jnp.asarray(toks[:, :38], jnp.int32)},
+                     max_len=40)
+    np.testing.assert_allclose(f32(tl), f32(jl), rtol=1e-4, atol=1e-4)
+    for n in (38, 39):
+        tl, tc = tm.decode_step(tp, _t(toks[:, n:n + 1]), tc, n)
+        jl, jc = decode(jp, jnp.asarray(toks[:, n:n + 1], jnp.int32), jc,
+                        jnp.asarray(n, jnp.int32))
+        np.testing.assert_allclose(f32(tl), f32(jl), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("plen", [1, 2, 9, 40])
+@pytest.mark.parametrize("arch,scan", [("mamba2-780m", True),
+                                       ("mamba2-780m", False),
+                                       ("recurrentgemma-2b", True)])
+def test_recurrent_prefill_then_decode_equals_full_forward(arch, scan, plen):
+    """Prefill, then decode three tokens: the last logits equal a full
+    forward over all of them. Catches recurrent state that is not written
+    into the caches (decode would start from zeros), in the scanned layout
+    too (views of the stacked caches), and prompts shorter than the conv's
+    k - 1 inputs (1 and 2 tokens; the JAX package fails on those,
+    ROADMAP.md Queue 3). 40 tokens overflow RecurrentGemma's 32-slot local
+    ring and span two of Mamba-2's 32-token chunks."""
+    from repro_torch.runtime.server import _mark_prefill_tail
+
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.float32,
+                                          scan_layers=scan))
+    params = model.init(0, "cpu")
+    toks = _t(np.random.default_rng(plen).integers(1, cfg.vocab_size,
+                                                   (2, plen + 3)))
+    full, _ = model.prefill(params, {"tokens": toks})
+    logits, caches = model.prefill(params, {"tokens": toks[:, :plen]},
+                                   max_len=plen + 3)
+    caches = _mark_prefill_tail(caches, plen)
+    for n in range(plen, plen + 3):
+        logits, caches = model.decode_step(params, toks[:, n:n + 1], caches,
+                                           n)
+    np.testing.assert_allclose(f32(logits), f32(full), rtol=1e-4, atol=1e-4)
+
+
+def test_recurrent_cache_specs():
+    """Per-kind decode caches: RecurrentGemma's pattern (rglru, rglru,
+    attn) with a local ring of min(max_len, local_window) slots; Mamba-2's
+    stacked SSD state and conv inputs."""
+    cfg = get_arch("recurrentgemma-2b").reduced()      # window 32, width 128
+    caches = init_from_specs(build_model(cfg).cache_specs(3, 40), 0, "cpu")
+    assert [sorted(c) for c in caches] == [["conv", "h"], ["conv", "h"],
+                                           ["k", "pos", "v"], ["conv", "h"]]
+    assert caches[0]["h"].shape == (3, 128)
+    assert caches[0]["h"].dtype == torch.float32
+    assert caches[0]["conv"].shape == (3, 3, 128)
+    assert caches[2]["k"].shape == (3, 32, 1, 32)      # MQA ring of 32
+    cfg = get_arch("mamba2-780m").reduced()
+    caches = init_from_specs(build_model(cfg).cache_specs(3, 40), 0, "cpu")
+    assert caches["state"].shape == (4, 3, 16, 16, 16)  # (L, b, h, p, n)
+    assert caches["conv_x"].shape == (4, 3, 3, 256)
+    assert caches["conv_B"].shape == caches["conv_C"].shape == (4, 3, 3, 16)

@@ -22,6 +22,7 @@ from repro_torch.runtime.server import (
     Request,
     _mark_prefill_tail,
     _scatter_slot,
+    _walk,
     make_slot_caches,
 )
 
@@ -247,3 +248,158 @@ def test_wave_marks_empty_cache_slots(models):
                               len(prompt))
     np.testing.assert_allclose(f32(tl)[0, -1], f32(full)[0, -1], rtol=1e-4,
                                atol=1e-4)
+
+
+# ------------------------------------------------ recurrent families
+# Mamba-2 (scanned: every leaf stacked over the layers) and RecurrentGemma
+# (rglru, rglru, local_attn: a 32-slot MQA ring and recurrent state), both
+# reduced, float32. Their caches hold recurrent state besides rings: the
+# slot surgery must carry it, and a refilled slot must start from the new
+# prompt's state, not the old request's.
+REC = {"mamba2-780m": dict(num_layers=2),
+       "recurrentgemma-2b": dict(num_layers=3)}
+REC_PROMPTS = [[5, 9, 3, 7], [7, 1], [2, 2, 2, 2, 8], [11], [4, 6, 1, 9, 2]]
+REC_MAX_NEW = [4, 6, 2, 3, 5]
+
+
+@pytest.fixture(scope="module", params=sorted(REC))
+def rec(request):
+    arch = request.param
+    jm, jp, model, params = both_models(arch, "f32", **REC[arch])
+    solo = []
+    for p, m in zip(REC_PROMPTS, REC_MAX_NEW):
+        srv = BatchServer(model, params, slots=1, max_len=48)
+        srv.submit(Request(prompt=list(p), max_new_tokens=m))
+        [r] = srv.run_continuous()
+        solo.append(r.output)
+    return {"arch": arch, "jax": (jm, jp), "model": model, "params": params,
+            "solo": solo}
+
+
+def test_recurrent_continuous_matches_solo(rec):
+    """Any interleaving (2 slots, 3 slots reversed, staggered arrivals)
+    gives each request its solo output, 1- and 2-token prompts included:
+    five requests through two slots refill slots whose recurrent state
+    belonged to a finished request."""
+
+    def run(slots, order, stagger=None):
+        srv = BatchServer(rec["model"], rec["params"], slots=slots,
+                          max_len=48)
+        pending = [Request(prompt=list(REC_PROMPTS[j]),
+                           max_new_tokens=REC_MAX_NEW[j], rid=j)
+                   for j in order]
+        if stagger is None:
+            for r in pending:
+                srv.submit(r)
+            return {r.rid: r.output for r in srv.run_continuous()}
+        it = {"n": -1}
+
+        def poll():
+            it["n"] += 1
+            for r, at in zip(pending, stagger):
+                if at == it["n"]:
+                    srv.submit(r)
+            return any(at > it["n"] for at in stagger)
+
+        return {r.rid: r.output for r in srv.run_continuous(poll)}
+
+    n = len(REC_PROMPTS)
+    for got in (run(2, range(n)), run(3, reversed(range(n))),
+                run(2, range(n), [0, 0, 2, 3, 5])):
+        assert [got[j] for j in range(n)] == rec["solo"]
+
+
+def test_recurrent_greedy_outputs_match_jax(rec):
+    """The JAX package's continuous server gives the port's tokens. Prompts
+    of at least conv_kernel - 1 = 3 tokens: on shorter ones the JAX package
+    keeps a short conv state and fails (ROADMAP.md Queue 3)."""
+    jm, jp = rec["jax"]
+    keep = [j for j, p in enumerate(REC_PROMPTS) if len(p) >= 3]
+    srv = JaxServer(jm, jp, slots=2, max_len=48)
+    for j in keep:
+        srv.submit(JaxRequest(prompt=list(REC_PROMPTS[j]),
+                              max_new_tokens=REC_MAX_NEW[j], rid=j))
+    got = {r.rid: r.output for r in srv.run_continuous()}
+    assert [got[j] for j in keep] == [rec["solo"][j] for j in keep]
+
+
+def test_recurrent_wave_matches_jax_wave(rec):
+    """The wave scheduler left-pads prompts, and in a recurrent layer the
+    pad tokens enter the state: wave output is not solo output, in either
+    package, and the port's equals JAX's. The prompts are long enough
+    (padded to 34 tokens) that JAX's wave fills RecurrentGemma's 32-slot
+    ring, so its empty-slot fault (ROADMAP.md Queue 3) does not enter."""
+    jm, jp = rec["jax"]
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 256, n).tolist() for n in (34, 20, 31, 3)]
+    outs = []
+    for srv_cls, req_cls, m, p in ((BatchServer, Request, rec["model"],
+                                    rec["params"]),
+                                   (JaxServer, JaxRequest, jm, jp)):
+        srv = srv_cls(m, p, slots=2, max_len=48)
+        for pr in prompts:
+            srv.submit(req_cls(prompt=list(pr), max_new_tokens=5))
+        outs.append([r.output for r in srv.run_all()])
+    assert outs[0] == outs[1]
+    # the pad tokens moved the state: padded logits are not the solo ones
+    model, params = rec["model"], rec["params"]
+    padded, _ = model.prefill(params, {"tokens": torch.tensor(
+        [[0] * 14 + prompts[1]])})
+    alone, _ = model.prefill(params, {"tokens": torch.tensor([prompts[1]])})
+    assert float((padded - alone).abs().max()) > 1e-3
+
+
+def test_recurrent_scatter_slot_carries_the_state(rec):
+    """Admission surgery on caches with recurrent leaves: the slot axis is
+    found in every leaf (stacked Mamba-2 state and conv inputs; the MQA
+    ring's kv-head axis of size 1 is not taken for it), the freed slot's
+    rows become the prefill's exactly, and the other slots' rows do not
+    change."""
+    model, params = rec["model"], rec["params"]
+    slots, slot = 3, 1
+    live = make_slot_caches(model, slots, 48, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    leaves = []
+
+    def fill(key, leaf):
+        if key != "pos":
+            leaf.copy_(torch.randn(leaf.shape, generator=gen))
+        leaves.append((key, leaf))
+        return leaf
+
+    _walk(live, fill)
+    before = [(k, v.clone()) for k, v in leaves]
+    _, pc = model.prefill(params, {"tokens": torch.tensor([[5, 9, 3, 7]])},
+                          max_len=48)
+    pc = _mark_prefill_tail(pc, 4)
+    src = []
+    _walk(pc, lambda k, v: src.append(v) or v)
+    _scatter_slot(live, pc, slot, slots)
+    stacked = not isinstance(live, list)        # Mamba-2: (layers, slots, ...)
+    seen = set()
+    for (key, now), (_, old), s in zip(leaves, before, src):
+        seen.add(key)
+        ax = 1 if stacked else 0
+        if key == "pos":                          # per-slot ring index
+            ax = now.dim() - 2
+            s = s.unsqueeze(ax)
+        for other in (0, 2):
+            assert torch.equal(now.select(ax, other), old.select(ax, other))
+        assert torch.equal(now.narrow(ax, slot, 1), s.to(now.dtype))
+    want = ({"state", "conv_x", "conv_B", "conv_C"} if stacked
+            else {"h", "conv", "k", "v", "pos"})
+    assert seen == want
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "wave"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-780m",
+                                  "recurrentgemma-2b"])
+def test_serve_launcher_serves_every_ported_family(arch, scheduler, capsys):
+    from repro_torch.launch.serve import main
+
+    assert main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                 "--slots", "2", "--max-new", "3", "--scheduler",
+                 scheduler]) == 0
+    out = capsys.readouterr().out
+    assert out.count("-> 3 tokens") == 3
+    assert "served 3 requests" in out
