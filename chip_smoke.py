@@ -14,8 +14,9 @@ window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
 
   1. build    nvcc builds every kernel of all paths from the checkout's
               sources (four), one process per source, all started together;
-              prints the build seconds, ptxas's registers and spills, and
-              the card's name and power limit as nvidia-smi gives them.
+              prints the build seconds, ptxas's registers and spills (and
+              any wgmma wait or fence it had to inject), and the card's
+              name and power limit as nvidia-smi gives them.
   2. kernel   heat2d_sweep's CUDA kernel against its plain version on the
               same inputs: f32 tile (256, 256) with sweeps 1 and 4, tile
               (128, 64) with a random halo ring, and bf16. f32 must be
@@ -71,7 +72,8 @@ window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
               bytes over HBM and the flops of the causal half over the peak
               for the input type (bf16 tensor cores, or f32 CUDA cores);
               both versions' y_diag error against a float64 computation is
-              reported.
+              reported, and with bf16 inputs the kernel's must not exceed
+              the plain version's.
  12. serve    RecurrentGemma-2B as phase 8 (same traffic and checks; the
               counts: 18 lru_scan and 8 flash launches per prefill), plus a
               2047-token prefill and one decode step against the
@@ -700,6 +702,11 @@ def ssd_case(ssd_ops, ssd_ref, dev, card, b, l, h, p, n, chunk,
         ("kernel", ssd_ops.chunk_terms_kernel(xq, dq, A, Bq, Cq, chunk)[0]),
         ("plain", ssd_ref.ssd_chunk_terms(*parts)[0]))}
     del exact
+    if dtype_name == "bf16":
+        # the tensor-core path's split-bf16 products must not cost accuracy
+        check(vs_f64["kernel"] <= vs_f64["plain"],
+              f"ssd kernel's y_diag further from float64 than the plain "
+              f"version's: {vs_f64} at {(b, l, h, p, n)}")
     path_ms = time_ms(lambda: ssd_ops.ssd(x, dt, A, B, C, chunk,
                                           impl="kernel"))
     q = chunk
@@ -766,7 +773,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {Path(src).name: [ln.strip() for ln in log.splitlines()
                               if "Compiling entry" in ln
-                              or "registers" in ln or "spill" in ln]
+                              or "registers" in ln or "spill" in ln
+                              or "injected" in ln]
              for src, (_, log) in built.items()}
     emit({"phase": "build", "seconds": build_s,
           "sources": [KERNEL_SOURCE, FLASH_SOURCE, LRU_SOURCE, SSD_SOURCE],

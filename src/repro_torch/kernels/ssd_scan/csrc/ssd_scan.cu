@@ -17,54 +17,82 @@
 // 52 MB, 0.016 ms at 3.35 TB/s; the operations the causal half needs (C B^T
 // once per chunk, (C B^T o L) @ (x dt) for j <= i and the states product
 // per head) are 3.3 GFLOP, 0.0033 ms at the bf16 tensor-core rate. So the
-// bound is the bytes'. This kernel's own SIMT f32 path has a ceiling of
-// 0.049 ms for those operations at 67 TFLOP/s.
+// bound is the bytes', and the products have to run on the tensor cores to
+// come near it (SIMT f32 alone would take 0.049 ms at 67 TFLOP/s).
 //
-// Design, simple first (tensor cores, TMA and a persistent schedule are
-// later work):
-//   * Everything in f32 on the CUDA cores (SIMT): with f32 inputs the
-//     products must keep f32 accuracy, and one path serves both types
-//     (bf16 inputs are widened as they are loaded).
-//   * One block of 256 threads per (tile, c, b x head group). A head group
-//     is up to G heads (G * p <= 256), which share the C B^T products: the
-//     Pallas grid recomputes them for each of the 48 heads, although B and
-//     C do not depend on the head.
-//   * Blocks of the first kind own 32 rows i of the chunk. They hold those
-//     rows of C in shared memory and walk the key tiles j (32 keys each)
-//     up to their last row only, so the causal half is skipped: for each
-//     tile, C B^T (32 x 32) once, then for each head P = C B^T o L with
-//     exp taken only where j <= i (exp of the positive differences above
-//     the diagonal could overflow), then y += P @ (x dt) into registers.
-//   * Blocks of the second kind own 32 rows of the state and walk the
-//     whole chunk: states += B^T @ (x dt exp(cs_last - cs)).
+// Design, bf16 inputs (the serving path):
+//   * Blocks of 4 warps, of two kinds, per (b, c, group of G heads, slice of
+//     up to 128 columns of a head): G heads share the C B^T products (the
+//     Pallas grid recomputes them per head), G * W <= 128 columns.
+//     - y_diag blocks own 64 rows i (16 a warp) and walk key tiles of 32
+//       rows j up to their last row; a warp whose rows end before a tile
+//       skips it, so only the causal half is computed. Per tile:
+//       S = C B^T on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//       accumulate: the products of bf16 values are exact), then per head
+//       P' = S o L o dt_j in f32 registers (dt goes with P's columns, so
+//       the other operand, x, stays exact in bf16), exp taken only where
+//       j <= i (exp of the positive differences above the diagonal could
+//       overflow), and y += P' @ x on the tensor cores.
+//     - states blocks own 64 state rows and walk the whole chunk:
+//       states += B^T @ (x dt exp(cs_last - cs)), B^T's fragments loaded
+//       from B's rows by ldmatrix.trans; B is exact in bf16.
+//   * Each product has one exact bf16 operand (x, or B) and one f32 one
+//     (P', or x dt exp(cs_last - cs)). The f32 operand is split into three
+//     bf16 parts, v = hi + mid + lo (hi = bf16(v), mid = bf16(v - hi),
+//     lo = bf16(the rest)), about 24 bits, and the three products are
+//     summed in f32 (lo, mid, then hi). Two parts (about 16 bits) were
+//     measured first, emulated on the CPU at the full-width chunk and the
+//     model's decays: y_diag's error against float64 is 1.6e-5 with dt
+//     folded into P (3.1e-5 with hi hi + hi lo + lo hi of P and x dt),
+//     above the plain f32 version's 1.3e-5; three parts give 6.5e-7
+//     (tests/test_torch_ssd.py::
+//     test_kernel_precision_choice_beats_plain_float32).
+//   * mma.sync, not wgmma: the kernel is bound by bytes; the A operands
+//     of y's products (the parts of P') are built in registers between
+//     the products, 16 rows a warp, where a warp's own rows decide what it
+//     skips; and tiles of 16 rows keep ragged chunks cheap.
+//   * Copies: B and C rows and raw x tiles arrive by 16-byte cp.async
+//     (element loads where n is not a multiple of 8) into rows padded by
+//     8 halves (conflict-free ldmatrix), two stages: tile j + 1 loads while
+//     tile j computes. y_diag blocks read x as it arrives; states blocks
+//     split x dt w once per tile into three shared tiles. The outputs go
+//     through shared memory and leave as coalesced 16-byte stores of whole
+//     rows (y_diag is half the bytes).
 //   * Every block first takes cs for its heads: one warp per head scans
-//     the chunk (8 consecutive rows a lane, then a shuffle scan), in f64.
+//     the chunk (consecutive rows a lane, then a shuffle scan), in f64.
 //     cs reaches -180 over a 256-row chunk at the model's decays, where an
 //     f32 ulp is 1.5e-5: kept in f32, the differences cs_i - cs_j near the
 //     diagonal (the largest entries of L) would carry that error, and 48
 //     layers amplify it. In f64 the differences are exact to f32 before
 //     expf.
-//   Any chunk length and any state size up to 256 are taken; the head dim
+//   * The grid puts the heaviest row tiles first.
+//   Any chunk length (ragged tiles are zero-filled and masked) and any
+//   state size up to 256 (padded to 16 with zeros) are taken; the head dim
 //   is one of 8, 16, 32, 64, 128, 256 (an instantiation each).
+//
+// f32 inputs keep a SIMT f32 path (no tensor-core split of f32 is needed
+// there: it serves the all-f32 cases and the f32 model checks): blocks of
+// 256 threads per (32 rows or 32 state rows, c, b x head group of up to 4
+// heads), the same causal skipping, f64 cs and exp rule.
 //
 // C interface, loaded with ctypes: every pointer and the stream are void*.
 // Returns cudaGetLastError() after the launch (0 if none).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 constexpr int kThreads = 256;
 constexpr int kTI = 32;  // rows i per block of the first kind
 constexpr int kTJ = 32;  // keys j per tile
 constexpr int kNB = 32;  // state rows per block of the second kind
 constexpr int kMaxState = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 struct Dims {
   int nc, q, h, n;  // chunks, chunk length, heads, state size
@@ -89,13 +117,13 @@ __host__ __device__ int smem_floats(int q, int n) {
   return 3 * S::G * q + (yarea > sarea ? yarea : sarea);
 }
 
-template <typename T, int P>
+template <int P>
 __global__ void __launch_bounds__(kThreads)
-    ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                     const float* __restrict__ A, const T* __restrict__ B,
-                     const T* __restrict__ C, float* __restrict__ y_diag,
-                     float* __restrict__ states, float* __restrict__ decay_in,
-                     Dims d) {
+    ssd_chunk_simt(const float* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ A, const float* __restrict__ B,
+                   const float* __restrict__ C, float* __restrict__ y_diag,
+                   float* __restrict__ states, float* __restrict__ decay_in,
+                   Dims d) {
   using S = Shape<P>;
   constexpr int G = S::G, GP = S::GP, MP = S::MP;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -161,7 +189,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < kTI * n; e += kThreads) {
       const int r = e / n, k = e % n;
       Cs[r * LDN + k] =
-          i0 + r < q ? to_f(C[(row0 + i0 + r) * n + k]) : 0.f;
+          i0 + r < q ? C[(row0 + i0 + r) * n + k] : 0.f;
     }
     const int i_last = min(q, i0 + kTI) - 1;
     const int ra = tid / 16, ja = tid % 16;  // C B^T: rows ra, ra + 16
@@ -170,12 +198,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = tid; e < kTJ * n; e += kThreads) {
         const int r = e / n, k = e % n;
         Bs[r * LDN + k] =
-            j0 + r < q ? to_f(B[(row0 + j0 + r) * n + k]) : 0.f;
+            j0 + r < q ? B[(row0 + j0 + r) * n + k] : 0.f;
       }
       for (int e = tid; e < kTJ * GP; e += kThreads) {
         const int r = e / GP, col = e % GP, g = col / P;
         const bool ok = j0 + r < q && h0 + g < h;
-        Xs[e] = ok ? to_f(x[((row0 + j0 + r) * h + h0) * P + col]) *
+        Xs[e] = ok ? x[((row0 + j0 + r) * h + h0) * P + col] *
                          dts[g * q + j0 + r]
                    : 0.f;
       }
@@ -253,13 +281,13 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = tid; e < kTJ * kNB; e += kThreads) {
         const int r = e / kNB, k = e % kNB;
         Bs[r * (kNB + 1) + k] = j0 + r < q && n0 + k < n
-                                    ? to_f(B[(row0 + j0 + r) * n + n0 + k])
+                                    ? B[(row0 + j0 + r) * n + n0 + k]
                                     : 0.f;
       }
       for (int e = tid; e < kTJ * GP; e += kThreads) {
         const int r = e / GP, col = e % GP, g = col / P, j = j0 + r;
         const bool ok = j < q && h0 + g < h;
-        Xw[e] = ok ? to_f(x[((row0 + j) * h + h0) * P + col]) *
+        Xw[e] = ok ? x[((row0 + j) * h + h0) * P + col] *
                          dts[g * q + j] *
                          expf((float)(cs[g * q + q - 1] - cs[g * q + j]))
                    : 0.f;
@@ -300,10 +328,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int P>
-int launch(const void* x, const float* dt, const float* A, const void* B,
-           const void* C, float* y_diag, float* states, float* decay_in,
-           int b, int nc, int q, int h, int n, cudaStream_t st) {
+template <int P>
+int launch_simt(const void* x, const float* dt, const float* A,
+                const void* B, const void* C, float* y_diag, float* states,
+                float* decay_in, int b, int nc, int q, int h, int n,
+                cudaStream_t st) {
   using S = Shape<P>;
   Dims d{nc, q, h, n, (h + S::G - 1) / S::G, (q + kTI - 1) / kTI};
   const long long z = (long long)b * d.ngroups;
@@ -311,31 +340,480 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
   if (z > 65535 || nc > 65535 || smem > 232448)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_chunk_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_chunk_simt<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(d.ytiles + (n + kNB - 1) / kNB, nc, (unsigned)z);
-  ssd_chunk_kernel<T, P><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(B),
-      static_cast<const T*>(C), y_diag, states, decay_in, d);
+  ssd_chunk_simt<P><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(x), dt, A, static_cast<const float*>(B),
+      static_cast<const float*>(C), y_diag, states, decay_in, d);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* x, const float* dt, const float* A, const void* B,
-             const void* C, float* y, float* s, float* di, int b, int nc,
-             int q, int h, int p, int n, cudaStream_t st) {
-  switch (p) {
-    case 8: return launch<T, 8>(x, dt, A, B, C, y, s, di, b, nc, q, h, n, st);
-    case 16: return launch<T, 16>(x, dt, A, B, C, y, s, di, b, nc, q, h, n, st);
-    case 32: return launch<T, 32>(x, dt, A, B, C, y, s, di, b, nc, q, h, n, st);
-    case 64: return launch<T, 64>(x, dt, A, B, C, y, s, di, b, nc, q, h, n, st);
-    case 128:
-      return launch<T, 128>(x, dt, A, B, C, y, s, di, b, nc, q, h, n, st);
-    case 256:
-      return launch<T, 256>(x, dt, A, B, C, y, s, di, b, nc, q, h, n, st);
-    default: return (int)cudaErrorInvalidValue;
+
+// ------------------------------------------------- bf16: tensor cores
+constexpr int kTcThreads = 128;  // 4 warps, 16 rows each
+constexpr int kRowsY = 64;       // rows i per y_diag block
+constexpr int kRowsS = 64;       // state rows per states block
+constexpr int kKeys = 32;        // keys j per tile
+
+template <int P>
+struct TcShape {
+  static constexpr int W = P > 128 ? 128 : P;  // columns of a head a block
+  static constexpr int G = P >= 128 ? 1 : (128 / P < 4 ? 128 / P : 4);
+  static constexpr int GW = G * W;             // x columns a block
+  static constexpr int NT = W / 8;             // 8-column tiles a head
+  static constexpr int LDX = GW + 8;           // x tile row, in halves
+  static constexpr int LDO = GW + 4;           // output staging row, floats
+};
+
+// Shared memory of a block, in bytes: cs (f64), dt and (states blocks)
+// dt exp(cs_last - cs) of its heads over the chunk; the B and raw x rings
+// (two stages of kKeys rows each), which the output staging reuses after
+// the last tile; then C's rows (y_diag blocks) or the three split x tiles
+// (states blocks).
+template <int P>
+__host__ __device__ int tc_ring_offset(int q) {
+  return TcShape<P>::G * q * 16;
+}
+
+template <int P>
+__host__ __device__ int tc_union_offset(int q, int np) {
+  const int ring = (2 * kKeys * (np + 8) + 2 * kKeys * TcShape<P>::LDX) * 2;
+  const int staging = kRowsY * TcShape<P>::LDO * 4;
+  return tc_ring_offset<P>(q) + (ring > staging ? ring : staging);
+}
+
+template <int P>
+__host__ __device__ int tc_smem_bytes(int q, int np) {
+  const int c = kRowsY * (np + 8) * 2, xs = 3 * kKeys * TcShape<P>::LDX * 2;
+  return tc_union_offset<P>(q, np) + (c > xs ? c : xs);
+}
+
+struct TcDims {
+  int nc, q, h, n, np;  // chunks, chunk, heads, state, state padded to 16
+  int ngroups, slices, ytiles;
+};
+
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix: four (x4) or two (x2) 8x8 bf16 matrices, lane l giving the
+// address of row l % 8 of matrix l / 8; plain, register i of lane (g, t)
+// holds row g, columns 2t, 2t+1 of matrix i; .trans, rows 2t, 2t+1 of
+// column g.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+constexpr double kLog2e = 1.4426950408889634;
+
+// 2^x by the special-function unit (ex2.approx): about 2 ulp. Its
+// argument is (cs_i - cs_j) log2(e), formed in f64, so L = 2^x keeps that
+// relative accuracy however large |cs| grows.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// v = hi + mid + lo to about 24 bits, each part a bf16
+__device__ __forceinline__ void split3(float v, __nv_bfloat16& hi,
+                                       __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(v);
+  const float r = v - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return (uint32_t)__bfloat16_as_ushort(a) |
+         ((uint32_t)__bfloat16_as_ushort(b) << 16);
+}
+
+// Rows [r0, r0 + rows) of a (q, n) bf16 slab into shared memory rows of
+// np + 8 halves, zeros past q and past n. 16-byte copies where the rows
+// allow them (n a multiple of 8), else element loads.
+__device__ __forceinline__ void load_bc(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* src, int r0,
+                                        int rows, int q, int n, int np,
+                                        int tid) {
+  const int ld = np + 8;
+  if (n % 8 == 0) {
+    for (int e = tid; e < rows * (np / 8); e += kTcThreads) {
+      const int r = e / (np / 8), col = (e % (np / 8)) * 8;
+      const bool ok = r0 + r < q && col < n;
+      cp_async16(dst + r * ld + col,
+                 ok ? src + (long long)(r0 + r) * n + col : src, ok);
+    }
+  } else {
+    for (int e = tid; e < rows * np; e += kTcThreads) {
+      const int r = e / np, col = e % np;
+      dst[r * ld + col] = r0 + r < q && col < n
+                              ? src[(long long)(r0 + r) * n + col]
+                              : __float2bfloat16_rn(0.f);
+    }
   }
+}
+
+// y_diag rows [i0, i0 + 64) (blocks of the first kind) or states rows
+// [n0, n0 + 64) (second kind) of G heads' W columns, for one (b, c).
+template <int P>
+__global__ void __launch_bounds__(kTcThreads, 3)
+    ssd_chunk_tc(const __nv_bfloat16* __restrict__ x,
+                 const float* __restrict__ dt, const float* __restrict__ A,
+                 const __nv_bfloat16* __restrict__ B,
+                 const __nv_bfloat16* __restrict__ C,
+                 float* __restrict__ y_diag, float* __restrict__ states,
+                 float* __restrict__ decay_in, TcDims d) {
+  using S = TcShape<P>;
+  constexpr int G = S::G, W = S::W, GW = S::GW, NT = S::NT, LDX = S::LDX;
+  const int q = d.q, h = d.h, n = d.n, np = d.np, LDN = np + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* cs = reinterpret_cast<double*>(smem);           // [G][q]
+  float* dts = reinterpret_cast<float*>(cs + G * q);      // [G][q]
+  float* wts = dts + G * q;  // [G][q] dt exp(cs_last - cs), states blocks
+  unsigned char* ring = smem + tc_ring_offset<P>(q);
+  // B rows [2][kKeys][LDN], raw x [2][kKeys][LDX]
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(ring);
+  __nv_bfloat16* Xr = Bs + 2 * kKeys * LDN;
+  float* Os = reinterpret_cast<float*>(ring);  // [64][LDO] after the loop
+  unsigned char* uni = smem + tc_union_offset<P>(q, np);
+  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(uni);  // [64][LDN]
+  // states blocks: x dt exp(cs_last - cs) as hi, mid and lo bf16 parts,
+  // [3][kKeys][LDX], where y_diag blocks keep C's rows
+  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(uni);
+
+  int rest = blockIdx.x;
+  const int sl = rest % d.slices;
+  rest /= d.slices;
+  const int grp = rest % d.ngroups;
+  rest /= d.ngroups;
+  const int c = rest % d.nc, bi = rest / d.nc;
+  const int h0 = grp * G, w0 = sl * W;
+  const bool is_y = (int)blockIdx.y < d.ytiles;  // heaviest tiles first
+  const int i0 = is_y ? (d.ytiles - 1 - blockIdx.y) * kRowsY : 0;
+  const int n0 = is_y ? 0 : (blockIdx.y - d.ytiles) * kRowsS;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4, mi = lane / 8;
+  const long long row0 = (long long)bi * d.nc * q + (long long)c * q;
+
+  // tiles of keys: up to the block's last row for y_diag, all for states
+  const int nk = is_y ? (min(q, i0 + kRowsY) - 1) / kKeys + 1
+                      : (q + kKeys - 1) / kKeys;
+  auto load_tile = [&](int kt, int s) {
+    const int j0 = kt * kKeys;
+    load_bc(Bs + s * kKeys * LDN, B + row0 * n, j0, kKeys, q, n, np, tid);
+    __nv_bfloat16* xr = Xr + s * kKeys * LDX;
+    for (int e = tid; e < kKeys * (GW / 8); e += kTcThreads) {
+      const int r = e / (GW / 8), col = (e % (GW / 8)) * 8, g = col / W;
+      const bool ok = j0 + r < q && h0 + g < h;
+      cp_async16(xr + r * LDX + col,
+                 ok ? x + ((row0 + j0 + r) * h + h0 + g) * P + w0 + col % W
+                    : x,
+                 ok);
+    }
+  };
+  if (is_y) load_bc(Cs, C + row0 * n, i0, kRowsY, q, n, np, tid);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  // ---- cs = cumsum(dt * A) over the chunk, in f64: dt of all rows at
+  // once, then one warp per head scans it
+  for (int e = tid; e < q * G; e += kTcThreads) {
+    const int i = e / G, g = e % G;
+    dts[g * q + i] = h0 + g < h ? dt[(row0 + i) * h + h0 + g] : 0.f;
+  }
+  __syncthreads();
+  for (int g = warp; g < G; g += kTcThreads / 32) {
+    const double a = h0 + g < h ? A[h0 + g] : 0.f;
+    const int per = (q + 31) / 32;
+    const int i0s = min(q, lane * per), i1s = min(q, i0s + per);
+    double run = 0.0;
+    for (int i = i0s; i < i1s; ++i) {
+      run += (double)dts[g * q + i] * a;
+      cs[g * q + i] = run;
+    }
+    double incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o *= 2) {
+      const double up = __shfl_up_sync(~0u, incl, o);
+      if (lane >= o) incl += up;
+    }
+    const double excl = incl - run;
+    for (int i = i0s; i < i1s; ++i) cs[g * q + i] += excl;
+  }
+  __syncthreads();
+  if (!is_y) {
+    for (int e = tid; e < q * G; e += kTcThreads) {
+      const int g = e / q;
+      wts[e] = dts[e] * fast_exp2((float)((cs[g * q + q - 1] - cs[e]) *
+                                          kLog2e));
+    }
+  }
+  if (is_y && i0 == 0 && sl == 0) {
+    for (int e = tid; e < q * G; e += kTcThreads) {
+      const int i = e / G, g = e % G;
+      if (h0 + g < h)
+        decay_in[(row0 + i) * h + h0 + g] = expf((float)cs[g * q + i]);
+    }
+  }
+
+  float acc[G][NT][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      acc[g][nt][0] = acc[g][nt][1] = acc[g][nt][2] = acc[g][nt][3] = 0.f;
+
+  // rows of this warp: y_diag rows i (ra, rb) or state rows
+  const int ra = (is_y ? i0 : n0) + 16 * warp + g8, rb = ra + 8;
+  const bool warp_on = is_y ? true : n0 + 16 * warp < np;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt & 1, j0 = kt * kKeys;
+    if (kt + 1 < nk) {
+      load_tile(kt + 1, s ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* xr = Xr + s * kKeys * LDX;
+    const __nv_bfloat16* bt = Bs + s * kKeys * LDN;
+    if (is_y) {
+      // this warp's rows i end before the tile: nothing to add
+      if (j0 <= i0 + 16 * warp + 15) {
+        // S = C B^T, 16 rows x 32 keys, exact products in f32
+        float sc[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+        const __nv_bfloat16* crow =
+            Cs + (16 * warp + (mi & 1) * 8 + lane % 8) * LDN + (mi >> 1) * 8;
+        const __nv_bfloat16* brow =
+            bt + ((mi >> 1) * 8 + lane % 8) * LDN + (mi & 1) * 8;
+        for (int kk = 0; kk < np / 16; ++kk) {
+          uint32_t cf[4];
+          ldsm_x4(cf, crow + kk * 16);
+#pragma unroll
+          for (int nt = 0; nt < 4; nt += 2) {
+            uint32_t bf[4];
+            ldsm_x4(bf, brow + nt * 8 * LDN + kk * 16);
+            mma16816(sc[nt], cf, bf[0], bf[1]);
+            mma16816(sc[nt + 1], cf, bf[2], bf[3]);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const double* csg = cs + g * q;
+          const float* dtg = dts + g * q;
+          const double ca = ra < q ? csg[ra] : 0.0;
+          const double cb = rb < q ? csg[rb] : 0.0;
+          // P' = (S o L) dt_j, exp only where j <= i < q: dt goes with P,
+          // so x stays exact in bf16
+          float pv[4][4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e < 2 ? ra : rb;
+              const int j = j0 + nt * 8 + 2 * t4 + (e & 1);
+              pv[nt][e] = j <= i && i < q
+                              ? sc[nt][e] * dtg[j] *
+                                    fast_exp2((float)(((e < 2 ? ca : cb) -
+                                                       csg[j]) * kLog2e))
+                              : 0.f;
+            }
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            // A fragments of P's 16-key slice ks in three parts
+            uint32_t pa[3][4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float* v = pv[2 * ks + (e >> 1)] + 2 * (e & 1);
+              __nv_bfloat16 hv[2], mv[2], lv[2];
+              split3(v[0], hv[0], mv[0], lv[0]);
+              split3(v[1], hv[1], mv[1], lv[1]);
+              pa[0][e] = pack2(hv[0], hv[1]);
+              pa[1][e] = pack2(mv[0], mv[1]);
+              pa[2][e] = pack2(lv[0], lv[1]);
+            }
+            const __nv_bfloat16* xrow = xr + ks * 16 * LDX + g * W;
+#pragma unroll
+            for (int nt = 0; nt < NT; nt += (NT > 1 ? 2 : 1)) {
+              uint32_t xf[4];
+              if constexpr (NT > 1) {
+                ldsm_x4_t(xf, xrow + ((mi & 1) * 8 + lane % 8) * LDX +
+                                  nt * 8 + (mi >> 1) * 8);
+              } else {
+                ldsm_x2_t(xf, xrow + (lane % 16) * LDX);
+              }
+#pragma unroll
+              for (int u = 0; u < (NT > 1 ? 2 : 1); ++u)
+#pragma unroll
+                for (int z = 2; z >= 0; --z)  // lo, mid, hi
+                  mma16816(acc[g][nt + u], pa[z], xf[2 * u], xf[2 * u + 1]);
+            }
+          }
+        }
+      }
+    } else {
+      // x dt exp(cs_last - cs_j) split into three bf16 parts
+      for (int e = tid; e < kKeys * GW / 2; e += kTcThreads) {
+        const int r = e / (GW / 2), col = (e % (GW / 2)) * 2, g = col / W;
+        const int j = j0 + r;
+        const float f = j < q ? wts[g * q + j] : 0.f;
+        const __nv_bfloat162 raw =
+            *reinterpret_cast<const __nv_bfloat162*>(xr + r * LDX + col);
+        __nv_bfloat16 h0v, m0v, l0v, h1v, m1v, l1v;
+        split3(__bfloat162float(raw.x) * f, h0v, m0v, l0v);
+        split3(__bfloat162float(raw.y) * f, h1v, m1v, l1v);
+        const int at = r * LDX + col;
+        *reinterpret_cast<uint32_t*>(Xs + at) = pack2(h0v, h1v);
+        *reinterpret_cast<uint32_t*>(Xs + kKeys * LDX + at) = pack2(m0v, m1v);
+        *reinterpret_cast<uint32_t*>(Xs + 2 * kKeys * LDX + at) =
+            pack2(l0v, l1v);
+      }
+      __syncthreads();
+      // states += B^T (x dt w): B^T's A fragments from B rows by .trans;
+      // B is exact, so three products (B lo, B mid, B hi)
+      if (warp_on) {
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t bfr[4];
+          ldsm_x4_t(bfr, bt + (ks * 16 + (mi >> 1) * 8 + lane % 8) * LDN +
+                             n0 + 16 * warp + (mi & 1) * 8);
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int nt = 0; nt < NT; nt += (NT > 1 ? 2 : 1))
+#pragma unroll
+              for (int z = 2; z >= 0; --z) {
+                const __nv_bfloat16* xrow =
+                    Xs + z * kKeys * LDX + ks * 16 * LDX + g * W + nt * 8;
+                uint32_t xf[4];
+                if constexpr (NT > 1) {
+                  ldsm_x4_t(xf, xrow + ((mi & 1) * 8 + lane % 8) * LDX +
+                                    (mi >> 1) * 8);
+                } else {
+                  ldsm_x2_t(xf, xrow + (lane % 16) * LDX);
+                }
+#pragma unroll
+                for (int u = 0; u < (NT > 1 ? 2 : 1); ++u)
+                  mma16816(acc[g][nt + u], bfr, xf[2 * u], xf[2 * u + 1]);
+              }
+        }
+      }
+    }
+    __syncthreads();  // stage s and Xs are refilled next
+  }
+
+  // accumulators -> staging rows -> coalesced rows of W floats a head
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = 16 * warp + g8 + (e ? 8 : 0);
+        *reinterpret_cast<float2*>(Os + r * S::LDO + g * W + nt * 8 +
+                                   2 * t4) =
+            make_float2(acc[g][nt][e], acc[g][nt][e + 1]);
+      }
+  __syncthreads();
+  for (int e = tid; e < kRowsY * GW / 4; e += kTcThreads) {
+    const int r = e / (GW / 4), col = (e % (GW / 4)) * 4, g = col / W;
+    if (h0 + g >= h) continue;
+    const float4 v = *reinterpret_cast<const float4*>(Os + r * S::LDO + col);
+    if (is_y) {
+      const int i = i0 + r;
+      if (i < q)
+        *reinterpret_cast<float4*>(
+            y_diag + ((row0 + i) * h + h0 + g) * P + w0 + col % W) = v;
+    } else {
+      const int nn = n0 + r;
+      if (nn < n)
+        *reinterpret_cast<float4*>(
+            states + ((((long long)bi * d.nc + c) * h + h0 + g) * n + nn) * P +
+            w0 + col % W) = v;
+    }
+  }
+}
+
+template <int P>
+int launch_tc(const void* x, const float* dt, const float* A, const void* B,
+              const void* C, float* y_diag, float* states, float* decay_in,
+              int b, int nc, int q, int h, int n, cudaStream_t st) {
+  using S = TcShape<P>;
+  const int np = (n + 15) / 16 * 16;
+  TcDims d{nc, q, h, n, np, (h + S::G - 1) / S::G, P / S::W,
+           (q + kRowsY - 1) / kRowsY};
+  const long long blocks = (long long)b * nc * d.ngroups * d.slices;
+  const int smem = tc_smem_bytes<P>(q, np);
+  if (blocks > 0x7fffffffLL || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_chunk_tc<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)blocks, d.ytiles + (np + kRowsS - 1) / kRowsS);
+  ssd_chunk_tc<P><<<grid, kTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), dt, A,
+      static_cast<const __nv_bfloat16*>(B),
+      static_cast<const __nv_bfloat16*>(C), y_diag, states, decay_in, d);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch(const void* x, const float* dt, const float* A, const void* B,
+           const void* C, float* y, float* s, float* di, int b, int nc,
+           int q, int h, int n, int dtype, cudaStream_t st) {
+  return dtype == 0
+             ? launch_simt<P>(x, dt, A, B, C, y, s, di, b, nc, q, h, n, st)
+             : launch_tc<P>(x, dt, A, B, C, y, s, di, b, nc, q, h, n, st);
 }
 
 }  // namespace
@@ -343,7 +821,7 @@ int dispatch(const void* x, const float* dt, const float* A, const void* B,
 // x (b, nc*q, h, p), B and C (b, nc*q, n): all f32 (dtype 0) or all bf16
 // (dtype 1); dt (b, nc*q, h) and A (h) f32; outputs f32: y_diag
 // (b, nc, q, h, p), states (b, nc, h, n, p), decay_in (b, nc, q, h). All
-// contiguous.
+// contiguous and 16-byte aligned.
 extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
                              const void* B, const void* C, void* y_diag,
                              void* states, void* decay_in, int b, int nc,
@@ -358,8 +836,22 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
   float* y = static_cast<float*>(y_diag);
   float* s = static_cast<float*>(states);
   float* di = static_cast<float*>(decay_in);
-  if (dtype == 0)
-    return dispatch<float>(x, dtf, Af, B, C, y, s, di, b, nc, q, h, p, n, st);
-  return dispatch<__nv_bfloat16>(x, dtf, Af, B, C, y, s, di, b, nc, q, h, p,
-                                 n, st);
+  switch (p) {
+    case 8:
+      return launch<8>(x, dtf, Af, B, C, y, s, di, b, nc, q, h, n, dtype, st);
+    case 16:
+      return launch<16>(x, dtf, Af, B, C, y, s, di, b, nc, q, h, n, dtype, st);
+    case 32:
+      return launch<32>(x, dtf, Af, B, C, y, s, di, b, nc, q, h, n, dtype, st);
+    case 64:
+      return launch<64>(x, dtf, Af, B, C, y, s, di, b, nc, q, h, n, dtype, st);
+    case 128:
+      return launch<128>(x, dtf, Af, B, C, y, s, di, b, nc, q, h, n, dtype,
+                         st);
+    case 256:
+      return launch<256>(x, dtf, Af, B, C, y, s, di, b, nc, q, h, n, dtype,
+                         st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -103,6 +103,11 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
     return _ref.ssd_decode_step_ref(state, x_t, dt_t, A, B_t, C_t)
 
 
+def _aligned(t):
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()  # 16-byte async copies
+
+
 def _kernel_fn():
     fn = _build.load(SOURCE).ssd_chunk_fwd  # nvcc at first use
     if fn.argtypes is None:
@@ -131,7 +136,7 @@ def chunk_terms_kernel(x, dt, A, B, C, chunk: int):
             f"{n} (at most {MAX_STATE}) not supported")
     c = l // chunk
     fn = _kernel_fn()
-    x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
+    x, B, C = _aligned(x), _aligned(B), _aligned(C)
     dt = dt.float().contiguous()
     A = A.float().contiguous()
     dev = x.device

@@ -64,7 +64,11 @@ def _project(p, u: torch.Tensor, cfg: ModelConfig):
     x = u @ p["wx"]
     B = u @ p["wB"]
     C = u @ p["wC"]
-    dt = F.softplus(u.float() @ p["wdt"].float() + p["dt_bias"])
+    # dt's f32 projection is summed in f64 and rounded once, which gives
+    # the correctly rounded f32 result whatever order the GEMM sums in: on
+    # CUDA a 1-row f32 product takes another path than an 8-row one, and a
+    # request's decode must not depend on how many slots run beside it
+    dt = F.softplus((u.double() @ p["wdt"].double()).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     return z, x, B, C, dt, A
 

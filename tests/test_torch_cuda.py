@@ -143,10 +143,27 @@ FLASH_CASES = [  # (b, sq, sk, hq, hkv, d, causal, window)
     (1, 300, 300, 10, 1, 256, True, 128),      # head dim 256, MQA, window
     (2, 70, 70, 4, 2, 256, True, None),        # head dim 256, ragged
 ]
+# the bf16 kernel's edges: 128-row query tiles, key tiles of 128 (head dim
+# 256: 64), TMA boxes past the end of q and k
+FLASH_BF16_CASES = [
+    (1, 129, 129, 8, 2, 128, True, None),      # one row past a query tile
+    (2, 191, 191, 4, 1, 128, False, None),     # ragged q and key tiles
+    (1, 200, 50, 8, 2, 128, True, None),       # sk < one key tile, sq > sk
+    (1, 300, 40, 4, 4, 256, False, 16),        # the same at head dim 256
+    (8, 2048, 2048, 32, 8, 128, True, None),   # Qwen3-8B wave prefill
+    (1, 700, 700, 10, 1, 256, True, 100),      # window ends inside a tile
+    (2, 300, 300, 8, 2, 32, True, None),       # head dim 32 (64-byte rows)
+    (2, 300, 300, 8, 2, 32, False, None),
+    (1, 257, 257, 4, 4, 64, True, None),       # head dim 64
+    (1, 257, 257, 4, 4, 64, False, None),
+]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window", FLASH_CASES)
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,d,causal,window,dtype",
+    [c + (dt,) for c in FLASH_CASES
+     for dt in (torch.bfloat16, torch.float32)]
+    + [c + (torch.bfloat16,) for c in FLASH_BF16_CASES])
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, hq, hkv, d, causal,
                                     window, dtype):
     gen = torch.Generator(device=cuda).manual_seed(sq * 7 + sk)
@@ -248,6 +265,15 @@ SSD_CASES = [  # (b, l, h, p, n, chunk, dtype, initial state)
     (1, 64, 2, 128, 16, 32, torch.float32, False),   # head dim 128
     (1, 40, 1, 256, 8, 40, torch.float32, False),    # head dim 256, 1 chunk
     (1, 7, 4, 32, 130, 7, torch.float32, False),     # odd state and chunk
+    # the bf16 (tensor-core) kernel's edges
+    (1, 120, 4, 64, 32, 40, torch.bfloat16, False),  # chunk 40: not 16k
+    (1, 256, 4, 64, 130, 64, torch.bfloat16, False),  # state 130
+    (1, 128, 6, 16, 64, 64, torch.bfloat16, False),  # head dim 16
+    (1, 128, 3, 128, 64, 64, torch.bfloat16, False),  # head dim 128
+    (2, 96, 5, 64, 32, 32, torch.bfloat16, False),   # partial head group
+    (1, 1000, 6, 64, 128, 256, torch.bfloat16, True),  # ragged, carried
+    (1, 64, 2, 256, 16, 32, torch.bfloat16, False),  # two column slices
+    (1, 64, 5, 8, 16, 32, torch.bfloat16, True),     # head dim 8
 ]
 
 
