@@ -19,7 +19,11 @@ window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
               name and power limit as nvidia-smi gives them.
   2. kernel   heat2d_sweep's CUDA kernel against its plain version on the
               same inputs: f32 tile (256, 256) with sweeps 1 and 4, tile
-              (128, 64) with a random halo ring, and bf16. f32 must be
+              (128, 64) with a random halo ring, and bf16, all on the
+              kernel's path "cluster_smem" (a tile held in the shared memory
+              of a thread-block cluster), and f32 tile (1024, 1024), too
+              large for that, on path "global"; each row names its path and
+              cluster size. f32 must be
               bit-equal (same IEEE operations in the same order, no FMA);
               bf16 within one bf16 ulp after the cast. Kernel and plain
               times are CUDA-event means of 10 back-to-back runs, the
@@ -62,7 +66,13 @@ window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
               2560) f32 (a RecurrentGemma admission prefill), (8, 1000,
               2560) with a random h0, a width of 100, length 1, bf16 b;
               tolerance 1e-5 (the JAX suite's), bf16 h within one bf16 ulp
-              plus 1e-5; bound_ms from the bytes (a, b in, h out).
+              plus 1e-5; bound_ms from the bytes (a, b in, h out);
+              kernel_ms times the wrapper, as for every kernel, and
+              launch_ms the kernel's C function alone, called with
+              arguments prepared once into outputs made once (the kernel
+              takes about as long as the wrapper's host work); each row
+              names the launch shape (blocks of a cluster along the
+              sequence, warps a block, steps a thread).
  11. ssd      ssd_scan's CUDA kernel against its plain version: (1, 2048,
               48, 64, 128) chunk 256 with bf16 x/B/C and f32 dt/A (a
               Mamba-2 admission prefill), a ragged 1000, a small all-f32
@@ -152,6 +162,9 @@ PER_PREFILL = {"qwen3-8b": {"flash_attention": 36},
                "recurrentgemma-2b": {"lru_scan": 18, "flash_attention": 8},
                "mamba2-780m": {"ssd_scan": 48}}
 FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}  # tests/test_kernels.py's
+# names of the port's CUDA kernels in a trace (their __global__ functions)
+PORT_KERNELS = ("tile_sweep", "half_sweep", "flash_fwd", "lru_scan_kernel",
+                "ssd_chunk")
 SLOTS, MAX_LEN, REQUESTS, NEW_TOKENS = 8, 2176, 16, 64
 # Bounds on |logit difference| between two bf16 runs of a full-width model
 # that differ only in where they round (flash vs dense attention; the
@@ -224,9 +237,10 @@ def sweep_bound_ms(nx: int, ny: int, itemsize: int, sweeps: int,
 
 def traced(fn) -> dict:
     """Run `fn` once under torch.profiler (after the caller's warm-up):
-    device time per CUDA kernel, and the device's busy time against the
-    wall clock of the traced window (which the tracing itself lengthens, so
-    the idle share is an upper bound)."""
+    device time per CUDA kernel (the 8 largest, and every kernel of the
+    port's sources), and the device's busy time against the wall clock of
+    the traced window (which the tracing itself lengthens, so the idle
+    share is an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -245,10 +259,13 @@ def traced(fn) -> dict:
                if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    ours = [e for e in kernels if any(k in e.key for k in PORT_KERNELS)]
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall,
             "top_kernels": [{"name": e.key[:100], "count": e.count,
-                             "ms": dev_us(e) / 1e3} for e in top]}
+                             "ms": dev_us(e) / 1e3} for e in top],
+            "port_kernels": [{"name": e.key[:100], "count": e.count,
+                              "ms": dev_us(e) / 1e3} for e in ours]}
 
 
 def profile_solve(solve, u0, mesh, mode: str, card: str) -> dict:
@@ -607,6 +624,27 @@ def serve_profile(serve, phase: int, dev, card) -> dict:
     return row
 
 
+def lru_launch_only(lru_ops, a, x, h0):
+    """A callable that launches the lru_scan kernel's C function on `a`,
+    `x`, `h0` (contiguous; h0 f32 or None) with arguments prepared once,
+    into outputs made once: the kernel's time without the wrapper's host
+    work. These launches are not counted."""
+    fn = lru_ops._library().lru_scan_fwd
+    h = torch.empty_like(x)
+    h_last = torch.empty((a.shape[0], a.shape[2]), dtype=torch.float32,
+                         device=a.device)
+    args = (a.data_ptr(), x.data_ptr(), None if h0 is None else h0.data_ptr(),
+            h.data_ptr(), h_last.data_ptr(), *a.shape,
+            lru_ops._DTYPES[a.dtype], lru_ops._DTYPES[x.dtype],
+            torch.cuda.current_stream(a.device).cuda_stream)
+
+    def run(outputs=(h, h_last)):   # the outputs live as long as `run`
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"lru_scan launch failed: CUDA error {err}")
+    return run
+
+
 def lru_case(lru_ops, dev, card, b, l, w, b_dtype, with_h0) -> dict:
     """The lru_scan kernel against its plain version at one shape:
     CUDA-event times (time_ms); bound from the bytes (a and b read, h
@@ -618,6 +656,7 @@ def lru_case(lru_ops, dev, card, b, l, w, b_dtype, with_h0) -> dict:
     h0 = (torch.randn((b, w), generator=gen, device=dev) if with_h0
           else None)
     gh, gl = lru_ops.lru_scan(a, x, h0, "kernel")
+    plan = lru_ops.lru_scan.last_plan
     wh, wl = lru_ops.lru_scan(a, x, h0, "plain")
     torch.cuda.synchronize()
     dh = (gh.float() - wh.float()).abs()
@@ -631,14 +670,16 @@ def lru_case(lru_ops, dev, card, b, l, w, b_dtype, with_h0) -> dict:
           f"lru kernel off plain by {err} at {(b, l, w, b_dtype)}")
     del gh, gl, wh, wl, dh, dl
     k_ms = time_ms(lambda: lru_ops.lru_scan(a, x, h0, "kernel"))
+    l_ms = time_ms(lru_launch_only(lru_ops, a, x, h0))
     p_ms = time_ms(lambda: lru_ops.lru_scan(a, x, h0, "plain"), reps=3)
     nbytes = (a.numel() * a.element_size() + 2 * x.numel() * x.element_size()
               + (2 if with_h0 else 1) * b * w * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * b * l * w / F32_FLOPS * 1e3
     row = {"phase": "lru", "shape": [b, l, w], "b_dtype": b_dtype,
-           "h0": with_h0, "max_abs_err": err, "kernel_ms": k_ms,
-           "plain_ms": p_ms, "library_ms": None,
+           "h0": with_h0, "cluster": plan["cluster"], "warps": plan["warps"],
+           "steps": plan["steps"], "max_abs_err": err, "kernel_ms": k_ms,
+           "launch_ms": l_ms, "plain_ms": p_ms, "library_ms": None,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "mbytes": nbytes / 1e6, "kernel_gb_per_s": nbytes / k_ms / 1e6,
@@ -788,12 +829,15 @@ def main() -> int:
             torch.randn((N, 1), generator=gen, device=dev),
             torch.randn((N, 1), generator=gen, device=dev))
     cases = [("f32", (256, 256), 1, None), ("f32", (256, 256), 4, None),
-             ("f32", (128, 64), 1, ring), ("bf16", (256, 256), 1, None)]
+             ("f32", (128, 64), 1, ring), ("bf16", (256, 256), 1, None),
+             ("f32", (1024, 1024), 1, None)]   # too large: path "global"
     kernel_rows = []
     for dtype_name, tile, sweeps, halo in cases:
         x = u if dtype_name == "f32" else u.to(torch.bfloat16)
         launched = heat_ops.heat2d_sweep.launches
         got = heat_ops.heat2d_sweep(x, tile, sweeps, "kernel", halo)
+        path = heat_ops.heat2d_sweep.last_path
+        cluster = heat_ops.heat2d_sweep.last_cluster
         want = heat_ops.heat2d_sweep(x, tile, sweeps, "plain", halo)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -813,7 +857,8 @@ def main() -> int:
                                          halo is not None)
         row = {"phase": "kernel", "dtype": dtype_name, "shape": [N, N],
                "tile": list(tile), "sweeps": sweeps,
-               "halo": halo is not None, "max_abs_err": err,
+               "halo": halo is not None, "path": path, "cluster": cluster,
+               "max_abs_err": err,
                "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                "bound_by": bound_by,
                "launches": heat_ops.heat2d_sweep.launches - launched,
@@ -821,6 +866,8 @@ def main() -> int:
         emit(row)
         kernel_rows.append(row)
         del x
+    check([r["path"] for r in kernel_rows] == ["cluster_smem"] * 4
+          + ["global"], "a tile took the wrong kernel path")
     # reference for the sharded sweep: the kernel with a zero ring
     zeros = (torch.zeros((1, N), device=dev), torch.zeros((1, N), device=dev),
              torch.zeros((N, 1), device=dev), torch.zeros((N, 1), device=dev))

@@ -4,7 +4,11 @@
 (``csrc/heat2d.cu``) for a CUDA tensor and runs the plain PyTorch version
 (:mod:`.ref`) for a CPU tensor; ``"plain"`` forces the plain version and
 ``"kernel"`` on a CPU tensor raises. There is no fallback from the kernel to
-the plain version. ``heat2d_sweep.launches`` counts the kernel launches.
+the plain version. ``heat2d_sweep.launches`` counts the kernel calls (one
+a call, whichever path ran); ``heat2d_sweep.last_path`` names the kernel's
+path of the last one: "cluster_smem" (a tile held in the shared memory of a
+thread-block cluster, one launch) or "global" (a tile too large for that,
+swept in global memory). :func:`kernel_plan` says which path a tile takes.
 """
 from __future__ import annotations
 
@@ -79,19 +83,44 @@ def heat2d_sweep(u: torch.Tensor, tile=(256, 256), sweeps: int = 1,
 
 
 heat2d_sweep.launches = 0
+heat2d_sweep.last_path = None   # "cluster_smem" or "global", kernel calls only
+heat2d_sweep.last_cluster = 0   # blocks a tile is split over (0: global)
+
+
+def _library():
+    lib = _build.load(SOURCE)  # nvcc at first use
+    if lib.heat2d_sweep.argtypes is None:
+        lib.heat2d_sweep.restype = ctypes.c_int
+        lib.heat2d_sweep.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.heat2d_plan.restype = ctypes.c_int
+        lib.heat2d_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
+    return lib
+
+
+def kernel_plan(tile):
+    """The kernel's path for a (clamped) tile, from its shape alone:
+    ("cluster_smem", blocks a tile is split over, shared memory a block)
+    or ("global", 0, 0). Builds the kernel at first use."""
+    smem = ctypes.c_longlong(0)
+    nc = _library().heat2d_plan(int(tile[0]), int(tile[1]),
+                                ctypes.byref(smem))
+    return ("cluster_smem" if nc else "global"), nc, smem.value
 
 
 def _launch(u, tx, ty, sweeps, halo):
-    lib = _build.load(SOURCE)  # nvcc at first use, on the machine with the card
-    fn = lib.heat2d_sweep
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    lib = _library()
+    path, nc, _ = kernel_plan((tx, ty))
     u = u.contiguous()
+    if u.data_ptr() % 16:   # the kernel loads 16-byte (bf16: 8-byte) runs
+        u = u.clone()
     nx, ny = u.shape
     out = torch.empty_like(u)
-    work = out if u.dtype == torch.float32 else torch.empty(
-        (nx, ny), dtype=torch.float32, device=u.device)
+    work = None   # the global path's f32 working grid
+    if path == "global":
+        work = out if u.dtype == torch.float32 else torch.empty(
+            (nx, ny), dtype=torch.float32, device=u.device)
     strips = [None] * 4
     if halo is not None:
         strips = [h.to(device=u.device, dtype=torch.float32).contiguous()
@@ -102,11 +131,15 @@ def _launch(u, tx, ty, sweeps, halo):
 
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = fn(ptr(u), ptr(out), ptr(work), *[ptr(s) for s in strips],
-                 nx, ny, tx, ty, sweeps, _DTYPES[u.dtype], stream)
+        err = lib.heat2d_sweep(ptr(u), ptr(out), ptr(work),
+                               *[ptr(s) for s in strips], nx, ny, tx, ty,
+                               sweeps, _DTYPES[u.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"heat2d kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"heat2d kernel launch failed ({path} path, cluster {nc}): "
+            f"CUDA error {err}")
     heat2d_sweep.launches += 1
+    heat2d_sweep.last_path, heat2d_sweep.last_cluster = path, nc
     return out
 
 

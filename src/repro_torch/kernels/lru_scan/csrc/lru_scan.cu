@@ -9,36 +9,74 @@
 //
 // Bound: bytes. The recurrence does 2 flops per element and moves a and b
 // in and h out: at (1, 2048, 2560) f32 that is 63 MB, 0.019 ms at
-// 3.35 TB/s. The TPU kernel's point is one HBM load and store per element
-// through chunks resident in VMEM, with the carry in scratch across a
-// sequential grid. Here no grid step follows another, and at batch 1 the
-// width alone gives only 2,560 independent chains (80 warps for 132 SMs),
-// each a chain of dependent FMAs, so the design is a two-pass scan over
-// sequence segments:
-//   * one block per (32 channels, batch row); its warps own consecutive
-//     sequence segments (up to 32 of them), and lane = channel, so every
-//     load and store of a warp is one coalesced 128-byte row (f32);
-//   * pass 1: each warp runs its segment from h = 0 and keeps the segment's
-//     composition (prod a, h_end) in shared memory;
-//   * each warp folds the compositions of the segments before it into its
-//     carry-in (h0 or 0 first), in order;
-//   * pass 2: each warp runs its segment again from its carry-in and writes
-//     h; the warp holding the last step writes h_last.
-//   Loads are issued 8 steps ahead of the FMAs that use them (they do not
-//   depend on h), so each warp keeps 16 loads in flight. a and b are read
-//   twice (the second time mostly from the 50 MB L2) and h written once.
+// 3.35 TB/s. The TPU kernel reads each element once through chunks resident
+// in VMEM, with the carry in scratch across a sequential grid. Here no grid
+// step follows another, and at batch 1 the width alone gives only 2,560
+// independent chains, so the sequence is cut into segments and the carry
+// is composed across them, with one HBM read of a and b and one write of h:
+//   * lane = channel, so every warp access is one coalesced 128-byte row
+//     (f32); a thread owns kSteps consecutive steps of one channel (a
+//     segment) and loads all of them into registers at once;
+//   * it composes its segment from h = 0 into (prod a, h_end); warp 0
+//     composes the block's segments in sequence order, through shared
+//     memory, into the block's pair;
+//   * a thread-block cluster of up to kMaxCluster blocks lies along the
+//     sequence. After one cluster barrier, warp r copies block r's pair
+//     (distributed shared memory) into its own block's shared memory, so
+//     every remote read is in flight at once; each thread folds the pairs
+//     of the blocks before its own, then the segments before its own, into
+//     its carry-in, and warp 0 folds all of them into the carry past the
+//     cluster's span;
+//   * every thread replays its segment from the registers, starting from
+//     its carry-in, and writes h; the thread holding the last step writes
+//     h_last;
+//   * the unit of work is one span (cluster * kWarps * kSteps steps) of one
+//     channel group (32 channels of one batch row). The grid holds as many
+//     clusters as the card keeps resident at once
+//     (cudaOccupancyMaxActiveClusters), and each walks its channel groups'
+//     spans in sequence order, the carry past one span being the carry into
+//     the next, and loads the next span's steps while it composes this
+//     one: the loads of one span overlap the barriers of the other. No
+//     second kernel, no flag in global memory.
+//   The cluster has ceil(seq / (kWarps * kSteps)) blocks, at most
+//   kMaxCluster.
+//
+// Launch: cudaLaunchKernelEx with cudaLaunchAttributeClusterDimension
+// (1, cluster, 1). A cluster shape the card cannot schedule is refused
+// there (or by the occupancy query); the error is returned to the
+// wrapper, which raises.
+//
+// Tuning: kSteps, kWarps, kMaxCluster and kMinBlocks (the blocks an SM
+// must hold, which caps the registers) were chosen by timing copies of
+// this source with other values side by side (tools/kernel_variants.py).
+// The committed choice, 16 steps, 8 warps, clusters of up to 8 blocks and
+// 2 blocks an SM (120-124 registers, no spills), launches in 0.0343 ms at
+// the RecurrentGemma-2B prefill's (1, 2048, 2560) f32, against 0.0355 for
+// 8 steps at 4 blocks an SM, 0.0364 for clusters of 4 and 0.0430 for 16
+// warps; at (8, 1000, 2560) 8 steps and clusters of 4 win by 5-7%
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md has the run).
+//
+// Numerics: the carry is f32 and every update is one fmaf, as before; the
+// products of a and the segment sums round where the composition puts
+// them, which stays within the JAX suite's 1e-5 of the plain version
+// (tests/test_torch_lru.py emulates this order on the CPU).
 //
 // C interface, loaded with ctypes: every pointer and the stream are void*;
-// h0 may be null. Returns cudaGetLastError() after the launch (0 if none).
+// h0 may be null. Returns the launch's error (0 if none).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kLanes = 32;   // channels per block
-constexpr int kMaxSeg = 32;  // sequence segments (warps) per block
-constexpr int kAhead = 8;    // steps loaded before they are used
+constexpr int kLanes = 32;      // channels per block
+constexpr int kSteps = 16;      // steps a thread holds
+constexpr int kWarps = 8;       // segments (warps) per block
+constexpr int kMaxCluster = 8;  // blocks along the sequence
+constexpr int kMinBlocks = 2;   // blocks an SM must hold (caps the registers)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -55,83 +93,210 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// kAhead steps of a and b from step t on; steps at or past t1 (and lanes
-// past the width) are the identity (a = 1, b = 0).
+// The kSteps steps of segment `seg` (steps seg * kSteps on) of one channel,
+// all loads issued before any is used; steps past the end (and lanes past
+// the width) are the identity (a = 1, b = 0).
 template <typename TA, typename TB>
-__device__ __forceinline__ void load_steps(const TA* ap, const TB* bp, int t,
-                                           int t1, int w, bool ok,
-                                           float (&av)[kAhead],
-                                           float (&bv)[kAhead]) {
+__device__ __forceinline__ void load_steps(const TA* ap, const TB* bp,
+                                           int seg, int l, int w, bool ok,
+                                           float (&av)[kSteps],
+                                           float (&bv)[kSteps]) {
+  const int t0 = seg * kSteps;
 #pragma unroll
-  for (int u = 0; u < kAhead; ++u) {
-    const bool in = ok && t + u < t1;
-    av[u] = in ? to_f(ap[(long long)(t + u) * w]) : 1.f;
-    bv[u] = in ? to_f(bp[(long long)(t + u) * w]) : 0.f;
+  for (int u = 0; u < kSteps; ++u) {
+    const bool in = ok && t0 + u < l;
+    av[u] = in ? to_f(ap[(long long)(t0 + u) * w]) : 1.f;
+    bv[u] = in ? to_f(bp[(long long)(t0 + u) * w]) : 0.f;
   }
 }
 
+// One work item of a cluster: span `span_idx` of the channel group
+// `group` (32 channels of one batch row).
+struct Item {
+  long long base;  // offset of (row, step 0, this lane's channel)
+  long long hrow;  // offset of (row, this lane's channel) in h0 and h_last
+  int span_idx;
+  bool ok;         // this lane's channel is inside the width
+};
+
+__device__ __forceinline__ Item locate(int q, int nspan, int gw, int l,
+                                       int w) {
+  const int group = blockIdx.x + (q / nspan) * gridDim.x;
+  const int row = group / gw;
+  const int ch = (group - row * gw) * kLanes + threadIdx.x;
+  Item it;
+  it.ok = ch < w;
+  it.hrow = (long long)row * w + (it.ok ? ch : 0);
+  it.base = (long long)row * l * w + (it.ok ? ch : 0);
+  it.span_idx = q % nspan;
+  return it;
+}
+
+// A persistent cluster of nc blocks along the sequence (grid (P, nc), P
+// clusters resident at once) walks its work items: channel groups
+// blockIdx.x, blockIdx.x + P, ..., each span by span in sequence order.
 template <typename TA, typename TB>
-__global__ void __launch_bounds__(kLanes* kMaxSeg)
+__global__ void __launch_bounds__(kLanes* kWarps, kMinBlocks)
     lru_scan_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
                     const float* __restrict__ h0, TB* __restrict__ h,
-                    float* __restrict__ h_last, int l, int w, int seg) {
-  __shared__ float ps[kMaxSeg][kLanes];
-  __shared__ float hs[kMaxSeg][kLanes];
-  const int lane = threadIdx.x, s = threadIdx.y, row = blockIdx.y;
-  const int ch = blockIdx.x * kLanes + lane;
-  const bool ok = ch < w;
-  const int t0 = min(l, s * seg), t1 = min(l, t0 + seg);
-  const long long base = (long long)row * l * w + (ok ? ch : 0);
-  const TA* ap = a + base;
-  const TB* bp = b + base;
+                    float* __restrict__ h_last, int batch, int l, int w) {
+  __shared__ float seg_p[kWarps][kLanes], seg_h[kWarps][kLanes];
+  __shared__ float blk_p[2][kLanes], blk_h[2][kLanes];  // by item parity
+  __shared__ float rem_p[kMaxCluster][kLanes], rem_h[kMaxCluster][kLanes];
+  __shared__ float carry_s[2][kLanes];  // into the item, by item parity
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int seg0 = rank * kWarps + warp;  // this thread's segment in a span
+  const int span = nc * kWarps * kSteps;
+  const int nspan = (l + span - 1) / span;
+  const int gw = (w + kLanes - 1) / kLanes;
+  const int groups = gw * batch;
+  const int mine_groups =
+      groups > (int)blockIdx.x
+          ? (groups - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
+          : 0;
+  const int items = mine_groups * nspan;
 
-  // pass 1: the segment's composition from h = 0
-  float prod = 1.f, hend = 0.f;
-  for (int t = t0; t < t1; t += kAhead) {
-    float av[kAhead], bv[kAhead];
-    load_steps(ap, bp, t, t1, w, ok, av, bv);
+  float av[kSteps], bv[kSteps], an[kSteps], bn[kSteps];
+  if (items > 0) {
+    const Item nx = locate(0, nspan, gw, l, w);
+    load_steps(a + nx.base, b + nx.base, seg0, l, w, nx.ok, an, bn);
+  }
+  for (int q = 0, par = 0; q < items; ++q, par ^= 1) {
+    const Item it = locate(q, nspan, gw, l, w);
+    const int t0 = (it.span_idx * nc * kWarps + seg0) * kSteps;
 #pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
+    for (int u = 0; u < kSteps; ++u) {  // loaded during the last item
+      av[u] = an[u];
+      bv[u] = bn[u];
+    }
+    if (q + 1 < items) {  // the next item's steps, while this one composes
+      const Item nx = locate(q + 1, nspan, gw, l, w);
+      load_steps(a + nx.base, b + nx.base,
+                 nx.span_idx * nc * kWarps + seg0, l, w, nx.ok, an, bn);
+    }
+    if (warp == 0 && it.span_idx == 0)  // a group starts from h0 (or 0)
+      carry_s[par][lane] = (h0 != nullptr && it.ok) ? h0[it.hrow] : 0.f;
+    float prod = 1.f, hend = 0.f;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
       hend = fmaf(av[u], hend, bv[u]);
       prod *= av[u];
     }
-  }
-  ps[s][lane] = prod;
-  hs[s][lane] = hend;
-  __syncthreads();
-
-  // carry-in: h0 (or 0) through the segments before this one, in order
-  float hh = (h0 != nullptr && ok) ? h0[(long long)row * w + ch] : 0.f;
-  for (int j = 0; j < s; ++j) hh = fmaf(ps[j][lane], hh, hs[j][lane]);
-
-  // pass 2: the segment again from its carry-in, writing h
-  TB* hp = h + base;
-  for (int t = t0; t < t1; t += kAhead) {
-    float av[kAhead], bv[kAhead];
-    load_steps(ap, bp, t, t1, w, ok, av, bv);
+    seg_p[warp][lane] = prod;
+    seg_h[warp][lane] = hend;
+    __syncthreads();
+    if (warp == 0) {  // the block's pair, segments in order
+      float pp = 1.f, hh = 0.f;
 #pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      hh = fmaf(av[u], hh, bv[u]);
-      if (ok && t + u < t1) hp[(long long)(t + u) * w] = from_f<TB>(hh);
+      for (int j = 0; j < kWarps; ++j) {
+        hh = fmaf(seg_p[j][lane], hh, seg_h[j][lane]);
+        pp *= seg_p[j][lane];
+      }
+      blk_p[par][lane] = pp;
+      blk_h[par][lane] = hh;
     }
+    cluster.sync();  // every block's pair is published
+    for (int r = warp; r < nc; r += kWarps) {  // warp r fetches block r's
+      rem_p[r][lane] = cluster.map_shared_rank(&blk_p[par][0], r)[lane];
+      rem_h[r][lane] = cluster.map_shared_rank(&blk_h[par][0], r)[lane];
+    }
+    __syncthreads();
+    // this thread's carry-in: the item's carry through the blocks before
+    // this one, then through the segments before this one
+    float hh = carry_s[par][lane];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster - 1; ++r)
+      if (r < rank) hh = fmaf(rem_p[r][lane], hh, rem_h[r][lane]);
+    if (warp == 0) {  // the carry into the next span of this group
+      float hc = hh;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r >= rank && r < nc) hc = fmaf(rem_p[r][lane], hc, rem_h[r][lane]);
+      carry_s[par ^ 1][lane] = hc;
+    }
+#pragma unroll
+    for (int j = 0; j < kWarps - 1; ++j)
+      if (j < warp) hh = fmaf(seg_p[j][lane], hh, seg_h[j][lane]);
+    TB* hp = h + it.base;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      hh = fmaf(av[u], hh, bv[u]);
+      if (it.ok && t0 + u < l) {
+        hp[(long long)(t0 + u) * w] = from_f<TB>(hh);
+        if (t0 + u == l - 1) h_last[it.hrow] = hh;
+      }
+    }
+    __syncthreads();  // seg_*, rem_* and carry_s are rewritten next item
   }
-  if (ok && t0 < t1 && t1 == l) h_last[(long long)row * w + ch] = hh;
+  // The next item's pairs go to the other parity buffer, so one barrier an
+  // item suffices; this last one keeps every block's shared memory alive
+  // until the other blocks have read it.
+  cluster.sync();
+}
+
+// Blocks along the sequence for a length: enough to cover it with one span,
+// at most kMaxCluster.
+int cluster_for(int l) {
+  const int per_block = kWarps * kSteps;
+  const int need = (l + per_block - 1) / per_block;
+  return need < kMaxCluster ? need : kMaxCluster;
 }
 
 template <typename TA, typename TB>
 int launch(const void* a, const void* b, const float* h0, void* h,
            float* h_last, int batch, int l, int w, cudaStream_t st) {
-  const int nseg = l < kMaxSeg ? l : kMaxSeg;
-  const int seg = (l + nseg - 1) / nseg;
-  const dim3 block(kLanes, nseg);
-  const dim3 grid((w + kLanes - 1) / kLanes, batch);
-  lru_scan_kernel<TA, TB><<<grid, block, 0, st>>>(
-      static_cast<const TA*>(a), static_cast<const TB*>(b), h0,
-      static_cast<TB*>(h), h_last, l, w, seg);
+  const int nc = cluster_for(l);
+  const long long groups = (long long)((w + kLanes - 1) / kLanes) * batch;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kLanes, kWarps);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = nc;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // as many clusters as are resident at once (asked once per cluster size
+  // and device), at most one per channel group
+  static int resident[kMaxCluster + 1][64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int& p = resident[nc][dev & 63];
+  if (p == 0) {
+    cfg.gridDim = dim3(1, nc, 1);
+    err = cudaOccupancyMaxActiveClusters(&p, lru_scan_kernel<TA, TB>, &cfg);
+    if (err != cudaSuccess || p < 1) {
+      cudaGetLastError();
+      p = 0;
+      return (int)(err != cudaSuccess ? err : cudaErrorLaunchOutOfResources);
+    }
+  }
+  cfg.gridDim = dim3((unsigned)(groups < p ? groups : p), nc, 1);
+  err = cudaLaunchKernelEx(&cfg, lru_scan_kernel<TA, TB>,
+                           static_cast<const TA*>(a),
+                           static_cast<const TB*>(b), h0, static_cast<TB*>(h),
+                           h_last, batch, l, w);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the next launch must not see it
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// The launch shape for a sequence length: {cluster, warps, steps}.
+extern "C" void lru_scan_plan(int l, int* out) {
+  out[0] = cluster_for(l < 1 ? 1 : l);
+  out[1] = kWarps;
+  out[2] = kSteps;
+}
 
 // a, b, h: (batch, seq, width) contiguous; h0 (batch, width) f32 or null;
 // h_last (batch, width) f32. a_dtype and b_dtype: 0 = float32, 1 = bf16;
@@ -139,7 +304,9 @@ int launch(const void* a, const void* b, const float* h0, void* h,
 extern "C" int lru_scan_fwd(const void* a, const void* b, const void* h0,
                             void* h, void* h_last, int batch, int l, int w,
                             int a_dtype, int b_dtype, void* stream) {
-  if (batch < 1 || batch > 65535 || l < 1 || w < 1 || a_dtype < 0 ||
+  if (batch < 1 || l < 1 || w < 1 ||
+      (long long)((w + kLanes - 1) / kLanes) * batch > 0x7fffffff ||
+      a_dtype < 0 ||
       a_dtype > 1 || b_dtype < 0 || b_dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -13,6 +13,7 @@ prefill, say, a 1000-token prompt through it (``ROADMAP.md`` Queue 3).
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -70,19 +71,32 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 lru_scan.launches = 0
+lru_scan.last_plan = None   # launch shape of the last kernel call
 
 
-def _kernel_fn():
-    fn = _build.load(SOURCE).lru_scan_fwd  # nvcc at first use
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-    return fn
+def _library():
+    lib = _build.load(SOURCE)  # nvcc at first use
+    if lib.lru_scan_fwd.argtypes is None:
+        lib.lru_scan_fwd.restype = ctypes.c_int
+        lib.lru_scan_fwd.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.lru_scan_plan.restype = None
+        lib.lru_scan_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_plan(seq_len: int) -> dict:
+    """The kernel's launch shape for a sequence length, from the length
+    alone: blocks of a cluster along the sequence, warps a block, steps a
+    thread. Builds the kernel at first use."""
+    out = (ctypes.c_int * 3)()
+    _library().lru_scan_plan(int(seq_len), out)
+    return {"cluster": out[0], "warps": out[1], "steps": out[2]}
 
 
 def _launch(a, b, h0):
-    fn = _kernel_fn()
+    fn = _library().lru_scan_fwd
     a, b = a.contiguous(), b.contiguous()
     bsz, l, w = a.shape
     h = torch.empty_like(b)
@@ -97,4 +111,5 @@ def _launch(a, b, h0):
     if err != 0:
         raise RuntimeError(f"lru_scan kernel launch failed: CUDA error {err}")
     lru_scan.launches += 1
+    lru_scan.last_plan = kernel_plan(l)
     return h, h_last

@@ -8,8 +8,10 @@ JAX package is not installed:
     python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
 The tile sweep: f32 is compared bit for bit (the kernel does the plain
-version's IEEE operations in the same order, with no FMA contraction); bf16
-within one bf16 ulp after the cast. Flash attention: 2e-5 in f32 and 2e-2
+version's IEEE operations in the same order, with no FMA contraction) on
+both of its paths (tiles held in a cluster's shared memory, and tiles too
+large for that swept in global memory); bf16 within one bf16 ulp after the
+cast. Flash attention: 2e-5 in f32 and 2e-2
 in bf16, the JAX suite's tolerances (the kernel sums in another order and
 rounds P to bf16 before P @ V). LRU scan: 1e-5 (the JAX suite's), bf16 h
 within one bf16 ulp more (both round the f32 carry once, from carries a few
@@ -40,18 +42,32 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-CASES = [  # (shape, tile, sweeps, halo, dtype)
-    ((64, 64), (32, 32), 1, False, torch.float32),
-    ((128, 96), (32, 48), 3, True, torch.float32),
-    ((63, 45), (7, 9), 2, True, torch.float32),     # odd tile
-    ((48, 40), (256, 256), 2, False, torch.float32),  # clamped tile
-    ((64, 64), (16, 16), 0, False, torch.float32),
-    ((64, 64), (16, 16), 2, True, torch.bfloat16),
+CASES = [  # (shape, tile, sweeps, halo, dtype, kernel path)
+    ((64, 64), (32, 32), 1, False, torch.float32, "cluster_smem"),
+    ((128, 96), (32, 48), 3, True, torch.float32, "cluster_smem"),
+    ((63, 45), (7, 9), 2, True, torch.float32, "cluster_smem"),  # odd tile
+    ((48, 40), (256, 256), 2, False, torch.float32,  # clamped tile
+     "cluster_smem"),
+    ((64, 64), (16, 16), 0, False, torch.float32, "cluster_smem"),
+    ((64, 64), (16, 16), 2, True, torch.bfloat16, "cluster_smem"),
+    # 256^2 tiles: row bands over a cluster, rows read across bands
+    ((512, 512), (256, 256), 1, False, torch.float32, "cluster_smem"),
+    ((512, 512), (256, 256), 4, False, torch.float32, "cluster_smem"),
+    ((512, 512), (256, 256), 1, True, torch.float32, "cluster_smem"),
+    ((512, 512), (256, 256), 4, True, torch.float32, "cluster_smem"),
+    ((512, 512), (256, 256), 2, True, torch.bfloat16, "cluster_smem"),
+    ((500, 400), (250, 200), 3, True, torch.float32,  # bands of 62, 63 rows
+     "cluster_smem"),
+    ((300, 294), (150, 147), 2, True, torch.float32,  # odd width, banded
+     "cluster_smem"),
+    # too large for a cluster's shared memory: swept in global memory
+    ((2048, 2048), (1024, 1024), 2, True, torch.float32, "global"),
+    ((2048, 2048), (1024, 1024), 1, False, torch.bfloat16, "global"),
 ]
 
 
-@pytest.mark.parametrize("shape,tile,sweeps,halo,dtype", CASES)
-def test_kernel_matches_plain(cuda, shape, tile, sweeps, halo, dtype):
+@pytest.mark.parametrize("shape,tile,sweeps,halo,dtype,path", CASES)
+def test_kernel_matches_plain(cuda, shape, tile, sweeps, halo, dtype, path):
     rng = np.random.default_rng(0)
     u = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     u = u.to(cuda, dtype)
@@ -65,6 +81,7 @@ def test_kernel_matches_plain(cuda, shape, tile, sweeps, halo, dtype):
     got = ops.heat2d_sweep(u, tile, sweeps, "kernel", ring)
     torch.cuda.synchronize()
     assert ops.heat2d_sweep.launches == before + 1
+    assert ops.heat2d_sweep.last_path == path
     want = ops.heat2d_sweep(u, tile, sweeps, "plain", ring)
     assert ops.heat2d_sweep.launches == before + 1
     assert got.dtype == dtype and got.shape == u.shape
@@ -75,6 +92,14 @@ def test_kernel_matches_plain(cuda, shape, tile, sweeps, halo, dtype):
         ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
                           (e - 8).to(torch.int32))
         assert bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+def test_kernel_plan_splits_a_256_tile_over_a_cluster(cuda):
+    path, blocks, smem = ops.kernel_plan((256, 256))
+    assert path == "cluster_smem" and blocks > 1
+    assert smem <= 232448     # a block's shared memory on Hopper
+    assert ops.kernel_plan((1024, 1024))[:2] == ("global", 0)
+    assert ops.kernel_plan((7, 9))[:2] == ("cluster_smem", 1)
 
 
 def test_solver_on_card_equals_cpu(cuda):
@@ -225,7 +250,17 @@ LRU_CASES = [  # (b, l, w, a dtype, b dtype, h0)
     (2, 513, 64, torch.float32, torch.bfloat16, False),   # bf16 b
     (1, 2048, 33, torch.bfloat16, torch.bfloat16, True),  # bf16 a and b
     (2, 31, 2560, torch.float32, torch.float32, False),   # fewer steps than
-]                                                         # segments
+                                                          # segments
+    (1, 5000, 2560, torch.float32, torch.float32, True),  # several spans
+    (8, 1000, 2560, torch.float32, torch.bfloat16, True),  # bf16 b, batch 8
+    (1, 2048, 2560, torch.float32, torch.float32, False),  # one full span
+]
+
+
+def test_lru_long_sequence_walks_several_spans(cuda):
+    p = lru_ops.kernel_plan(5000)
+    assert 5000 > p["cluster"] * p["warps"] * p["steps"]
+    assert 1 <= lru_ops.kernel_plan(31)["cluster"] <= p["cluster"]
 
 
 @pytest.mark.parametrize("b,l,w,a_dtype,b_dtype,h0", LRU_CASES)
@@ -239,6 +274,7 @@ def test_lru_kernel_matches_plain(cuda, b, l, w, a_dtype, b_dtype, h0):
     gh, gl = lru_ops.lru_scan(a, x, h, "kernel")
     torch.cuda.synchronize()
     assert lru_ops.lru_scan.launches == before + 1
+    assert lru_ops.lru_scan.last_plan == lru_ops.kernel_plan(l)
     wh, wl = lru_ops.lru_scan(a, x, h, "plain")
     assert lru_ops.lru_scan.launches == before + 1
     assert gh.dtype == b_dtype and gl.dtype == torch.float32

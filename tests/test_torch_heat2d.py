@@ -269,6 +269,91 @@ def test_sweep_sharded_on_1x1_equals_sweep(meshes):
                                        (32, 32), 2, impl="ref"))
 
 
+# -------------------- the CUDA kernel's cluster path, emulated on the CPU
+def _cluster_emulation(u, tile, sweeps, halo, nc):
+    """``csrc/heat2d.cu``'s path "cluster_smem": each tile split into `nc`
+    row bands (band r: rows [r * tx // nc, (r + 1) * tx // nc)), each band
+    updated in place a colour at a time, its first and last rows reading
+    the neighbouring band's current rows (the kernel reads them from that
+    block's shared memory), the tile's own edges reading the frozen strips.
+    Band by band, as the blocks may run in any order."""
+    nx, ny = u.shape
+    tx, ty = tile
+    gx, gy = nx // tx, ny // ty
+    v = u.float().reshape(gx, tx, gy, ty)
+    if halo is None:
+        hn = hs = v.new_zeros((ny,))
+        hw = he = v.new_zeros((nx,))
+    else:
+        hn, hs, hw, he = (h.float().reshape(-1) for h in halo)
+    north = torch.cat([hn.reshape(1, 1, gy, ty), v[:-1, -1:]], 0)
+    south = torch.cat([v[1:, :1], hs.reshape(1, 1, gy, ty)], 0)
+    west = torch.cat([hw.reshape(gx, tx, 1, 1), v[:, :, :-1, -1:]], 2)
+    east = torch.cat([v[:, :, 1:, :1], he.reshape(gx, tx, 1, 1)], 2)
+    cuts = [r * tx // nc for r in range(nc + 1)]
+    rows = list(zip(cuts, cuts[1:]))
+    bands = [v[:, i0:i1].clone() for i0, i1 in rows]
+    jj = torch.arange(ty).reshape(1, 1, 1, ty)
+    colour = [(torch.arange(i0, i1).reshape(1, -1, 1, 1) + jj) % 2
+              for i0, i1 in rows]
+    for _ in range(sweeps):
+        for c in (0, 1):
+            for r, (i0, i1) in enumerate(rows):
+                s = bands[r]
+                above = bands[r - 1][:, -1:] if r > 0 else north
+                below = bands[r + 1][:, :1] if r < nc - 1 else south
+                nb = torch.cat([above, s[:, :-1]], 1)               # N
+                nb += torch.cat([s[:, 1:], below], 1)               # + S
+                nb += torch.cat([west[:, i0:i1], s[:, :, :, :-1]], 3)   # + W
+                nb += torch.cat([s[:, :, :, 1:], east[:, i0:i1]], 3)    # + E
+                nb *= 0.25
+                bands[r] = torch.where(colour[r] == c, nb, s)
+    return torch.cat(bands, 1).reshape(nx, ny).to(u.dtype)
+
+
+_PALLAS = {}
+
+
+def _pallas_sweep(case, sweeps):
+    """heat2d_sweep_pallas in interpret mode, once per case and sweeps."""
+    if (case, sweeps) not in _PALLAS:
+        shape, tile, _, halo = SWEEP_CASES[case]
+        u, ring = _sweep_inputs(shape, halo)
+        jring = None if ring is None else tuple(map(jnp.asarray, ring))
+        _PALLAS[(case, sweeps)] = np.asarray(jops.heat2d_sweep(
+            jnp.asarray(u), tile, sweeps, impl="pallas", interpret=True,
+            halo=jring))
+    return _PALLAS[(case, sweeps)]
+
+
+@pytest.mark.parametrize("nc", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", range(len(SWEEP_CASES)))
+def test_cluster_emulation_matches_pallas(case, nc):
+    """Bit for bit, whatever the bands: the red-black order makes the
+    update order within a colour, and so the band split, irrelevant."""
+    shape, tile, sweeps, halo = SWEEP_CASES[case]
+    tile = tuple(min(t, n) for t, n in zip(tile, shape))   # clamped
+    u, ring = _sweep_inputs(shape, halo)
+    tring = None if ring is None else tuple(map(torch.from_numpy, ring))
+    got = _cluster_emulation(torch.from_numpy(u), tile, sweeps, tring,
+                             min(nc, tile[0]))
+    _eq(got, _pallas_sweep(case, sweeps))
+
+
+@pytest.mark.parametrize("sweeps", range(5))
+def test_cluster_emulation_odd_tile_all_sweep_counts(sweeps):
+    """The odd (7, 9) tile: bands of 1 and 2 rows (4 blocks), 2 and 3
+    rows (2 blocks), sweeps 0-4, against the Pallas kernel."""
+    case = next(i for i, c in enumerate(SWEEP_CASES) if c[1] == (7, 9))
+    shape, tile, _, halo = SWEEP_CASES[case]
+    u, ring = _sweep_inputs(shape, halo)
+    tring = tuple(map(torch.from_numpy, ring))
+    want = _pallas_sweep(case, sweeps)
+    for nc in (2, 4):
+        _eq(_cluster_emulation(torch.from_numpy(u), tile, sweeps, tring, nc),
+            want)
+
+
 def test_sweep_contract_errors():
     u = torch.zeros((64, 64))
     with pytest.raises(ValueError, match="CUDA tensor"):

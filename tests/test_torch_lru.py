@@ -167,3 +167,110 @@ def test_prefill_state_continues_the_sequence():
         assert state["conv"].shape == (2, cfg.hybrid.conv_kernel - 1, 128)
         y, _ = rglru.rglru_decode_step(tp, x[:, s:s + 1], cfg, state)
         _close(y, full[:, s:s + 1], 1e-5)
+
+
+# ------------------------------- the CUDA kernel's arithmetic, on the CPU
+def _fma(a, h, b):
+    """fmaf in float32: the product of two float32 values is exact in
+    float64, the sum is rounded there and then to float32 (a double rounding
+    that can differ from a true FMA in the last bit in rare cases)."""
+    return (a.double() * h.double() + b.double()).float()
+
+
+def _kernel_emulation(a, b, h0, steps, warps, max_cluster):
+    """``csrc/lru_scan.cu`` in its order of operations: a thread's segment
+    of `steps` steps composed from h = 0 into (prod a, h_end); a block's
+    `warps` segments composed in order into its pair; a cluster of
+    ceil(seq / (warps * steps)) blocks (at most `max_cluster`) along the
+    sequence, each block's carry-in the span's carry through the pairs of
+    the blocks before it; a thread's carry-in its block's through the
+    segments before it; then the segment replayed from it. A longer sequence
+    walks spans of cluster * warps * steps steps, the carry past one the
+    carry into the next. Returns (h in b.dtype, h_last f32)."""
+    bsz, l, w = a.shape
+    af, bf = a.float(), b.float()
+    per_block = warps * steps
+    nc = min(max_cluster, -(-l // per_block))
+    span = nc * per_block
+    carry = h0.float() if h0 is not None else af.new_zeros((bsz, w))
+    h = af.new_empty((bsz, l, w))
+    for st in range(0, l, span):
+        n = min(span, l - st)
+        A, B = af.new_ones((bsz, span, w)), af.new_zeros((bsz, span, w))
+        A[:, :n], B[:, :n] = af[:, st:st + n], bf[:, st:st + n]
+        A = A.reshape(bsz, nc, warps, steps, w)
+        B = B.reshape(bsz, nc, warps, steps, w)
+        sp = A.new_ones((bsz, nc, warps, w))
+        sh = A.new_zeros((bsz, nc, warps, w))
+        for u in range(steps):                          # segments from 0
+            sh = _fma(A[:, :, :, u], sh, B[:, :, :, u])
+            sp = sp * A[:, :, :, u]
+        bp, bh = A.new_ones((bsz, nc, w)), A.new_zeros((bsz, nc, w))
+        for j in range(warps):                          # block pairs
+            bh = _fma(sp[:, :, j], bh, sh[:, :, j])
+            bp = bp * sp[:, :, j]
+        hc, cta_in = carry, []
+        for r in range(nc):                             # across the cluster
+            cta_in.append(hc)
+            hc = _fma(bp[:, r], hc, bh[:, r])
+        carry = hc
+        x, seg_in = torch.stack(cta_in, 1), []
+        for j in range(warps):                          # within a block
+            seg_in.append(x)
+            x = _fma(sp[:, :, j], x, sh[:, :, j])
+        hh, out = torch.stack(seg_in, 2), []
+        for u in range(steps):                          # the replay
+            hh = _fma(A[:, :, :, u], hh, B[:, :, :, u])
+            out.append(hh)
+        h[:, st:st + n] = torch.stack(out, 3).reshape(bsz, span, w)[:, :n]
+    return h.to(b.dtype), h[:, -1].clone()
+
+
+# (steps, warps, max cluster): the committed launch shape, and smaller ones
+# whose spans a short sequence walks several times
+KERNEL_SHAPES = [(16, 8, 8), (4, 4, 2), (8, 2, 4), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+@pytest.mark.parametrize("h0", [False, True])
+def test_kernel_emulation_matches_pallas_and_the_oracle(shape, h0):
+    a, x, h = _inputs(2, 512, 40, seed=11, h0=h0)
+    eh, el = _kernel_emulation(*_torch(a, x, h, "f32"), *shape)
+    ja, jx, jh = _jax(a, x, h, "f32")
+    ph, pl = jax_lru_kernel.lru_scan_pallas(ja, jx, jh, interpret=True)
+    _close(eh, ph, 1e-5)
+    _close(el, pl, 1e-5)
+    sh, sl = jax_lru_ref.lru_scan_sequential(ja, jx, jh)
+    _close(eh, sh, 1e-5)
+    _close(el, sl, 1e-5)
+
+
+@pytest.mark.parametrize("l", [1, 31, 300, 2048, 5000])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES[:2])
+def test_kernel_emulation_no_less_accurate_than_plain(l, shape):
+    """Against a float64 recurrence, the kernel's order of operations is
+    no further off than the plain version's (Hillis-Steele) rounds, at the
+    mean and at the worst element; any length, including spans walked
+    several times."""
+    a, x, h = _inputs(1, l, 24, seed=l, h0=True)
+    ta, tx, th = _torch(a, x, h, "f32")
+    eh, el = _kernel_emulation(ta, tx, th, *shape)
+    ph, _ = ref.lru_scan_ref(ta, tx, th)
+    hd, exact = th.double(), []
+    for t in range(l):
+        hd = ta[:, t].double() * hd + tx[:, t].double()
+        exact.append(hd)
+    exact = torch.stack(exact, 1)
+    de, dp = (eh.double() - exact).abs(), (ph.double() - exact).abs()
+    assert float(de.mean()) <= float(dp.mean())
+    assert float(de.max()) <= float(dp.max())
+    _close(el, exact[:, -1], 1e-5)
+
+
+def test_kernel_emulation_bf16_b_within_one_ulp():
+    a, x, h = _inputs(2, 300, 40, seed=12, dtype="bf16", h0=True)
+    eh, el = _kernel_emulation(*_torch(a, x, h, "bf16"), *KERNEL_SHAPES[1])
+    assert eh.dtype == torch.bfloat16
+    sh, sl = jax_lru_ref.lru_scan_sequential(*_jax(a, x, h, "bf16"))
+    _close(eh, sh, TOL["bf16"])
+    _close(el, sl, 1e-5)
