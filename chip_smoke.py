@@ -10,7 +10,8 @@ dim 128, vocab 151936), phases 7-9; RecurrentGemma-2B (26 layers, d_model
 2560, RG-LRU width 2560, local attention 10/1 heads of 256 with a 2048
 window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
 (48 layers, d_model 1536, 48 SSD heads of 64, state 128, chunk 256, vocab
-50280), phases 11 and 14-15:
+50280), phases 11 and 14-15; the paper's other two applications, RK3 and
+HPCCG's CG, phases 16-17:
 
   1. build    nvcc builds every kernel of all paths from the checkout's
               sources (four), one process per source, all started together;
@@ -93,6 +94,27 @@ window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
  14. serve    Mamba-2 780M, scanned layout, as phase 12 (48 ssd_scan
               launches per prefill; no attention, so no flash-vs-dense).
  15. serve_profile  as phase 9, for Mamba-2 780M.
+ 16. rk3      rk3_solve (the paper's CREAMS-like RK3, §4.2: periodic
+              8th-order direction-split diffusion, width-4 halos) on the
+              (1,) slab mesh and the (1, 1) grid mesh, both schedules, f32
+              from a numpy-seeded normal grid, at the paper's Sod tube
+              (20, 20, 7000) and at (256, 256, 2048), 512 MiB a buffer:
+              steps/s per mesh and schedule, the peak memory; hdot must
+              equal two_phase bit for bit, the mean stay within 1e-4, and a
+              small grid on the card equal the port on the CPU within the
+              JAX suite's RK3 tolerance (rtol 1e-5, atol 1e-6). Then one
+              traced step per schedule at the large size: top device ops
+              and the device's idle share.
+ 17. hpccg    hpccg_solve (HPCCG's CG on the 27-point operator, §4.3) on
+              the (1,), (1, 1) and (1, 1, 1) meshes, both schedules, f32
+              b of (256, 256, 256) from a numpy seed, 50 iterations:
+              iterations/s; hdot must equal two_phase bit for bit (x and
+              the history), the history fall, ||A x - b|| / ||b|| is
+              reported, and a small problem on the card must match the CPU
+              port within 1e-4 on the history. Then a traced window of 2
+              iterations per schedule. Neither solver runs a kernel of the
+              port (the JAX package has no Pallas kernel on these paths):
+              the four launch counts must not move in phases 16-17.
 
 Each phase prints one JSON line (a serve phase one per scheduler and one of
 checks); then the nvidia-smi line, the kernels line and, last,
@@ -184,6 +206,15 @@ LOGIT_MAX_BOUND = 1.0
 # logits within the JAX suite's tolerance for the chunked SSD against the
 # sequential recurrence (tests/test_kernels.py, 1e-3).
 F32_RECURRENCE_TOL = 1e-3
+
+
+# RK3 grids: the paper's Sod tube (Table 4, benchmarks/table4_creams.py)
+# and a grid a one-card user would call real; steps per timed solve
+RK3_CASES = [((20, 20, 7000), 20), ((256, 256, 2048), 4)]
+RK3_DT = 0.01
+RK3_TOL = dict(rtol=1e-5, atol=1e-6)    # tests/test_stencil_apps.py's
+HPCCG_N, HPCCG_ITERS = 256, 50
+HPCCG_RTOL = 1e-4                       # tests/test_stencil_apps.py's
 
 
 def emit(obj) -> None:
@@ -772,6 +803,163 @@ def ssd_case(ssd_ops, ssd_ref, dev, card, b, l, h, p, n, chunk,
     return row
 
 
+def launch_counts(ops_modules) -> int:
+    return sum(m.launches for m in ops_modules)
+
+
+def timed(fn):
+    """(result, seconds) of `fn()` on the host clock, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def solver_meshes(n_axes):
+    from repro_torch.launch.mesh import make_grid_mesh, make_mesh
+
+    out = [(make_mesh((1,), ("data",)), ("data",), "1"),
+           (make_grid_mesh(1, 1), ("rows", "cols"), "1x1")]
+    if n_axes == 3:
+        out.append((make_grid_mesh(1, 1, 1), ("planes", "rows", "cols"),
+                    "1x1x1"))
+    return out
+
+
+def rk3_phase(dev, card) -> None:
+    """Phase 16 (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.core.stencil import rk3_solve
+    from repro_torch.launch.mesh import make_mesh
+
+    meshes = solver_meshes(2)
+    # a small grid on the card against the port on the CPU
+    g = np.random.default_rng(1).standard_normal((8, 20, 32)).astype(
+        np.float32)
+    small_err = 0.0
+    for mesh, axes, _ in meshes:
+        cpu = make_mesh(mesh.sizes, mesh.axis_names, "cpu")
+        for mode in ("two_phase", "hdot"):
+            got = rk3_solve(torch.from_numpy(g).to(dev), mesh, axes, 3,
+                            RK3_DT, mode).cpu()
+            want = rk3_solve(torch.from_numpy(g), cpu, axes, 3, RK3_DT, mode)
+            check(torch.allclose(got, want, **RK3_TOL),
+                  f"rk3 card != cpu on {axes} {mode}")
+            small_err = max(small_err, float((got - want).abs().max()))
+    emit({"phase": "rk3_vs_cpu", "n": 16, "shape": [8, 20, 32], "steps": 3,
+          "max_abs_diff": small_err, "tol": RK3_TOL})
+
+    for shape, steps in RK3_CASES:
+        v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            shape).astype(np.float32)).to(dev)
+        mean0 = float(v0.double().mean())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = {}
+        for mesh, axes, label in meshes:
+            for mode in ("two_phase", "hdot"):
+                rk3_solve(v0, mesh, axes, 1, RK3_DT, mode)     # warm-up
+                v, dt = timed(lambda: rk3_solve(v0, mesh, axes, steps,
+                                                RK3_DT, mode))
+                check(tuple(v.shape) == shape
+                      and bool(torch.isfinite(v).all()),
+                      f"rk3 {shape} {label} {mode}: shape or non-finite")
+                drift = abs(float(v.double().mean()) - mean0)
+                check(drift <= 1e-4, f"rk3 mean drifted by {drift}")
+                out[(label, mode)] = v
+                emit({"phase": "rk3", "n": 16, "shape": list(shape),
+                      "mesh": label, "mode": mode, "steps": steps,
+                      "seconds": dt, "steps_per_s": steps / dt,
+                      "mean_drift": drift, "std": float(v.std()),
+                      "std0": float(v0.std()), "gpu": card})
+            check(torch.equal(out[(label, "hdot")], out[(label, "two_phase")]),
+                  f"rk3 hdot != two_phase on {shape} mesh {label}")
+        check(torch.equal(out[("1", "hdot")], out[("1x1", "hdot")]),
+              f"rk3 slab != grid on {shape}")
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        emit({"phase": "rk3_memory", "n": 16, "shape": list(shape),
+              "grid_gib": v0.numel() * 4 / 2**30, "peak_gib_above_grid": peak})
+        del out, v
+        if shape == RK3_CASES[-1][0]:
+            mesh, axes, label = meshes[0]
+            for mode in ("two_phase", "hdot"):
+                row = {"phase": "rk3_profile", "n": 16, "shape": list(shape),
+                       "mesh": label, "mode": mode, "steps": 1}
+                row.update(traced(lambda: rk3_solve(v0, mesh, axes, 1,
+                                                    RK3_DT, mode)))
+                row["gpu"] = card
+                emit(row)
+        del v0
+        torch.cuda.empty_cache()
+
+
+def hpccg_phase(dev, card) -> None:
+    """Phase 17 (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.core.stencil import _stencil27_matvec, hpccg_solve
+    from repro_torch.launch.mesh import make_mesh
+
+    meshes = solver_meshes(3)
+    g = np.random.default_rng(2).standard_normal((16, 16, 16)).astype(
+        np.float32)
+    small_err = 0.0
+    for mesh, axes, _ in meshes:
+        cpu = make_mesh(mesh.sizes, mesh.axis_names, "cpu")
+        for mode in ("two_phase", "hdot"):
+            _, got = hpccg_solve(torch.from_numpy(g).to(dev), mesh, axes, 20,
+                                 mode)
+            _, want = hpccg_solve(torch.from_numpy(g), cpu, axes, 20, mode)
+            rel = float(((got.cpu() - want).abs() / want.abs()).max())
+            check(rel <= HPCCG_RTOL, f"hpccg card != cpu on {axes} {mode}")
+            small_err = max(small_err, rel)
+    emit({"phase": "hpccg_vs_cpu", "n": 17, "shape": [16, 16, 16],
+          "iters": 20, "max_rel_diff_history": small_err,
+          "rtol": HPCCG_RTOL})
+
+    shape = (HPCCG_N,) * 3
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        shape).astype(np.float32)).to(dev)
+    bnorm = float(torch.linalg.norm(b))
+    for mesh, axes, label in meshes:
+        out = {}
+        for mode in ("two_phase", "hdot"):
+            hpccg_solve(b, mesh, axes, 2, mode)                # warm-up
+            (x, h), dt = timed(lambda: hpccg_solve(b, mesh, axes,
+                                                   HPCCG_ITERS, mode))
+            hist = h.cpu()
+            check(tuple(x.shape) == shape and tuple(hist.shape)
+                  == (HPCCG_ITERS,) and bool(torch.isfinite(x).all()),
+                  f"hpccg {label} {mode}: shapes or non-finite")
+            check(bool(hist[-1] < hist[0]), f"hpccg history rose: {label}")
+            ax = _stencil27_matvec(x, None, (), "hdot")
+            out[mode] = (x, h)
+            emit({"phase": "hpccg", "n": 17, "shape": list(shape),
+                  "mesh": label, "mode": mode, "iters": HPCCG_ITERS,
+                  "seconds": dt, "iters_per_s": HPCCG_ITERS / dt,
+                  "residual_first": float(hist[0]),
+                  "residual_last": float(hist[-1]),
+                  "rel_residual": float(torch.linalg.norm(ax - b)) / bnorm,
+                  "gpu": card})
+            del ax
+        check(all(torch.equal(a, c) for a, c in zip(out["hdot"],
+                                                    out["two_phase"])),
+              f"hpccg hdot != two_phase on mesh {label}")
+        del out, x, h
+    mesh, axes, label = meshes[-1]
+    for mode in ("two_phase", "hdot"):
+        row = {"phase": "hpccg_profile", "n": 17, "shape": list(shape),
+               "mesh": label, "mode": mode, "iters": 2}
+        row.update(traced(lambda: hpccg_solve(b, mesh, axes, 2, mode)))
+        row["gpu"] = card
+        emit(row)
+    del b
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -981,6 +1169,17 @@ def main() -> int:
     # ---------- 12-15. serve RecurrentGemma-2B and Mamba-2 780M, likewise
     for arch_phases in SERVE_ARCHS[1:]:
         serve_and_trace(*arch_phases)
+
+    # ---------------- 16-17. RK3 and HPCCG: no kernel of the port on the path
+    kernel_ops = (heat_ops.heat2d_sweep, *counted_wrappers().values())
+    before = launch_counts(kernel_ops)
+    _, rk3_s = timed(lambda: rk3_phase(dev, card))
+    _, hpccg_s = timed(lambda: hpccg_phase(dev, card))
+    app_launches = launch_counts(kernel_ops) - before
+    check(app_launches == 0,
+          "a kernel of the port launched during RK3 or HPCCG")
+    emit({"phase": "apps", "n": [16, 17], "rk3_phase_seconds": rk3_s,
+          "hpccg_phase_seconds": hpccg_s, "kernel_launches": app_launches})
 
     # -------------------------------------------------------------- results
     flash_launches = sum(v.get("flash_attention", 0) for v in served.values())

@@ -11,13 +11,15 @@ Public API (lazy — importing ``repro_torch`` touches no device):
     repro_torch.kernels  -- hand-written Hopper kernels (+ plain versions)
     repro_torch.launch   -- process meshes; the serving launcher
     repro_torch.models   -- dense GQA language models
-    repro_torch.runtime  -- the re-cut driver; the batched server
+    repro_torch.optim    -- narrow-wire gradient codecs
+    repro_torch.runtime  -- the re-cut loop, the straggler drill; the
+                            batched server
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["config", "core", "kernels", "launch", "models", "runtime",
-           "__version__"]
+__all__ = ["config", "core", "kernels", "launch", "models", "optim",
+           "runtime", "__version__"]
 
 
 def __getattr__(name):

@@ -24,11 +24,22 @@ an hdot solve of `s` steps issues exactly `s` exchanges per axis of size > 1
 dim, and the functions that send take the :class:`ProcessMesh` that names
 those axes. ``stencil_fn(padded)`` consumes a block padded by `width` ghost
 cells on both ends of every decomposed dim and returns the un-padded update.
-Star stencils only: corner ghosts are zeros and never exchanged. The
+Star stencils only: corner ghosts are zeros and never exchanged (HPCCG's
+27-point corners ride the sequential face-message chain in
+:mod:`repro_torch.core.stencil`, built on :func:`pad_with_halo`). The
 deprecated 1-D/2-D aliases of the JAX package have no counterpart here.
+
+:func:`stencil_with_exchange_nd` is the consumer side of a pipelined solver
+(the RK3 stage and the CG matvec): it takes the exchanges still IN FLIGHT,
+computes the interior chunk grid first, and only then waits and computes the
+2·N faces, so the messages that left at the end of the previous stage or
+iteration hide behind the interior. :func:`multi_dim_stencil` applies a
+direction-split stencil (CREAMS' per-direction fluxes) one direction at a
+time, each direction padded locally or exchanged on its own axis.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -134,6 +145,13 @@ def exchange_halo(u: torch.Tensor, mesh, axis_name: str, width: int,
     return exchange_edges(_edge(u, dim, "lo", width),
                           _edge(u, dim, "hi", width), mesh, axis_name,
                           periodic)
+
+
+def pad_with_halo(u: torch.Tensor, mesh, axis_name: str, width: int,
+                  dim: int, periodic: bool = False) -> torch.Tensor:
+    """Two-phase building block: ``[lo_halo, u, hi_halo]`` along `dim`."""
+    lo, hi = exchange_halo(u, mesh, axis_name, width, dim, periodic)
+    return torch.cat([lo, u, hi], dim=dim)
 
 
 def _norm_subn(subdomains, n: int) -> Tuple[int, ...]:
@@ -288,18 +306,25 @@ def _assemble_nd(faces, interior: torch.Tensor,
     return out
 
 
-def stencil_with_halo_nd(u: torch.Tensor, halos, stencil_fn: StencilFn,
-                         width: int, dims: Sequence[int], subdomains=2,
-                         weights=None) -> torch.Tensor:
-    """Communication-free half of the hdot schedule: apply `stencil_fn` to a
-    block whose 2·N face halos were ALREADY received."""
+def stencil_with_exchange_nd(u: torch.Tensor, pending: Sequence[HaloExchange],
+                             stencil_fn: StencilFn, width: int,
+                             dims: Sequence[int], subdomains=2,
+                             weights=None) -> torch.Tensor:
+    """The JAX package's ``stencil_with_halo_nd`` on exchanges that may
+    still be in flight (one :class:`HaloExchange` per dim of `dims`; wrap
+    halos already received as ``HaloExchange(lo, hi)``): the interior chunk
+    grid runs first, reading only `u`; then the exchanges are waited on and
+    the 2·N faces, their only consumers, run. Where the halos arrive changes
+    when a cell is computed, never how: same operations, same bits."""
     dims = tuple(dims)
     subdomains = _norm_subn(subdomains, len(dims))
     if any(u.shape[d] < 4 * width for d in dims):  # degenerate: no interior
+        halos = [p.wait() for p in pending]
         return stencil_fn(pad_with_halo_nd(u, halos, width, dims))
-    faces = _faces_nd(u, halos, stencil_fn, width, dims)
     interior = _interior_chunks_nd(u, stencil_fn, width, dims, subdomains,
                                    weights)
+    halos = [p.wait() for p in pending]
+    faces = _faces_nd(u, halos, stencil_fn, width, dims)
     return _assemble_nd(faces, interior, dims)
 
 
@@ -315,16 +340,13 @@ def stencil_two_phase_nd(u: torch.Tensor, stencil_fn: StencilFn, mesh,
 def stencil_hdot_nd(u: torch.Tensor, stencil_fn: StencilFn, mesh,
                     axes: Axes, width: int, periodic: bool = False,
                     subdomains=2, weights=None) -> torch.Tensor:
-    """N-D interior/boundary over-decomposition (paper Code 4): 2·N face
-    tasks consume the halos; the interior chunk grid depends only on `u`.
+    """N-D interior/boundary over-decomposition (paper Code 4): the
+    exchanges leave first, the interior chunk grid (which depends only on
+    `u`) runs while they fly, and the 2·N face tasks consume the halos.
     Numerics identical to the two-phase schedule."""
-    dims = tuple(d for _, d in axes)
-    if any(u.shape[d] < 4 * width for d in dims):
-        return stencil_two_phase_nd(u, stencil_fn, mesh, axes, width,
-                                    periodic)
-    halos = exchange_halo_nd(u, mesh, axes, width, periodic)
-    return stencil_with_halo_nd(u, halos, stencil_fn, width, dims,
-                                subdomains, weights)
+    return stencil_with_exchange_nd(
+        u, _start_halo_nd(u, mesh, axes, width, periodic), stencil_fn, width,
+        tuple(d for _, d in axes), subdomains, weights)
 
 
 def stencil_apply_nd(u: torch.Tensor, stencil_fn: StencilFn, mesh,
@@ -358,7 +380,8 @@ def halo_scan_nd(u: torch.Tensor, stencil_fn: StencilFn, mesh, axes: Axes,
     boundary faces — the only halo consumers; (2) IMMEDIATELY issues every
     axis's exchange for step k+1, its edges stitched from the face outputs
     alone; (3) only then computes the interior chunk grid. The last step is
-    peeled: it consumes its halos and sends nothing.
+    peeled: it computes its interior while its halos fly, then consumes them
+    and sends nothing.
 
     `step_out_fn(u_new, u_old)` optionally produces a per-step output (e.g.
     a residual) that stays on the device; the results are stacked at the
@@ -407,12 +430,12 @@ def halo_scan_nd(u: torch.Tensor, stencil_fn: StencilFn, mesh, axes: Axes,
 
     pending = _start_halo_nd(u, mesh, axes, w, periodic)  # pipeline fill
     for step in range(steps):
-        halos = [p.wait() for p in pending]
         if step == steps - 1:
             # peeled drain: the last step consumes its halos, sends nothing
-            u_new = stencil_with_halo_nd(u, halos, stencil_fn, w, dims,
-                                         subdomains, weights)
+            u_new = stencil_with_exchange_nd(u, pending, stencil_fn, w, dims,
+                                             subdomains, weights)
         else:
+            halos = [p.wait() for p in pending]
             faces = _faces_nd(u, halos, stencil_fn, w, dims)
             pending = exchange_from_faces(faces)
             interior = _interior_chunks_nd(u, stencil_fn, w, dims,
@@ -422,3 +445,35 @@ def halo_scan_nd(u: torch.Tensor, stencil_fn: StencilFn, mesh, axes: Axes,
             outs.append(step_out_fn(u_new, u))
         u = u_new
     return u, _stack_outs(outs, u) if step_out_fn is not None else None
+
+
+def multi_dim_stencil(u: torch.Tensor,
+                      per_dim_fn: Callable[..., torch.Tensor], mesh,
+                      decomp: Sequence[Tuple[int, Optional[str]]],
+                      width: int, periodic: bool = False,
+                      mode: str = "hdot") -> torch.Tensor:
+    """Apply a direction-split stencil along several dims and sum the
+    directions in `decomp` order (the CREAMS pattern: euler_LLF_x/y/z are
+    separate per-direction stencils whose results add). `decomp` lists
+    ``(dim, mesh_axis_or_None)``; ``per_dim_fn(padded, dim=d)`` consumes a
+    block padded by `width` along `d` alone. An unsharded dim is padded
+    locally (periodic: the block's own far edges; else zeros); a sharded one
+    runs :func:`stencil_apply_nd` on its axis with 4 interior chunks. `mesh`
+    may be None when no dim is sharded."""
+    total = None
+    for dim, axis_name in decomp:
+        fn = functools.partial(per_dim_fn, dim=dim)
+        if axis_name is None:
+            if periodic:
+                padded = torch.cat([_edge(u, dim, "hi", width), u,
+                                    _edge(u, dim, "lo", width)], dim=dim)
+            else:
+                pads = [(0, 0)] * u.dim()
+                pads[dim] = (width, width)
+                padded = _pad(u, pads)
+            out = fn(padded)
+        else:
+            out = stencil_apply_nd(u, fn, mesh, ((axis_name, dim),), width,
+                                   periodic, mode, (4,))
+        total = out if total is None else total + out
+    return total

@@ -1,2 +1,3 @@
 """Runtime drivers: the measured-cost re-cut loop around the Heat2D solver,
-and the batched server (wave and continuous batching)."""
+the live straggler drill and its host-shard reassignment, and the batched
+server (wave and continuous batching)."""

@@ -10,6 +10,11 @@ the FileStore ``<workdir>/store``, runs the job and writes the gathered
 global results and its message counts to ``<workdir>/rank<r>.npz``. With
 ``"backend": "gloo"`` the ranks run on the CPU with one thread each; with
 ``"nccl"`` rank r runs on CUDA device r.
+
+A job runs Heat2D when it names ``iters``, and any of the other
+applications it names (``rk3``, ``hpccg``, ``allreduce``), each on a mesh
+of its own over the same ranks; their inputs are made here from a numpy
+seed (:func:`app_input`), so the parent makes the same ones.
 """
 from __future__ import annotations
 
@@ -25,9 +30,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import halo
-from repro_torch.core.stencil import gather_global, heat2d_solve, local_block
+from repro_torch.core import reduction
+from repro_torch.core.stencil import (_trailing_dims, gather_global,
+                                      heat2d_solve, hpccg_solve, local_block,
+                                      rk3_solve)
 from repro_torch.kernels.heat2d.ops import heat2d_sweep_sharded
 from repro_torch.launch.mesh import make_mesh, rank_coords
+from repro_torch.optim.compression import make_crosspod_codec
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -64,11 +73,97 @@ class _SendLog:
                            minlength=len(self.mesh.sizes))
 
 
+class _ReduceLog:
+    """Counts ``dist.all_reduce`` calls per mesh axis (by the axis's line
+    group)."""
+
+    def __init__(self, mesh):
+        self.mesh, self.calls = mesh, []
+        self._orig = dist.all_reduce
+
+    def __call__(self, t, *args, group=None, **kw):
+        names = [a for a in self.mesh.axis_names
+                 if self.mesh.groups[a] is group]
+        self.calls.append(self.mesh.axis_index(names[0]))
+        return self._orig(t, *args, group=group, **kw)
+
+    def per_axis(self):
+        return np.bincount(np.asarray(self.calls, np.int64),
+                           minlength=len(self.mesh.sizes))
+
+
+def app_input(spec: dict, rank: int = 0) -> np.ndarray:
+    """The input of an application job: standard normal f32 of
+    ``spec["shape"]`` from numpy seed ``spec["seed"]`` (+ the rank, for the
+    all-reduce, whose ranks each hold their own)."""
+    seed = spec["seed"] + (rank if spec.get("per_rank") else 0)
+    return np.random.default_rng(seed).standard_normal(
+        tuple(spec["shape"])).astype(np.float32)
+
+
+def _counted(mesh, fn):
+    """Run `fn()` with the exchanges and all-reduces counted per axis."""
+    sends, reduces = _SendLog(mesh), _ReduceLog(mesh)
+    dist.batch_isend_irecv, dist.all_reduce = sends, reduces
+    try:
+        out = fn()
+    finally:
+        dist.batch_isend_irecv, dist.all_reduce = sends._orig, reduces._orig
+    return out, sends.per_axis(), reduces.per_axis()
+
+
+def run_apps(job, device):
+    out = {}
+    for app in ("rk3", "hpccg"):
+        if app not in job:
+            continue
+        spec = job[app]
+        axes = tuple(spec["axes"])
+        mesh = make_mesh(tuple(spec["mesh"]), axes, device)
+        g = app_input(spec)
+        for mode in ("two_phase", "hdot"):
+            if app == "rk3":
+                (x, hist), sends, reduces = _counted(mesh, lambda: (
+                    rk3_solve(torch.from_numpy(g), mesh, axes, spec["steps"],
+                              spec["dt"], mode), None))
+            else:
+                (x, hist), sends, reduces = _counted(mesh, lambda: hpccg_solve(
+                    torch.from_numpy(g), mesh, axes, spec["iters"], mode))
+                out[f"hpccg_hist_{mode}"] = hist.cpu().numpy()
+            out[f"{app}_{mode}"] = gather_global(
+                x, mesh, axes, g.shape, _trailing_dims(axes)).cpu().numpy()
+            out[f"{app}_sends_{mode}"] = sends
+            out[f"{app}_reduces_{mode}"] = reduces
+    if "allreduce" in job:
+        spec = job["allreduce"]
+        mesh = make_mesh(tuple(spec["mesh"]), ("pod", "data"), device)
+        x = torch.from_numpy(app_input(spec, mesh.rank)).to(device)
+        odd = x[:spec["odd_rows"]].contiguous()   # does not tile over data
+        comp, decomp = make_crosspod_codec(mesh, "pod")
+        out["ar_staged"] = reduction.hierarchical_allreduce(
+            x, mesh, "data", "pod").cpu().numpy()
+        out["ar_comp"] = reduction.hierarchical_allreduce(
+            x, mesh, "data", "pod", 0, comp, decomp).cpu().numpy()
+        out["ar_plain"] = reduction.process_allreduce(
+            x, mesh, ("pod", "data")).cpu().numpy()
+        out["ar_odd"] = reduction.hierarchical_allreduce(
+            odd, mesh, "data", "pod").cpu().numpy()
+        out["ar_odd_plain"] = reduction.process_allreduce(
+            odd, mesh, ("data", "pod")).cpu().numpy()  # the fallback's order
+        q = torch.from_numpy(np.random.default_rng(mesh.rank).integers(
+            -127, 128, (33,)).astype(np.int16)).to(device)
+        out["int16_sum"] = reduction._sum_payload(q, mesh, "pod").cpu(
+            ).numpy()
+    return out
+
+
 def run(job, u0, device):
+    out = run_apps(job, device)
+    if "iters" not in job:
+        return out
     mesh = make_mesh(tuple(job["mesh"]), tuple(job["axes"]), device)
     axes = tuple(job["axes"])
     ut = torch.from_numpy(u0)
-    out = {}
 
     def gathered(block):
         return gather_global(block, mesh, axes, u0.shape).cpu().numpy()
@@ -106,11 +201,13 @@ def run(job, u0, device):
 
 def spawn(job: dict, u0: np.ndarray, workdir: Path, deadline_s: float):
     """Run `job` on ``prod(job["mesh"])`` ranks, one process each, with a
-    FileStore of their own in `workdir`; the whole spawn must finish within
+    FileStore of their own in `workdir` (`u0`: the Heat2D grid, or None for
+    a job of the other applications); the whole spawn must finish within
     `deadline_s` or its ranks are killed. Returns each rank's results, or
     raises AssertionError with the failing rank's log."""
     world = int(np.prod(job["mesh"]))
-    np.save(workdir / "u0.npy", u0)
+    if u0 is not None:
+        np.save(workdir / "u0.npy", u0)
     (workdir / "job.json").write_text(json.dumps(job))
     path = [str(REPO / "src"), str(REPO / "tests")]
     env = dict(os.environ, OMP_NUM_THREADS="1",
@@ -155,7 +252,8 @@ def main(argv) -> int:
     else:
         device = torch.device("cpu")
         torch.set_num_threads(1)
-    u0 = np.load(workdir / "u0.npy")
+    u0 = (np.load(workdir / "u0.npy") if (workdir / "u0.npy").exists()
+          else None)
     store = dist.FileStore(str(workdir / "store"), world)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world)

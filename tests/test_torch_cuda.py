@@ -16,7 +16,9 @@ in bf16, the JAX suite's tolerances (the kernel sums in another order and
 rounds P to bf16 before P @ V). LRU scan: 1e-5 (the JAX suite's), bf16 h
 within one bf16 ulp more (both round the f32 carry once, from carries a few
 f32 ulps apart). SSD scan: y and the final state within 1e-4 for f32
-inputs and 5e-2 for bf16 (the JAX suite's).
+inputs and 5e-2 for bf16 (the JAX suite's). RK3 and HPCCG on the card
+against the CPU: within the JAX suite's tolerances (rtol 1e-5, atol 1e-6;
+the history within rtol 1e-4), hdot equal to two_phase bit for bit.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import pytest
 import torch
 
 from repro_torch.core.halo import halo_scan_nd
-from repro_torch.core.stencil import heat2d_init, heat2d_solve
+from repro_torch.core.stencil import (heat2d_init, heat2d_solve,
+                                      hpccg_solve, rk3_solve)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.heat2d import ops
 from repro_torch.kernels.lru_scan import ops as lru_ops
@@ -116,6 +119,39 @@ def test_solver_on_card_equals_cpu(cuda):
             assert torch.equal(res.cpu(), wres)
 
 
+def test_rk3_and_hpccg_on_card_equal_cpu(cuda):
+    g = np.random.default_rng(3).standard_normal((8, 20, 32)).astype(
+        np.float32)
+    v0 = torch.from_numpy(g)
+    for mesh_fn, axes in ((lambda d: make_mesh((1,), ("data",), d),
+                           ("data",)),
+                          (lambda d: make_grid_mesh(1, 1, device=d),
+                           ("rows", "cols"))):
+        got = {}
+        for mode in ("two_phase", "hdot"):
+            got[mode] = rk3_solve(v0.to(cuda), mesh_fn(cuda), axes, 3, 0.01,
+                                  mode)
+            want = rk3_solve(v0, mesh_fn("cpu"), axes, 3, 0.01, mode)
+            assert got[mode].is_cuda
+            np.testing.assert_allclose(got[mode].cpu().numpy(),
+                                       want.numpy(), rtol=1e-5, atol=1e-6)
+        assert torch.equal(got["hdot"], got["two_phase"])
+    b = v0[:, :16, :16].contiguous()
+    for mesh_fn, axes in ((lambda d: make_mesh((1,), ("data",), d),
+                           ("data",)),
+                          (lambda d: make_grid_mesh(1, 1, 1, device=d),
+                           ("planes", "rows", "cols"))):
+        got = {}
+        for mode in ("two_phase", "hdot"):
+            got[mode] = hpccg_solve(b.to(cuda), mesh_fn(cuda), axes, 20,
+                                    mode)
+            _, wh = hpccg_solve(b, mesh_fn("cpu"), axes, 20, mode)
+            np.testing.assert_allclose(got[mode][1].cpu().numpy(),
+                                       wh.numpy(), rtol=1e-4)
+        for a, c in zip(got["hdot"], got["two_phase"]):
+            assert torch.equal(a, c)
+
+
 def test_sharded_sweep_launches_the_kernel(cuda):
     u = torch.randn((64, 64), device=cuda)
     before = ops.heat2d_sweep.launches
@@ -128,17 +164,56 @@ def test_sharded_sweep_launches_the_kernel(cuda):
 def test_nccl_2x2_ranks_match_one_rank(cuda, tmp_path):
     """Four NCCL ranks, one card each, on a (2, 2) grid: heat2d_solve in
     both schedules, the sharded sweep and the peeled scan equal one rank's
-    results bit for bit, and the scan sends 4 exchanges per axis."""
+    results bit for bit, and the scan sends 4 exchanges per axis. On the
+    same ranks: rk3_solve on (2, 2) and hpccg_solve on (1, 2, 2) against
+    one rank within the JAX suite's tolerances (hdot bit-equal to
+    two_phase, 3·steps and iters exchanges per axis of size 2), and
+    hierarchical_allreduce on a (2, 2) (pod, data) mesh, plain (within 1e-4
+    of the plain sum) and through the int8 codec (within 0.03 relative; the
+    int16 payload sums exactly)."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA devices")
-    from _torch_dist import _star, spawn
+    from _torch_dist import _star, app_input, spawn
 
     u0 = np.random.default_rng(11).uniform(0.0, 1.0, (48, 40)).astype(
         np.float32)
+    rk3 = dict(mesh=[2, 2], axes=["rows", "cols"], shape=[6, 32, 64], seed=5,
+               steps=3, dt=0.01)
+    hpccg = dict(mesh=[1, 2, 2], axes=["planes", "rows", "cols"],
+                 shape=[8, 8, 16], seed=6, iters=12)
     job = dict(mesh=[2, 2], axes=["rows", "cols"], backend="nccl", iters=10,
                scan_steps=4, chunk_weights=[[9.0] * 6 + [1.0] * 16, None],
-               sweep_tile=[8, 10], sweep_sweeps=2)
+               sweep_tile=[8, 10], sweep_sweeps=2, rk3=rk3, hpccg=hpccg,
+               allreduce=dict(mesh=[2, 2], shape=[16, 8], seed=100,
+                              per_rank=True, odd_rows=5))
     ranks = spawn(job, u0, tmp_path, 300)
+    v0 = torch.from_numpy(app_input(rk3))
+    want_rk3 = rk3_solve(v0, make_grid_mesh(1, 1, device="cpu"),
+                         ("rows", "cols"), 3, 0.01, "two_phase").numpy()
+    b = torch.from_numpy(app_input(hpccg))
+    _, want_hist = hpccg_solve(b, make_grid_mesh(1, 1, 1, device="cpu"),
+                               ("planes", "rows", "cols"), 12, "two_phase")
+    xs = [app_input(job["allreduce"], r) for r in range(4)]
+    q_sum = [sum(np.random.default_rng(r).integers(-127, 128, (33,))
+                 for r in line) for line in ((0, 2), (1, 3))]
+    for r, out in enumerate(ranks):
+        for mode in ("two_phase", "hdot"):
+            np.testing.assert_allclose(out[f"rk3_{mode}"], want_rk3,
+                                       rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(out[f"hpccg_hist_{mode}"],
+                                       want_hist.numpy(), rtol=1e-4)
+            assert out[f"rk3_sends_{mode}"].tolist() == [9, 9]
+            assert out[f"hpccg_sends_{mode}"].tolist() == [0, 12, 12]
+        for key in ("rk3_{}", "hpccg_{}", "hpccg_hist_{}"):
+            np.testing.assert_array_equal(out[key.format("hdot")],
+                                          out[key.format("two_phase")])
+        plain = out["ar_plain"]
+        np.testing.assert_allclose(plain, sum(xs), rtol=1e-5, atol=1e-5)
+        assert np.abs(out["ar_staged"] - plain).max() < 1e-4
+        assert (np.abs(out["ar_comp"] - plain).max()
+                / (np.abs(plain).max() + 1e-9)) < 0.03
+        np.testing.assert_array_equal(out["ar_odd"], out["ar_odd_plain"])
+        np.testing.assert_array_equal(out["int16_sum"], q_sum[r % 2])
     one = make_grid_mesh(1, 1, device="cpu")
     ut = torch.from_numpy(u0)
     want, wres = heat2d_solve(ut, one, ("rows", "cols"), 10, "two_phase")

@@ -1,7 +1,12 @@
 """The port on several gloo ranks on the CPU against the JAX package on one
 device: heat2d_solve on 2 ranks (2,), 4 ranks (4,) and a (2, 2) grid in both
 schedules, the sharded tile sweep on (2, 2), and the peeled hdot scan with
-its exchanges counted per axis.
+its exchanges counted per axis; rk3_solve on (2,), (4,) and (2, 2),
+hpccg_solve on (2,), (2, 2) and (2, 2, 2) (the corner chain on every axis),
+both schedules, with their exchanges and all-reduces counted per axis; and
+hierarchical_allreduce on a (2, 2) (pod, data) mesh, plain and through the
+int8 codec, against numpy's sum and against the JAX package's staged
+all-reduce on four forced host devices (a subprocess).
 
 Each job spawns its ranks as separate processes (``tests/_torch_dist.py``,
 which imports no jax) with a FileStore of their own in a temporary
@@ -10,10 +15,15 @@ rendezvous fails its tests instead of stalling the suite. The parent makes
 the input with numpy, computes the JAX reference on one device and compares
 the gathered global results. The stencils here add first and multiply by
 0.25 last, so every backend does the same IEEE operations in the same order
-and the comparisons are exact.
+and the Heat2D comparisons are exact. RK3 and HPCCG are held to the JAX
+suite's tolerances against JAX (rtol 1e-5, atol 1e-6; the history within
+rtol 1e-4, since the rank count changes the order in which a dot product is
+summed); inside the port RK3 is bit-equal across rank counts and hdot to
+two_phase, and so is HPCCG's hdot to its two_phase on each rank count.
 """
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import jax
@@ -23,12 +33,15 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
-from _torch_dist import _star, _sum3, spawn
+from _torch_dist import _star, _sum3, app_input, spawn
 from repro.core import halo as jhalo
 from repro.core import stencil as jst
 from repro.launch.mesh import make_grid_mesh as jgrid_mesh
 from repro.launch.mesh import make_mesh as jmesh
+from tests.test_system import run_devices
+from repro_torch.core import stencil as tst
 from repro_torch.kernels.heat2d.ops import heat2d_sweep
+from repro_torch.launch.mesh import make_mesh as tmesh
 
 SHAPE = (48, 40)
 ITERS, SCAN_STEPS = 10, 4
@@ -116,3 +129,189 @@ def test_sweep_sharded_2x2_matches_global_sweep(runs):
                         job["sweep_sweeps"]).numpy()
     for out in ranks:
         np.testing.assert_array_equal(out["sweep"], want)
+
+
+# ------------------------------------------- RK3, HPCCG, the staged sum
+# RK3's grid keeps the pipelined schedule on every rank count: >= 16 cells
+# of each sharded dim a rank; HPCCG's keeps >= 4 z cells a rank
+RK3 = dict(shape=[6, 32, 64], seed=5, steps=3, dt=0.01)
+HPCCG = dict(shape=[8, 8, 16], seed=6, iters=12)
+SLAB, PAIR, TRIPLE = ["data"], ["rows", "cols"], ["planes", "rows", "cols"]
+APP_JOBS = {
+    "2": dict(mesh=[2], rk3=dict(RK3, mesh=[2], axes=SLAB),
+              hpccg=dict(HPCCG, mesh=[2], axes=SLAB)),
+    "4": dict(mesh=[4], rk3=dict(RK3, mesh=[4], axes=SLAB)),
+    "2x2": dict(mesh=[2, 2], rk3=dict(RK3, mesh=[2, 2], axes=PAIR),
+                hpccg=dict(HPCCG, mesh=[2, 2], axes=PAIR),
+                allreduce=dict(mesh=[2, 2], shape=[16, 8], seed=100,
+                               per_rank=True, odd_rows=5)),
+    "2x2x2": dict(mesh=[2, 2, 2],
+                  hpccg=dict(HPCCG, mesh=[2, 2, 2], axes=TRIPLE)),
+}
+RK3_JOBS = [k for k, v in APP_JOBS.items() if "rk3" in v]
+HPCCG_JOBS = [k for k, v in APP_JOBS.items() if "hpccg" in v]
+
+
+@pytest.fixture(scope="module")
+def app_runs(tmp_path_factory):
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = spawn(APP_JOBS[name], None,
+                                tmp_path_factory.mktemp(f"app{name}"),
+                                SPAWN_DEADLINE_S)
+        return cache[name]
+    return get
+
+
+def _jax_app_mesh(axes):
+    return {1: lambda: jmesh((1,), tuple(axes)),
+            2: lambda: jgrid_mesh(1, 1, axes=tuple(axes)),
+            3: lambda: jgrid_mesh(1, 1, 1, axes=tuple(axes))}[len(axes)]()
+
+
+def _one_rank_mesh(axes):
+    return tmesh((1,) * len(axes), tuple(axes), "cpu")
+
+
+@pytest.mark.parametrize("mode", ["two_phase", "hdot"])
+@pytest.mark.parametrize("name", RK3_JOBS)
+def test_rk3_ranks_match_jax_and_one_rank(app_runs, name, mode):
+    """Within the JAX suite's tolerance of JAX on one device; bit-equal to
+    the port on one rank and to the other schedule; 3·steps exchanges on
+    every axis in both schedules (the drain peeled)."""
+    spec = APP_JOBS[name]["rk3"]
+    v0 = app_input(spec)
+    want = jst.rk3_solve(jnp.asarray(v0), _jax_app_mesh(spec["axes"]),
+                         tuple(spec["axes"]), spec["steps"], spec["dt"],
+                         mode)
+    one = tst.rk3_solve(torch.from_numpy(v0), _one_rank_mesh(spec["axes"]),
+                        tuple(spec["axes"]), spec["steps"], spec["dt"], mode)
+    for out in app_runs(name):
+        np.testing.assert_allclose(out[f"rk3_{mode}"], np.asarray(want),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(out[f"rk3_{mode}"], one.numpy())
+        np.testing.assert_array_equal(out["rk3_hdot"], out["rk3_two_phase"])
+        assert out[f"rk3_sends_{mode}"].tolist() == [3 * spec["steps"]] * len(
+            spec["mesh"])
+        assert not out[f"rk3_reduces_{mode}"].any()
+
+
+@pytest.mark.parametrize("mode", ["two_phase", "hdot"])
+@pytest.mark.parametrize("name", HPCCG_JOBS)
+def test_hpccg_ranks_match_jax(app_runs, name, mode):
+    """The residual history within rtol 1e-4 of JAX on one device; hdot
+    equal to two_phase bit for bit on the same ranks; `iters` exchanges and
+    2·iters + 1 all-reduces on every axis in both schedules."""
+    spec = APP_JOBS[name]["hpccg"]
+    b = app_input(spec)
+    _, want = jst.hpccg_solve(jnp.asarray(b), _jax_app_mesh(spec["axes"]),
+                              tuple(spec["axes"]), spec["iters"], mode)
+    n_axes = len(spec["mesh"])
+    for out in app_runs(name):
+        np.testing.assert_allclose(out[f"hpccg_hist_{mode}"],
+                                   np.asarray(want), rtol=1e-4)
+        assert out[f"hpccg_hist_{mode}"][-1] < out[f"hpccg_hist_{mode}"][0]
+        for key in ("hpccg_{}", "hpccg_hist_{}"):
+            np.testing.assert_array_equal(out[key.format("hdot")],
+                                          out[key.format("two_phase")])
+        assert out[f"hpccg_sends_{mode}"].tolist() == [spec["iters"]] * n_axes
+        assert out[f"hpccg_reduces_{mode}"].tolist() == [
+            2 * spec["iters"] + 1] * n_axes
+
+
+def test_hpccg_ranks_solve_the_system(app_runs):
+    """The 8-rank solution satisfies A x ~= b as well as one rank's does."""
+    spec = APP_JOBS["2x2x2"]["hpccg"]
+    b = torch.from_numpy(app_input(spec))
+    x = torch.from_numpy(app_runs("2x2x2")[0]["hpccg_hdot"])
+    one, _ = tst.hpccg_solve(b, _one_rank_mesh(TRIPLE), tuple(TRIPLE),
+                             spec["iters"])
+    rel = [float(torch.linalg.norm(tst._stencil27_matvec(v, None, (), "hdot")
+                                   - b) / torch.linalg.norm(b))
+           for v in (x, one)]
+    assert rel[0] < 2 * rel[1] + 1e-6, rel
+
+
+def test_hierarchical_allreduce_2x2(app_runs):
+    """The staged sum equals the plain one within 1e-4; through the int8
+    codec within 0.03 relative (tests/test_system.py's bounds) and within
+    one quantum of the codec applied by hand; a shape that does not tile
+    takes the plain sum; the int16 payload sums exactly."""
+    spec = APP_JOBS["2x2"]["allreduce"]
+    ranks = app_runs("2x2")
+    xs = [app_input(spec, r) for r in range(4)]       # rank = pod * 2 + data
+    # by hand: in-pod sum of each half, shared max scale, rounded, summed
+    halves = []
+    for h in range(2):
+        parts = [xs[2 * pod][8 * h:8 * h + 8] + xs[2 * pod + 1][8 * h:8 * h + 8]
+                 for pod in range(2)]
+        scale = np.float32(max(np.abs(p).max() for p in parts)) / np.float32(
+            127.0)
+        q = sum(np.clip(np.round(p / scale), -127, 127) for p in parts)
+        halves.append((q.astype(np.float32) * (scale * 2 / 2), scale))
+    by_hand = np.concatenate([h for h, _ in halves])
+    quantum = np.repeat([s for _, s in halves], 8)[:, None]
+    q_sum = [sum(np.random.default_rng(r).integers(-127, 128, (33,))
+                 for r in pod) for pod in ((0, 2), (1, 3))]
+    for r, out in enumerate(ranks):
+        plain = out["ar_plain"]
+        np.testing.assert_allclose(plain, sum(xs), rtol=1e-5, atol=1e-5)
+        assert np.abs(out["ar_staged"] - plain).max() < 1e-4
+        rel = np.abs(out["ar_comp"] - plain).max() / (np.abs(plain).max()
+                                                      + 1e-9)
+        assert rel < 0.03, rel
+        assert (np.abs(out["ar_comp"] - by_hand) <= quantum).all()
+        np.testing.assert_array_equal(out["ar_odd"], out["ar_odd_plain"])
+        np.testing.assert_allclose(out["ar_odd"],
+                                   sum(x[:spec["odd_rows"]] for x in xs),
+                                   rtol=1e-5, atol=1e-5)
+        assert out["int16_sum"].dtype == np.int16
+        np.testing.assert_array_equal(out["int16_sum"], q_sum[r % 2])
+
+
+def test_hierarchical_allreduce_2x2_matches_jax(app_runs):
+    """The same four inputs through the JAX package's staged all-reduce on
+    four forced host devices: the plain-staged and the tile-less results
+    within float32 rounding of the port's, the int8-compressed one within
+    one quantum (q may round the other way at a tie, since XLA divides by
+    the scale as a multiply by its reciprocal)."""
+    spec = APP_JOBS["2x2"]["allreduce"]
+    xs = np.stack([app_input(spec, r) for r in range(4)])
+    code = f"""
+    import json, jax, numpy as np
+    from jax.sharding import PartitionSpec as P
+    from repro.core.reduction import hierarchical_allreduce
+    from repro.launch.mesh import make_mesh
+    from repro.optim.compression import make_crosspod_codec
+    mesh = make_mesh((2, 2), ("pod", "data"))
+    xs = np.asarray({json.dumps(xs.tolist())}, np.float32)
+    comp, decomp = make_crosspod_codec("pod")
+    fns = {{"staged": lambda x: hierarchical_allreduce(x, "data", "pod", 0),
+           "comp": lambda x: hierarchical_allreduce(x, "data", "pod", 0,
+                                                    comp, decomp)}}
+    outs = {{}}
+    for name, rows in (("staged", xs.shape[1]), ("comp", xs.shape[1]),
+                       ("odd", {spec["odd_rows"]})):
+        f = jax.jit(jax.shard_map(fns.get(name, fns["staged"]), mesh=mesh,
+                                  in_specs=P(("pod", "data")),
+                                  out_specs=P(("pod", "data"))))
+        y = f(np.concatenate(list(xs[:, :rows])))  # block r: pod r//2, data r%2
+        outs[name] = np.asarray(y).reshape(4, rows, -1).tolist()
+    print(json.dumps(outs))
+    """
+    want = {k: np.asarray(v, np.float32)
+            for k, v in run_devices(code, 4).items()}
+    quantum = np.repeat(
+        [max(np.abs(xs[2 * pod, 8 * h:8 * h + 8]
+                    + xs[2 * pod + 1, 8 * h:8 * h + 8]).max()
+             for pod in range(2)) / np.float32(127.0) for h in range(2)],
+        8)[:, None]
+    for r, out in enumerate(app_runs("2x2")):
+        np.testing.assert_allclose(out["ar_staged"], want["staged"][r],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(out["ar_odd"], want["odd"][r],
+                                   rtol=1e-5, atol=1e-5)
+        assert (np.abs(out["ar_comp"] - want["comp"][r])
+                <= quantum * (1 + 1e-5)).all()

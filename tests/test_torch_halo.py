@@ -249,8 +249,9 @@ def test_stencil_with_halo_nd_uses_given_halos(ndim, shape, subdomains):
         subdomains=subdomains))(jnp.asarray(u),
                                 [tuple(map(jnp.asarray, h)) for h in halos])
     th = [tuple(map(torch.from_numpy, h)) for h in halos]
-    got = thalo.stencil_with_halo_nd(torch.from_numpy(u), th, fn, 1, dims,
-                                     subdomains)
+    got = thalo.stencil_with_exchange_nd(
+        torch.from_numpy(u), [thalo.HaloExchange(lo, hi) for lo, hi in th],
+        fn, 1, dims, subdomains)
     _close(got, want)
     padded = thalo.pad_with_halo_nd(torch.from_numpy(u), th, 1, dims)
     np.testing.assert_array_equal(

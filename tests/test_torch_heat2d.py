@@ -182,12 +182,14 @@ def test_state_from_jax_carries_grid_halos_and_cuts(meshes):
     st = tst.state_from_jax(grid, halos, cuts, device="cpu")
     assert st.cuts == cuts
     from repro.core.halo import stencil_with_halo_nd as jswh
-    from repro_torch.core.halo import stencil_with_halo_nd as tswh
+    from repro_torch.core.halo import HaloExchange, stencil_with_exchange_nd
 
     want = jswh(jnp.asarray(grid), [tuple(map(jnp.asarray, h))
                                     for h in halos],
                 jst._jacobi_stencil_2d, 1, (0, 1), (2, 3))
-    got = tswh(st.grid, st.halos, tst._jacobi_stencil_2d, 1, (0, 1), (2, 3))
+    got = stencil_with_exchange_nd(
+        st.grid, [HaloExchange(lo, hi) for lo, hi in st.halos],
+        tst._jacobi_stencil_2d, 1, (0, 1), (2, 3))
     _eq(got, want)
 
 
