@@ -11,7 +11,8 @@ dim 128, vocab 151936), phases 7-9; RecurrentGemma-2B (26 layers, d_model
 window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
 (48 layers, d_model 1536, 48 SSD heads of 64, state 128, chunk 256, vocab
 50280), phases 11 and 14-15; the paper's other two applications, RK3 and
-HPCCG's CG, phases 16-17:
+HPCCG's CG, phases 16-17; training InternLM2-1.8B (24 layers, d_model 2048,
+vocab 92544) under the gradient-bucket schedule, phases 18-19:
 
   1. build    nvcc builds every kernel of all paths from the checkout's
               sources (four), one process per source, all started together;
@@ -115,6 +116,36 @@ HPCCG's CG, phases 16-17:
               iterations per schedule. Neither solver runs a kernel of the
               port (the JAX package has no Pallas kernel on these paths):
               the four launch counts must not move in phases 16-17.
+ 18. train    InternLM2-1.8B at its published widths (24 layers, d_model
+              2048, 16/8 heads of 128, d_ff 8192, vocab 92544), bf16,
+              random weights from seed 0, scanned layers, remat "full",
+              global batch 8 x 2048 tokens from SyntheticLMDataset seed 0,
+              AdamW with the JAX package's defaults and warm-up
+              max(1, steps // 10), as launch/train.py's build_run sets it
+              up: a warm-up step and 4 timed steps (host clock around each
+              step's read-back) in three setups, no mesh and a one-rank
+              ("data",) mesh under two_phase and under hdot (the buckets
+              filled and issued during the backward). Per setup: step ms,
+              tokens/s, model FLOP utilisation (6·N·tokens, N the
+              parameters less the embedding, over 989 TFLOP/s; the dense
+              attention's and the remat's FLOPs beside it), peak memory,
+              losses and grad norms. Checks: every loss and norm finite;
+              the first loss within 0.5 of ln V + 1/2 (the loss of
+              unit-variance logits, which rms-normed activations through
+              an N(0, 1/d_model) lm_head give at init); the three setups'
+              losses, grad norms and final parameters equal bit for bit;
+              no kernel of the port launched (the JAX trainer runs dense
+              attention, and the fused cross-entropy is plain array code).
+              Then the reduced config in f32 on the card against the CPU
+              (2 steps from the same parameters, hdot, 2 microbatches,
+              rtol 1e-4), and a resume check (4 steps straight against 2,
+              a checkpoint under build/, a new Trainer restored, 2 more:
+              bit-equal).
+ 19. train_profile  one traced training step (hdot, one-rank mesh) after a
+              warm-up: device time by op family (bf16 GEMMs, the dense
+              attention's f32 GEMMs, softmax, the fused cross-entropy's
+              logits and gradients, the AdamW pass, copies, other
+              elementwise), the top kernels and the device's idle share.
 
 Each phase prints one JSON line (a serve phase one per scheduler and one of
 checks); then the nvidia-smi line, the kernels line and, last,
@@ -960,6 +991,279 @@ def hpccg_phase(dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------- 18-19. training
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048         # 16,384 tokens a step
+TRAIN_STEPS = 5                          # 1 warm-up + 4 timed
+TRAIN_RTOL = 1e-4                        # the f32 trainer tolerance of the
+                                         # CPU tests (port vs JAX Trainer)
+
+
+def train_run(overlap: str, mesh_axes, accum=1, seq=TRAIN_SEQ, dev=None,
+              arch=TRAIN_ARCH, reduced=False, dtype=None, scan=True,
+              steps=TRAIN_STEPS, ckpt=None, every=10 ** 9):
+    """A Trainer as ``launch/train.py``'s ``build_run`` sets one up (AdamW
+    with the JAX defaults, warmup max(1, steps // 10), remat "full" at full
+    width), on a one-rank mesh of `mesh_axes` (None: no mesh)."""
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import ModelOptions
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
+    run = RunConfig(
+        model=cfg,
+        parallel=ParallelConfig(overlap=overlap, accum_steps=accum,
+                                remat="none" if reduced else "full",
+                                scan_layers=scan),
+        train=TrainConfig(global_batch=TRAIN_BATCH, seq_len=seq,
+                          total_steps=steps,
+                          warmup_steps=max(1, steps // 10),
+                          checkpoint_every=every,
+                          checkpoint_dir=ckpt or str(ROOT / "build"
+                                                     / "chip_smoke_ckpt")))
+    mesh = (None if mesh_axes is None else
+            make_mesh((1,) * len(mesh_axes), mesh_axes, dev))
+    options = ModelOptions(scan_layers=scan, remat=run.parallel.remat,
+                           dtype=dtype or torch.bfloat16)
+    return Trainer(run, mesh=mesh, options=options, device=dev)
+
+
+def train_flops(cfg, tokens: int) -> dict:
+    """Model FLOPs of one step, 6·N_matmul·tokens (N_matmul: the parameters
+    less the embedding lookup), and beside it what the step also computes:
+    the dense attention's einsums (QK^T and PV over the whole (s, s) square,
+    float32; forward, two backward products each, and the remat
+    recompute), and the remat recompute of the layers' matmuls and of the
+    logits (linear_xent's backward)."""
+    n_matmul = cfg.num_params() - cfg.vocab_size * cfg.d_model
+    hd = cfg.resolved_head_dim
+    b, s = TRAIN_BATCH, tokens // TRAIN_BATCH
+    attn_fwd = 2 * 2 * b * cfg.num_heads * s * s * hd * cfg.num_layers
+    head = cfg.d_model * cfg.vocab_size
+    return {"n_matmul": n_matmul, "model_flops": 6 * n_matmul * tokens,
+            "attention_flops": 4 * attn_fwd,
+            "remat_flops": 2 * (n_matmul - head) * tokens + 2 * head * tokens}
+
+
+def train_timed(overlap, mesh_axes, dev, card, kernel_ops) -> tuple:
+    """Phase 18's run of one setup: init from seed 0, a warm-up step, 4
+    timed steps (host clock, each ending in the metrics' read-back); the
+    metrics line and the final parameters (a host copy)."""
+    from repro_torch.models.layers import tree_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = train_run(overlap, mesh_axes, dev=dev)
+    t.init_state(seed=0)
+    before = launch_counts(kernel_ops)
+    times = []
+    for _ in range(TRAIN_STEPS):
+        _, dt = timed(lambda: t.train(1))
+        times.append(dt)
+    launches = launch_counts(kernel_ops) - before
+    log = t.metrics_log
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    flops = train_flops(t.run.model, tokens)
+    label = ("no mesh" if mesh_axes is None
+             else f"{'x'.join(mesh_axes)}=1 {overlap}")
+    row = {"phase": "train", "n": 18, "arch": t.run.model.name,
+           "vocab": t.run.model.vocab_size, "setup": label, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "remat": t.run.parallel.remat, "scan_layers": True,
+           "step_ms_median": 1e3 * step_s,
+           "step_ms": [1e3 * x for x in times[1:]],
+           "warmup_step_ms": 1e3 * times[0],
+           "tokens_per_s": tokens / step_s,
+           "mfu": flops["model_flops"] / step_s / BF16_FLOPS,
+           **flops,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "losses": [m["loss"] for m in log],
+           "grad_norms": [m["grad_norm"] for m in log],
+           "lrs": [m["lr"] for m in log], "kernel_launches": launches,
+           "gpu": card}
+    emit(row)
+    final = [p.detach().cpu() for p in tree_leaves(t.params)]
+    buckets = t._step_fn.buckets
+    if buckets is not None:
+        check(buckets.issued == list(range(len(buckets.buckets))),
+              f"hdot issued {buckets.issued}")
+    del t
+    torch.cuda.empty_cache()
+    return row, final
+
+
+def train_vs_cpu(dev, card) -> None:
+    """The reduced config in f32 on the card against the CPU, 2 steps
+    from the same parameters (a one-rank ("data",) mesh under hdot,
+    unrolled, 2 microbatches: the backward-time buckets on the card)."""
+    from repro_torch.models.layers import tree_leaves
+
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        t = train_run("hdot", ("data",), accum=2, seq=64, dev=where,
+                      reduced=True, dtype=torch.float32, scan=False, steps=2)
+        params = t.model.init(0, "cpu")
+        t.init_state(params=params.to(where))
+        t.train(2)
+        runs[where.type] = t
+    a, b = runs["cuda"], runs["cpu"]
+    worst = 0.0
+    for key in ("loss", "grad_norm"):
+        got = torch.tensor([m[key] for m in a.metrics_log])
+        want = torch.tensor([m[key] for m in b.metrics_log])
+        check(torch.allclose(got, want, rtol=TRAIN_RTOL, atol=0),
+              f"train card != cpu: {key} {got.tolist()} {want.tolist()}")
+    for p, q in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        p, q = p.detach().cpu(), q.detach()
+        err = float((p - q).abs().max())
+        check(err <= TRAIN_RTOL * (float(q.abs().max()) + 1e-30),
+              f"train card != cpu: a parameter off by {err}")
+        worst = max(worst, err / float(q.abs().max()))
+    emit({"phase": "train_vs_cpu", "n": 18, "arch": a.run.model.name,
+          "dtype": "f32", "steps": 2, "losses": [m["loss"] for m in
+                                                  a.metrics_log],
+          "max_param_err_rel_to_leaf_max": worst, "rtol": TRAIN_RTOL,
+          "gpu": card})
+
+
+def train_resume(dev, card) -> None:
+    """The reduced config (bf16) trained 4 steps straight against 2 steps,
+    a checkpoint, a new Trainer restored from it and 2 more: equal
+    parameters and losses."""
+    import shutil
+
+    from repro_torch.models.layers import tree_leaves
+
+    base = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    runs = []
+    for name, plan in (("straight", (4,)), ("resumed", (2, 2))):
+        ckpt = str(base / name)
+        t = train_run("hdot", ("data",), dev=dev, reduced=True, seq=64,
+                      steps=4, ckpt=ckpt, every=2)
+        t.init_state(seed=0)
+        t.train(plan[0])
+        losses = [m["loss"] for m in t.metrics_log]
+        if len(plan) == 2:
+            t = train_run("hdot", ("data",), dev=dev, reduced=True, seq=64,
+                          steps=4, ckpt=ckpt, every=2)
+            check(t.restore_if_available() and t.step == 2,
+                  "resume: no step-2 checkpoint")
+            t.train(plan[1])
+            losses += [m["loss"] for m in t.metrics_log]
+        runs.append((losses, [p.detach().clone() for p in
+                              tree_leaves(t.params)]))
+    (la, pa), (lb, pb) = runs
+    check(la == lb and all(torch.equal(x, y) for x, y in zip(pa, pb)),
+          f"resumed != straight: {la} {lb}")
+    shutil.rmtree(base, ignore_errors=True)
+    emit({"phase": "train_resume", "n": 18, "losses": la, "equal": True,
+          "gpu": card})
+
+
+def train_phase(dev, card, kernel_ops) -> list:
+    """Phase 18 (see the module docstring)."""
+    rows, finals = [], {}
+    for overlap, axes in (("hdot", None), ("two_phase", ("data",)),
+                          ("hdot", ("data",))):
+        row, final = train_timed(overlap, axes, dev, card, kernel_ops)
+        rows.append(row)
+        finals[row["setup"]] = final
+    for row in rows:
+        check(all(math.isfinite(x) for x in row["losses"]
+                  + row["grad_norms"]), f"{row['setup']}: non-finite")
+        check(row["kernel_launches"] == 0,
+              f"{row['setup']}: a kernel of the port launched in training")
+        # at init the rms-normed activations through lm_head ~ N(0, 1/d)
+        # give logits of unit variance: E[loss] = ln V + 1/2
+        expect = math.log(row["vocab"]) + 0.5
+        check(abs(row["losses"][0] - expect) <= 0.5,
+              f"{row['setup']}: first loss {row['losses'][0]}")
+    two, hdot = rows[1], rows[2]
+    same = (two["losses"] == hdot["losses"]
+            and two["grad_norms"] == hdot["grad_norms"]
+            and all(torch.equal(a, b) for a, b in zip(
+                finals[two["setup"]], finals[hdot["setup"]])))
+    check(same, "train: hdot != two_phase on one rank")
+    emit({"phase": "train_checks", "n": 18,
+          "hdot_equals_two_phase": same,
+          "first_loss": rows[0]["losses"][0],
+          "first_loss_minus_ln_vocab": rows[0]["losses"][0]
+          - math.log(rows[0]["vocab"]), "gpu": card})
+    del finals
+    train_vs_cpu(dev, card)
+    train_resume(dev, card)
+    return rows
+
+
+def family(name: str, ranges) -> str:
+    """The op family of one CUDA kernel of the training step, from its
+    name (cuBLAS names its float32 products "sgemm" or "gemm_f32f32"; its
+    bf16 ones carry no type) and the profiler ranges it was launched
+    under."""
+    low = name.lower()
+    if "adamw_update" in ranges:
+        return "adamw"
+    if any(r.startswith("linear_xent") for r in ranges):
+        return "xent (logits, dlogits, dx, dw)"
+    if "sgemm" in low or "gemm_f32f32" in low:
+        return "f32 gemm (attention)"     # the only f32 products of a step
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet")):
+        return "bf16 gemm"
+    if "softmax" in low:
+        return "softmax"
+    if "copy" in low or "cat" in low:
+        return "copies"
+    return "other elementwise"
+
+
+def train_profile(dev, card) -> dict:
+    """Phase 19: one traced training step (full width, hdot on the one-rank
+    mesh) after a warm-up step: device time by op family, the top kernels,
+    and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = train_run("hdot", ("data",), dev=dev)
+    t.init_state(seed=0)
+    t.train(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t.train(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fams, kernels, total = {}, {}, 0.0
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        ranges, up = set(), ev
+        while up is not None:
+            ranges.add(up.name)
+            up = up.cpu_parent
+        for k in ev.kernels:
+            ms = k.duration / 1e3
+            fam = family(k.name, ranges)
+            fams[fam] = fams.get(fam, 0.0) + ms
+            kernels[k.name] = kernels.get(k.name, 0.0) + ms
+            total += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    ours = [n for n in kernels if any(k in n for k in PORT_KERNELS)]
+    check(not ours, f"a kernel of the port ran in training: {ours}")
+    row = {"phase": "train_profile", "n": 19, "setup": "data=1 hdot",
+           "wall_ms": 1e3 * wall, "device_busy_ms": total,
+           "idle_share": 1.0 - total / (1e3 * wall),
+           "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+           "top_kernels": [{"name": n[:100], "ms": ms} for n, ms in top],
+           "gpu": card}
+    emit(row)
+    del t
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1180,6 +1484,15 @@ def main() -> int:
           "a kernel of the port launched during RK3 or HPCCG")
     emit({"phase": "apps", "n": [16, 17], "rk3_phase_seconds": rk3_s,
           "hpccg_phase_seconds": hpccg_s, "kernel_launches": app_launches})
+
+    # ------------ 18-19. train InternLM2-1.8B: no kernel of the port either
+    before = launch_counts(kernel_ops)
+    _, train_s = timed(lambda: train_phase(dev, card, kernel_ops))
+    _, trace_s = timed(lambda: train_profile(dev, card))
+    train_launches = launch_counts(kernel_ops) - before
+    check(train_launches == 0, "a kernel of the port launched in training")
+    emit({"phase": "train_seconds", "n": [18, 19], "phase18_s": train_s,
+          "phase19_s": trace_s, "kernel_launches": train_launches})
 
     # -------------------------------------------------------------- results
     flash_launches = sum(v.get("flash_attention", 0) for v in served.values())

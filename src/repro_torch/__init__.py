@@ -6,20 +6,25 @@ sends, and each Pallas TPU kernel on a ported path is a CUDA kernel written
 by hand for ``sm_90a`` with a plain PyTorch version beside it.
 
 Public API (lazy — importing ``repro_torch`` touches no device):
-    repro_torch.config   -- model configs and the --arch registry
-    repro_torch.core     -- domain / cost / halo / reduction / stencil
+    repro_torch.checkpoint -- atomic, async checkpoints (the JAX layout)
+    repro_torch.config   -- model, parallel, train configs; --arch registry
+    repro_torch.core     -- domain / cost / halo / reduction / stencil /
+                            overlap (the gradient buckets)
+    repro_torch.data     -- the synthetic LM data pipeline
     repro_torch.kernels  -- hand-written Hopper kernels (+ plain versions)
-    repro_torch.launch   -- process meshes; the serving launcher
-    repro_torch.models   -- dense GQA language models
-    repro_torch.optim    -- narrow-wire gradient codecs
+    repro_torch.launch   -- process meshes; the train step; the serving
+                            and training launchers
+    repro_torch.models   -- language models (dense GQA, Mamba-2,
+                            RecurrentGemma), the fused cross-entropy
+    repro_torch.optim    -- AdamW, the schedule, narrow-wire codecs
     repro_torch.runtime  -- the re-cut loop, the straggler drill; the
-                            batched server
+                            batched server; the data-parallel trainer
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["config", "core", "kernels", "launch", "models", "optim",
-           "runtime", "__version__"]
+__all__ = ["checkpoint", "config", "core", "data", "kernels", "launch",
+           "models", "optim", "runtime", "__version__"]
 
 
 def __getattr__(name):

@@ -1,0 +1,10 @@
+"""Checkpoints of the port, in the JAX package's layout."""
+from repro_torch.checkpoint.checkpointer import (
+    AsyncCheckpointer,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["AsyncCheckpointer", "latest_step", "restore_checkpoint",
+           "save_checkpoint"]

@@ -1,10 +1,14 @@
-"""Model configs of the port: dataclasses and the ``--arch`` registry."""
+"""Configs of the port: model, parallel, train and run dataclasses and the
+``--arch`` registry."""
 from repro_torch.config.base import (
     EncDecConfig,
     HybridConfig,
     ModelConfig,
     MoEConfig,
+    ParallelConfig,
+    RunConfig,
     SSMConfig,
+    TrainConfig,
 )
 from repro_torch.config.registry import ARCHS, get_arch, list_archs
 
@@ -14,6 +18,9 @@ __all__ = [
     "SSMConfig",
     "HybridConfig",
     "EncDecConfig",
+    "ParallelConfig",
+    "TrainConfig",
+    "RunConfig",
     "ARCHS",
     "get_arch",
     "list_archs",

@@ -1,14 +1,18 @@
-"""Model config dataclasses: the port's own copy of the JAX package's
-``repro/config/base.py`` (the model part), so that the port imports nothing
-of ``repro``. Pure Python, no torch.
+"""Config dataclasses: the port's own copy of the JAX package's
+``repro/config/base.py``, so that the port imports nothing of ``repro``.
+Pure Python, no torch.
 
-The parallel/train/run configs wait for the training and multi-card slices
-(``ROADMAP.md``).
+The fields, defaults and ``__post_init__`` checks are the JAX package's.
+The data-parallel trainer (``runtime/trainer.py``) honours every field of
+:class:`ParallelConfig` but ``param_shard``/``fsdp_streaming`` (ZeRO-3),
+``collective_matmul``, ``moe_a2a_chunks > 1`` and ``grad_compression``,
+which :func:`repro_torch.launch.steps.check_ported` rejects with
+``NotImplementedError`` (``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -210,3 +214,116 @@ class ModelConfig:
         if self.num_vision_patches:
             kw["num_vision_patches"] = 16
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """How the model is laid out on the mesh. Axes are logical; launch/mesh.py
+    materializes ("pod", "data", "model")."""
+
+    # fsdp shards params/optstate over these axes (ZeRO-3); data parallel axes.
+    dp_axes: Tuple[str, ...] = ("pod", "data")
+    tp_axis: str = "model"
+    # sequence-parallel activations between blocks (shard seq over tp_axis)
+    sequence_parallel: bool = True
+    # 'none'   = two-phase (paper's MPI+OpenMP baseline): whole-tensor collectives
+    # 'hdot'   = per-subdomain collectives in the dataflow (the paper's technique)
+    overlap: str = "hdot"
+    # HDOT over-decomposition degree at task level (chunks per shard);
+    # mirrors the paper's "number of subdomains per rank".
+    subdomains: int = 4
+    # gradient-sync buckets for the zero-copy HDOT schedule (subdomains of
+    # the parameter domain; each bucket is one multi-operand all-reduce)
+    grad_buckets: int = 8
+    # bucket emission order for the explicit schedules:
+    #   'reverse_topo' — buckets cut along layer boundaries (leaf provenance
+    #                    from models/*), collectives emitted last-backward-
+    #                    first so the first reduction departs while earlier
+    #                    layers' backward still computes
+    #   'tree'         — legacy size-balanced buckets in pytree order
+    bucket_order: str = "reverse_topo"
+    # ZeRO-3: park params/opt-state as bucket-wise flat buffers sharded over
+    # dp_axes (1/|dp| per-device residency); the explicit step all-gathers
+    # buckets forward-order and reduce-scatters them reverse-topologically.
+    # Requires the explicit-schedule (DP-only mesh) step.
+    param_shard: bool = False
+    # Streaming ZeRO-3: cut ONE bucket per layer (bucket_order forced to
+    # 'layer') and emit each bucket's all-gather inside the remat region of
+    # the layer that consumes it — the gathered buffer dies after that
+    # layer's forward and the backward REGATHERS it in reverse order, so
+    # peak live params ≈ shard + fsdp_working_set buckets instead of the
+    # full tree. Needs param_shard=True and scan_layers=False (layer
+    # boundaries must be visible to the gather schedule).
+    fsdp_streaming: bool = False
+    # Bound on simultaneously-live gathered buckets the streaming schedule
+    # promises (head bucket + the layer in flight). The lint target and the
+    # memory probe assert it; the step itself emits gathers point-of-use.
+    fsdp_working_set: int = 2
+    scan_layers: bool = True
+    remat: str = "full"                # 'none' | 'full' | 'dots'
+    # gradient accumulation microbatches (1 = no accumulation)
+    accum_steps: int = 1
+    # use ppermute-ring collective matmul for TP instead of plain all-gather
+    collective_matmul: bool = False
+    # MoE expert-parallel a2a over-decomposition degree Q (core.a2a_scan):
+    # the dispatch/combine all-to-alls are chunked into Q capacity slices so
+    # slice k+1's dispatch and slice k-1's combine overlap slice k's expert
+    # FFN. 1 = monolithic a2a (the two-phase baseline); must divide the
+    # per-shard expert capacity C.
+    moe_a2a_chunks: int = 1
+    # int8 error-feedback compression on the cross-pod gradient hop
+    grad_compression: str = "none"     # 'none' | 'int8_ef'
+    # measured-cost dynamic re-partitioning: every K steps, re-cut the
+    # interior chunk grid from per-chunk wall-clock EMAs (core/cost.py) and
+    # recompile only if the cut changed. 0 = static uniform cut (off).
+    rebalance_every: int = 0
+
+    def __post_init__(self):
+        if self.rebalance_every < 0:
+            raise ValueError(
+                f"rebalance_every must be >= 0, got {self.rebalance_every}")
+        if self.fsdp_working_set < 1:
+            raise ValueError(
+                f"fsdp_working_set must be >= 1, got {self.fsdp_working_set}")
+        if self.fsdp_streaming and not self.param_shard:
+            raise ValueError(
+                "fsdp_streaming=True needs param_shard=True (it is a "
+                "schedule for the ZeRO-3 flat-shard step)")
+        if self.fsdp_streaming and self.scan_layers:
+            raise ValueError(
+                "fsdp_streaming=True needs scan_layers=False: per-layer "
+                "gather placement requires the unrolled stack (the scanned "
+                "lowering streams via stack_apply's scan-carried gather)")
+        if self.fsdp_streaming and self.remat != "full":
+            raise ValueError(
+                "fsdp_streaming=True needs remat='full': the backward must "
+                "REGATHER each layer's bucket inside its remat region "
+                "('none' would keep every gathered buffer live to its "
+                "backward use; 'dots' saves the gathered dot operands — "
+                "both forfeit the streaming memory bound)")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    keep_checkpoints: int = 3
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)

@@ -5,4 +5,5 @@
 - :mod:`repro_torch.core.halo`       halo exchange with interior/boundary overlap
 - :mod:`repro_torch.core.reduction`  hierarchical task->process reductions
 - :mod:`repro_torch.core.stencil`    Heat2D, RK3 and HPCCG on the core
+- :mod:`repro_torch.core.overlap`    gradient buckets: two-phase vs HDOT sync
 """

@@ -1,1 +1,2 @@
-"""Process meshes over torch.distributed ranks, and the serving launcher."""
+"""Process meshes over torch.distributed ranks, the data-parallel train
+step, and the serving and training launchers."""

@@ -42,7 +42,8 @@ class ProcessMesh:
     ``shape`` maps axis name -> size (as ``jax.sharding.Mesh.shape`` does),
     ``coords`` is this rank's position, ``groups`` one process group per
     axis, holding the ranks of this rank's line along it (None where the
-    axis has size 1, or the mesh has one rank)."""
+    axis has size 1, or the mesh has one rank), and one per tuple of axes
+    asked of :meth:`axes_group`."""
 
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
@@ -67,6 +68,34 @@ class ProcessMesh:
             raise ValueError(
                 f"mesh axes {self.axis_names} have no axis {name!r}")
         return self.axis_names.index(name)
+
+    def axes_group(self, axes: Tuple[str, ...]):
+        """One process group over the ranks that differ from this one only
+        along `axes` (the sub-grid they span: with every DP axis, the
+        data-parallel replicas), or None where that sub-grid is one rank.
+        The first call for a set of axes is collective: every rank of the
+        mesh must make it, in the same order (``dist.new_group``)."""
+        axes = tuple(axes)
+        ks = [self.axis_index(a) for a in axes]
+        if math.prod(self.sizes[k] for k in ks) == 1:
+            return None
+        if len(axes) == 1:
+            return self.groups[axes[0]]
+        if axes not in self.groups:
+            others = [range(s) if k not in ks else range(1)
+                      for k, s in enumerate(self.sizes)]
+            for base in itertools.product(*others):
+                ranks = []
+                for sub in itertools.product(*(range(self.sizes[k])
+                                               for k in ks)):
+                    c = list(base)
+                    for k, i in zip(ks, sub):
+                        c[k] = i
+                    ranks.append(coords_rank(c, self.sizes))
+                g = dist.new_group(sorted(ranks))
+                if self.rank in ranks:
+                    self.groups[axes] = g
+        return self.groups[axes]
 
     def neighbors(self, name: str, periodic: bool = False
                   ) -> Tuple[Optional[int], Optional[int]]:

@@ -1,8 +1,11 @@
-"""Models of the port: dense GQA language models (the serving slice).
+"""Models of the port: dense GQA, Mamba-2 and RecurrentGemma language
+models.
 
-  layers       -- param specs, ParamTree, rms_norm, rope, SwiGLU MLP
+  layers       -- param specs (with layer provenance), ParamTree, rms_norm,
+                  rope, SwiGLU MLP
   attention    -- GQA attention: dense and flash, ring caches, decode
-  transformer  -- the layer stack, scanned or unrolled
-  model        -- LanguageModel: prefill / decode_step
+  transformer  -- the layer stack, scanned or unrolled, remat
+  model        -- LanguageModel: train_loss / prefill / decode_step
+  xent         -- the fused linear cross-entropy
   convert      -- parameters of the JAX package into the port's layout
 """

@@ -108,7 +108,7 @@ def sdpa(q, k, v, q_pos, k_pos, causal=True, window=None, impl="dense",
     if impl in ("blockwise", "blockwise_unrolled"):
         raise NotImplementedError(
             f"attention impl {impl!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 10)")
+            f"Queue 1 item 4)")
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

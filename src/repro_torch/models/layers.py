@@ -6,7 +6,9 @@ The port of ``repro/models/layers.py``. A module publishes a tree of
 layer dim — so the einsums and the conversion from JAX parameters
 (:mod:`repro_torch.models.convert`) stay one-to-one. Materialized
 parameters are a :class:`ParamTree`, an ``nn.Module`` that is indexed like
-the JAX dict (``p["attn"]["wq"]``).
+the JAX dict (``p["attn"]["wq"]``). Every spec carries its layer
+provenance (``ParamSpec.layer``, the forward depth of the module that owns
+it), which the gradient-bucket schedule (``core/overlap.py``) cuts on.
 
 Each leaf's seed comes from a stable hash of its tree path (CRC-32 of its
 string), so any subset of leaves inits as in the full tree, and the same
@@ -17,6 +19,7 @@ by converting one tree, never by initializing both.)
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import zlib
 from dataclasses import dataclass
@@ -37,6 +40,11 @@ class ParamSpec:
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"                     # normal | zeros | ones
     scale: Optional[float] = None            # None -> 1/sqrt(fan_in)
+    # Layer provenance: forward depth of the (sub)module owning this param.
+    # Higher depth = closer to the loss = its gradient is ready EARLIER in
+    # the backward pass. A scanned (stacked) layer tree is one depth: its
+    # stacked gradient completes at once, when layer 0's backward ends.
+    layer: Optional[int] = None
 
     def __post_init__(self):
         if self.init not in ("normal", "zeros", "ones"):
@@ -46,8 +54,9 @@ class ParamSpec:
 class ParamTree(nn.Module):
     """Nested parameters as an ``nn.Module``: a dict of tensors, dicts and
     lists becomes parameters, child trees and ``nn.ModuleList``s under the
-    same keys, read back with ``tree[key]``. Parameters never require
-    grad (this slice serves; training waits, see ``ROADMAP.md``)."""
+    same keys, read back with ``tree[key]``. Parameters do not require
+    grad: serving keeps them so, and the trainer makes them trainable with
+    ``requires_grad_()``."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -68,17 +77,38 @@ class ParamTree(nn.Module):
 
 
 def leaf_paths(tree: PyTree, prefix=()) -> Dict[Tuple, Any]:
-    """{path: leaf} over nested dicts and lists."""
+    """{path: leaf} over nested dicts, lists and :class:`ParamTree`s, in
+    the JAX package's tree order (dict keys sorted)."""
     out = {}
+    if isinstance(tree, ParamTree):
+        tree = {**tree._parameters, **tree._modules}
     if isinstance(tree, dict):
         for k in sorted(tree):
             out.update(leaf_paths(tree[k], prefix + (k,)))
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, (list, tuple, nn.ModuleList)):
         for i, v in enumerate(tree):
             out.update(leaf_paths(v, prefix + (i,)))
     else:
         out[prefix] = tree
     return out
+
+
+def tree_map(fn, tree: PyTree) -> PyTree:
+    """`tree`'s structure as nested dicts and lists (a :class:`ParamTree`
+    becomes a dict), with ``fn(leaf)`` at every leaf."""
+    if isinstance(tree, ParamTree):
+        tree = {**tree._parameters, **tree._modules}
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves of `tree` in the JAX package's order (``jax.tree.leaves``
+    of the same tree)."""
+    return list(leaf_paths(tree).values())
 
 
 def rebuild(tree: PyTree, leaves: Dict[Tuple, Any], prefix=()) -> PyTree:
@@ -119,6 +149,27 @@ def init_from_specs(specs: PyTree, seed: int = 0, device="cuda") -> PyTree:
     leaves = {p: init_leaf(seed, p, s, device)
               for p, s in leaf_paths(specs).items()}
     return rebuild(specs, leaves)
+
+
+def map_specs(fn, specs: PyTree) -> PyTree:
+    """`specs` with `fn` applied to every :class:`ParamSpec`."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return [map_specs(fn, v) for v in specs]
+    return fn(specs)
+
+
+def layers_from_specs(specs: PyTree) -> PyTree:
+    """Layer-provenance tree (same structure as the params): each leaf's
+    forward depth, untagged specs defaulting to depth 0 (the input end,
+    whose gradients complete last)."""
+    return map_specs(lambda s: 0 if s.layer is None else s.layer, specs)
+
+
+def tag_layer(specs: PyTree, depth: int) -> PyTree:
+    """Stamp `depth` as the layer provenance of every spec in the subtree."""
+    return map_specs(lambda s: dataclasses.replace(s, layer=depth), specs)
 
 
 # ------------------------------------------------------------------- layers

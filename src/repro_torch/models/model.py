@@ -1,7 +1,8 @@
-"""LanguageModel: the public model API the server drives.
+"""LanguageModel: the public model API the trainer and the server drive.
 
-The port of ``repro/models/model.py`` for dense attention models:
+The port of ``repro/models/model.py``:
 
+  train_loss(params, batch)               -- mean next-token cross-entropy
   prefill(params, batch, max_len)         -- (logits of the last token, caches)
   decode_step(params, token, caches, pos) -- one token against the caches
 
@@ -9,8 +10,10 @@ Parameters are a :class:`~repro_torch.models.layers.ParamTree` in the JAX
 package's layout (``init``, or :func:`repro_torch.models.convert.
 params_from_jax`); caches are dicts of tensors that prefill and decode
 update in place. The families ported are ``dense``, ``ssm`` (Mamba-2) and
-``hybrid`` (RecurrentGemma); the others and training (``train_loss``) wait
-for later slices (``ROADMAP.md``) and raise ``NotImplementedError``.
+``hybrid`` (RecurrentGemma); the others wait for later slices
+(``ROADMAP.md``) and raise ``NotImplementedError``. ``train_loss`` trains
+the dense family only: the recurrent families' kernels are forward-only,
+so their training raises too.
 
 float32 runs on the card assume full-precision matmuls
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default); the
@@ -29,8 +32,11 @@ from repro_torch.models.layers import (
     ParamSpec,
     ParamTree,
     init_from_specs,
+    layers_from_specs,
     rms_norm,
+    tag_layer,
 )
+from repro_torch.models.xent import linear_xent
 
 PyTree = Any
 
@@ -39,10 +45,15 @@ PyTree = Any
 class ModelOptions:
     attn_impl: str = "dense"          # dense | flash
     scan_layers: bool = True
+    remat: str = "none"               # none | full (train mode)
+    # fused linear + cross-entropy (models/xent.py): the (b, s, V) logits
+    # are not kept for the backward
+    fused_xent: bool = True
     dtype: torch.dtype = torch.bfloat16
 
 
 FAMILIES = ("dense", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense",)
 
 
 class LanguageModel:
@@ -54,23 +65,38 @@ class LanguageModel:
 
     # ------------------------------------------------------------------ specs
     def param_specs(self) -> PyTree:
+        """Every leaf carries layer provenance (``ParamSpec.layer``): depth 0
+        for the embedding, ``1..N`` through the stack, ``N + 1`` on the
+        head, so the grad-sync schedule knows which gradients complete
+        first in the backward."""
         cfg, dt = self.cfg, self.opt.dtype
+        head_depth = 1 + cfg.num_layers
         specs: Dict[str, Any] = {
             "embed": ParamSpec((cfg.vocab_size, cfg.d_model), dt,
-                               scale=cfg.d_model ** -0.5),
-            "layers": tfm.stack_specs(cfg, self.opt.scan_layers, dt),
+                               scale=cfg.d_model ** -0.5, layer=0),
+            "layers": tfm.stack_specs(cfg, self.opt.scan_layers, dt,
+                                      depth0=1),
         }
-        specs.update(tfm._norm_specs(cfg, "final_norm"))
+        specs.update(tag_layer(tfm._norm_specs(cfg, "final_norm"),
+                               head_depth))
         if not cfg.tie_embeddings:
-            specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dt)
+            specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dt,
+                                         layer=head_depth)
         return specs
 
     def init(self, seed: int = 0, device="cuda") -> ParamTree:
         return ParamTree(init_from_specs(self.param_specs(), seed, device))
 
+    def param_layers(self) -> PyTree:
+        """Layer-provenance tree matching :meth:`init`'s params: per-leaf
+        forward depth, consumed by the reverse-topological grad-sync bucket
+        schedule (``core/overlap.py``)."""
+        return layers_from_specs(self.param_specs())
+
     # ------------------------------------------------------------- embeddings
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = params["embed"][tokens]
+        # F.embedding: a gather whose backward is deterministic on the card
+        x = torch.nn.functional.embedding(tokens, params["embed"])
         # the scale is rounded to the activation dtype first, as in the JAX
         # package (11.3125 in bf16 at d_model 128)
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
@@ -99,9 +125,31 @@ class LanguageModel:
         else:
             positions = torch.arange(s, device=x.device).expand(b, s)
         return tfm.stack_apply(params["layers"], x, self.cfg, positions, mode,
-                               caches, pos, self.opt.attn_impl)
+                               caches, pos, self.opt.attn_impl,
+                               remat=self.opt.remat)
 
     # ------------------------------------------------------------ entry points
+    def train_loss(self, params, batch: Dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["targets"]`` ((b, s) int64), a 0-d float32 tensor. Fused
+        (``options.fused_xent``): :func:`~repro_torch.models.xent.
+        linear_xent` on the final-normed activations; otherwise the f32
+        logits' log-softmax."""
+        if self.cfg.family not in TRAINED_FAMILIES:
+            raise NotImplementedError(
+                f"training the {self.cfg.family!r} family is not ported: "
+                f"its kernels are forward-only; see ROADMAP.md (Queue 1)")
+        x, _ = self._forward(params, batch, "train")
+        targets = batch["targets"]
+        if self.opt.fused_xent:
+            x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+            w = (params["embed"].t() if self.cfg.tie_embeddings
+                 else params["lm_head"])
+            return linear_xent(x, w, targets)
+        logp = torch.log_softmax(self._unembed(params, x), dim=-1)
+        ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+        return -torch.mean(ll)
+
     def prefill(self, params, batch: Dict, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Any]:
         """`max_len` sizes the ring caches for the decode phase that follows;

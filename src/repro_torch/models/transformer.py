@@ -5,7 +5,11 @@ attention models (kind ``"attn"``), Mamba-2 (``"ssm"``) and RecurrentGemma
 A stack runs :func:`layer_apply` either over a scanned layout (every leaf
 stacked with a leading layer dim, as ``lax.scan`` takes it in the JAX
 package) or over an unrolled list of per-layer trees; here both are a Python
-loop. A hybrid stack is never uniform, so it is always unrolled. Block kinds
+loop. A hybrid stack is never uniform, so it is always unrolled. In "train"
+mode a scanned stack is unbound into its layers once per call (so its
+stacked gradient is assembled once, when layer 0's backward ends), and
+``remat="full"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` does). Block kinds
 ``"attn_moe"`` (MoE) and ``"decoder"`` (encoder-decoder) wait for their
 slices and raise ``NotImplementedError``.
 
@@ -17,10 +21,12 @@ trees instead.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -29,9 +35,11 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamSpec,
     ParamTree,
+    map_specs,
     mlp_apply,
     mlp_specs,
     rms_norm,
+    tag_layer,
 )
 
 PORTED_KINDS = ("attn", "local_attn", "ssm", "rglru")
@@ -146,23 +154,22 @@ def _recurrent(p, h, cfg: ModelConfig, kind: str, mode: str, cache):
 
 # ----------------------------------------------------------------- the stacks
 def _stacked(spec: ParamSpec, n: int) -> ParamSpec:
-    return ParamSpec((n,) + spec.shape, spec.dtype, spec.init, spec.scale)
+    return dataclasses.replace(spec, shape=(n,) + spec.shape)
 
 
-def _map_specs(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_specs(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def stack_specs(cfg: ModelConfig, scan: bool, dtype=torch.bfloat16) -> Any:
-    """Specs of the main stack: one tree with a leading layer dim on every
-    leaf (scanned) or a list of per-layer trees (unrolled)."""
+def stack_specs(cfg: ModelConfig, scan: bool, dtype=torch.bfloat16,
+                depth0: int = 1) -> Any:
+    """Specs of the main stack, layer-provenance tagged. Scanned: one tree
+    with a leading layer dim on every leaf, all at depth ``depth0`` (its
+    gradient materializes whole, so there is no finer release to order).
+    Unrolled: a list of per-layer trees, layer i at depth ``depth0 + i``."""
     kinds = block_kinds(cfg)
     if scan and uniform_stack(cfg):
         one = layer_specs(cfg, kinds[0], dtype)
-        return _map_specs(lambda s: _stacked(s, cfg.num_layers), one)
-    return [layer_specs(cfg, k, dtype) for k in kinds]
+        return tag_layer(map_specs(lambda s: _stacked(s, cfg.num_layers),
+                                   one), depth0)
+    return [tag_layer(layer_specs(cfg, k, dtype), depth0 + i)
+            for i, k in enumerate(kinds)]
 
 
 def _layer(tree, i: int):
@@ -175,18 +182,47 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree) -> list:
+    """The layers of a scanned tree, each leaf unbound once (one autograd
+    node per stacked leaf, whose backward stacks the per-layer grads)."""
+    if isinstance(tree, ParamTree):
+        tree = {**tree._parameters, **tree._modules}
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def is_unrolled(layers) -> bool:
     return isinstance(layers, (list, tuple, nn.ModuleList))
 
 
 def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
-                pos, attn_impl: str):
+                pos, attn_impl: str, remat: str = "none"):
     """Run the full stack. `params` matches :func:`stack_specs`' layout
     (stacked tree for scan, list for unrolled), `caches` that of
     :func:`stack_cache_specs` (or None in "train" mode). The caches are
-    written in place through per-layer views. Returns (x, caches)."""
+    written in place through per-layer views. `remat` ("none" | "full")
+    applies in "train" mode: "full" keeps only each layer's input and
+    recomputes the layer in the backward. Returns (x, caches)."""
+    if remat not in ("none", "full"):
+        if remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save the matmul outputs) is not ported; "
+                "see ROADMAP.md (Queue 1 item 5)")
+        raise ValueError(f"unknown remat {remat!r}")
     kinds = block_kinds(cfg)
     unrolled = is_unrolled(params)
+    if mode == "train":
+        layers = params if unrolled else _unbind(params)
+        for p_l, kind in zip(layers, kinds):
+            def f(xx, p_l=p_l, kind=kind):
+                return layer_apply(p_l, xx, cfg, kind, positions, mode, None,
+                                   None, attn_impl)[0]
+            x = checkpoint(f, x, use_reentrant=False) if remat == "full" \
+                else f(x)
+        return x, None
     for i, kind in enumerate(kinds):
         p_l = params[i] if unrolled else _layer(params, i)
         cache_l = None
@@ -218,6 +254,6 @@ def stack_cache_specs(cfg: ModelConfig, batch: int, max_len: int, scan: bool,
         return attn.cache_specs(cfg, batch, w, dtype)
 
     if scan and uniform_stack(cfg):
-        return _map_specs(lambda s: _stacked(s, cfg.num_layers),
-                          one(kinds[0]))
+        return map_specs(lambda s: _stacked(s, cfg.num_layers),
+                         one(kinds[0]))
     return [one(k) for k in kinds]

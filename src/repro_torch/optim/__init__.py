@@ -1,1 +1,8 @@
-"""Optimizer-side pieces of the port: the narrow-wire gradient codecs."""
+"""Optimizer-side pieces of the port: AdamW, the learning-rate schedule and
+the narrow-wire gradient codecs."""
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     global_norm)
+from repro_torch.optim.schedule import warmup_cosine
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
+           "warmup_cosine"]

@@ -1,0 +1,179 @@
+"""Training runtime: the data-parallel step, microbatch accumulation (HDOT
+subdomains of the global batch), checkpoint/restart. The port of
+``repro/runtime/trainer.py`` without its ZeRO-3 branches.
+
+With a DP-only mesh (every non-DP axis of size 1) each rank trains on its
+contiguous slice of the global batch, indexed pod-major over the DP axes
+(as ``P(("pod", "data"))`` shards it in the JAX package), and the gradient
+sum over the DP axes is the explicit schedule from ``core/overlap.py``:
+``ParallelConfig.overlap`` picks the HDOT buckets issued during the
+backward or the monolithic two-phase baseline, and
+``ParallelConfig.grad_buckets`` sets the over-decomposition degree. Without
+a mesh the step is the plain accumulation. Parameters and optimizer state
+are updated in place on the trainer's device ("cuda" unless the caller
+asks for "cpu").
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                    restore_checkpoint)
+from repro_torch.config.base import RunConfig
+from repro_torch.core.cost import CostModel
+from repro_torch.data.pipeline import SyntheticLMDataset
+from repro_torch.launch.mesh import coords_rank, resolve_device
+from repro_torch.launch.steps import (check_ported, explicit_sync_axes,
+                                      make_train_step)
+from repro_torch.models.layers import ParamTree, tree_leaves
+from repro_torch.models.model import TRAINED_FAMILIES, ModelOptions, build_model
+from repro_torch.models.transformer import _not_ported
+from repro_torch.optim import AdamWConfig, adamw_init
+
+PyTree = Any
+
+
+class Trainer:
+    def __init__(self, run: RunConfig, mesh=None,
+                 options: Optional[ModelOptions] = None,
+                 dataset: Optional[SyntheticLMDataset] = None,
+                 device="cuda"):
+        check_ported(run.parallel, mesh)
+        self.run = run
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
+        self.opt_cfg = AdamWConfig(
+            lr=run.train.lr, beta1=run.train.beta1, beta2=run.train.beta2,
+            eps=run.train.eps, weight_decay=run.train.weight_decay,
+            grad_clip=run.train.grad_clip)
+        self.options = options or ModelOptions(
+            attn_impl="dense", scan_layers=run.parallel.scan_layers,
+            remat=run.parallel.remat)
+        if run.model.family not in TRAINED_FAMILIES:
+            raise _not_ported(f"training the {run.model.family!r} family")
+        self.model = build_model(run.model, self.options)
+        self.data = dataset or SyntheticLMDataset(
+            vocab_size=run.model.vocab_size, seq_len=run.train.seq_len,
+            global_batch=run.train.global_batch, seed=run.train.seed)
+        self.ckpt = AsyncCheckpointer(run.train.checkpoint_dir,
+                                      keep=run.train.keep_checkpoints)
+        self.rank = mesh.rank if mesh is not None else (
+            dist.get_rank() if dist.is_initialized() else 0)
+        self.sync_axes, self.explicit = explicit_sync_axes(run.parallel, mesh)
+        self.step = 0
+        self.params: Optional[ParamTree] = None
+        self.opt_state: Optional[PyTree] = None
+        self._step_fn = None
+        self.metrics_log: list = []
+        # measured-cost model for dynamic re-partitioning: per-step wall
+        # clock keyed by this rank. The hook fires every
+        # ParallelConfig.rebalance_every steps (0 = never).
+        self.cost_model = CostModel()
+        self.rebalance_hook: Optional[Callable[[CostModel, int], None]] = None
+
+    # ------------------------------------------------------------------ setup
+    def init_state(self, seed: Optional[int] = None,
+                   params: Optional[ParamTree] = None) -> None:
+        """Fresh parameters from `seed` (default ``run.train.seed``), or
+        `params` (e.g. :func:`repro_torch.models.convert.params_from_jax`),
+        made trainable; zero optimizer state."""
+        if params is None:
+            params = self.model.init(
+                self.run.train.seed if seed is None else seed, self.device)
+        params.requires_grad_(True)
+        if self._step_fn is not None and self._step_fn.buckets is not None:
+            self._step_fn.buckets.remove()     # its hooks sit on old params
+        self.params = params
+        self.opt_state = adamw_init(params)
+        self._step_fn = None
+
+    def full_params(self) -> ParamTree:
+        """The parameter tree (replicated: every rank holds all of it)."""
+        return self.params
+
+    def _build_step(self) -> Callable:
+        run = self.run
+        return make_train_step(self.model, run.parallel, self.opt_cfg,
+                               warmup_steps=run.train.warmup_steps,
+                               total_steps=run.train.total_steps,
+                               mesh=self.mesh, params=self.params)
+
+    # ------------------------------------------------------------------- loop
+    def restore_if_available(self) -> bool:
+        d = self.run.train.checkpoint_dir
+        if latest_step(d) is None:
+            return False
+        if self.params is None:
+            self.init_state()
+        target = {"params": self.params, "opt": self.opt_state}
+        _, tree, extra = restore_checkpoint(d, target)
+        # copy into the live tensors: the step's gradient hooks sit on them
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(target), tree_leaves(tree)):
+                dst.copy_(src)
+        self.step = int(extra.get("data_step", 0))
+        return True
+
+    def save(self) -> None:
+        """Write a checkpoint (rank 0 only: the replicas hold the same
+        state)."""
+        if self.rank != 0:
+            return
+        self.ckpt.save(self.step, {"params": self.params, "opt": self.opt_state},
+                       extra={"data_step": self.step,
+                              "data": self.data.state(self.step)})
+
+    def _place_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """This rank's rows of step `step`'s global batch, as int64 tensors
+        on the device: the whole batch without an explicit mesh, else the
+        contiguous slice of DP index pod-major over the sync axes."""
+        if self.explicit:
+            sizes = [self.mesh.shape[a] for a in self.sync_axes]
+            coords = [self.mesh.coords[self.mesh.axis_index(a)]
+                      for a in self.sync_axes]
+            batch = self.data.host_slice(step, coords_rank(coords, sizes),
+                                         int(np.prod(sizes)))
+        else:
+            batch = self.data.batch_at(step)
+        return {k: torch.from_numpy(v).to(self.device, torch.int64)
+                for k, v in batch.items()}
+
+    def train(self, num_steps: int,
+              failure_hook: Optional[Callable[[int], None]] = None) -> Dict:
+        """Run `num_steps` steps from the current position. `failure_hook`
+        lets tests inject faults (raises) at chosen steps."""
+        if self.params is None:
+            if not self.restore_if_available():
+                self.init_state()
+        if self._step_fn is None:
+            self._step_fn = self._build_step()
+        t0 = time.time()
+        rebalance_every = self.run.parallel.rebalance_every
+        for _ in range(num_steps):
+            if failure_hook is not None:
+                failure_hook(self.step)
+            batch = self._place_batch(self.step)
+            ts = time.perf_counter()
+            self.params, self.opt_state, metrics = self._step_fn(
+                self.params, self.opt_state, batch)
+            # float() waits for the step's outputs, so the measured span is
+            # the step's compute, not its launches
+            metrics = {k: float(v) for k, v in metrics.items()}
+            self.cost_model.record((self.rank,), time.perf_counter() - ts,
+                                   cells=self.run.train.global_batch)
+            self.step += 1
+            if (rebalance_every and self.rebalance_hook is not None
+                    and self.step % rebalance_every == 0):
+                self.rebalance_hook(self.cost_model, self.step)
+            if self.step % self.run.train.checkpoint_every == 0:
+                self.save()
+            self.metrics_log.append(metrics | {"step": self.step})
+        self.ckpt.wait()
+        return {"steps": num_steps, "seconds": time.time() - t0,
+                "final": self.metrics_log[-1] if self.metrics_log else {}}

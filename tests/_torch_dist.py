@@ -14,7 +14,12 @@ global results and its message counts to ``<workdir>/rank<r>.npz``. With
 A job runs Heat2D when it names ``iters``, and any of the other
 applications it names (``rk3``, ``hpccg``, ``allreduce``), each on a mesh
 of its own over the same ranks; their inputs are made here from a numpy
-seed (:func:`app_input`), so the parent makes the same ones.
+seed (:func:`app_input`), so the parent makes the same ones. A job naming
+``gradsync`` sums an integer-valued mixed-dtype tree (:func:`sync_tree`)
+under both schedules; one naming ``train`` trains the reduced model under
+each (overlap, accum_steps) case it lists, starting from the checkpoint
+the parent wrote to ``<workdir>/init``, with every ``dist.all_reduce``
+logged (:func:`run_train`).
 """
 from __future__ import annotations
 
@@ -31,11 +36,13 @@ import torch.distributed as dist
 
 from repro_torch.core import halo
 from repro_torch.core import reduction
+from repro_torch.core.overlap import grad_sync
 from repro_torch.core.stencil import (_trailing_dims, gather_global,
                                       heat2d_solve, hpccg_solve, local_block,
                                       rk3_solve)
 from repro_torch.kernels.heat2d.ops import heat2d_sweep_sharded
 from repro_torch.launch.mesh import make_mesh, rank_coords
+from repro_torch.models.layers import tree_leaves
 from repro_torch.optim.compression import make_crosspod_codec
 
 REPO = Path(__file__).resolve().parents[1]
@@ -157,8 +164,162 @@ def run_apps(job, device):
     return out
 
 
-def run(job, u0, device):
+def sync_tree(rank: int):
+    """Rank `rank`'s gradients for the grad-sync job: integers in [-4, 4]
+    in bf16, f32 and f16 (every sum exact), and a scalar 3.0 on every rank
+    (summed to 3 times the rank count)."""
+    rng = np.random.default_rng(40 + rank)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-4, 5, shape).astype(
+            np.float32))
+    return {"emb": ints(16, 8).bfloat16(), "w1": ints(33),
+            "w2": ints(4, 4).half(), "b": torch.tensor(3.0)}
+
+
+def run_gradsync(spec, device):
+    mesh = make_mesh(tuple(spec["mesh"]), tuple(spec["axes"]), device)
+    out = {}
+    for mode in ("two_phase", "hdot"):
+        tree = {k: v.to(device) for k, v in sync_tree(mesh.rank).items()}
+        synced = grad_sync(tree, mesh, tuple(spec["axes"]), mode=mode,
+                           num_buckets=3)
+        for k, v in synced.items():
+            out[f"sync_{mode}_{k}"] = v.float().cpu().numpy()
+            out[f"sync_{mode}_{k}_dtype"] = np.array(str(v.dtype))
+    return out
+
+
+class _IssueLog:
+    """Records every ``dist.all_reduce`` call by the data pointer of its
+    tensor and, from post-accumulate-grad hooks on the depth-1 leaves, how
+    many calls a step had made when its first gradient of layer 1 was
+    ready."""
+
+    def __init__(self):
+        self.ptrs, self.at_layer1 = [], []
+        self._orig = dist.all_reduce
+        self._start = None
+
+    def __call__(self, t, *args, **kw):
+        self.ptrs.append(t.data_ptr())
+        return self._orig(t, *args, **kw)
+
+    def begin_step(self):
+        self._start = len(self.ptrs)
+
+    def layer1_ready(self, p):
+        if self._start is not None:
+            self.at_layer1.append(len(self.ptrs) - self._start)
+            self._start = None
+
+
+def run_train(spec, workdir, device):
+    """Each (overlap, accum_steps) case: a Trainer on the job's mesh,
+    restored from ``<workdir>/init`` (step 0), `steps` steps; its losses,
+    grad norms, final parameters (flattened in tree order) and, for hdot,
+    the bucket index of each all-reduce it issued (-1: the loss's pmean)
+    and the calls made before layer 1's first gradient was ready."""
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions
+    from repro_torch.runtime.trainer import Trainer
+
+    mesh = make_mesh(tuple(spec["mesh"]), tuple(spec["axes"]), device)
+    out = {}
+    for overlap, accum in spec["cases"]:
+        run = RunConfig(
+            model=get_arch(spec["arch"]).reduced(),
+            parallel=ParallelConfig(overlap=overlap, accum_steps=accum,
+                                    remat="none", scan_layers=False),
+            train=TrainConfig(global_batch=spec["global_batch"],
+                              seq_len=spec["seq_len"], lr=spec["lr"],
+                              warmup_steps=2, total_steps=spec["steps"],
+                              checkpoint_every=10 ** 6, seed=3,
+                              checkpoint_dir=str(workdir / "init")))
+        t = Trainer(run, mesh=mesh, options=ModelOptions(
+            dtype=torch.float32, scan_layers=False))
+        assert t.restore_if_available() and t.step == 0
+        log = _IssueLog()
+        hooks = [p.register_post_accumulate_grad_hook(log.layer1_ready)
+                 for p, d in zip(tree_leaves(t.params),
+                                 tree_leaves(t.model.param_layers()))
+                 if d == 1]
+        dist.all_reduce = log
+        try:
+            for _ in range(spec["steps"]):
+                log.begin_step()
+                t.train(1)
+        finally:
+            dist.all_reduce = log._orig
+            for h in hooks:
+                h.remove()
+        tag = f"{overlap}{accum}"
+        for key in ("loss", "grad_norm", "lr"):
+            out[f"{tag}_{key}"] = np.array([m[key] for m in t.metrics_log])
+        out[f"{tag}_params"] = torch.cat(
+            [p.detach().reshape(-1).float() for p in tree_leaves(t.params)]
+        ).cpu().numpy()
+        buckets = t._step_fn.buckets
+        if buckets is not None:
+            where = {f.data_ptr(): k for k, fs in enumerate(buckets.flats)
+                     for f in fs}
+            out[f"{tag}_issued"] = np.array([where.get(q, -1)
+                                             for q in log.ptrs])
+            out[f"{tag}_at_layer1"] = np.array(log.at_layer1)
+            out[f"{tag}_buckets"] = np.array(json.dumps(buckets.buckets))
+    return out
+
+
+def params_close(got, want, leaves, rtol=1e-4):
+    """Two parameter vectors flattened in tree order (`leaves` gives the
+    leaf sizes) within `rtol` of each other, leaf by leaf, relative to
+    each leaf's largest entry (as tests/test_torch_trainer.py holds the
+    one-rank Trainer against JAX's)."""
+    off = 0
+    for p in leaves:
+        a, b = got[off:off + p.numel()], want[off:off + p.numel()]
+        np.testing.assert_allclose(a, b, rtol=rtol,
+                                   atol=rtol * np.abs(b).max())
+        off += p.numel()
+    assert off == len(want) == len(got)
+
+
+def check_issue_order(ranks, spec):
+    """Every rank's hdot all-reduces in each step were the buckets of
+    make_buckets(order="reverse_topo") in emission order, then the loss's
+    pmean; with one microbatch, the buckets deeper than layer 1 had been
+    issued when layer 1's first gradient was ready. Returns the buckets."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.core.overlap import make_buckets
+    from repro_torch.models.model import ModelOptions, build_model
+
+    model = build_model(get_arch(spec["arch"]).reduced(),
+                        ModelOptions(dtype=torch.float32, scan_layers=False))
+    want = [[i for i, _ in b] for b in make_buckets(
+        model.init(0, "cpu"), 8, model.param_layers(), "reverse_topo")]
+    depth = tree_leaves(model.param_layers())
+    layer1 = [k for k, b in enumerate(want) if {depth[i] for i in b} == {1}]
+    assert layer1 and all(min(depth[i] for i in b) > 1
+                          for b in want[:layer1[0]])
+    per_step = list(range(len(want))) + [-1]
+    for out in ranks:
+        for overlap, accum in spec["cases"]:
+            if overlap != "hdot":
+                continue
+            assert json.loads(str(out[f"hdot{accum}_buckets"])) == want
+            assert out[f"hdot{accum}_issued"].tolist() == (
+                per_step * spec["steps"])
+        assert out["hdot1_at_layer1"].tolist() == [layer1[0]] * spec["steps"]
+    return want
+
+
+def run(job, u0, device, workdir=None):
     out = run_apps(job, device)
+    if "gradsync" in job:
+        out.update(run_gradsync(job["gradsync"], device))
+    if "train" in job:
+        out.update(run_train(job["train"], workdir, device))
     if "iters" not in job:
         return out
     mesh = make_mesh(tuple(job["mesh"]), tuple(job["axes"]), device)
@@ -258,7 +419,7 @@ def main(argv) -> int:
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world)
     try:
-        out = run(job, u0, device)
+        out = run(job, u0, device, workdir)
     finally:
         dist.destroy_process_group()
     np.savez(workdir / f"rank{rank}.npz", **out)

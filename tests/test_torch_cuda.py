@@ -1,7 +1,8 @@
 """The port on the card: the CUDA tile-sweep, flash attention, LRU scan and
 SSD scan kernels against their plain PyTorch versions, the solver and the
 server (dense, Mamba-2, RecurrentGemma) on CUDA against the CPU, and (given
-4 cards) NCCL ranks against one rank. Marked ``gpu``;
+4 cards) NCCL ranks against one rank: the solvers, the staged all-reduce
+and the data-parallel trainer. Marked ``gpu``;
 without a card every test here skips. Imports no jax, so it runs where the
 JAX package is not installed:
 
@@ -229,6 +230,75 @@ def test_nccl_2x2_ranks_match_one_rank(cuda, tmp_path):
         for tag, scan in scans.items():
             np.testing.assert_array_equal(out[f"scan_{tag}"], scan.numpy())
             assert out[f"sends_{tag}"].tolist() == [4, 4]
+
+
+def test_nccl_2x2_trainer_matches_one_rank(cuda, tmp_path):
+    """Four NCCL ranks, one card each, train the reduced internlm2-1.8b
+    (float32, unrolled layers, the port's init from seed 0) on a (2, 2)
+    ("pod", "data") mesh for 3 steps under hdot and two_phase, with 1 and
+    2 microbatches: every rank holds the same state; hdot matches
+    two_phase, and both match the port on one card with the global batch,
+    at rtol 1e-4 (losses, grad norms; parameters leaf by leaf, relative to
+    each leaf's largest entry); every rank issues its buckets in
+    make_buckets' reverse-topological order, the head's and layers
+    4..2's before layer 1's first gradient is ready."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    from _torch_dist import check_issue_order, params_close, spawn
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import ModelOptions, build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.trainer import Trainer
+
+    spec = dict(arch="internlm2-1.8b", steps=3, global_batch=8, seq_len=32,
+                lr=5e-3, mesh=[2, 2], axes=["pod", "data"],
+                cases=[["hdot", 1], ["two_phase", 1], ["hdot", 2],
+                       ["two_phase", 2]])
+    cfg = get_arch(spec["arch"]).reduced()
+    opts = ModelOptions(dtype=torch.float32, scan_layers=False)
+    params = build_model(cfg, opts).init(0, "cpu")
+    save_checkpoint(str(tmp_path / "init"), 0,
+                    {"params": params, "opt": adamw_init(params)},
+                    extra={"data_step": 0})
+    ranks = spawn(dict(mesh=[2, 2], backend="nccl", train=spec), None,
+                  tmp_path, 300)
+    check_issue_order(ranks, spec)
+    leaves = tree_leaves(params)
+    for accum in (1, 2):
+        one = Trainer(RunConfig(
+            model=cfg,
+            parallel=ParallelConfig(accum_steps=accum, remat="none",
+                                    scan_layers=False),
+            train=TrainConfig(global_batch=8, seq_len=32, lr=5e-3,
+                              warmup_steps=2, total_steps=3,
+                              checkpoint_every=10 ** 6, seed=3,
+                              checkpoint_dir=str(tmp_path / "init"))),
+            options=opts, device=cuda)
+        one.train(3)
+        want = {k: [m[k] for m in one.metrics_log]
+                for k in ("loss", "grad_norm")}
+        want_p = torch.cat([p.detach().reshape(-1) for p in
+                            tree_leaves(one.params)]).cpu().numpy()
+        for overlap in ("hdot", "two_phase"):
+            tag = f"{overlap}{accum}"
+            for out in ranks:
+                for key in ("loss", "grad_norm", "params"):
+                    np.testing.assert_array_equal(out[f"{tag}_{key}"],
+                                                  ranks[0][f"{tag}_{key}"])
+            got = ranks[0]
+            for key in ("loss", "grad_norm"):
+                np.testing.assert_allclose(got[f"{tag}_{key}"], want[key],
+                                           rtol=1e-4)
+                np.testing.assert_allclose(
+                    got[f"{tag}_{key}"], got[f"two_phase{accum}_{key}"],
+                    rtol=1e-4)
+            params_close(got[f"{tag}_params"], want_p, leaves)
+            params_close(got[f"{tag}_params"],
+                         got[f"two_phase{accum}_params"], leaves)
 
 
 FLASH_CASES = [  # (b, sq, sk, hq, hkv, d, causal, window)

@@ -33,7 +33,8 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
-from _torch_dist import _star, _sum3, app_input, spawn
+from _torch_dist import (_star, _sum3, app_input, check_issue_order,
+                         params_close, spawn)
 from repro.core import halo as jhalo
 from repro.core import stencil as jst
 from repro.launch.mesh import make_grid_mesh as jgrid_mesh
@@ -315,3 +316,219 @@ def test_hierarchical_allreduce_2x2_matches_jax(app_runs):
                                    rtol=1e-5, atol=1e-5)
         assert (np.abs(out["ar_comp"] - want["comp"][r])
                 <= quantum * (1 + 1e-5)).all()
+
+
+# --------------------------------------------- gradient sync and training
+TRAIN = dict(arch="internlm2-1.8b", steps=3, global_batch=8, seq_len=32,
+             lr=5e-3, cases=[["hdot", 1], ["two_phase", 1], ["hdot", 2],
+                             ["two_phase", 2]])
+TRAIN_JOBS = {
+    "2": dict(mesh=[2], gradsync=dict(mesh=[2], axes=["data"])),
+    "2x2": dict(mesh=[2, 2], gradsync=dict(mesh=[2, 2], axes=["pod", "data"]),
+                train=dict(TRAIN, mesh=[2, 2], axes=["pod", "data"])),
+}
+
+
+def _train_state():
+    """The reduced model's float32 parameters, unrolled (one numpy draw,
+    ``tests/_torch_jax.py``), in the port's layout, with zero AdamW state."""
+    from _torch_jax import numpy_params
+
+    from repro.config.registry import get_arch as jax_arch
+    from repro.models.model import ModelOptions as JaxOptions
+    from repro.models.model import build_model as jax_build
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.model import ModelOptions
+    from repro_torch.optim import adamw_init
+
+    tree = numpy_params(jax_build(jax_arch(TRAIN["arch"]).reduced(),
+                                  JaxOptions(dtype=jnp.float32,
+                                             scan_layers=False)))
+    params = params_from_jax(tree, get_arch(TRAIN["arch"]).reduced(),
+                             ModelOptions(dtype=torch.float32,
+                                          scan_layers=False), "cpu")
+    return {"params": params, "opt": adamw_init(params)}
+
+
+@pytest.fixture(scope="module")
+def train_runs(tmp_path_factory):
+    """(workdir, per-rank results) of a TRAIN_JOBS job; a job that trains
+    starts from the checkpoint written to ``<workdir>/init``."""
+    from repro_torch.checkpoint import save_checkpoint
+
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            workdir = tmp_path_factory.mktemp(f"train{name}")
+            if "train" in TRAIN_JOBS[name]:
+                save_checkpoint(str(workdir / "init"), 0, _train_state(),
+                                extra={"data_step": 0})
+            cache[name] = workdir, spawn(TRAIN_JOBS[name], None, workdir,
+                                         SPAWN_DEADLINE_S)
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("name", list(TRAIN_JOBS))
+def test_grad_sync_hdot_equals_two_phase_on_ranks(train_runs, name):
+    """Integer-valued mixed-dtype gradients (bf16, f32, f16, a scalar)
+    summed over (2,) ("data",) and (2, 2) ("pod", "data"): hdot equals
+    two_phase bit for bit, equals numpy's sum, keeps every leaf's dtype,
+    and the scalar comes back times the rank count."""
+    from _torch_dist import sync_tree
+
+    _, ranks = train_runs(name)
+    world = len(ranks)
+    want = {k: sum(sync_tree(r)[k].float().numpy() for r in range(world))
+            for k in ("emb", "w1", "w2", "b")}
+    dtypes = {"emb": "torch.bfloat16", "w1": "torch.float32",
+              "w2": "torch.float16", "b": "torch.float32"}
+    for out in ranks:
+        for k in want:
+            np.testing.assert_array_equal(out[f"sync_hdot_{k}"],
+                                          out[f"sync_two_phase_{k}"])
+            np.testing.assert_array_equal(out[f"sync_hdot_{k}"], want[k])
+            assert str(out[f"sync_hdot_{k}_dtype"]) == dtypes[k]
+        assert float(out["sync_hdot_b"]) == 3.0 * world
+
+
+def _final_params(ckpt_dir, like):
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.models.layers import tree_leaves
+
+    _, tree, _ = restore_checkpoint(str(ckpt_dir), like)
+    return torch.cat([p.reshape(-1) for p in tree_leaves(tree["params"])]
+                     ).numpy()
+
+
+def test_trainer_on_4_ranks_matches_jax_and_one_rank(train_runs):
+    """The Trainer on a (2, 2) ("pod", "data") gloo mesh, unrolled, f32,
+    3 steps, each rank on its quarter of the global batch, under hdot and
+    two_phase with 1 and 2 microbatches: every rank holds the same state;
+    hdot matches two_phase; and losses, grad norms and final parameters
+    match, at rtol 1e-4, the port on one rank with the global batch, the
+    JAX Trainer on a forced 4-device ("data",) mesh (its explicit
+    shard_map schedule, in a subprocess) and the JAX Trainer without a
+    mesh. The JAX runs restore the port's initial checkpoint."""
+    import shutil
+
+    from repro.config.base import ParallelConfig as JaxParallel
+    from repro.config.base import RunConfig as JaxRun
+    from repro.config.base import TrainConfig as JaxTrain
+    from repro.config.registry import get_arch as jax_arch
+    from repro.models.model import ModelOptions as JaxOptions
+    from repro.runtime.trainer import Trainer as JaxTrainer
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import ModelOptions
+    from repro_torch.runtime.trainer import Trainer
+
+    workdir, ranks = train_runs("2x2")
+    spec = TRAIN_JOBS["2x2"]["train"]
+    train = dict(global_batch=spec["global_batch"], seq_len=spec["seq_len"],
+                 lr=spec["lr"], warmup_steps=2, total_steps=spec["steps"],
+                 checkpoint_every=10 ** 6, seed=3)
+    code = f"""
+    import json, shutil, jax.numpy as jnp
+    from repro.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro.config.registry import get_arch
+    from repro.launch.mesh import make_mesh
+    from repro.models.model import ModelOptions
+    from repro.runtime.trainer import Trainer
+    out = {{}}
+    for accum in (1, 2):
+        d = {str(workdir)!r} + f"/jax_mesh{{accum}}"
+        shutil.copytree({str(workdir / "init")!r}, d)
+        run = RunConfig(model=get_arch({spec["arch"]!r}).reduced(),
+                        parallel=ParallelConfig(accum_steps=accum,
+                                                remat="none",
+                                                scan_layers=False),
+                        train=TrainConfig(checkpoint_dir=d, **{train!r}))
+        t = Trainer(run, mesh=make_mesh((4,), ("data",)),
+                    options=ModelOptions(dtype=jnp.float32,
+                                         scan_layers=False))
+        t.train({spec["steps"]})
+        t.save()
+        t.ckpt.wait()
+        out[accum] = {{k: [m[k] for m in t.metrics_log]
+                      for k in ("loss", "grad_norm")}}
+    print(json.dumps(out))
+    """
+    jax_mesh = run_devices(code, 4)
+    like = _train_state()
+    refs = {}
+    for accum in (1, 2):
+        d = workdir / f"jax_none{accum}"
+        shutil.copytree(workdir / "init", d)
+        jt = JaxTrainer(
+            JaxRun(model=jax_arch(spec["arch"]).reduced(),
+                   parallel=JaxParallel(accum_steps=accum, remat="none",
+                                        scan_layers=False),
+                   train=JaxTrain(checkpoint_dir=str(d), **train)),
+            options=JaxOptions(dtype=jnp.float32, scan_layers=False))
+        jt.train(spec["steps"])
+        jt.save()
+        jt.ckpt.wait()
+        one = Trainer(
+            RunConfig(model=get_arch(spec["arch"]).reduced(),
+                      parallel=ParallelConfig(accum_steps=accum, remat="none",
+                                              scan_layers=False),
+                      train=TrainConfig(checkpoint_dir=str(workdir / "init"),
+                                        **train)),
+            options=ModelOptions(dtype=torch.float32, scan_layers=False),
+            device="cpu")
+        one.train(spec["steps"])
+        refs[accum] = {
+            "jax_mesh": (jax_mesh[str(accum)],
+                         _final_params(workdir / f"jax_mesh{accum}", like)),
+            "jax_none": ({k: [m[k] for m in jt.metrics_log]
+                          for k in ("loss", "grad_norm")},
+                         _final_params(d, like)),
+            "one_rank": ({k: [m[k] for m in one.metrics_log]
+                          for k in ("loss", "grad_norm")},
+                         torch.cat([p.detach().reshape(-1) for p in
+                                    tree_leaves(one.full_params())]).numpy())}
+    for overlap, accum in spec["cases"]:
+        tag = f"{overlap}{accum}"
+        for out in ranks[1:]:
+            for key in ("loss", "grad_norm", "params"):
+                np.testing.assert_array_equal(out[f"{tag}_{key}"],
+                                              ranks[0][f"{tag}_{key}"])
+        got = ranks[0]
+        for other in ({k: got[f"two_phase{accum}_{k}"]
+                       for k in ("loss", "grad_norm")}, *[
+                           r[0] for r in refs[accum].values()]):
+            for key in ("loss", "grad_norm"):
+                np.testing.assert_allclose(got[f"{tag}_{key}"], other[key],
+                                           rtol=1e-4)
+        leaves = tree_leaves(like["params"])
+        for _, params in refs[accum].values():
+            params_close(got[f"{tag}_params"], params, leaves)
+        params_close(got[f"{tag}_params"], got[f"two_phase{accum}_params"],
+                     leaves)
+
+
+def test_trainer_ranks_issue_buckets_in_reverse_topological_order(
+        train_runs):
+    """Every rank's hdot all-reduces, logged by a wrapper of
+    dist.all_reduce: each step issues the buckets of
+    make_buckets(order="reverse_topo") in emission order, then the loss's
+    pmean; with one microbatch the buckets of the head and of layers 4..2
+    are issued before the first gradient of layer 1 is ready. The port's
+    partition equals the JAX package's on the same model."""
+    from repro.config.registry import get_arch as jax_arch
+    from repro.core.overlap import make_buckets as jmake_buckets
+    from repro.models.model import ModelOptions as JaxOptions
+    from repro.models.model import build_model as jax_build
+
+    _, ranks = train_runs("2x2")
+    spec = TRAIN_JOBS["2x2"]["train"]
+    want = check_issue_order(ranks, spec)
+    jm = jax_build(jax_arch(spec["arch"]).reduced(),
+                   JaxOptions(scan_layers=False))
+    assert want == [[i for i, _ in b] for b in jmake_buckets(
+        jm.abstract_params(), 8, jm.param_layers(), "reverse_topo")]
+    assert len(want) == 6

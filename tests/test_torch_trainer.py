@@ -1,0 +1,227 @@
+"""The port's Trainer, checkpointer and training launcher on the CPU: three
+steps from the JAX package's parameters against the JAX ``Trainer``
+(losses, grad norms and final parameters at rtol 1e-4, float32, reduced
+internlm2-1.8b), checkpoints that restore across the two packages, a
+resumed run equal to an uninterrupted one bit for bit, the launcher's
+output lines, and the ``NotImplementedError``s of what this slice does not
+train.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_jax import f32, numpy_params
+
+from repro.checkpoint import restore_checkpoint as jrestore
+from repro.checkpoint.checkpointer import save_checkpoint as jsave
+from repro.config.base import ParallelConfig as JaxParallel
+from repro.config.base import RunConfig as JaxRun
+from repro.config.base import TrainConfig as JaxTrain
+from repro.config.registry import get_arch as jax_arch
+from repro.models.model import ModelOptions as JaxOptions
+from repro.models.model import build_model as jax_build
+from repro.optim import adamw_init as jadamw_init
+from repro.runtime.trainer import Trainer as JaxTrainer
+from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                    restore_checkpoint, save_checkpoint)
+from repro_torch.config import ParallelConfig, RunConfig, TrainConfig
+from repro_torch.config.registry import get_arch
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.launch.steps import check_ported
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.layers import tree_leaves
+from repro_torch.models.model import ModelOptions, build_model
+from repro_torch.optim import adamw_init
+from repro_torch.runtime.trainer import Trainer
+
+STEPS = 3
+
+
+def _runs(tmp, accum=1, **parallel):
+    train = dict(global_batch=4, seq_len=32, lr=5e-3, warmup_steps=2,
+                 total_steps=STEPS, checkpoint_every=100,
+                 checkpoint_dir=str(tmp / "ckpt"), seed=3)
+    par = dict(remat="none", accum_steps=accum, **parallel)
+    return (RunConfig(model=get_arch("internlm2-1.8b").reduced(),
+                      parallel=ParallelConfig(**par),
+                      train=TrainConfig(**train)),
+            JaxRun(model=jax_arch("internlm2-1.8b").reduced(),
+                   parallel=JaxParallel(**par), train=JaxTrain(**train)))
+
+
+def _jax_tree(dtype=jnp.float32):
+    """The reduced model's parameters, unrolled (a scanned draw takes
+    fan_in = the layer count, ROADMAP.md Queue 3, and its large weights
+    amplify every rounding over three steps)."""
+    jm = jax_build(jax_arch("internlm2-1.8b").reduced(),
+                   JaxOptions(dtype=dtype, scan_layers=False))
+    return numpy_params(jm)
+
+
+@pytest.mark.parametrize("scan,accum", [(True, 1), (False, 2)])
+def test_trainer_matches_jax(tmp_path, scan, accum):
+    """Three steps from the same parameters: the port (scanned, or
+    unrolled over 2 microbatches) against the JAX Trainer without a mesh,
+    float32: losses, grad norms, learning rates and final parameters."""
+    run, jrun = _runs(tmp_path, accum)
+    tree = _jax_tree()
+    jt = JaxTrainer(jrun, options=JaxOptions(dtype=jnp.float32,
+                                             scan_layers=False))
+    jt.init_state()
+    jt.params = jax.tree.map(jnp.asarray, tree)
+    jt.opt_state = jadamw_init(jt.params)
+    jt.train(STEPS)
+    opts = ModelOptions(dtype=torch.float32, scan_layers=scan)
+    t = Trainer(run, options=opts, device="cpu")
+    t.init_state(params=params_from_jax(tree, run.model, opts, "cpu"))
+    t.train(STEPS)
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose([m[key] for m in t.metrics_log],
+                                   [m[key] for m in jt.metrics_log],
+                                   rtol=1e-4)
+    want = params_from_jax(jax.tree.map(np.asarray, jt.params), run.model,
+                           opts, "cpu")
+    for got, w in zip(tree_leaves(t.params), tree_leaves(want)):
+        np.testing.assert_allclose(f32(got), f32(w), rtol=1e-4,
+                                   atol=1e-4 * np.abs(f32(w)).max())
+
+
+def test_resume_equals_uninterrupted(tmp_path):
+    """bf16, 4 steps straight against 2 steps, a checkpoint, a new Trainer
+    restored from it and 2 more: the same losses and parameters bit for
+    bit, and the data position restored."""
+    run, _ = _runs(tmp_path / "a")
+    run = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, total_steps=4, checkpoint_every=2))
+    straight = Trainer(run, device="cpu")
+    straight.train(4)
+    run_b = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, checkpoint_dir=str(tmp_path / "b")))
+    first = Trainer(run_b, device="cpu")
+    first.train(2)
+    assert latest_step(run_b.train.checkpoint_dir) == 2
+    second = Trainer(run_b, device="cpu")
+    assert second.restore_if_available() and second.step == 2
+    second.train(2)
+    assert [m["loss"] for m in second.metrics_log] == [
+        m["loss"] for m in straight.metrics_log[2:]]
+    for a, b in zip(tree_leaves({"p": straight.params,
+                                 "o": straight.opt_state}),
+                    tree_leaves({"p": second.params, "o": second.opt_state})):
+        assert torch.equal(a, b)
+
+
+def _state(params):
+    return {"params": params, "opt": adamw_init(params)}
+
+
+def test_checkpoints_restore_across_packages(tmp_path):
+    """A port checkpoint restores in the JAX package's restore_checkpoint
+    and a JAX one in the port's (bf16 widened to float32 in the npz and
+    cast back), scanned layout, with the same keys and values."""
+    cfg = get_arch("internlm2-1.8b").reduced()
+    tree = _jax_tree(jnp.bfloat16)
+    port = params_from_jax(tree, cfg, ModelOptions(), "cpu")       # scanned
+    state = _state(port)
+    with torch.no_grad():
+        for i, m in enumerate(tree_leaves(state["opt"]["m"])):
+            m.fill_(0.5 + i)
+    state["opt"]["step"].fill_(7)
+    save_checkpoint(str(tmp_path / "p"), 5, state, extra={"data_step": 5})
+    jm = jax_build(jax_arch("internlm2-1.8b").reduced(), JaxOptions())
+    jparams = jax.tree.map(jnp.zeros_like, jm.abstract_params())
+    jtarget = {"params": jparams, "opt": jadamw_init(jparams)}
+    step, jtree, extra = jrestore(str(tmp_path / "p"), jtarget)
+    assert (step, extra) == (5, {"data_step": 5})
+    assert jax.tree.structure(jtree) == jax.tree.structure(jtarget)
+    for got, want in zip(jax.tree.leaves(jtree), tree_leaves(state)):
+        assert got.dtype == jnp.dtype(str(want.dtype).split(".")[1])
+        np.testing.assert_array_equal(f32(got), f32(want))
+
+    jsave(str(tmp_path / "j"), 9, jtree, extra={"data_step": 9})
+    fresh = _state(build_model(cfg).init(1, "cpu"))
+    step, back, extra = restore_checkpoint(str(tmp_path / "j"), fresh)
+    assert (step, extra) == (9, {"data_step": 9})
+    for got, want, like in zip(tree_leaves(back), tree_leaves(state),
+                               tree_leaves(fresh)):
+        assert got.dtype == like.dtype
+        assert torch.equal(got, want)
+
+
+def test_async_checkpointer_snapshots_before_returning(tmp_path):
+    """The written arrays are the values at save(), not later in-place
+    updates of the same tensors; a write error surfaces on wait()."""
+    p = {"w": torch.arange(6.0)}
+    ck = AsyncCheckpointer(str(tmp_path / "c"), keep=2)
+    ck.save(1, p)
+    p["w"].add_(100.0)
+    ck.wait()
+    _, back, _ = restore_checkpoint(str(tmp_path / "c"), p)
+    assert torch.equal(back["w"], torch.arange(6.0))
+    (tmp_path / "file").write_text("")
+    bad = AsyncCheckpointer(str(tmp_path / "file" / "sub"), keep=1)
+    bad.save(1, p)
+    with pytest.raises(OSError):
+        bad.wait()
+
+
+def test_train_launcher_on_the_cpu(tmp_path, capsys):
+    assert launch_train.main(["--arch", "internlm2-1.8b", "--device", "cpu",
+                              "--steps", "4", "--checkpoint-dir",
+                              str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("[train] {'steps': 4")
+    first, last = lines[1].split("loss ")[1].split(" -> ")
+    assert np.isfinite(float(first)) and np.isfinite(float(last))
+    assert latest_step(str(tmp_path / "internlm2-1.8b-reduced")) == 4
+
+
+def test_build_run_matches_jax(tmp_path):
+    from repro.launch.train import build_run as jbuild
+
+    for reduced in (True, False):
+        got = launch_train.build_run("qwen3-8b", reduced=reduced, steps=20,
+                                     checkpoint_dir=str(tmp_path))
+        want = jbuild("qwen3-8b", reduced=reduced, steps=20,
+                      checkpoint_dir=str(tmp_path))
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_what_this_slice_does_not_train_raises(tmp_path):
+    run, _ = _runs(tmp_path)
+    for field, value in (("param_shard", True), ("collective_matmul", True),
+                         ("moe_a2a_chunks", 2),
+                         ("grad_compression", "int8_ef")):
+        bad = dataclasses.replace(run, parallel=dataclasses.replace(
+            run.parallel, **{field: value}))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            Trainer(bad, device="cpu")
+    tp = ProcessMesh(("data", "model"), (1, 2), 0, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        check_ported(run.parallel, tp)
+    for arch in ("mamba2-780m", "recurrentgemma-2b"):
+        ssm = dataclasses.replace(run, model=get_arch(arch).reduced())
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            Trainer(ssm, device="cpu")
+        model = build_model(get_arch(arch).reduced())
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            model.train_loss(model.init(0, "cpu"),
+                             {"tokens": torch.zeros(1, 4, dtype=torch.long),
+                              "targets": torch.zeros(1, 4, dtype=torch.long)})
+    dots = build_model(run.model, ModelOptions(remat="dots"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        dots.train_loss(dots.init(0, "cpu"),
+                        {"tokens": torch.zeros(1, 4, dtype=torch.long),
+                         "targets": torch.zeros(1, 4, dtype=torch.long)})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        launch_train.main(["--arch", "internlm2-1.8b", "--device", "cpu",
+                           "--restarts", "1"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Trainer(run)
