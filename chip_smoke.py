@@ -12,7 +12,10 @@ window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
 (48 layers, d_model 1536, 48 SSD heads of 64, state 128, chunk 256, vocab
 50280), phases 11 and 14-15; the paper's other two applications, RK3 and
 HPCCG's CG, phases 16-17; training InternLM2-1.8B (24 layers, d_model 2048,
-vocab 92544) under the gradient-bucket schedule, phases 18-19:
+vocab 92544) under the gradient-bucket schedule, phases 18-19; serving
+Qwen3-30B-A3B (48 layers, d_model 2048, 32/4 heads of 128 with qk-norm,
+128 experts of width 768, top-8, vocab 151936; 30.5 B parameters, 3.35 B
+active), phases 20-21, run after phase 15:
 
   1. build    nvcc builds every kernel of all paths from the checkout's
               sources (four), one process per source, all started together;
@@ -46,7 +49,8 @@ vocab 92544) under the gradient-bucket schedule, phases 18-19:
               the serving paths' shapes (Qwen3-8B: an admission prefill, a
               wave prefill, a ragged prompt, a 1024 window at 4096;
               RecurrentGemma-2B at head dim 256, MQA 10/1: a 2048 prefill,
-              a 2048 window at 4096, a ragged prompt) and an f32
+              a 2048 window at 4096, a ragged prompt; Qwen3-30B-A3B's
+              admission prefill at GQA group 8, 32/4 heads) and an f32
               non-causal case; tolerance 2e-2 in bf16, 2e-5 in f32 (the JAX
               suite's). Kernel, plain and library (scaled_dot_product_
               attention, timed here only) times come from CUDA events
@@ -93,7 +97,9 @@ vocab 92544) under the gradient-bucket schedule, phases 18-19:
               within 1e-3.
  13. serve_profile  as phase 9, for RecurrentGemma-2B.
  14. serve    Mamba-2 780M, scanned layout, as phase 12 (48 ssd_scan
-              launches per prefill; no attention, so no flash-vs-dense).
+              launches per prefill; no attention, so no flash-vs-dense;
+              the teacher-forced decode holds all 8 requests, each row
+              reported bit-identical or not).
  15. serve_profile  as phase 9, for Mamba-2 780M.
  16. rk3      rk3_solve (the paper's CREAMS-like RK3, §4.2: periodic
               8th-order direction-split diffusion, width-4 halos) on the
@@ -146,6 +152,24 @@ vocab 92544) under the gradient-bucket schedule, phases 18-19:
               attention's f32 GEMMs, softmax, the fused cross-entropy's
               logits and gradients, the AdamW pass, copies, other
               elementwise), the top kernels and the device's idle share.
+ 20. serve    Qwen3-30B-A3B as phase 8 (the dense capacity dispatch of
+              the JAX package: capacity factor 1.25; 48 flash launches
+              per prefill), after the earlier models are freed; the setup
+              row adds the init's seconds and peak memory, each serve row
+              the routed assignments of its prefills and how many capacity
+              dropped. The checks as phase 8's, with the MoE forms that
+              serve_phase's docstring derives (each comparison reports the
+              share of routing decisions that differ, and the 2047 + 1
+              comparison the last token's drops; the bounds hold where the
+              two runs compute the same function), and whether the f32
+              router product of a decode row is bit-identical in an 8-row
+              and a 1-row GEMM.
+ 21. serve_profile  as phase 9, for Qwen3-30B-A3B, by op family: the
+              MoE dispatch (router, top-k, load statistics, one-hot/cumsum
+              tables, the gather into the slots and the combine), the
+              expert GEMMs and their elementwise, the other GEMMs, copies
+              and cache writes, other elementwise, and the port's kernels
+              (flash attention, launched through ctypes, read by name).
 
 Each phase prints one JSON line (a serve phase one per scheduler and one of
 checks); then the nvidia-smi line, the kernels line and, last,
@@ -157,6 +181,7 @@ Run from the repository root:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -192,6 +217,7 @@ FLASH_CASES = [  # (dtype, b, s_q, s_k, hq, hkv, d, causal, window)
     ("bf16", 1, 2048, 2048, 10, 1, 256, True, 2048),   # RecurrentGemma
     ("bf16", 1, 4096, 4096, 10, 1, 256, True, 2048),   # window 2048
     ("bf16", 1, 1000, 1000, 10, 1, 256, True, 2048),   # ragged prompt
+    ("bf16", 1, 2048, 2048, 32, 4, 128, True, None),   # GQA group 8 (MoE)
 ]
 LRU_CASES = [  # (b, l, w, b dtype, h0)
     (1, 2048, 2560, "f32", False),     # RecurrentGemma admission prefill
@@ -209,11 +235,12 @@ SSD_CASES = [  # (b, l, h, p, n, chunk, dtype)
 SSD_TOL = {"bf16": 5e-2, "f32": 1e-4}   # tests/test_kernels.py's
 # serving phases: (arch, phase number of the serve rows, of the trace)
 SERVE_ARCHS = [("qwen3-8b", 8, 9), ("recurrentgemma-2b", 12, 13),
-               ("mamba2-780m", 14, 15)]
+               ("mamba2-780m", 14, 15), ("qwen3-moe-30b-a3b", 20, 21)]
 # launches per prefill the published configs must give (block_kinds)
 PER_PREFILL = {"qwen3-8b": {"flash_attention": 36},
                "recurrentgemma-2b": {"lru_scan": 18, "flash_attention": 8},
-               "mamba2-780m": {"ssd_scan": 48}}
+               "mamba2-780m": {"ssd_scan": 48},
+               "qwen3-moe-30b-a3b": {"flash_attention": 48}}
 FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}  # tests/test_kernels.py's
 # names of the port's CUDA kernels in a trace (their __global__ functions)
 PORT_KERNELS = ("tile_sweep", "half_sweep", "flash_fwd", "lru_scan_kernel",
@@ -297,6 +324,12 @@ def sweep_bound_ms(nx: int, ny: int, itemsize: int, sweeps: int,
                                  "operations")
 
 
+def dev_us(e):
+    """A profiler entry's own device time, in microseconds."""
+    t = getattr(e, "self_device_time_total", None)
+    return t if t is not None else e.self_cuda_time_total
+
+
 def traced(fn) -> dict:
     """Run `fn` once under torch.profiler (after the caller's warm-up):
     device time per CUDA kernel (the 8 largest, and every kernel of the
@@ -305,10 +338,6 @@ def traced(fn) -> dict:
     share is an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        t = getattr(e, "self_device_time_total", None)
-        return t if t is not None else e.self_cuda_time_total
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -442,9 +471,71 @@ def per_prefill(cfg) -> dict:
     from repro_torch.models.transformer import block_kinds
 
     kinds = block_kinds(cfg)
-    got = {"flash_attention": sum(k in ("attn", "local_attn") for k in kinds),
+    got = {"flash_attention": sum(k in ("attn", "attn_moe", "local_attn")
+                                  for k in kinds),
            "lru_scan": kinds.count("rglru"), "ssd_scan": kinds.count("ssm")}
     return {k: v for k, v in got.items() if v}
+
+
+class MoeProbe:
+    """While entered, wraps ``repro_torch.models.moe``'s ``_route`` and
+    ``_dispatch_tables``: counts, on the device, the routed assignments of
+    every prefill and those that capacity dropped (decode never drops: a
+    decode group is one token, with capacity k), and, while ``record`` is
+    set, keeps each call's expert ids (B, S, k) and capacity mask."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig = moe, (moe._route, moe._dispatch_tables)
+        self.record, self.assign, self.keep = False, [], []
+        self.dropped, self.routed = 0, 0
+
+    def __enter__(self):
+        route, tables = self.orig
+
+        def _route(x, router, k):
+            out = route(x, router, k)
+            if self.record:
+                self.assign.append(out[2])
+            return out
+
+        def _tables(assign, e, c):
+            out = tables(assign, e, c)
+            if assign.shape[1] > 1:
+                self.dropped = self.dropped + (~out[2]).sum()
+                self.routed += out[2].numel()
+            if self.record:
+                self.keep.append(out[2])
+            return out
+
+        self.moe._route, self.moe._dispatch_tables = _route, _tables
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._dispatch_tables = self.orig
+
+    def take(self):
+        """The recorded (expert ids, masks) since the last take."""
+        out = (self.assign, self.keep)
+        self.assign, self.keep = [], []
+        return out
+
+
+def routing_differs(a: list, b: list, layers: int) -> dict:
+    """How many of the (token, layer, k) routing decisions of two runs
+    differ (equal-length lists of expert ids, `layers` a forward), and
+    the share that differs in each layer (over all forwards)."""
+    check(len(a) == len(b), f"routing: {len(a)} vs {len(b)} calls")
+    n = sum(x.numel() for x in a)
+    per = [int((x != y).sum()) for x, y in zip(a, b)]
+    by_layer = [0.0] * layers
+    for i, (d, x) in enumerate(zip(per, a)):
+        by_layer[i % layers] += d / x.numel() / (len(a) // layers)
+    first = next((i for i, v in enumerate(by_layer) if v > 0), None)
+    return {"decisions": n, "differ": sum(per), "share": sum(per) / max(n, 1),
+            "first_layer_differing": first,
+            "share_by_layer": [round(v, 4) for v in by_layer]}
 
 
 def serve_run(model, params, prompts, scheduler: str, dev, card,
@@ -463,11 +554,13 @@ def serve_run(model, params, prompts, scheduler: str, dev, card,
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in wrappers.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    served = (server.run_continuous() if scheduler == "continuous"
-              else server.run_all())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    moe = model.cfg.family == "moe"
+    with MoeProbe() if moe else contextlib.nullcontext() as probe:
+        t0 = time.perf_counter()
+        served = (server.run_continuous() if scheduler == "continuous"
+                  else server.run_all())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
     del model.prefill, model.decode_step      # back to the class's methods
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -498,6 +591,10 @@ def serve_run(model, params, prompts, scheduler: str, dev, card,
            "peak_mem_gib": peak,
            "launches": {k: v for k, v in launches.items() if k in per},
            "gpu": card}
+    if moe:   # over the run's prefills (every layer's assignments)
+        row["routed_assignments"] = probe.routed
+        row["capacity_dropped"] = int(probe.dropped)
+        row["dropped_share"] = int(probe.dropped) / max(probe.routed, 1)
     emit(row)
     return {"row": row, "served": {r.rid: r.output for r in served}}
 
@@ -539,7 +636,28 @@ def within_bounds(diff: dict, what: str) -> None:
 
 def serve_phase(arch: str, phase: int, dev, card) -> dict:
     """Serve `arch` at its published widths, bf16, random weights from seed
-    0, under both schedulers (counted); then the checks."""
+    0, under both schedulers (counted); then the checks.
+
+    For a mixture of experts (capacity dispatch) two of the checks compare
+    runs that may compute different functions, and each is held to the
+    logit bounds only where they do not:
+    - a 2047-token prefill plus one decode step against the 2048-token
+      prefill: both prefills have capacity C = ceil(2048·8/128·1.25) = 160
+      = ceil(2047·8/128·1.25), and ranks within an expert are token-major,
+      so the prefix is routed and dropped alike in both; decode has C = k
+      and never drops. They differ in function only where the 2048-token
+      prefill drops one of the LAST token's assignments, or where rounding
+      sends a token to another expert. The phase reports both (the last
+      token's drops; the share of (token, layer, k) decisions that differ)
+      and holds the bounds only where both are 0;
+    - flash against dense attention, and the teacher-forced 8-slot against
+      1-slot decode: rounding (a bf16 activation into the f32 router; an
+      8-row against a 1-row GEMM) can flip a routing decision. The share
+      of decisions that differ is reported beside the logit difference;
+      the bounds hold where it is 0.
+    It also reports whether the f32 router product of one decode row is
+    bit-identical in an 8-row and a 1-row GEMM, and the routed
+    assignments capacity dropped in the serving runs' prefills."""
     import numpy as np
 
     from repro_torch.config.registry import get_arch
@@ -547,14 +665,18 @@ def serve_phase(arch: str, phase: int, dev, card) -> dict:
     from repro_torch.runtime.server import _mark_prefill_tail
 
     cfg = get_arch(arch)
+    moe = cfg.family == "moe"
     check(per_prefill(cfg) == PER_PREFILL[arch],
           f"{arch}: launches per prefill {per_prefill(cfg)}")
     model = build_model(cfg, ModelOptions(attn_impl="flash",
                                           dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = model.init(0, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2**30
     n_params = sum(p.numel() for p in params.parameters())
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 2049, REQUESTS)
@@ -564,61 +686,123 @@ def serve_phase(arch: str, phase: int, dev, card) -> dict:
           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
           "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
           "per_prefill": per_prefill(cfg), "params": n_params,
-          "init_s": init_s, "prompt_lens": lens.tolist(), "gpu": card})
+          "param_gib": sum(p.numel() * p.element_size()
+                           for p in params.parameters()) / 2**30,
+          "init_s": init_s, "init_peak_gib": init_peak,
+          "prompt_lens": lens.tolist(), "gpu": card})
     # warm-up (kernel build is done; cuBLAS handles, allocator)
     model.prefill(params, {"tokens": torch.tensor([prompts[0][:128]],
                                                   device=dev)})
     runs = {sch: serve_run(model, params, prompts, sch, dev, card, phase)
             for sch in ("continuous", "wave")}
 
-    # one 2048-token prompt: last-token logits of the prefill, under dense
-    # attention where the model has attention, and from a 2047-token
-    # prefill and one decode step
-    toks = torch.tensor([rng.integers(1, cfg.vocab_size, 2048).tolist()],
-                        device=dev)
-    lf, _ = model.prefill(params, {"tokens": toks})
-    check(bool(torch.isfinite(lf).all()) and lf.shape == (1, 1, cfg.vocab_size),
-          f"{arch} prefill logits: non-finite or wrong shape")
-    checks = {}
-    if "flash_attention" in per_prefill(cfg):
-        dense = build_model(cfg, ModelOptions(attn_impl="dense",
-                                              dtype=torch.bfloat16))
-        ld, _ = dense.prefill(params, {"tokens": toks})
-        checks["flash_vs_dense_logits"] = logit_diff(lf, ld)
-        del ld
-    last = toks.shape[1] - 1
-    _, pc = model.prefill(params, {"tokens": toks[:, :last]},
-                          max_len=last + 1)
-    lp, _ = model.decode_step(params, toks[:, last:],
-                              _mark_prefill_tail(pc, last), last)
-    checks["prefill_2047_plus_decode_vs_prefill_2048"] = logit_diff(lp, lf)
-    del pc, lp
-    f32_diff = None
-    if set(per_prefill(cfg)) & {"lru_scan", "ssd_scan"}:
-        # the same in float32: the chunked prefill against the recurrence
-        m32 = build_model(cfg, ModelOptions(attn_impl="flash",
-                                            dtype=torch.float32))
-        p32 = m32.init(0, dev)
-        l32, _ = m32.prefill(p32, {"tokens": toks})
-        _, pc = m32.prefill(p32, {"tokens": toks[:, :last]},
-                            max_len=last + 1)
-        lp, _ = m32.decode_step(p32, toks[:, last:],
-                                _mark_prefill_tail(pc, last), last)
-        f32_diff = logit_diff(lp, l32)
-        del m32, p32, l32, pc, lp
-        torch.cuda.empty_cache()
+    probe = MoeProbe() if moe else contextlib.nullcontext()
+    with probe:
+        if moe:
+            probe.record = True
+        # one 2048-token prompt: last-token logits of the prefill, under
+        # dense attention where the model has attention, and from a
+        # 2047-token prefill and one decode step
+        toks = torch.tensor([rng.integers(1, cfg.vocab_size, 2048).tolist()],
+                            device=dev)
+        lf, _ = model.prefill(params, {"tokens": toks})
+        check(bool(torch.isfinite(lf).all())
+              and lf.shape == (1, 1, cfg.vocab_size),
+              f"{arch} prefill logits: non-finite or wrong shape")
+        route = {}
+        if moe:
+            route["prefill_2048"], keep_2048 = probe.take()
+        checks, holds = {}, {}
+        if "flash_attention" in per_prefill(cfg):
+            dense = build_model(cfg, ModelOptions(attn_impl="dense",
+                                                  dtype=torch.bfloat16))
+            ld, _ = dense.prefill(params, {"tokens": toks})
+            checks["flash_vs_dense_logits"] = logit_diff(lf, ld)
+            del ld
+            if moe:
+                r = routing_differs(route["prefill_2048"], probe.take()[0],
+                                    cfg.num_layers)
+                checks["flash_vs_dense_logits"]["routing"] = r
+                holds["flash_vs_dense_logits"] = r["differ"] == 0
+        last = toks.shape[1] - 1
+        _, pc = model.prefill(params, {"tokens": toks[:, :last]},
+                              max_len=last + 1)
+        lp, _ = model.decode_step(params, toks[:, last:],
+                                  _mark_prefill_tail(pc, last), last)
+        key = "prefill_2047_plus_decode_vs_prefill_2048"
+        checks[key] = logit_diff(lp, lf)
+        del pc, lp
+        if moe:
+            got, _ = probe.take()               # 48 prefill, 48 decode
+            n = cfg.num_layers
+            both = [torch.cat([a, b], dim=1)
+                    for a, b in zip(got[:n], got[n:])]
+            r = routing_differs(route["prefill_2048"], both, n)
+            drops = int(sum(int((~k[:, -1]).sum()) for k in keep_2048))
+            checks[key].update(routing=r, last_token_dropped=drops)
+            holds[key] = r["differ"] == 0 and drops == 0
+        f32_diff = None
+        if set(per_prefill(cfg)) & {"lru_scan", "ssd_scan"}:
+            # the same in float32: the chunked prefill against the
+            # recurrence
+            m32 = build_model(cfg, ModelOptions(attn_impl="flash",
+                                                dtype=torch.float32))
+            p32 = m32.init(0, dev)
+            l32, _ = m32.prefill(p32, {"tokens": toks})
+            _, pc = m32.prefill(p32, {"tokens": toks[:, :last]},
+                                max_len=last + 1)
+            lp, _ = m32.decode_step(p32, toks[:, last:],
+                                    _mark_prefill_tail(pc, last), last)
+            f32_diff = logit_diff(lp, l32)
+            del m32, p32, l32, pc, lp
+            torch.cuda.empty_cache()
 
-    # teacher-forced decode: requests 0 and 1 in the 8-slot layout (with
-    # the first 8 requests) against each alone in a 1-slot layout
-    forced = [runs["continuous"]["served"][i][:17] for i in range(SLOTS)]
-    eight = teacher_forced(model, params, prompts[:SLOTS], forced, SLOTS,
-                           [0, 1], dev)
-    one = torch.cat([teacher_forced(model, params, [prompts[i]], [forced[i]],
-                                    1, [0], dev) for i in (0, 1)])
-    checks["teacher_forced_8_vs_1_slot"] = dict(
-        logit_diff(eight, one), bit_identical=bool(torch.equal(eight, one)),
-        steps=len(forced[0]) - 1)
-    del eight, one
+        # teacher-forced decode: requests 0 and 1 (Mamba-2: all 8) in the
+        # 8-slot layout (with the first 8 requests) against each alone in a
+        # 1-slot layout
+        rows = list(range(SLOTS)) if cfg.family == "ssm" else [0, 1]
+        forced = [runs["continuous"]["served"][i][:17] for i in range(SLOTS)]
+        eight = teacher_forced(model, params, prompts[:SLOTS], forced, SLOTS,
+                               rows, dev)
+        decode_ids = []
+        if moe:    # the decode steps' expert ids (prefills have S > 1)
+            decode_ids.append([a for a in probe.take()[0] if a.shape[1] == 1])
+        ones = []
+        for i in rows:
+            ones.append(teacher_forced(model, params, [prompts[i]],
+                                       [forced[i]], 1, [0], dev))
+            if moe:
+                decode_ids.append([a for a in probe.take()[0]
+                                   if a.shape[1] == 1])
+        one = torch.cat(ones)
+        key = "teacher_forced_8_vs_1_slot"
+        checks[key] = dict(
+            logit_diff(eight, one),
+            bit_identical=bool(torch.equal(eight, one)),
+            requests=len(rows), requests_bit_identical=sum(
+                bool(torch.equal(eight[i], one[i]))
+                for i in range(len(rows))),
+            steps=len(forced[0]) - 1)
+        if moe:
+            r = routing_differs([a[rows] for a in decode_ids[0]],
+                                [torch.cat(c) for c in zip(*decode_ids[1:])],
+                                cfg.num_layers)
+            checks[key]["routing"] = r
+            holds[key] = r["differ"] == 0
+        del eight, one
+    router_rows = None
+    if moe:
+        # the f32 router product of one decode row in an 8-row and a 1-row
+        # GEMM (the question Mamba-2's dt projection raised, ROADMAP.md
+        # Queue 3)
+        h = torch.randn((SLOTS, 1, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1)
+                        ).to(torch.bfloat16)
+        w = params["layers"]["moe"]["router"][0]
+        l8 = h.float() @ w
+        l1 = torch.cat([h[i:i + 1].float() @ w for i in range(SLOTS)])
+        router_rows = {"bit_identical": bool(torch.equal(l8, l1)),
+                       "max_abs_diff": float((l8 - l1).abs().max())}
 
     # the reduced config on the card against the CPU (float32, plain
     # versions on the CPU), on a small input
@@ -637,9 +821,13 @@ def serve_phase(arch: str, phase: int, dev, card) -> dict:
            "f32_prefill_plus_decode_vs_prefill": f32_diff,
            "f32_bound_max_abs": F32_RECURRENCE_TOL,
            "reduced_card_vs_cpu_f32_max_abs": small_err, "gpu": card}
+    if moe:
+        row["bounds_held"] = {k: holds.get(k, True) for k in checks}
+        row["router_f32_8_vs_1_rows"] = router_rows
     emit(row)
     for what, diff in checks.items():
-        within_bounds(diff, f"{arch} {what}")
+        if holds.get(what, True):
+            within_bounds(diff, f"{arch} {what}")
     check(f32_diff is None or f32_diff["max_abs"] <= F32_RECURRENCE_TOL,
           f"{arch} f32 prefill + decode vs prefill: {f32_diff}")
     check(small_err <= 1e-4, f"{arch} reduced model card vs CPU: {small_err}")
@@ -647,6 +835,99 @@ def serve_phase(arch: str, phase: int, dev, card) -> dict:
             "launches": {k: sum(r["row"]["launches"].get(k, 0)
                                 for r in runs.values())
                          for k in per_prefill(cfg)}}
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Runs the MoE block's pieces under profiler ranges: "moe" around
+    moe_apply_dense, "moe_dispatch" around the router and top-k
+    (``_route``), the load statistics of the aux loss (``_load``), the
+    one-hot/cumsum tables (``_dispatch_tables``), the gather into the
+    expert slots (``_slots_gather``) and the combine (``_combine``)."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    names = ("_route", "_load", "_dispatch_tables", "_slots_gather",
+             "_combine", "moe_apply_dense")
+    orig = {n: getattr(moe, n) for n in names}
+
+    def wrap(n, fn):
+        tag = "moe" if n == "moe_apply_dense" else "moe_dispatch"
+
+        def f(*a, **kw):
+            with record_function(tag):
+                return fn(*a, **kw)
+        return f
+
+    for n, fn in orig.items():
+        setattr(moe, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(moe, n, fn)
+
+
+def serve_family(name: str, ranges) -> str:
+    """The op family of one CUDA kernel of a MoE model's serving step,
+    from its name and the profiler ranges it was launched under."""
+    low = name.lower()
+    if "moe_dispatch" in ranges:
+        return "moe_dispatch"
+    gemm = any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet"))
+    if "moe" in ranges:
+        return "expert gemm" if gemm else "expert elementwise"
+    if gemm:
+        return "gemm (attention projections, lm_head)"
+    if "copy" in low or "cat" in low or "index" in low or "scatter" in low:
+        return "copies and cache writes"
+    return "other elementwise"
+
+
+def traced_families(fn, family_of) -> dict:
+    """Run `fn` once under torch.profiler: device time by op family (each
+    kernel's family from its name and the ranges above it), the largest
+    kernels, and the device's busy time against the traced window's wall
+    clock. The port's CUDA kernels are launched through ctypes, outside
+    any aten op, so no CPU event holds them: their family, "port kernels",
+    is read from the kernel table by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fams, kernels, total, launches = {}, {}, 0.0, 0
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        ranges, up = set(), ev
+        while up is not None:
+            ranges.add(up.name)
+            up = up.cpu_parent
+        for k in ev.kernels:
+            ms = k.duration / 1e3
+            fam = family_of(k.name, ranges)
+            fams[fam] = fams.get(fam, 0.0) + ms
+            kernels[k.name] = kernels.get(k.name, 0.0) + ms
+            total += ms
+            launches += 1
+    fams["port kernels"] = sum(
+        dev_us(e) for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+        and any(k in e.key for k in PORT_KERNELS)) / 1e3
+    busy = total + fams["port kernels"]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / (1e3 * wall),
+            "kernel_launches": launches,
+            "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [{"name": n[:100], "ms": ms} for n, ms in top]}
 
 
 def serve_profile(serve, phase: int, dev, card) -> dict:
@@ -679,10 +960,17 @@ def serve_profile(serve, phase: int, dev, card) -> dict:
     admit()
     decode()  # warm
     row = {"phase": "serve_profile", "n": phase, "arch": model.cfg.name,
-           "prompt_len": len(prompt),
-           "prefill": traced(lambda: model.prefill(
-               params, {"tokens": tokens}, max_len=MAX_LEN)),
-           "decode_5_steps": traced(decode), "gpu": card}
+           "prompt_len": len(prompt)}
+    if model.cfg.family == "moe":
+        with moe_ranges():
+            row["prefill"] = traced_families(lambda: model.prefill(
+                params, {"tokens": tokens}, max_len=MAX_LEN), serve_family)
+            row["decode_5_steps"] = traced_families(decode, serve_family)
+    else:
+        row["prefill"] = traced(lambda: model.prefill(
+            params, {"tokens": tokens}, max_len=MAX_LEN))
+        row["decode_5_steps"] = traced(decode)
+    row["gpu"] = card
     return row
 
 

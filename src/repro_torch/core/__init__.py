@@ -6,4 +6,6 @@
 - :mod:`repro_torch.core.reduction`  hierarchical task->process reductions
 - :mod:`repro_torch.core.stencil`    Heat2D, RK3 and HPCCG on the core
 - :mod:`repro_torch.core.overlap`    gradient buckets: two-phase vs HDOT sync
+- :mod:`repro_torch.core.a2a_scan`   the HDOT-chunked all-to-all of expert
+  parallelism
 """

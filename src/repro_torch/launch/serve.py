@@ -6,10 +6,12 @@ kernels). ``--scheduler continuous`` (default) runs continuous batching
 (token-granular slot re-admission, ``runtime/server.py:run_continuous``);
 ``--scheduler wave`` runs the static wave baseline. Attention runs through
 the flash kernel (``attn_impl="flash"``), the path this port serves with.
-Every ported family serves: dense GQA (``qwen3-8b``), Mamba-2
-(``mamba2-780m``) and RecurrentGemma (``recurrentgemma-2b``).
+Every ported family serves: dense GQA (``qwen3-8b``), MoE
+(``qwen3-moe-30b-a3b``, ``mixtral-8x7b``), Mamba-2 (``mamba2-780m``) and
+RecurrentGemma (``recurrentgemma-2b``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --device cpu
 """
 from __future__ import annotations

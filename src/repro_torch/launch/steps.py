@@ -30,14 +30,19 @@ PyTree = Any
 def check_ported(parallel: ParallelConfig, mesh=None) -> None:
     """Raise ``NotImplementedError`` for what the data-parallel step does
     not honour: ZeRO-3, the collective-matmul rings, chunked MoE
-    all-to-alls, compressed gradients, and a mesh whose non-DP axes (the
-    TP axis) have more than one rank."""
+    all-to-alls (expert parallelism, which needs the TP axis), compressed
+    gradients, and a mesh whose non-DP axes (the TP axis) have more than
+    one rank."""
     if parallel.param_shard:
         raise _not_ported("param_shard (ZeRO-3/FSDP)")
     if parallel.collective_matmul:
         raise _not_ported("collective_matmul (the TP rings)")
     if parallel.moe_a2a_chunks > 1:
-        raise _not_ported("moe_a2a_chunks > 1 (a2a_scan)")
+        raise _not_ported(
+            "moe_a2a_chunks > 1 in training: expert parallelism inside the "
+            "model (moe_apply_ep over a2a_scan) needs a 'model' axis, and "
+            "training on one waits for tensor parallelism of the other "
+            "layers")
     if parallel.grad_compression != "none":
         raise _not_ported(f"grad_compression={parallel.grad_compression!r}")
     if mesh is not None:

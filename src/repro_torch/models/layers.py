@@ -126,10 +126,22 @@ def leaf_seed(seed: int, path: Tuple) -> int:
     return zlib.crc32(repr(path).encode(), int(seed) % 2**32)
 
 
+# f32 elements drawn at once by init_leaf (1 GiB): a larger leaf is drawn
+# by slabs along dim 0
+INIT_SLAB_ELEMS = 2 ** 28
+
+
 def init_leaf(seed: int, path: Tuple, spec: ParamSpec,
               device="cuda") -> torch.Tensor:
     """Materialize ONE leaf from its path's seed: normal(0, 1) draws in f32
-    times `scale` (default 1/sqrt(fan_in)), cast to the spec's dtype."""
+    times `scale` (default 1/sqrt(fan_in)), cast to the spec's dtype.
+
+    The leaf is made in its own dtype and filled by slabs along dim 0 of at
+    most ``INIT_SLAB_ELEMS`` elements, each drawn in f32 from the leaf's one
+    generator and scaled in place, so the transient is one slab's f32 (a
+    stacked expert leaf of Qwen3-30B-A3B is 9.7e9 elements). A leaf that
+    fits one slab is one draw, as it always was; a larger one draws other
+    values than a single draw of the whole leaf would."""
     device = resolve_device(device)
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
@@ -138,9 +150,15 @@ def init_leaf(seed: int, path: Tuple, spec: ParamSpec,
     gen = torch.Generator(device=device).manual_seed(leaf_seed(seed, path))
     fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[-1], 1)
     scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
-    n = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return (n * scale).to(spec.dtype)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    row = max(1, math.prod(spec.shape[1:]))
+    step = max(1, INIT_SLAB_ELEMS // row)
+    for i in range(0, spec.shape[0], step):
+        slab = out[i:i + step]
+        n = torch.randn(slab.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        slab.copy_(n.mul_(scale))
+    return out
 
 
 def init_from_specs(specs: PyTree, seed: int = 0, device="cuda") -> PyTree:
@@ -175,10 +193,13 @@ def tag_layer(specs: PyTree, depth: int) -> PyTree:
 # ------------------------------------------------------------------- layers
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * weight.float()).to(dt)
+    """RMS norm in f32, rounded once to x's dtype. ``F.rms_norm`` reduces
+    each row in an order set by the row's width alone (on CUDA one fused
+    kernel, a row a block), where ``torch.mean`` over the last dim splits a
+    lone row over other threads than a row among 8: a request's decode
+    must not depend on how many slots run beside it."""
+    return F.rms_norm(x.float(), (x.shape[-1],), weight.float(),
+                      eps).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -9,11 +9,12 @@ The port of ``repro/models/model.py``:
 Parameters are a :class:`~repro_torch.models.layers.ParamTree` in the JAX
 package's layout (``init``, or :func:`repro_torch.models.convert.
 params_from_jax`); caches are dicts of tensors that prefill and decode
-update in place. The families ported are ``dense``, ``ssm`` (Mamba-2) and
-``hybrid`` (RecurrentGemma); the others wait for later slices
-(``ROADMAP.md``) and raise ``NotImplementedError``. ``train_loss`` trains
-the dense family only: the recurrent families' kernels are forward-only,
-so their training raises too.
+update in place. The families ported are ``dense``, ``moe`` (capacity
+dispatch, with expert parallelism where ``options.mesh`` has a ``"model"``
+axis), ``ssm`` (Mamba-2) and ``hybrid`` (RecurrentGemma); the others wait
+for later slices (``ROADMAP.md``) and raise ``NotImplementedError``.
+``train_loss`` trains the dense and MoE families: the recurrent families'
+kernels are forward-only, so their training raises.
 
 float32 runs on the card assume full-precision matmuls
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default); the
@@ -50,10 +51,13 @@ class ModelOptions:
     # are not kept for the backward
     fused_xent: bool = True
     dtype: torch.dtype = torch.bfloat16
+    # MoE blocks: the ProcessMesh whose "model" axis shards the experts
+    # (None, or no such axis: the dense capacity dispatch on this rank)
+    mesh: Optional[Any] = None
 
 
-FAMILIES = ("dense", "ssm", "hybrid")
-TRAINED_FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense", "moe")
 
 
 class LanguageModel:
@@ -112,8 +116,9 @@ class LanguageModel:
 
     # ---------------------------------------------------------------- forward
     def _forward(self, params, batch: Dict, mode: str, caches=None,
-                 pos=None) -> Tuple[torch.Tensor, Any]:
-        """Hidden states (before the final norm) and the caches. `mode` is
+                 pos=None) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+        """Hidden states (before the final norm), the caches and the MoE aux
+        loss summed over the layers (None without MoE blocks). `mode` is
         "train" (full sequence, no cache), "prefill" or "decode"."""
         tokens = batch["token"] if mode == "decode" else batch["tokens"]
         x = self._embed(params, tokens)
@@ -126,7 +131,7 @@ class LanguageModel:
             positions = torch.arange(s, device=x.device).expand(b, s)
         return tfm.stack_apply(params["layers"], x, self.cfg, positions, mode,
                                caches, pos, self.opt.attn_impl,
-                               remat=self.opt.remat)
+                               remat=self.opt.remat, mesh=self.opt.mesh)
 
     # ------------------------------------------------------------ entry points
     def train_loss(self, params, batch: Dict) -> torch.Tensor:
@@ -134,21 +139,24 @@ class LanguageModel:
         ``batch["targets"]`` ((b, s) int64), a 0-d float32 tensor. Fused
         (``options.fused_xent``): :func:`~repro_torch.models.xent.
         linear_xent` on the final-normed activations; otherwise the f32
-        logits' log-softmax."""
+        logits' log-softmax. The MoE family adds its aux load-balancing
+        loss, as the reference does."""
         if self.cfg.family not in TRAINED_FAMILIES:
             raise NotImplementedError(
                 f"training the {self.cfg.family!r} family is not ported: "
                 f"its kernels are forward-only; see ROADMAP.md (Queue 1)")
-        x, _ = self._forward(params, batch, "train")
+        x, _, aux = self._forward(params, batch, "train")
         targets = batch["targets"]
         if self.opt.fused_xent:
             x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
             w = (params["embed"].t() if self.cfg.tie_embeddings
                  else params["lm_head"])
-            return linear_xent(x, w, targets)
-        logp = torch.log_softmax(self._unembed(params, x), dim=-1)
-        ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-        return -torch.mean(ll)
+            loss = linear_xent(x, w, targets)
+        else:
+            logp = torch.log_softmax(self._unembed(params, x), dim=-1)
+            ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+            loss = -torch.mean(ll)
+        return loss if aux is None else loss + aux.to(loss.dtype)
 
     def prefill(self, params, batch: Dict, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Any]:
@@ -159,15 +167,15 @@ class LanguageModel:
         b, s = batch["tokens"].shape
         caches = self.init_caches(b, max(s, max_len or 0),
                                   params["embed"].device)
-        x, caches = self._forward(params, batch, "prefill", caches=caches)
+        x, caches, _ = self._forward(params, batch, "prefill", caches=caches)
         return self._unembed(params, x[:, -1:]), caches
 
     def decode_step(self, params, token: torch.Tensor, caches, pos
                     ) -> Tuple[torch.Tensor, Any]:
         """token (b, 1); pos a scalar or a per-slot (b,) tensor. Returns
         ((b, 1, vocab) f32 logits, caches updated in place)."""
-        x, caches = self._forward(params, {"token": token}, "decode",
-                                  caches=caches, pos=pos)
+        x, caches, _ = self._forward(params, {"token": token}, "decode",
+                                     caches=caches, pos=pos)
         return self._unembed(params, x), caches
 
     # ----------------------------------------------------------------- caches

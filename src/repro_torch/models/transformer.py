@@ -1,6 +1,7 @@
 """Layer stacks: the port of ``repro/models/transformer.py`` for dense
-attention models (kind ``"attn"``), Mamba-2 (``"ssm"``) and RecurrentGemma
-(``"rglru"`` and ``"local_attn"``).
+attention models (kind ``"attn"``), mixtures of experts (``"attn_moe"``:
+attention, then :mod:`repro_torch.models.moe` in place of the MLP), Mamba-2
+(``"ssm"``) and RecurrentGemma (``"rglru"`` and ``"local_attn"``).
 
 A stack runs :func:`layer_apply` either over a scanned layout (every leaf
 stacked with a leading layer dim, as ``lax.scan`` takes it in the JAX
@@ -9,9 +10,10 @@ loop. A hybrid stack is never uniform, so it is always unrolled. In "train"
 mode a scanned stack is unbound into its layers once per call (so its
 stacked gradient is assembled once, when layer 0's backward ends), and
 ``remat="full"`` recomputes each layer in the backward
-(``torch.utils.checkpoint``, as ``jax.checkpoint`` does). Block kinds
-``"attn_moe"`` (MoE) and ``"decoder"`` (encoder-decoder) wait for their
-slices and raise ``NotImplementedError``.
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` does). A block returns
+its MoE aux loss (None for the other kinds) and the stack sums it over
+the layers, as the reference's scan carry does. Block kind ``"decoder"``
+(encoder-decoder) waits for its slice and raises ``NotImplementedError``.
 
 Decode caches are written in place through per-layer views (of the stacked
 tensors, in the scanned layout): the attention rings by the attention
@@ -30,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -42,7 +45,8 @@ from repro_torch.models.layers import (
     tag_layer,
 )
 
-PORTED_KINDS = ("attn", "local_attn", "ssm", "rglru")
+PORTED_KINDS = ("attn", "attn_moe", "local_attn", "ssm", "rglru")
+ATTN_KINDS = ("attn", "attn_moe", "local_attn")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -93,28 +97,35 @@ def layer_specs(cfg: ModelConfig, kind: str,
     else:
         s["attn"] = attn.attention_specs(cfg, dtype)
     s.update(_norm_specs(cfg, "norm2"))
-    s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, dtype)
+    if kind == "attn_moe":
+        s["moe"] = moe_mod.moe_specs(cfg, dtype)
+    else:
+        s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, dtype)
     return s
 
 
 # ---------------------------------------------------------------------- apply
 def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, mode: str, cache, pos,
-                attn_impl: str):
+                attn_impl: str, mesh=None):
     """One block, `mode` "train" (full sequence, no cache), "prefill" or
-    "decode". Returns (x, cache), the cache updated in place."""
+    "decode". `mesh` reaches an "attn_moe" block's
+    :func:`~repro_torch.models.moe.moe_apply`. Returns (x, cache, aux), the
+    cache updated in place, aux the block's f32 MoE aux loss (None for the
+    other kinds)."""
     if kind not in PORTED_KINDS:
         raise _not_ported(f"block kind {kind!r}")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    aux = None
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind in ("ssm", "rglru"):
         y, cache = _recurrent(p, h, cfg, kind, mode, cache)
         x = x + y
         if kind == "ssm":
-            return x, cache
+            return x, cache, aux
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], h), cache
+        return x + mlp_apply(p["mlp"], h), cache, aux
     window = (cfg.hybrid.local_window if kind == "local_attn"
               else cfg.sliding_window)
     if mode == "train":
@@ -128,7 +139,10 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                                          window=window)
     x = x + y
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h), cache
+    if kind == "attn_moe":
+        y, aux = moe_mod.moe_apply(p["moe"], h, cfg, mesh)
+        return x + y, cache, aux
+    return x + mlp_apply(p["mlp"], h), cache, aux
 
 
 def _recurrent(p, h, cfg: ModelConfig, kind: str, mode: str, cache):
@@ -199,13 +213,15 @@ def is_unrolled(layers) -> bool:
 
 
 def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
-                pos, attn_impl: str, remat: str = "none"):
+                pos, attn_impl: str, remat: str = "none", mesh=None):
     """Run the full stack. `params` matches :func:`stack_specs`' layout
     (stacked tree for scan, list for unrolled), `caches` that of
     :func:`stack_cache_specs` (or None in "train" mode). The caches are
     written in place through per-layer views. `remat` ("none" | "full")
     applies in "train" mode: "full" keeps only each layer's input and
-    recomputes the layer in the backward. Returns (x, caches)."""
+    recomputes the layer in the backward. `mesh` goes to the MoE
+    blocks. Returns (x, caches, aux), aux the f32 sum of the
+    layers' MoE aux losses (None for a stack without MoE blocks)."""
     if remat not in ("none", "full"):
         if remat == "dots":
             raise NotImplementedError(
@@ -214,23 +230,32 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
         raise ValueError(f"unknown remat {remat!r}")
     kinds = block_kinds(cfg)
     unrolled = is_unrolled(params)
+    aux = None
+
+    def add(total, aux_l):
+        return aux_l if total is None else (
+            total if aux_l is None else total + aux_l)
+
     if mode == "train":
         layers = params if unrolled else _unbind(params)
         for p_l, kind in zip(layers, kinds):
             def f(xx, p_l=p_l, kind=kind):
-                return layer_apply(p_l, xx, cfg, kind, positions, mode, None,
-                                   None, attn_impl)[0]
-            x = checkpoint(f, x, use_reentrant=False) if remat == "full" \
-                else f(x)
-        return x, None
+                xx, _, aux_l = layer_apply(p_l, xx, cfg, kind, positions,
+                                           mode, None, None, attn_impl, mesh)
+                return xx, aux_l
+            x, aux_l = (checkpoint(f, x, use_reentrant=False)
+                        if remat == "full" else f(x))
+            aux = add(aux, aux_l)
+        return x, None, aux
     for i, kind in enumerate(kinds):
         p_l = params[i] if unrolled else _layer(params, i)
         cache_l = None
         if caches is not None:
             cache_l = caches[i] if is_unrolled(caches) else _layer(caches, i)
-        x, _ = layer_apply(p_l, x, cfg, kind, positions, mode, cache_l, pos,
-                           attn_impl)
-    return x, caches
+        x, _, aux_l = layer_apply(p_l, x, cfg, kind, positions, mode,
+                                  cache_l, pos, attn_impl, mesh)
+        aux = add(aux, aux_l)
+    return x, caches, aux
 
 
 # ------------------------------------------------------------- cache builders
@@ -244,7 +269,7 @@ def stack_cache_specs(cfg: ModelConfig, batch: int, max_len: int, scan: bool,
             return ssm_mod.ssm_cache_specs(cfg, batch, dtype)
         if kind == "rglru":
             return rglru_mod.rglru_cache_specs(cfg, batch, dtype)
-        if kind not in PORTED_KINDS:
+        if kind not in ATTN_KINDS:
             raise _not_ported(f"the decode cache of block kind {kind!r}")
         w = max_len
         if kind == "local_attn":

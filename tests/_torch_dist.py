@@ -12,9 +12,10 @@ global results and its message counts to ``<workdir>/rank<r>.npz``. With
 ``"nccl"`` rank r runs on CUDA device r.
 
 A job runs Heat2D when it names ``iters``, and any of the other
-applications it names (``rk3``, ``hpccg``, ``allreduce``), each on a mesh
-of its own over the same ranks; their inputs are made here from a numpy
-seed (:func:`app_input`), so the parent makes the same ones. A job naming
+applications it names (``rk3``, ``hpccg``, ``allreduce``, ``moe``), each on
+a mesh of its own over the same ranks; their inputs are made here from a
+numpy seed (:func:`app_input`, :func:`moe_input`), so the parent makes the
+same ones. A job naming
 ``gradsync`` sums an integer-valued mixed-dtype tree (:func:`sync_tree`)
 under both schedules; one naming ``train`` trains the reduced model under
 each (overlap, accum_steps) case it lists, starting from the checkpoint
@@ -161,7 +162,125 @@ def run_apps(job, device):
             -127, 128, (33,)).astype(np.int16)).to(device)
         out["int16_sum"] = reduction._sum_payload(q, mesh, "pod").cpu(
             ).numpy()
+    if "moe" in job:
+        out.update(run_moe(job["moe"], device))
     return out
+
+
+def moe_config(spec):
+    """The reduced Qwen3-MoE config with the job's experts, top-k and
+    capacity factor."""
+    import dataclasses
+
+    from repro_torch.config.registry import get_arch
+
+    cfg = get_arch("qwen3-moe-30b-a3b").reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=spec["experts"], top_k=spec["top_k"],
+        capacity_factor=spec["factor"]))
+
+
+def moe_input(spec):
+    """(params, x, x_decode) of the MoE job as float32 numpy arrays: the
+    block's leaves normal / sqrt(fan_in), x (B, S, d) and the decode input
+    (B_decode, 1, d) normal times 0.3, from numpy seed ``spec["seed"]``."""
+    d, E, f = 128, spec["experts"], 64
+    rng = np.random.default_rng(spec["seed"])
+
+    def draw(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(shape[0])).astype(
+            np.float32)
+    p = {"router": draw(d, E), "gate": draw(E, d, f), "up": draw(E, d, f),
+         "down": draw(E, f, d)}
+    x = (rng.standard_normal((spec["batch"], spec["seq"], d)) * 0.3).astype(
+        np.float32)
+    xd = (rng.standard_normal((spec["decode_batch"], 1, d)) * 0.3).astype(
+        np.float32)
+    return p, x, xd
+
+
+def run_moe(spec, device):
+    """Expert parallelism over the job's mesh: each rank takes its
+    data-parallel replica's rows of x (all of them without a "data"
+    axis), for each Q of ``spec["chunks"]`` runs moe_apply_ep with fresh
+    parameters, and back-propagates its share of the global loss
+    sum(y^2) + aux (the global loss is the sum of the ranks' losses: y is
+    the same on the n ranks of a "model" line, aux on every rank). It
+    saves y, the global loss, the parameter gradients summed over all
+    ranks (each rank holds every expert and fills its own experts' rows)
+    and the a2a_scan issue log; then the decode step through moe_apply
+    (the batch in the token slot)."""
+    from repro_torch.models import moe
+
+    mesh = make_mesh(tuple(spec["mesh"]), tuple(spec["axes"]), device)
+    cfg = moe_config(spec)
+    p_np, x_np, xd_np = moe_input(spec)
+    n_data = mesh.shape.get("data", 1)
+    d = mesh.coords[mesh.axis_index("data")] if n_data > 1 else 0
+    rows = x_np.shape[0] // n_data
+    x = torch.from_numpy(x_np[d * rows:(d + 1) * rows]).to(device)
+    world = mesh.size
+    out = {}
+    for q in spec["chunks"]:
+        p = {k: torch.from_numpy(v).to(device).requires_grad_()
+             for k, v in p_np.items()}
+        log = []
+        y, aux = moe.moe_apply_ep(p, x, cfg, mesh, a2a_chunks=q, log=log)
+        loss = (y * y).sum() / mesh.shape["model"] + aux / world
+        loss.backward()
+        total = loss.detach().clone()
+        dist.all_reduce(total)
+        out[f"moe_y_q{q}"] = y.detach().cpu().numpy()
+        out[f"moe_loss_q{q}"] = total.cpu().numpy()
+        for k, v in p.items():
+            g = v.grad.clone()
+            dist.all_reduce(g)
+            out[f"moe_grad_{k}_q{q}"] = g.cpu().numpy()
+        out[f"moe_log_q{q}"] = np.array([f"{w}{k}" for w, k in log])
+    rows = xd_np.shape[0] // n_data
+    xd = torch.from_numpy(xd_np[d * rows:(d + 1) * rows]).to(device)
+    p = {k: torch.from_numpy(v).to(device) for k, v in p_np.items()}
+    out["moe_route_decode"] = np.array(moe.ep_route(mesh, cfg.moe.num_experts,
+                                                    xd.shape))
+    out["moe_y_decode"] = moe.moe_apply(p, xd, cfg, mesh)[0].cpu().numpy()
+    out["moe_data_coord"] = np.array(d)
+    out.update(run_moe_model(spec, mesh, d, device))
+    return out
+
+
+def moe_model_tokens(spec):
+    """The MoE model job's tokens: (batch, seq + 1) from numpy seed
+    ``spec["seed"]`` + 1 (the last column is the decode step's token)."""
+    return np.random.default_rng(spec["seed"] + 1).integers(
+        1, 256, (spec["model_batch"], spec["seq"] + 1))
+
+
+def run_moe_model(spec, mesh, d, device):
+    """The reduced model (the job's MoE config, float32, flash attention)
+    with ``ModelOptions(mesh=mesh)``, so its MoE blocks take expert
+    parallelism: this data replica's rows prefilled, then one decode
+    step; the last-token logits of each, and the all-to-alls sent."""
+    from repro_torch.models.model import ModelOptions, build_model
+
+    cfg = moe_config(spec)
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.float32, mesh=mesh))
+    params = model.init(0, "cpu").to(device)
+    toks = moe_model_tokens(spec)
+    rows = toks.shape[0] // mesh.shape.get("data", 1)
+    toks = torch.from_numpy(toks[d * rows:(d + 1) * rows]).to(device)
+    s = spec["seq"]
+    calls, orig = [], dist.all_to_all_single
+    dist.all_to_all_single = lambda *a, **kw: calls.append(1) or orig(*a, **kw)
+    try:
+        logits, caches = model.prefill(params, {"tokens": toks[:, :s]},
+                                       max_len=s + 1)
+        step, _ = model.decode_step(params, toks[:, s:], caches, s)
+    finally:
+        dist.all_to_all_single = orig
+    return {"moe_model_prefill": logits.cpu().numpy(),
+            "moe_model_decode": step.cpu().numpy(),
+            "moe_model_a2a_calls": np.array(len(calls))}
 
 
 def sync_tree(rank: int):

@@ -1,8 +1,8 @@
 """The port on the card: the CUDA tile-sweep, flash attention, LRU scan and
 SSD scan kernels against their plain PyTorch versions, the solver and the
-server (dense, Mamba-2, RecurrentGemma) on CUDA against the CPU, and (given
-4 cards) NCCL ranks against one rank: the solvers, the staged all-reduce
-and the data-parallel trainer. Marked ``gpu``;
+server (dense, MoE, Mamba-2, RecurrentGemma) on CUDA against the CPU, and
+(given 4 cards) NCCL ranks against one rank: the solvers, the staged
+all-reduce, MoE expert parallelism and the data-parallel trainer. Marked ``gpu``;
 without a card every test here skips. Imports no jax, so it runs where the
 JAX package is not installed:
 
@@ -171,7 +171,9 @@ def test_nccl_2x2_ranks_match_one_rank(cuda, tmp_path):
     two_phase, 3·steps and iters exchanges per axis of size 2), and
     hierarchical_allreduce on a (2, 2) (pod, data) mesh, plain (within 1e-4
     of the plain sum) and through the int8 codec (within 0.03 relative; the
-    int16 payload sums exactly)."""
+    int16 payload sums exactly); and MoE expert parallelism on a (2, 2)
+    (data, model) mesh, Q = 1 and 2, against the dense dispatch on one
+    rank (_check_moe_ep_ranks)."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA devices")
     from _torch_dist import _star, app_input, spawn
@@ -182,12 +184,16 @@ def test_nccl_2x2_ranks_match_one_rank(cuda, tmp_path):
                steps=3, dt=0.01)
     hpccg = dict(mesh=[1, 2, 2], axes=["planes", "rows", "cols"],
                  shape=[8, 8, 16], seed=6, iters=12)
+    moe = dict(mesh=[2, 2], axes=["data", "model"], seed=21, experts=8,
+               top_k=2, factor=8.0, batch=4, seq=32, decode_batch=8,
+               chunks=[1, 2], model_batch=4)
     job = dict(mesh=[2, 2], axes=["rows", "cols"], backend="nccl", iters=10,
                scan_steps=4, chunk_weights=[[9.0] * 6 + [1.0] * 16, None],
                sweep_tile=[8, 10], sweep_sweeps=2, rk3=rk3, hpccg=hpccg,
                allreduce=dict(mesh=[2, 2], shape=[16, 8], seed=100,
-                              per_rank=True, odd_rows=5))
+                              per_rank=True, odd_rows=5), moe=moe)
     ranks = spawn(job, u0, tmp_path, 300)
+    _check_moe_ep_ranks(ranks, moe, cuda)
     v0 = torch.from_numpy(app_input(rk3))
     want_rk3 = rk3_solve(v0, make_grid_mesh(1, 1, device="cpu"),
                          ("rows", "cols"), 3, 0.01, "two_phase").numpy()
@@ -230,6 +236,68 @@ def test_nccl_2x2_ranks_match_one_rank(cuda, tmp_path):
         for tag, scan in scans.items():
             np.testing.assert_array_equal(out[f"scan_{tag}"], scan.numpy())
             assert out[f"sends_{tag}"].tolist() == [4, 4]
+
+
+def _check_moe_ep_ranks(ranks, spec, device):
+    """The MoE job's results on the ranks (tests/_torch_dist.py run_moe)
+    against the port's moe_apply_dense on one rank on the CPU, on the whole
+    input (ample capacity: the same function): y within 1e-5 of the
+    largest entry, the global loss sum(y^2) + aux within 1e-3 (1 + |loss|)
+    and the gradients within 2e-3 (the JAX suite's bounds,
+    tests/test_moe_ep.py), the decode step (the batch as tokens) within
+    2e-4; Q = 2 gives Q = 1's y and loss bit for bit; the reduced model
+    built on the mesh (expert parallelism in every MoE block) within 1e-4
+    of the same model's logits on one rank on `device`, the card. (Against
+    the CPU its decode logits differ by up to 1.4e-4: this draw's router
+    has top-2 and third probabilities 5.5e-8 apart, and the card's and the
+    CPU's float32 orders move the model's output that far; on one card
+    they are within 1.7e-5 of the ranks'.)"""
+    from _torch_dist import moe_config, moe_input, moe_model_tokens
+
+    from repro_torch.models import moe
+    from repro_torch.models.model import ModelOptions, build_model
+
+    cfg = moe_config(spec)
+    p_np, x, xd = moe_input(spec)
+    p = {k: torch.from_numpy(v).requires_grad_() for k, v in p_np.items()}
+    y, aux = moe.moe_apply_dense(p, torch.from_numpy(x), cfg)
+    loss = (y * y).sum() + aux
+    loss.backward()
+    y, loss = y.detach().numpy(), float(loss.detach())
+    yd = moe.moe_apply_dense({k: v.detach() for k, v in p.items()},
+                             torch.from_numpy(xd), cfg)[0].numpy()
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.float32))
+    params = model.init(0, "cpu").to(device)
+    toks = torch.from_numpy(moe_model_tokens(spec)).to(device)
+    s = spec["seq"]
+    lp, caches = model.prefill(params, {"tokens": toks[:, :s]},
+                               max_len=s + 1)
+    ld, _ = model.decode_step(params, toks[:, s:], caches, s)
+    lp, ld = lp.cpu().numpy(), ld.cpu().numpy()
+    for out in ranks:
+        rows = out["moe_model_prefill"].shape[0]
+        d = int(out["moe_data_coord"])
+        assert int(out["moe_model_a2a_calls"]) == 2 * cfg.num_layers * 2
+        for got, want in ((out["moe_model_prefill"], lp),
+                          (out["moe_model_decode"], ld)):
+            np.testing.assert_allclose(got, want[d * rows:(d + 1) * rows],
+                                       rtol=1e-4, atol=1e-4)
+        d = int(out["moe_data_coord"])
+        rows = out["moe_y_q1"].shape[0]
+        np.testing.assert_allclose(out["moe_y_q1"], y[d * rows:(d + 1) * rows],
+                                   rtol=0, atol=1e-5 * np.abs(y).max())
+        got = float(out["moe_loss_q1"])
+        assert abs(got - loss) < 1e-3 * (1 + abs(loss))
+        for k, v in p.items():
+            assert np.abs(out[f"moe_grad_{k}_q1"]
+                          - v.grad.numpy()).max() < 2e-3, k
+        np.testing.assert_array_equal(out["moe_y_q2"], out["moe_y_q1"])
+        assert out["moe_loss_q2"] == out["moe_loss_q1"]
+        assert str(out["moe_route_decode"]) == "ep_batch"
+        rows = out["moe_y_decode"].shape[0]
+        assert np.abs(out["moe_y_decode"]
+                      - yd[d * rows:(d + 1) * rows]).max() < 2e-4
 
 
 def test_nccl_2x2_trainer_matches_one_rank(cuda, tmp_path):
@@ -369,6 +437,56 @@ def test_served_on_card_equals_cpu(cuda):
     model = build_model(cfg, ModelOptions(attn_impl="flash",
                                           dtype=torch.float32))
     params = model.init(0, "cpu")
+    prompts = [[5, 9, 3, 200, 17], [7, 1], list(range(1, 70)), [11] * 33]
+    outs, logits = {}, {}
+    for dev in ("cpu", cuda):
+        p = params.to(dev)
+        logits[str(dev)] = model.prefill(
+            p, {"tokens": torch.tensor([prompts[2]], device=dev)})[0].cpu()
+        srv = BatchServer(model, p, slots=3, max_len=96)
+        for pr in prompts:
+            srv.submit(Request(prompt=list(pr), max_new_tokens=8))
+        before = flash_ops.flash_attention.launches
+        served = srv.run_continuous()
+        launched = flash_ops.flash_attention.launches - before
+        assert launched == (cfg.num_layers * srv.stats["prefills"]
+                            if dev != "cpu" else 0)
+        outs[str(dev)] = {r.rid: r.output for r in served}
+    assert outs["cpu"] == outs[str(cuda)]
+    torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_moe_served_on_card_equals_cpu(cuda):
+    """Reduced Qwen3-MoE (float32, flash attention; 4 experts, top-2,
+    capacity factor 1.25, so prefills drop tokens): the MoE block on the
+    card routes as the CPU does and gives its output within 1e-5 of the
+    largest entry; served continuously, the card gives the CPU's greedy
+    tokens, its prefill logits within 1e-4, and one flash launch per layer
+    per prefill."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.model import ModelOptions, build_model
+    from repro_torch.runtime.server import BatchServer, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("qwen3-moe-30b-a3b").reduced()
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.float32))
+    params = model.init(0, "cpu")
+    blk = {k: v[0] for k, v in
+           {**params["layers"]["moe"]._parameters}.items()}
+    x = torch.randn((3, 40, cfg.d_model),
+                    generator=torch.Generator().manual_seed(0))
+    routes, ys = [], []
+    for dev in ("cpu", cuda):
+        pb = {k: v.to(dev) for k, v in blk.items()}
+        routes.append(moe._route(x.to(dev), pb["router"],
+                                 cfg.moe.top_k)[2].cpu())
+        ys.append(moe.moe_apply_dense(pb, x.to(dev), cfg)[0].cpu())
+    assert torch.equal(routes[0], routes[1])
+    torch.testing.assert_close(ys[1], ys[0], rtol=0,
+                               atol=1e-5 * float(ys[0].abs().max()))
     prompts = [[5, 9, 3, 200, 17], [7, 1], list(range(1, 70)), [11] * 33]
     outs, logits = {}, {}
     for dev in ("cpu", cuda):

@@ -6,7 +6,10 @@ hpccg_solve on (2,), (2, 2) and (2, 2, 2) (the corner chain on every axis),
 both schedules, with their exchanges and all-reduces counted per axis; and
 hierarchical_allreduce on a (2, 2) (pod, data) mesh, plain and through the
 int8 codec, against numpy's sum and against the JAX package's staged
-all-reduce on four forced host devices (a subprocess).
+all-reduce on four forced host devices (a subprocess); MoE expert
+parallelism (moe_apply_ep over a2a_scan) on (2,) and (4,) ("model",) and
+(2, 2) ("data", "model") against the JAX package's dense dispatch, with
+Q = 1, 2, 4 capacity slices and the all-to-alls' issue order.
 
 Each job spawns its ranks as separate processes (``tests/_torch_dist.py``,
 which imports no jax) with a FileStore of their own in a temporary
@@ -34,7 +37,7 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from _torch_dist import (_star, _sum3, app_input, check_issue_order,
-                         params_close, spawn)
+                         moe_config, moe_input, params_close, spawn)
 from repro.core import halo as jhalo
 from repro.core import stencil as jst
 from repro.launch.mesh import make_grid_mesh as jgrid_mesh
@@ -138,18 +141,27 @@ def test_sweep_sharded_2x2_matches_global_sweep(runs):
 RK3 = dict(shape=[6, 32, 64], seed=5, steps=3, dt=0.01)
 HPCCG = dict(shape=[8, 8, 16], seed=6, iters=12)
 SLAB, PAIR, TRIPLE = ["data"], ["rows", "cols"], ["planes", "rows", "cols"]
+# expert parallelism: reduced Qwen3-MoE with 8 experts, top-2 and ample
+# capacity (tests/test_moe_ep.py's setup), (4, 32) tokens; the capacity of
+# every model-axis size here (C = 32 on 2 ranks, 16 on 4) takes Q = 1, 2, 4
+MOE = dict(seed=21, experts=8, top_k=2, factor=8.0, batch=4, seq=32,
+           decode_batch=8, chunks=[1, 2, 4], model_batch=4)
 APP_JOBS = {
     "2": dict(mesh=[2], rk3=dict(RK3, mesh=[2], axes=SLAB),
-              hpccg=dict(HPCCG, mesh=[2], axes=SLAB)),
-    "4": dict(mesh=[4], rk3=dict(RK3, mesh=[4], axes=SLAB)),
+              hpccg=dict(HPCCG, mesh=[2], axes=SLAB),
+              moe=dict(MOE, mesh=[2], axes=["model"])),
+    "4": dict(mesh=[4], rk3=dict(RK3, mesh=[4], axes=SLAB),
+              moe=dict(MOE, mesh=[4], axes=["model"])),
     "2x2": dict(mesh=[2, 2], rk3=dict(RK3, mesh=[2, 2], axes=PAIR),
                 hpccg=dict(HPCCG, mesh=[2, 2], axes=PAIR),
                 allreduce=dict(mesh=[2, 2], shape=[16, 8], seed=100,
-                               per_rank=True, odd_rows=5)),
+                               per_rank=True, odd_rows=5),
+                moe=dict(MOE, mesh=[2, 2], axes=["data", "model"])),
     "2x2x2": dict(mesh=[2, 2, 2],
                   hpccg=dict(HPCCG, mesh=[2, 2, 2], axes=TRIPLE)),
 }
 RK3_JOBS = [k for k, v in APP_JOBS.items() if "rk3" in v]
+MOE_JOBS = [k for k, v in APP_JOBS.items() if "moe" in v]
 HPCCG_JOBS = [k for k, v in APP_JOBS.items() if "hpccg" in v]
 
 
@@ -233,6 +245,153 @@ def test_hpccg_ranks_solve_the_system(app_runs):
                                    - b) / torch.linalg.norm(b))
            for v in (x, one)]
     assert rel[0] < 2 * rel[1] + 1e-6, rel
+
+
+# ------------------------------------------------- MoE expert parallelism
+@pytest.fixture(scope="module")
+def moe_dense():
+    """The JAX package's moe_apply_dense on the whole MoE job input: y,
+    sum(y^2) + aux and its gradients (float32), and the decode output."""
+    import dataclasses
+
+    from repro.config.registry import get_arch as jax_arch
+    from repro.models import moe as jmoe
+
+    cfg = jax_arch("qwen3-moe-30b-a3b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=MOE["experts"], top_k=MOE["top_k"],
+        capacity_factor=MOE["factor"]))
+    p, x, xd = moe_input(MOE)
+    p = {k: jnp.asarray(v) for k, v in p.items()}
+
+    def loss(p, x):
+        y, aux = jmoe.moe_apply_dense(p, x, cfg)
+        return jnp.sum(y * y) + aux, y
+
+    (value, y), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        p, jnp.asarray(x))
+    yd, _ = jax.jit(lambda p, x: jmoe.moe_apply_dense(p, x, cfg))(
+        p, jnp.asarray(xd))
+    return {"y": np.asarray(y), "loss": float(value),
+            "grads": {k: np.asarray(v) for k, v in grads.items()},
+            "y_decode": np.asarray(yd)}
+
+
+def _moe_rows(out, n_rows):
+    d = int(out["moe_data_coord"])
+    return slice(d * n_rows, (d + 1) * n_rows)
+
+
+@pytest.mark.parametrize("name", MOE_JOBS)
+def test_moe_ep_ranks_match_jax_dense(app_runs, moe_dense, name):
+    """moe_apply_ep on gloo ranks, (2,) and (4,) ("model",) and (2, 2)
+    ("data", "model"), Q = 1, against the JAX package's moe_apply_dense on
+    the whole input (ample capacity: the same function): the global loss
+    within 1e-3 (1 + |loss|) and the gradients within 2e-3 (the JAX
+    suite's bounds, tests/test_moe_ep.py), each rank's y within 1e-5 of
+    the largest entry."""
+    ranks = app_runs(name)
+    want = moe_dense
+    for out in ranks:
+        y = want["y"][_moe_rows(out, out["moe_y_q1"].shape[0])]
+        np.testing.assert_allclose(out["moe_y_q1"], y, rtol=0,
+                                   atol=1e-5 * np.abs(want["y"]).max())
+        loss = float(out["moe_loss_q1"])
+        assert abs(loss - want["loss"]) < 1e-3 * (1 + abs(want["loss"]))
+        for k, g in want["grads"].items():
+            err = np.abs(out[f"moe_grad_{k}_q1"] - g).max()
+            assert err < 2e-3, (k, err)
+
+
+@pytest.mark.parametrize("name", MOE_JOBS)
+def test_moe_ep_chunks_are_bit_equal_and_issued_in_order(app_runs, name):
+    """a2a_scan with Q = 2 and 4 capacity slices gives y and the loss of
+    Q = 1 bit for bit (each slice's FFN is the same rows' products), the
+    gradients within 1e-4 of Q = 1's (the weight gradients sum over the
+    slices in another order; tests/test_moe_ep.py's bound); every rank's
+    issue log is the reference schedule: dispatch(0), then dispatch(k+1)
+    before compute(k) and combine(k) before compute(k+1)."""
+    for out in app_runs(name):
+        for q in MOE["chunks"]:
+            np.testing.assert_array_equal(out[f"moe_y_q{q}"], out["moe_y_q1"])
+            assert out[f"moe_loss_q{q}"] == out["moe_loss_q1"]
+            for k in ("router", "gate", "up", "down"):
+                np.testing.assert_allclose(out[f"moe_grad_{k}_q{q}"],
+                                           out[f"moe_grad_{k}_q1"], rtol=0,
+                                           atol=1e-4)
+            want = ["dispatch0"]
+            for k in range(q):
+                want += ([f"dispatch{k + 1}"] if k + 1 < q else []) + [
+                    f"compute{k}", f"combine{k}"]
+            assert out[f"moe_log_q{q}"].tolist() == want
+
+
+@pytest.mark.parametrize("name", MOE_JOBS)
+def test_moe_ep_decode_batch_as_tokens(app_runs, moe_dense, name):
+    """A decode step (S = 1) through moe_apply on the mesh takes EP with
+    the batch swapped into the token slot and equals the dense dispatch
+    (tests/test_moe_ep.py's bound, 2e-4)."""
+    for out in app_runs(name):
+        assert str(out["moe_route_decode"]) == "ep_batch"
+        y = moe_dense["y_decode"][_moe_rows(out, out["moe_y_decode"].shape[0])]
+        assert np.abs(out["moe_y_decode"] - y).max() < 2e-4
+
+
+@pytest.mark.parametrize("name", MOE_JOBS)
+def test_moe_model_on_a_model_axis_matches_one_rank(app_runs, name):
+    """The reduced MoE model (8 experts, top-2, ample capacity, float32)
+    built with ModelOptions(mesh=...) takes expert parallelism in every
+    MoE block (prefill: tokens along the sequence; decode: the batch as
+    tokens; two all-to-alls a block): its prefill and decode logits equal
+    the same model's on one rank without a mesh within 1e-4 (the expert
+    products group their rows otherwise, so float32 sums round
+    otherwise)."""
+    from _torch_dist import moe_model_tokens
+
+    from repro_torch.models.model import ModelOptions, build_model
+
+    model = build_model(moe_config(MOE), ModelOptions(attn_impl="flash",
+                                                      dtype=torch.float32))
+    params = model.init(0, "cpu")
+    toks = torch.from_numpy(moe_model_tokens(MOE))
+    s = MOE["seq"]
+    want, caches = model.prefill(params, {"tokens": toks[:, :s]},
+                                 max_len=s + 1)
+    step, _ = model.decode_step(params, toks[:, s:], caches, s)
+    for out in app_runs(name):
+        # dispatch and combine in each of the 4 layers, prefill and decode
+        assert int(out["moe_model_a2a_calls"]) == 2 * 4 * 2
+        rows = _moe_rows(out, out["moe_model_prefill"].shape[0])
+        np.testing.assert_allclose(out["moe_model_prefill"],
+                                   want[rows].numpy(), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(out["moe_model_decode"],
+                                   step[rows].numpy(), rtol=1e-4, atol=1e-4)
+
+
+class _StubMesh:
+    def __init__(self, **shape):
+        self.shape, self.axis_names = shape, tuple(shape)
+
+
+@pytest.mark.parametrize("n,shape,chunks,match", [
+    (3, (2, 12), 1, "num_experts=8 is not divisible"),
+    (2, (2, 13), 1, r"token dim \(seq=13\)"),
+    (2, (1, 7), 1, r"token dim \(batch=7\)"),
+    # n=2, S=32: S/n = 16 tokens, C = ceil(16*2/8 * 1.25) = 5
+    (2, (2, 32), 3, "a2a_chunks=3 must be >=1 and divide the expert "
+                    "capacity C=5"),
+    (2, (2, 32), 0, "a2a_chunks=0")])
+def test_moe_ep_rejects_what_does_not_divide(n, shape, chunks, match):
+    """The checks that precede any communication, as the JAX package's
+    (tests/test_moe_ep.py): experts, tokens and capacity slices that the
+    model axis or Q does not divide."""
+    from repro_torch.models import moe
+
+    cfg = moe_config(dict(MOE, factor=1.25))
+    x = torch.zeros(shape + (cfg.d_model,))
+    with pytest.raises(ValueError, match=match):
+        moe.moe_apply_ep({}, x, cfg, _StubMesh(model=n),
+                         tokens_on_batch="batch" in match, a2a_chunks=chunks)
 
 
 def test_hierarchical_allreduce_2x2(app_runs):

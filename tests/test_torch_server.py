@@ -1,7 +1,9 @@
 """The port's BatchServer on the CPU: the properties of the JAX package's
 ``tests/test_server.py``, the port's greedy outputs against JAX's on the
-same parameters (reduced qwen3-8b, 2 layers, float32), and the wave
-scheduler's empty cache slots, where the port and the JAX package disagree.
+same parameters (reduced qwen3-8b, 2 layers, float32; the recurrent and
+MoE families, each scheduler against the JAX package's same scheduler),
+and the wave scheduler's empty cache slots, where the port and the JAX
+package disagree.
 
 The load-bearing property: admission prefills at the exact prompt width
 (batch 1, no padding) and replaces the freed slot's cache rows wholesale,
@@ -10,6 +12,8 @@ for any interleaving of arrivals.
 """
 from __future__ import annotations
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -392,8 +396,8 @@ def test_recurrent_scatter_slot_carries_the_state(rec):
 
 
 @pytest.mark.parametrize("scheduler", ["continuous", "wave"])
-@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-780m",
-                                  "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-moe-30b-a3b",
+                                  "mamba2-780m", "recurrentgemma-2b"])
 def test_serve_launcher_serves_every_ported_family(arch, scheduler, capsys):
     from repro_torch.launch.serve import main
 
@@ -403,3 +407,108 @@ def test_serve_launcher_serves_every_ported_family(arch, scheduler, capsys):
     out = capsys.readouterr().out
     assert out.count("-> 3 tokens") == 3
     assert "served 3 requests" in out
+
+
+# ------------------------------------------------------------ MoE family
+# Reduced Qwen3-MoE and Mixtral (4 experts, top-2, capacity factor 1.25),
+# 2 layers, float32, unrolled draws (ROADMAP.md Queue 3: the scanned draw's
+# large weights amplify rounding in Mixtral, which has no qk-norm). In a
+# prefill every sequence is a group with its own capacity, so in the wave
+# scheduler a prompt's left-padding routes through the experts and takes
+# capacity: its output depends on its neighbours' lengths, in both
+# packages, and wave output is never held against continuous output.
+MOE_ARCHS = ("mixtral-8x7b", "qwen3-moe-30b-a3b")
+MOE_PROMPT_LENS = (70, 9, 66, 3)        # Mixtral's reduced window is 64
+MOE_MAX_NEW = [4, 6, 3, 5]
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_models(request):
+    jm, jp, model, params = both_models(request.param, "f32", scan=False,
+                                        num_layers=2)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, 256, n).tolist() for n in MOE_PROMPT_LENS]
+    return {"arch": request.param, "jax": (jm, jp), "model": model,
+            "params": params, "prompts": prompts}
+
+
+def _jax_wave_marked(jm, jp, prompts, max_new, max_len):
+    """The JAX package's wave schedule, step by step through its jitted
+    prefill and decode_step, with the prefill's empty ring slots marked
+    -1 (the repair its run_wave lacks, ROADMAP.md Queue 3): left-padded
+    prompts, one prefill, greedy decode at one shared position."""
+    prefill, decode = jitted(jm)
+    width = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), width), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, width - len(p):] = p
+    logits, caches = prefill(jp, {"tokens": toks}, max_len=max_len)
+    caches = jax.tree_util.tree_map_with_path(
+        lambda path, a: a.at[..., width:].set(-1)
+        if getattr(path[-1], "key", None) == "pos" else a, caches)
+    outs = [[] for _ in prompts]
+    for n in range(max(max_new)):
+        ids = np.asarray(jnp.argmax(logits[:, -1], axis=-1))
+        for i, m in enumerate(max_new):
+            if n < m:
+                outs[i].append(int(ids[i]))
+        logits, caches = decode(jp, jnp.asarray(ids[:, None], jnp.int32),
+                                caches, jnp.asarray(width + n, jnp.int32))
+    return outs
+
+
+def test_moe_continuous_matches_jax_continuous(moe_models):
+    """The port's continuous scheduler (3 slots, 4 requests: a slot is
+    refilled) gives the JAX package's continuous scheduler's tokens, and
+    each request's solo tokens: at decode every sequence is its own group
+    with capacity k, so nothing is ever dropped there and the slots do not
+    interact."""
+    jm, jp = moe_models["jax"]
+    prompts = moe_models["prompts"]
+    outs = []
+    for cls, req, m, p in ((BatchServer, Request, moe_models["model"],
+                            moe_models["params"]),
+                           (JaxServer, JaxRequest, jm, jp)):
+        srv = cls(m, p, slots=3, max_len=80)
+        for j, (pr, n) in enumerate(zip(prompts, MOE_MAX_NEW)):
+            srv.submit(req(prompt=list(pr), max_new_tokens=n, rid=j))
+        got = {r.rid: r.output for r in srv.run_continuous()}
+        outs.append([got[j] for j in range(len(prompts))])
+    assert outs[0] == outs[1]
+    assert [len(o) for o in outs[0]] == MOE_MAX_NEW
+    for j in (1, 3):
+        srv = BatchServer(moe_models["model"], moe_models["params"], slots=1,
+                          max_len=80)
+        srv.submit(Request(prompt=list(prompts[j]),
+                           max_new_tokens=MOE_MAX_NEW[j]))
+        assert srv.run_continuous()[0].output == outs[0][j]
+
+
+def test_moe_wave_matches_jax_wave(moe_models):
+    """The port's wave scheduler (2 slots: two waves of 2) against the
+    JAX package's wave schedule with its empty ring slots marked, wave by
+    wave; for Mixtral, whose prompts here are padded past its 64-slot
+    ring, the JAX package's own run_wave has no empty slot and is held
+    too. The left-padding moved the MoE's routing: a short prompt's wave
+    output is not what it gets alone."""
+    jm, jp = moe_models["jax"]
+    model, params = moe_models["model"], moe_models["params"]
+    prompts = moe_models["prompts"]
+    srv = BatchServer(model, params, slots=2, max_len=80)
+    for pr, n in zip(prompts, MOE_MAX_NEW):
+        srv.submit(Request(prompt=list(pr), max_new_tokens=n))
+    got = [r.output for r in srv.run_all()]
+    want = []
+    for w in (0, 2):
+        want += _jax_wave_marked(jm, jp, prompts[w:w + 2],
+                                 MOE_MAX_NEW[w:w + 2], 80)
+    assert got == want
+    if moe_models["arch"] == "mixtral-8x7b":
+        jsrv = JaxServer(jm, jp, slots=2, max_len=80)
+        for pr, n in zip(prompts, MOE_MAX_NEW):
+            jsrv.submit(JaxRequest(prompt=list(pr), max_new_tokens=n))
+        assert [r.output for r in jsrv.run_all()] == got
+    padded, _ = model.prefill(params, {"tokens": torch.tensor(
+        [[0] * 61 + prompts[1]])})
+    alone, _ = model.prefill(params, {"tokens": torch.tensor([prompts[1]])})
+    assert float((padded - alone).abs().max()) > 1e-3

@@ -1,7 +1,8 @@
 """The port's training pieces on the CPU against the JAX package: the fused
 linear cross-entropy, ``train_loss`` and its gradients (reduced
-internlm2-1.8b, granite-3-2b with tied embeddings, qwen3-8b with qk-norm;
-scanned and unrolled; remat "none" and "full"), layer provenance, AdamW,
+internlm2-1.8b, granite-3-2b with tied embeddings, qwen3-8b with qk-norm,
+qwen3-moe-30b-a3b with its aux loss; scanned and unrolled; remat "none"
+and "full"), layer provenance, AdamW,
 the learning-rate schedule and the synthetic data pipeline. Parameters are
 one numpy-drawn tree loaded into both packages (``_torch_jax.py``).
 
@@ -169,6 +170,34 @@ def test_train_loss_and_grads_match_jax(arch, scan, remat, dtype):
         assert np.abs(f32(g) - w).max() <= bound, path
 
 
+@pytest.mark.parametrize("fused,remat,scan", [(True, "none", True),
+                                               (True, "full", False),
+                                               (False, "none", False)])
+def test_moe_train_loss_and_grads_match_jax(fused, remat, scan):
+    """Reduced Qwen3-MoE (4 experts, top-2, capacity factor 1.25, so
+    experts drop tokens), float32: train_loss is the cross-entropy plus the
+    layers' summed aux load-balancing loss, fused or not, under remat
+    "full" too (the checkpointed layer returns its aux); loss and
+    gradients against JAX's at rtol 1e-4, the aux within 1e-6."""
+    jm, jp, tm, tp = both_models("qwen3-moe-30b-a3b", "f32",
+                                 attn_impl="dense", scan=scan)
+    jm = jax_build(jm.cfg, dataclasses.replace(jm.opt, fused_xent=fused))
+    tm.opt = dataclasses.replace(tm.opt, fused_xent=fused, remat=remat)
+    jb, tb = _batch(tm.cfg.vocab_size)
+    tp.requires_grad_(True)
+    loss, grads = value_and_grad(tm.train_loss)(tp, tb)
+    want_loss, want = _jax_value_and_grad(jm, jp, jb)
+    np.testing.assert_allclose(float(loss), want_loss, rtol=1e-4)
+    for g, w in zip(tree_leaves(grads), want):
+        np.testing.assert_allclose(f32(g), w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max())
+    with torch.no_grad():
+        _, _, aux = tm._forward(tp, tb, "train")
+    jaux = jax.jit(lambda p, b: jm._forward(p, b, "train")[2])(jp, jb)
+    assert float(aux) > 0
+    assert abs(float(aux) - float(jaux)) <= 1e-6
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-3-2b"])
 def test_unfused_train_loss_matches_jax(arch):
     """fused_xent=False: the float32 logits' log-softmax, in both."""
@@ -187,7 +216,7 @@ def test_unfused_train_loss_matches_jax(arch):
 
 @pytest.mark.parametrize("scan", [True, False])
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-3-2b",
-                                  "qwen3-8b"])
+                                  "qwen3-8b", "qwen3-moe-30b-a3b"])
 def test_param_layers_match_jax(arch, scan):
     """Layer provenance leaf for leaf: embed 0, the stack 1..N (a scanned
     stack is one depth), final_norm and lm_head at N + 1."""

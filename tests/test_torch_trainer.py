@@ -1,7 +1,7 @@
 """The port's Trainer, checkpointer and training launcher on the CPU: three
 steps from the JAX package's parameters against the JAX ``Trainer``
 (losses, grad norms and final parameters at rtol 1e-4, float32, reduced
-internlm2-1.8b), checkpoints that restore across the two packages, a
+internlm2-1.8b and qwen3-moe-30b-a3b), checkpoints that restore across the two packages, a
 resumed run equal to an uninterrupted one bit for bit, the launcher's
 output lines, and the ``NotImplementedError``s of what this slice does not
 train.
@@ -43,34 +43,33 @@ from repro_torch.runtime.trainer import Trainer
 STEPS = 3
 
 
-def _runs(tmp, accum=1, **parallel):
+def _runs(tmp, accum=1, arch="internlm2-1.8b", **parallel):
     train = dict(global_batch=4, seq_len=32, lr=5e-3, warmup_steps=2,
                  total_steps=STEPS, checkpoint_every=100,
                  checkpoint_dir=str(tmp / "ckpt"), seed=3)
     par = dict(remat="none", accum_steps=accum, **parallel)
-    return (RunConfig(model=get_arch("internlm2-1.8b").reduced(),
+    return (RunConfig(model=get_arch(arch).reduced(),
                       parallel=ParallelConfig(**par),
                       train=TrainConfig(**train)),
-            JaxRun(model=jax_arch("internlm2-1.8b").reduced(),
+            JaxRun(model=jax_arch(arch).reduced(),
                    parallel=JaxParallel(**par), train=JaxTrain(**train)))
 
 
-def _jax_tree(dtype=jnp.float32):
+def _jax_tree(dtype=jnp.float32, arch="internlm2-1.8b"):
     """The reduced model's parameters, unrolled (a scanned draw takes
     fan_in = the layer count, ROADMAP.md Queue 3, and its large weights
     amplify every rounding over three steps)."""
-    jm = jax_build(jax_arch("internlm2-1.8b").reduced(),
+    jm = jax_build(jax_arch(arch).reduced(),
                    JaxOptions(dtype=dtype, scan_layers=False))
     return numpy_params(jm)
 
 
-@pytest.mark.parametrize("scan,accum", [(True, 1), (False, 2)])
-def test_trainer_matches_jax(tmp_path, scan, accum):
-    """Three steps from the same parameters: the port (scanned, or
-    unrolled over 2 microbatches) against the JAX Trainer without a mesh,
-    float32: losses, grad norms, learning rates and final parameters."""
-    run, jrun = _runs(tmp_path, accum)
-    tree = _jax_tree()
+def _train_both(tmp_path, arch, scan, accum):
+    """Three steps of the JAX Trainer (no mesh, unrolled, float32) and of
+    the port's (scanned or not) from the same parameters. Returns (port
+    trainer, JAX trainer, JAX's final parameters in the port's layout)."""
+    run, jrun = _runs(tmp_path, accum, arch)
+    tree = _jax_tree(arch=arch)
     jt = JaxTrainer(jrun, options=JaxOptions(dtype=jnp.float32,
                                              scan_layers=False))
     jt.init_state()
@@ -85,11 +84,47 @@ def test_trainer_matches_jax(tmp_path, scan, accum):
         np.testing.assert_allclose([m[key] for m in t.metrics_log],
                                    [m[key] for m in jt.metrics_log],
                                    rtol=1e-4)
-    want = params_from_jax(jax.tree.map(np.asarray, jt.params), run.model,
-                           opts, "cpu")
+    return t, jt, params_from_jax(jax.tree.map(np.asarray, jt.params),
+                                  run.model, opts, "cpu")
+
+
+@pytest.mark.parametrize("scan,accum", [(True, 1), (False, 2)])
+def test_trainer_matches_jax(tmp_path, scan, accum):
+    """Three steps from the same parameters: the port (scanned, or
+    unrolled over 2 microbatches) against the JAX Trainer without a mesh,
+    float32: losses, grad norms, learning rates and final parameters."""
+    t, _, want = _train_both(tmp_path, "internlm2-1.8b", scan, accum)
     for got, w in zip(tree_leaves(t.params), tree_leaves(want)):
         np.testing.assert_allclose(f32(got), f32(w), rtol=1e-4,
                                    atol=1e-4 * np.abs(f32(w)).max())
+
+
+def test_moe_trainer_matches_jax(tmp_path):
+    """Reduced Qwen3-MoE (4 experts, top-2, capacity factor 1.25) trains
+    on the dense capacity dispatch (no mesh, so no "model" axis), its loss
+    including the aux load-balancing loss: three steps against the JAX
+    Trainer, float32. Losses, grad norms and learning rates at rtol 1e-4;
+    the final parameters at rtol 1e-4 of each leaf's largest entry, except
+    where AdamW's step was set by a gradient at the rounding scale: where
+    JAX's second moment is below (1e3 * eps)^2, AdamW divides a gradient of
+    about eps by one of about eps, so the two frameworks' last-bit
+    differences become O(1) differences in the step, and an entry may then
+    differ by up to the sum of the three learning rates (the most AdamW
+    can move it). Here that is embed[138, 21], whose first moment is 9e-10
+    against the leaf's median of 2e-4. (Entries whose gradient is exactly 0 are
+    held to rtol 1e-4.)"""
+    t, jt, want = _train_both(tmp_path, "qwen3-moe-30b-a3b", False, 1)
+    v = params_from_jax(jax.tree.map(np.asarray, jt.opt_state["v"]),
+                        t.run.model, t.options, "cpu")
+    eps, lr_sum = t.opt_cfg.eps, sum(m["lr"] for m in t.metrics_log)
+    for got, w, vv in zip(tree_leaves(t.params), tree_leaves(want),
+                          tree_leaves(v)):
+        got, w = f32(got), f32(w)
+        diff = np.abs(got - w)
+        tiny = (f32(vv) > 0) & (f32(vv) < (1e3 * eps) ** 2)
+        assert (diff[~tiny] <= 1e-4 * np.abs(w[~tiny])
+                + 1e-4 * np.abs(w).max()).all()
+        assert (diff[tiny] <= lr_sum).all()
 
 
 def test_resume_equals_uninterrupted(tmp_path):
