@@ -12,10 +12,11 @@ window, d_ff 7680, vocab 256000, tied), phases 10 and 12-13; Mamba-2 780M
 (48 layers, d_model 1536, 48 SSD heads of 64, state 128, chunk 256, vocab
 50280), phases 11 and 14-15; the paper's other two applications, RK3 and
 HPCCG's CG, phases 16-17; training InternLM2-1.8B (24 layers, d_model 2048,
-vocab 92544) under the gradient-bucket schedule, phases 18-19; serving
-Qwen3-30B-A3B (48 layers, d_model 2048, 32/4 heads of 128 with qk-norm,
-128 experts of width 768, top-8, vocab 151936; 30.5 B parameters, 3.35 B
-active), phases 20-21, run after phase 15:
+vocab 92544) under the gradient-bucket schedule, phases 18-19, and under
+streaming ZeRO-3, phase 22; serving Qwen3-30B-A3B (48 layers, d_model
+2048, 32/4 heads of 128 with qk-norm, 128 experts of width 768, top-8,
+vocab 151936; 30.5 B parameters, 3.35 B active), phases 20-21, run after
+phase 15:
 
   1. build    nvcc builds every kernel of all paths from the checkout's
               sources (four), one process per source, all started together;
@@ -170,6 +171,30 @@ active), phases 20-21, run after phase 15:
               expert GEMMs and their elementwise, the other GEMMs, copies
               and cache writes, other elementwise, and the port's kernels
               (flash attention, launched through ctypes, read by name).
+ 22. train_zero3  InternLM2-1.8B at its published widths as phase 18
+              (bf16, seed 0, 8 x 2048 tokens, phase 18's data and AdamW,
+              remat "full") under ZeRO-3 on a one-rank ("data",) mesh,
+              unrolled, with the unfused log-softmax loss (the reference's
+              comparator pair): gathering all on the per-layer layout
+              (bucket_order "layer") and streaming (each layer's bucket
+              gathered inside its remat region, regathered in the
+              backward, its gradient reduce-scattered there), a warm-up
+              step and 4 timed steps each. Per setup: step ms, tokens/s,
+              MFU as phase 18, peak memory, the parameter-shard bytes
+              (layout.shard_bytes()). Checks: the two setups' losses, grad
+              norms, flat params and both moments bit-equal; the first
+              loss bit-equal to phase 18's trainer setup (one-rank mesh,
+              hdot, replicated) run one step with phase 22's model options
+              (phase 18's own run is scanned with the fused loss, so it
+              draws other values and sums its loss otherwise), the first
+              grad norm within rtol 1e-5 of it (summed by flat buffer, not
+              by leaf); no kernel of the port launched. Then the reduced
+              config in f32, streaming, on the card against the CPU (2
+              steps, rtol 1e-4), and a checkpoint of the reduced config
+              written under a 2-bucket layout, restored through
+              restore_fsdp_checkpoint under the per-layer layout into a
+              streaming and a gathering-all trainer (each bit-equal to the
+              writer's state re-cut), 2 more steps on each: bit-equal.
 
 Each phase prints one JSON line (a serve phase one per scheduler and one of
 checks); then the nvidia-smi line, the kernels line and, last,
@@ -1285,14 +1310,25 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 2048         # 16,384 tokens a step
 TRAIN_STEPS = 5                          # 1 warm-up + 4 timed
 TRAIN_RTOL = 1e-4                        # the f32 trainer tolerance of the
                                          # CPU tests (port vs JAX Trainer)
+# phase 22: ZeRO-3 on the per-layer layout, gathering all and streaming
+# (the reference's comparator pair, tests/test_fsdp.py); both remat "full"
+ZERO3_SETUPS = {
+    "gather": dict(param_shard=True, bucket_order="layer", remat="full"),
+    "stream": dict(param_shard=True, fsdp_streaming=True, remat="full"),
+}
+ZERO3_NORM_RTOL = 1e-5                   # the grad norm is summed by flat
+                                         # buffer, not by leaf (1 ulp)
 
 
 def train_run(overlap: str, mesh_axes, accum=1, seq=TRAIN_SEQ, dev=None,
               arch=TRAIN_ARCH, reduced=False, dtype=None, scan=True,
-              steps=TRAIN_STEPS, ckpt=None, every=10 ** 9):
+              steps=TRAIN_STEPS, ckpt=None, every=10 ** 9, zero3=None,
+              fused=True, **parallel):
     """A Trainer as ``launch/train.py``'s ``build_run`` sets one up (AdamW
     with the JAX defaults, warmup max(1, steps // 10), remat "full" at full
-    width), on a one-rank mesh of `mesh_axes` (None: no mesh)."""
+    width), on a one-rank mesh of `mesh_axes` (None: no mesh). `zero3`
+    names a setup of ZERO3_SETUPS (phase 22: unrolled, remat "full", the
+    unfused loss); `parallel` sets other ParallelConfig fields."""
     from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
     from repro_torch.config.registry import get_arch
     from repro_torch.launch.mesh import make_mesh
@@ -1300,11 +1336,14 @@ def train_run(overlap: str, mesh_axes, accum=1, seq=TRAIN_SEQ, dev=None,
     from repro_torch.runtime.trainer import Trainer
 
     cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
+    if zero3 is not None:
+        parallel = dict(ZERO3_SETUPS[zero3], **parallel)
+        scan, fused = False, False
+    remat = parallel.pop("remat", "none" if reduced else "full")
     run = RunConfig(
         model=cfg,
         parallel=ParallelConfig(overlap=overlap, accum_steps=accum,
-                                remat="none" if reduced else "full",
-                                scan_layers=scan),
+                                remat=remat, scan_layers=scan, **parallel),
         train=TrainConfig(global_batch=TRAIN_BATCH, seq_len=seq,
                           total_steps=steps,
                           warmup_steps=max(1, steps // 10),
@@ -1314,7 +1353,7 @@ def train_run(overlap: str, mesh_axes, accum=1, seq=TRAIN_SEQ, dev=None,
     mesh = (None if mesh_axes is None else
             make_mesh((1,) * len(mesh_axes), mesh_axes, dev))
     options = ModelOptions(scan_layers=scan, remat=run.parallel.remat,
-                           dtype=dtype or torch.bfloat16)
+                           dtype=dtype or torch.bfloat16, fused_xent=fused)
     return Trainer(run, mesh=mesh, options=options, device=dev)
 
 
@@ -1552,6 +1591,200 @@ def train_profile(dev, card) -> dict:
     return row
 
 
+def zero3_flat(t) -> dict:
+    """Host copies of a ZeRO-3 trainer's flat shards: params, m, v."""
+    return {name: {k: v.detach().cpu() for k, v in flat.items()}
+            for name, flat in (("params", t.params),
+                               ("m", t.opt_state["m"]),
+                               ("v", t.opt_state["v"]))}
+
+
+def same_flat(t, host) -> bool:
+    """A trainer's flat shards equal `host` (zero3_flat's) bit for bit."""
+    return all(torch.equal(v.detach().cpu(), host[name][k])
+               for name, flat in (("params", t.params),
+                                  ("m", t.opt_state["m"]),
+                                  ("v", t.opt_state["v"]))
+               for k, v in flat.items())
+
+
+def zero3_timed(setup, dev, card, kernel_ops) -> tuple:
+    """Phase 22's run of one setup at full width, as train_timed: init
+    from seed 0 (bucket by bucket), a warm-up step, 4 timed steps; the
+    metrics line and the flat state (host copies)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = train_run("hdot", ("data",), dev=dev, zero3=setup)
+    t.init_state(seed=0)
+    before = launch_counts(kernel_ops)
+    times = []
+    for _ in range(TRAIN_STEPS):
+        _, dt = timed(lambda: t.train(1))
+        times.append(dt)
+    launches = launch_counts(kernel_ops) - before
+    log = t.metrics_log
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    flops = train_flops(t.run.model, tokens)
+    layout = t._fsdp_layout
+    row = {"phase": "train_zero3", "n": 22, "arch": t.run.model.name,
+           "vocab": t.run.model.vocab_size,
+           "setup": f"data=1 zero3 {setup}", "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "remat": "full", "scan_layers": False,
+           "loss_impl": "unfused log-softmax", "buffers": len(layout.groups),
+           "step_ms_median": 1e3 * step_s,
+           "step_ms": [1e3 * x for x in times[1:]],
+           "warmup_step_ms": 1e3 * times[0],
+           "tokens_per_s": tokens / step_s,
+           "mfu": flops["model_flops"] / step_s / BF16_FLOPS, **flops,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "param_shard_bytes": layout.shard_bytes(),
+           "losses": [m["loss"] for m in log],
+           "grad_norms": [m["grad_norm"] for m in log],
+           "lrs": [m["lr"] for m in log], "kernel_launches": launches,
+           "gpu": card}
+    emit(row)
+    flat = zero3_flat(t)
+    del t
+    torch.cuda.empty_cache()
+    return row, flat
+
+
+def zero3_vs_cpu(dev, card) -> None:
+    """The reduced config in f32, streaming ZeRO-3 on a one-rank mesh, 2
+    steps from the same parameters on the card and on the CPU."""
+    from repro_torch.models.layers import tree_leaves
+
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        t = train_run("hdot", ("data",), seq=64, dev=where, reduced=True,
+                      dtype=torch.float32, steps=2, zero3="stream")
+        t.init_state(params=t.model.init(0, "cpu"))
+        t.train(2)
+        runs[where.type] = t
+    a, b = runs["cuda"], runs["cpu"]
+    for key in ("loss", "grad_norm"):
+        got = torch.tensor([m[key] for m in a.metrics_log])
+        want = torch.tensor([m[key] for m in b.metrics_log])
+        check(torch.allclose(got, want, rtol=TRAIN_RTOL, atol=0),
+              f"zero3 card != cpu: {key} {got.tolist()} {want.tolist()}")
+    worst = 0.0
+    for p, q in zip(tree_leaves(a.full_params()),
+                    tree_leaves(b.full_params())):
+        p, q = p.detach().cpu(), q.detach()
+        err = float((p - q).abs().max()) / (float(q.abs().max()) + 1e-30)
+        check(err <= TRAIN_RTOL, f"zero3 card != cpu: a leaf off by {err}")
+        worst = max(worst, err)
+    emit({"phase": "zero3_vs_cpu", "n": 22, "arch": a.run.model.name,
+          "dtype": "f32", "steps": 2,
+          "losses": [m["loss"] for m in a.metrics_log],
+          "max_param_err_rel_to_leaf_max": worst, "rtol": TRAIN_RTOL,
+          "gpu": card})
+
+
+def zero3_relayout(dev, card) -> None:
+    """The reduced config (bf16) trained 2 steps under ZeRO-3 on a
+    2-bucket reverse_topo layout, gathering all (8 buckets over the
+    reduced config's 6 depths would cut one a depth: the per-layer layout
+    itself); its checkpoint restored
+    through restore_fsdp_checkpoint under the per-layer layout into a
+    streaming and a gathering-all trainer: their state is the writer's
+    re-cut bit for bit, and 2 more steps on each are bit-equal."""
+    import shutil
+
+    from repro_torch.checkpoint import restore_fsdp_checkpoint
+    from repro_torch.core.overlap import fsdp_relayout
+
+    base = ROOT / "build" / "chip_smoke_zero3_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    w = train_run("hdot", ("data",), dev=dev, reduced=True, seq=64, steps=4,
+                  ckpt=str(base), every=2, fused=False, scan=False,
+                  param_shard=True, remat="full", grad_buckets=2)
+    w.init_state(seed=0)
+    w.train(2)
+    w.ckpt.wait()
+    sides = {}
+    for setup in ("stream", "gather"):
+        t = train_run("hdot", ("data",), dev=dev, reduced=True, seq=64,
+                      steps=4, ckpt=str(base / setup), zero3=setup)
+        t.init_state(seed=1)
+        step, state, _ = restore_fsdp_checkpoint(str(base), w._fsdp_layout,
+                                                 t._fsdp_layout)
+        with torch.no_grad():
+            for name, flat in (("params", t.params),
+                               ("m", t.opt_state["m"]),
+                               ("v", t.opt_state["v"])):
+                src = state["params"] if name == "params" else \
+                    state["opt"][name]
+                for k, v in flat.items():
+                    v.copy_(src[k])
+            t.opt_state["step"].copy_(state["opt"]["step"])
+        t.step = step
+        for name, flat in (("params", w.params), ("m", w.opt_state["m"]),
+                           ("v", w.opt_state["v"])):
+            want = fsdp_relayout({k: v.detach() for k, v in flat.items()},
+                                 w._fsdp_layout, t._fsdp_layout)
+            mine = t.params if name == "params" else t.opt_state[name]
+            check(all(torch.equal(mine[k], want[k]) for k in want),
+                  f"zero3 relayout: restored {name} != the writer's re-cut")
+        t.train(2)
+        sides[setup] = t
+    s, g = sides["stream"], sides["gather"]
+    same = ([m["loss"] for m in s.metrics_log]
+            == [m["loss"] for m in g.metrics_log]
+            and same_flat(s, zero3_flat(g)))
+    check(same, "zero3 relayout: streaming != gathering all after restore")
+    check(w._fsdp_layout.groups != s._fsdp_layout.groups,
+          "zero3 relayout: the two layouts are the same")
+    shutil.rmtree(base, ignore_errors=True)
+    emit({"phase": "zero3_relayout", "n": 22,
+          "from_buffers": len(w._fsdp_layout.groups),
+          "to_buffers": len(s._fsdp_layout.groups), "restored_step": 2,
+          "losses_after": [m["loss"] for m in s.metrics_log],
+          "stream_equals_gather": same, "gpu": card})
+
+
+def zero3_phase(dev, card, kernel_ops) -> list:
+    """Phase 22 (see the module docstring)."""
+    rows, flats = [], {}
+    for setup in ("gather", "stream"):
+        row, flat = zero3_timed(setup, dev, card, kernel_ops)
+        rows.append(row)
+        flats[setup] = flat
+    g, s = rows
+    for row in rows:
+        check(all(math.isfinite(x) for x in row["losses"]
+                  + row["grad_norms"]), f"{row['setup']}: non-finite")
+        check(row["kernel_launches"] == 0,
+              f"{row['setup']}: a kernel of the port launched in training")
+    same = (g["losses"] == s["losses"] and g["grad_norms"] == s["grad_norms"]
+            and all(torch.equal(flats["gather"][n][k], flats["stream"][n][k])
+                    for n in flats["gather"] for k in flats["gather"][n]))
+    check(same, "zero3: streaming != gathering all")
+    del flats
+    # the replicated one-rank hdot trainer (phase 18's setup) with phase
+    # 22's model options, one step from the same seed
+    torch.cuda.synchronize()
+    t = train_run("hdot", ("data",), dev=dev, scan=False, fused=False)
+    t.init_state(seed=0)
+    t.train(1)
+    repl = t.metrics_log[0]
+    del t
+    torch.cuda.empty_cache()
+    check(repl["loss"] == s["losses"][0],
+          f"zero3 first loss {s['losses'][0]} != replicated {repl['loss']}")
+    norm_rel = abs(s["grad_norms"][0] / repl["grad_norm"] - 1.0)
+    check(norm_rel <= ZERO3_NORM_RTOL,
+          f"zero3 first grad norm off the replicated one by {norm_rel}")
+    emit({"phase": "zero3_checks", "n": 22, "stream_equals_gather": same,
+          "replicated_first_loss": repl["loss"],
+          "first_loss_equal": True, "first_grad_norm_rel_diff": norm_rel,
+          "gpu": card})
+    zero3_vs_cpu(dev, card)
+    zero3_relayout(dev, card)
+    return rows
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1781,6 +2014,14 @@ def main() -> int:
     check(train_launches == 0, "a kernel of the port launched in training")
     emit({"phase": "train_seconds", "n": [18, 19], "phase18_s": train_s,
           "phase19_s": trace_s, "kernel_launches": train_launches})
+
+    # --------------------- 22. ZeRO-3 training: no kernel of the port either
+    before = launch_counts(kernel_ops)
+    _, zero3_s = timed(lambda: zero3_phase(dev, card, kernel_ops))
+    zero3_launches = launch_counts(kernel_ops) - before
+    check(zero3_launches == 0, "a kernel of the port launched in ZeRO-3")
+    emit({"phase": "zero3_seconds", "n": 22, "phase22_s": zero3_s,
+          "kernel_launches": zero3_launches})
 
     # -------------------------------------------------------------- results
     flash_launches = sum(v.get("flash_attention", 0) for v in served.values())

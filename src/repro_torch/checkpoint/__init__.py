@@ -3,8 +3,9 @@ from repro_torch.checkpoint.checkpointer import (
     AsyncCheckpointer,
     latest_step,
     restore_checkpoint,
+    restore_fsdp_checkpoint,
     save_checkpoint,
 )
 
 __all__ = ["AsyncCheckpointer", "latest_step", "restore_checkpoint",
-           "save_checkpoint"]
+           "restore_fsdp_checkpoint", "save_checkpoint"]

@@ -13,13 +13,15 @@ Guarantees:
 Arrays are keyed by their tree path (``"params|layers|attn|wq"``; list
 indices as numbers), as ``jax.tree_util`` paths are joined in the JAX
 package. npz has no bfloat16: bf16 is widened to float32 on save and cast
-back to the target's dtype on restore (lossless). The ZeRO-3 re-layout
-import (``restore_fsdp_checkpoint``) waits with FSDP (``ROADMAP.md``).
+back to the target's dtype on restore (lossless). ZeRO-3 state is stored
+as the global flat buffers (``b03_bfloat16``, ...); a checkpoint cut under
+another layout imports through :func:`restore_fsdp_checkpoint`.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import threading
 from typing import Any, Dict, Optional, Tuple
@@ -27,10 +29,13 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.overlap import fsdp_relayout, torch_dtype
 from repro_torch.models.layers import leaf_paths, rebuild, tree_map
 
 PyTree = Any
 _SEP = "|"
+# ZeRO-3 flat-buffer key shape (core.overlap.FsdpGroup.key): bucket + dtype
+_BUCKET_KEY = re.compile(r"^b\d+_\w+$")
 
 
 def _host(x) -> np.ndarray:
@@ -49,14 +54,32 @@ def _flatten(tree: PyTree) -> Dict[str, np.ndarray]:
             for path, leaf in leaf_paths(tree).items()}
 
 
+def _bucket_keys(keys) -> Tuple[str, ...]:
+    """The FSDP flat-buffer names among `keys` (path segments like
+    ``b03_bfloat16``): the part of the tree that is layout-dependent."""
+    return tuple(sorted({seg for k in keys for seg in k.split(_SEP)
+                         if _BUCKET_KEY.match(seg)}))
+
+
 def _unflatten_into(target: PyTree,
                     arrays: Dict[str, np.ndarray]) -> PyTree:
     """`target`'s structure with each leaf read from `arrays`, as a tensor
     of the target leaf's dtype on its device."""
+    paths = leaf_paths(target)
+    want = [_SEP.join(str(p) for p in path) for path in paths]
     leaves = {}
-    for path, leaf in leaf_paths(target).items():
-        key = _SEP.join(str(p) for p in path)
+    for key, (path, leaf) in zip(want, paths.items()):
         if key not in arrays:
+            want_b, have_b = _bucket_keys(want), _bucket_keys(arrays)
+            if want_b and have_b and want_b != have_b:
+                raise ValueError(
+                    f"checkpoint FSDP layout mismatch: the restore target "
+                    f"expects flat buffers {list(want_b)} but the checkpoint "
+                    f"holds {list(have_b)} — a grad_buckets / bucket_order / "
+                    "mesh-size change re-cuts the layout. Import the "
+                    "checkpoint with checkpoint.restore_fsdp_checkpoint "
+                    "(unshards with the OLD FsdpLayout, reshards with the "
+                    "new) instead of restoring it structurally.")
             raise KeyError(f"checkpoint missing leaf {key!r}")
         t = torch.from_numpy(arrays[key])
         if isinstance(leaf, torch.Tensor):
@@ -122,6 +145,37 @@ def restore_checkpoint(directory: str, target: PyTree,
         meta = json.load(f)
     return int(meta["step"]), _unflatten_into(target, arrays), meta.get(
         "extra", {})
+
+
+def restore_fsdp_checkpoint(directory: str, old_layout, new_layout,
+                            step: Optional[int] = None
+                            ) -> Tuple[int, PyTree, Dict]:
+    """Re-layout import path for ZeRO-3 trainer state: restore a checkpoint
+    written under `old_layout` (some grad_buckets / bucket_order / mesh
+    size) and re-cut its flat buffers — params AND float32 optimizer
+    moments — into `new_layout` (``core.overlap.fsdp_relayout``: unshard
+    with the OLD layout, reshard with the NEW). Bit-exact: only pad
+    elements are dropped and re-added.
+
+    Returns ``(step, {"params": flat, "opt": {"m", "v", "step"}}, extra)``,
+    the global flat buffers keyed by the NEW layout, on the CPU (cut a
+    rank's shard with ``core.overlap.shard_slice``)."""
+    def flat_target(dtype=None):
+        return {g.key: torch.empty(0, dtype=dtype or torch_dtype(g.dtype))
+                for g in old_layout.groups}
+
+    target = {"params": flat_target(),
+              "opt": {"m": flat_target(torch.float32),
+                      "v": flat_target(torch.float32),
+                      "step": torch.empty(0, dtype=torch.int32)}}
+    step, tree, extra = restore_checkpoint(directory, target, step)
+    out = {"params": fsdp_relayout(tree["params"], old_layout, new_layout),
+           "opt": {"m": fsdp_relayout(tree["opt"]["m"], old_layout,
+                                      new_layout),
+                   "v": fsdp_relayout(tree["opt"]["v"], old_layout,
+                                      new_layout),
+                   "step": tree["opt"]["step"]}}
+    return step, out, extra
 
 
 class AsyncCheckpointer:

@@ -1,5 +1,5 @@
-"""The data-parallel train step: the port of the non-FSDP part of
-``repro/launch/steps.py``.
+"""The data-parallel and ZeRO-3 train steps: the port of the train half
+of ``repro/launch/steps.py``.
 
 ``make_train_step`` returns ``(params, opt_state, batch) -> (params,
 opt_state, metrics)``. On a DP-only mesh the gradient sum over the DP axes
@@ -7,19 +7,31 @@ is the explicit schedule of ``core/overlap.py``: ``ParallelConfig.overlap``
 picks the HDOT buckets issued during the backward (:class:`GradBuckets`) or
 the monolithic two-phase baseline after it. Without a mesh (or on a mesh
 whose DP replicas are one rank) the gradients are the plain accumulation.
-The dry-run's ``Cell``/``build_cell`` and the ZeRO-3 step wait
-(``ROADMAP.md``).
+
+``make_fsdp_train_step`` is the ZeRO-3 composition
+(``ParallelConfig.param_shard``): params and AdamW moments live as
+bucket-wise flat buffers sharded over the DP ranks (:func:`fsdp_init_state`,
+one bucket at a time), gathered all at the top of the step and
+reduce-scattered last-backward-first, or, with ``fsdp_streaming``, gathered
+layer by layer inside each layer's remat region (``FsdpStream``). The
+dry-run's ``Cell``/``build_cell`` waits (``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.config.base import ParallelConfig
-from repro_torch.core.overlap import (GradBuckets, accumulate_grads,
-                                      grad_sync_two_phase, microbatch_split,
-                                      pmean, value_and_grad)
-from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.core.overlap import (FsdpLayout, GradBuckets, _pack_group,
+                                      accumulate_grads, fsdp_all_gather,
+                                      fsdp_group, fsdp_layout, fsdp_stream,
+                                      grad_sync_fsdp, grad_sync_two_phase,
+                                      microbatch_split, pmean, shard_slice,
+                                      value_and_grad)
+from repro_torch.models.layers import (init_leaf, leaf_paths, tree_leaves,
+                                      tree_map)
 from repro_torch.models.model import LanguageModel
 from repro_torch.models.transformer import _not_ported
 from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
@@ -28,13 +40,14 @@ PyTree = Any
 
 
 def check_ported(parallel: ParallelConfig, mesh=None) -> None:
-    """Raise ``NotImplementedError`` for what the data-parallel step does
-    not honour: ZeRO-3, the collective-matmul rings, chunked MoE
-    all-to-alls (expert parallelism, which needs the TP axis), compressed
-    gradients, and a mesh whose non-DP axes (the TP axis) have more than
-    one rank."""
+    """Raise for what the train steps do not honour. ZeRO-3 needs an
+    explicit DP-only mesh (``ValueError``, as in the JAX package: it never
+    quietly replicates); ``NotImplementedError`` for the collective-matmul
+    rings, chunked MoE all-to-alls (expert parallelism, which needs the TP
+    axis), compressed gradients, and a mesh whose non-DP axes (the TP axis)
+    have more than one rank."""
     if parallel.param_shard:
-        raise _not_ported("param_shard (ZeRO-3/FSDP)")
+        _require_explicit_mesh(parallel, mesh)
     if parallel.collective_matmul:
         raise _not_ported("collective_matmul (the TP rings)")
     if parallel.moe_a2a_chunks > 1:
@@ -132,4 +145,138 @@ def make_train_step(model: LanguageModel, parallel: ParallelConfig,
                                    "lr": lr}
 
     step_fn.buckets = buckets
+    return step_fn
+
+
+# ------------------------------------------------------------ train (ZeRO-3)
+def _require_explicit_mesh(parallel: ParallelConfig, mesh) -> Tuple[str, ...]:
+    """sync_axes, or a loud error when the mesh cannot host the explicit
+    ZeRO-3 step (a non-trivial TP axis would replicate the flat shards'
+    layer math). Single source for the param_shard precondition."""
+    sync_axes, explicit = explicit_sync_axes(parallel, mesh)
+    if not explicit:
+        raise ValueError(
+            "param_shard=True needs the explicit-schedule step: a mesh whose "
+            f"non-DP axes are all trivial (got mesh axes "
+            f"{mesh.shape if mesh is not None else None}, "
+            f"dp_axes {parallel.dp_axes})")
+    return sync_axes
+
+
+def fsdp_layout_for(model: LanguageModel, parallel: ParallelConfig,
+                    mesh) -> Tuple[FsdpLayout, Tuple[str, ...]]:
+    """The bucket-wise flat-buffer layout of `model`'s params for ZeRO-3
+    sharding over the mesh's DP axes (layer-boundary buckets when
+    ``parallel.bucket_order == 'reverse_topo'``; one bucket PER layer when
+    ``parallel.fsdp_streaming``, so each gather has a single consuming
+    layer)."""
+    sync_axes = _require_explicit_mesh(parallel, mesh)
+    n_shards = math.prod(mesh.shape[a] for a in sync_axes)
+    order = "layer" if parallel.fsdp_streaming else parallel.bucket_order
+    layers = (model.param_layers()
+              if order in ("reverse_topo", "layer") else None)
+    layout = fsdp_layout(model.param_specs(), n_shards,
+                         parallel.grad_buckets, layers=layers, order=order)
+    return layout, sync_axes
+
+
+def fsdp_init_state(model: LanguageModel, parallel: ParallelConfig, mesh,
+                    seed: int = 0, params: Optional[PyTree] = None
+                    ) -> Tuple[Dict[str, torch.Tensor], PyTree, FsdpLayout]:
+    """The ZeRO-3 trainer state on this rank: its shard of every flat
+    parameter buffer (trainable) and zero float32 AdamW moments of the same
+    shape, on the mesh's device. Returns (params_flat, opt_state, layout).
+
+    Init is SHARDED per bucket: each buffer's leaves are drawn from their
+    paths' seeds (``models.layers.init_leaf``), packed, and cut to this
+    rank's shard before the next bucket is drawn, so the full tree never
+    exists on one card: transient bytes stay within one bucket.
+    Bit-identical to initialising the full tree and sharding it, since each
+    leaf's seed derives from its tree path. With `params` (a full tree, e.g.
+    from ``params_from_jax``), that tree is sharded instead."""
+    layout, sync_axes = fsdp_layout_for(model, parallel, mesh)
+    _, index = fsdp_group(mesh, sync_axes, layout)
+    dev = mesh.device
+    specs = list(leaf_paths(model.param_specs()).items())
+    given = None if params is None else tree_leaves(params)
+    flat = {}
+    for g in layout.groups:
+        leaves: Dict[int, torch.Tensor] = {}
+        for i in g.leaf_idx:
+            path, spec = specs[i]
+            leaves[i] = (init_leaf(seed, path, spec, dev) if given is None
+                         else given[i].detach().to(dev, spec.dtype))
+        flat[g.key] = shard_slice(_pack_group(leaves, g), layout.n_shards,
+                                  index).clone().requires_grad_()
+    zeros = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
+             for k, v in flat.items()}
+    opt = {"m": zeros, "v": {k: torch.zeros_like(v) for k, v in zeros.items()},
+           "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    return flat, opt, layout
+
+
+def make_fsdp_train_step(model: LanguageModel, parallel: ParallelConfig, mesh,
+                         opt_cfg: Optional[AdamWConfig] = None,
+                         warmup_steps: int = 100, total_steps: int = 10_000,
+                         layout: Optional[FsdpLayout] = None,
+                         log: Optional[list] = None) -> Callable:
+    """(params_flat, opt_state, batch) -> (params_flat, opt_state, metrics):
+    the FSDP (ZeRO-3) composition of the explicit HDOT grad-sync schedule,
+    shards and moments updated in place. `batch` holds this rank's rows.
+
+    Gather-all: bucket-wise all-gather of the flat parameter shards in
+    FORWARD order, loss/backward on the gathered params, then a bucket-wise
+    reduce-scatter ISSUED reverse-topologically (``grad_sync_fsdp``). With
+    ``parallel.fsdp_streaming`` the gather-all is replaced by the streaming
+    schedule (``FsdpStream``, ``train_loss_streamed``): per-layer buckets
+    gathered inside each layer's remat region, freed after its forward,
+    regathered in reverse order by the backward, whose gathers issue the
+    per-bucket reduce-scatters last-backward-first. The mean gradient is
+    the reduce-scatter's sum over n_shards; the loss is the mean over the
+    DP ranks. AdamW then runs on the flat shards, its clip norm all-reduced
+    over the DP group. `log` (a list) records the collectives in issue
+    order (``("ag" | "rs" | "free", key)``, see ``core/overlap.py``). The
+    step's ``stream`` attribute is the ``FsdpStream`` (None gathering
+    all)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    accum = parallel.accum_steps
+    if layout is None:
+        layout, sync_axes = fsdp_layout_for(model, parallel, mesh)
+    else:
+        sync_axes = _require_explicit_mesh(parallel, mesh)
+    group, _ = fsdp_group(mesh, sync_axes, layout)
+    n_shards = layout.n_shards
+    stream = None
+
+    if parallel.fsdp_streaming:
+        stream = fsdp_stream(layout, model.param_layers(), mesh, sync_axes,
+                             parallel.fsdp_working_set, log)
+
+        def loss_and_grad(pflat, batch):
+            stream.start(pflat)
+            loss = model.train_loss_streamed(pflat, batch, stream)
+            stream.backward_phase()
+            loss.backward()
+            return loss.detach(), stream.finish()
+    else:
+        def loss_and_grad(pflat, batch):
+            params = fsdp_all_gather(pflat, layout, mesh, sync_axes, log)
+            params = tree_map(lambda p: p.requires_grad_(), params)
+            loss, grads = value_and_grad(model.train_loss)(params, batch)
+            del params
+            return loss, grad_sync_fsdp(grads, layout, mesh, sync_axes, log)
+
+    def step_fn(pflat, opt_state, batch):
+        loss, gflat = accumulate_grads(loss_and_grad, pflat, batch, accum)
+        # reduce-scatter of per-shard mean-grads -> the global mean
+        gflat = {k: v / n_shards for k, v in gflat.items()}
+        loss = pmean(loss, mesh, sync_axes)
+        lr = warmup_cosine(opt_state["step"], opt_cfg.lr, warmup_steps,
+                           total_steps)
+        pflat, opt_state, gnorm = adamw_update(gflat, opt_state, pflat,
+                                               opt_cfg, lr, group=group)
+        return pflat, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    step_fn.buckets = None
+    step_fn.stream = stream
     return step_fn

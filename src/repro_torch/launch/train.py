@@ -8,7 +8,8 @@ a mesh, ``single-device`` on a one-rank ("data", "model") mesh;
 ranks a launcher such as ``torchrun`` started (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``; one card per rank, ``LOCAL_RANK``):
 ("data", "model") of (world, 1), or ("pod", "data", "model") of (2,
-world / 2, 1). ``--restarts`` (the fault-tolerant runner) is not ported.
+world / 2, 1). ``--restarts N`` runs the fault-tolerant runner: a failed
+step restarts from the latest checkpoint, up to N times.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --device cpu --steps 4
 """
@@ -90,14 +91,10 @@ def main(argv: Optional[list] = None) -> int:
                     help="default: repro_ckpt under the temp directory")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--restarts", type=int, default=0,
-                    help="fault-tolerant restarts budget (not ported)")
+                    help="fault-tolerant restarts budget")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.restarts:
-        raise NotImplementedError(
-            "--restarts (FaultTolerantRunner) is not ported to PyTorch yet; "
-            "see ROADMAP.md (Queue 1)")
 
     import torch
     import torch.distributed as dist
@@ -117,11 +114,21 @@ def main(argv: Optional[list] = None) -> int:
                     checkpoint_dir=args.checkpoint_dir, overlap=args.overlap,
                     accum_steps=args.accum_steps)
     try:
-        trainer = Trainer(run, mesh=mesh, device=args.device)
-        if args.resume:
-            trainer.restore_if_available()
-        result = trainer.train(args.steps)
-        print(f"[train] {result}")
+        if args.restarts:
+            from repro_torch.runtime.ft import FaultTolerantRunner
+
+            runner = FaultTolerantRunner(
+                lambda: Trainer(run, mesh=mesh, device=args.device),
+                max_restarts=args.restarts)
+            trainer = runner.run(args.steps)
+            print(f"[train] reached step {trainer.step} "
+                  f"({runner.restarts} restarts used)")
+        else:
+            trainer = Trainer(run, mesh=mesh, device=args.device)
+            if args.resume:
+                trainer.restore_if_available()
+            result = trainer.train(args.steps)
+            print(f"[train] {result}")
         losses = [m["loss"] for m in trainer.metrics_log]
         if losses:
             print(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f}")

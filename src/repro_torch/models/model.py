@@ -153,9 +153,67 @@ class LanguageModel:
                  else params["lm_head"])
             loss = linear_xent(x, w, targets)
         else:
-            logp = torch.log_softmax(self._unembed(params, x), dim=-1)
-            ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-            loss = -torch.mean(ll)
+            loss = self._xent(params, x, targets)
+        return loss if aux is None else loss + aux.to(loss.dtype)
+
+    def _xent(self, params, x, targets) -> torch.Tensor:
+        """The unfused loss: log-softmax of the f32 logits."""
+        logp = torch.log_softmax(self._unembed(params, x), dim=-1)
+        ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+        return -torch.mean(ll)
+
+    def train_loss_streamed(self, pflat, batch: Dict, stream) -> torch.Tensor:
+        """Streaming-ZeRO-3 train loss: `pflat` holds this rank's per-bucket
+        flat parameter SHARDS and `stream` is the :class:`~repro_torch.
+        core.overlap.FsdpStream` gather/free schedule (started on them).
+
+        Each layer all-gathers exactly its own bucket inside its remat
+        region: the gather is issued just before the consuming compute, the
+        gathered buffer dies after the layer's forward, and the backward
+        recomputes layers in reverse order — regathering buckets
+        last-backward-first, each gather's backward reduce-scattering the
+        bucket's gradient. The embed and head buckets gather un-checkpointed
+        at their point of use: the embedding's backward never needs the
+        table (it scatters the cotangent), and the head weight's saved copy
+        spans only the forward/backward boundary, where it IS the working
+        set. A tied embedding gathers depth 0 a second time for the head.
+        Uses the unfused log-softmax loss, as the reference does.
+
+        Gradients land in `stream` (:meth:`~repro_torch.core.overlap.
+        FsdpStream.finish`), reduce-scattered: the SUM over the DP shards.
+        Scanned stacks raise ``ValueError`` (per-layer gathers need visible
+        layer boundaries), as does the reference; the families this port
+        does not train raise as in :meth:`train_loss`."""
+        cfg = self.cfg
+        if cfg.family not in TRAINED_FAMILIES:
+            raise NotImplementedError(
+                f"training the {cfg.family!r} family is not ported: its "
+                f"kernels are forward-only; see ROADMAP.md (Queue 1)")
+        if self.opt.scan_layers:
+            raise ValueError(
+                "train_loss_streamed needs the unrolled stack "
+                "(scan_layers=False): per-layer gather placement requires "
+                "visible layer boundaries")
+        head_depth = 1 + cfg.num_layers
+        head_depths = (head_depth, 0) if cfg.tie_embeddings else (head_depth,)
+
+        p0 = stream.materialize(pflat, 0)
+        x = self._embed(p0, batch["tokens"])
+        del p0                      # the table dies here, not at the end
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+
+        def layer_stream(i, flat):
+            return stream.materialize(flat, 1 + i)["layers"][i]
+
+        stack_flat = [stream.flat_at(pflat, 1 + i)
+                      for i in range(cfg.num_layers)]
+        x, _, aux = tfm.stack_apply(stack_flat, x, cfg, positions, "train",
+                                    None, None, self.opt.attn_impl,
+                                    remat=self.opt.remat, mesh=self.opt.mesh,
+                                    stream=layer_stream)
+        loss = self._xent(stream.materialize(pflat, *head_depths), x,
+                          batch["targets"])
         return loss if aux is None else loss + aux.to(loss.dtype)
 
     def prefill(self, params, batch: Dict, max_len: Optional[int] = None

@@ -213,7 +213,8 @@ def is_unrolled(layers) -> bool:
 
 
 def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
-                pos, attn_impl: str, remat: str = "none", mesh=None):
+                pos, attn_impl: str, remat: str = "none", mesh=None,
+                stream=None):
     """Run the full stack. `params` matches :func:`stack_specs`' layout
     (stacked tree for scan, list for unrolled), `caches` that of
     :func:`stack_cache_specs` (or None in "train" mode). The caches are
@@ -221,12 +222,21 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
     applies in "train" mode: "full" keeps only each layer's input and
     recomputes the layer in the backward. `mesh` goes to the MoE
     blocks. Returns (x, caches, aux), aux the f32 sum of the
-    layers' MoE aux losses (None for a stack without MoE blocks)."""
+    layers' MoE aux losses (None for a stack without MoE blocks).
+
+    `stream` is the streaming-ZeRO-3 hook ("train" mode, unrolled): a
+    callable ``(i, p_l) -> layer params`` that materializes layer `i`'s
+    parameters from `p_l`, its flat shard dict (`params` is the list of
+    them), INSIDE the layer's remat region, so the gather is issued just
+    before the consuming compute, the gathered buffer dies after the
+    layer's forward, and the backward's recompute regathers it in reverse
+    layer order. Streaming forces remat (without it every gathered buffer
+    would live until its backward)."""
     if remat not in ("none", "full"):
         if remat == "dots":
             raise NotImplementedError(
                 "remat='dots' (save the matmul outputs) is not ported; "
-                "see ROADMAP.md (Queue 1 item 5)")
+                "see ROADMAP.md (Queue 1 item 4)")
         raise ValueError(f"unknown remat {remat!r}")
     kinds = block_kinds(cfg)
     unrolled = is_unrolled(params)
@@ -238,13 +248,15 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
 
     if mode == "train":
         layers = params if unrolled else _unbind(params)
-        for p_l, kind in zip(layers, kinds):
-            def f(xx, p_l=p_l, kind=kind):
+        for i, (p_l, kind) in enumerate(zip(layers, kinds)):
+            def f(xx, p_l=p_l, kind=kind, i=i):
+                if stream is not None:
+                    p_l = stream(i, p_l)
                 xx, _, aux_l = layer_apply(p_l, xx, cfg, kind, positions,
                                            mode, None, None, attn_impl, mesh)
                 return xx, aux_l
             x, aux_l = (checkpoint(f, x, use_reentrant=False)
-                        if remat == "full" else f(x))
+                        if remat == "full" or stream is not None else f(x))
             aux = add(aux, aux_l)
         return x, None, aux
     for i, kind in enumerate(kinds):

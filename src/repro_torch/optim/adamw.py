@@ -3,9 +3,13 @@
 The moments have their parameters' shapes (float32 by default) and the
 update runs in float32 and casts back, as in the JAX package. Parameters
 and moments are updated in place (under ``torch.no_grad``); the function
-still returns them, so its callers read like the JAX package's. The
-optimizer has no collectives: gradients arrive already reduced (the train
-step's grad sync, ``core/overlap.py``).
+still returns them, so its callers read like the JAX package's. Gradients
+arrive already reduced (the train step's grad sync, ``core/overlap.py``).
+Under ZeRO-3 each rank holds 1/n of the flat buffers, and the one
+collective is the global gradient norm's: the local sum of squares is
+all-reduced over the DP group (`group`) before the clip scale is formed,
+so every rank clips by the same norm (under GSPMD the JAX package's norm
+is over the whole tree by construction).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from dataclasses import dataclass
 from typing import Any, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.layers import tree_leaves, tree_map
 
@@ -41,31 +46,35 @@ def adamw_init(params: PyTree, moment_dtype=torch.float32) -> PyTree:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
+def global_norm(tree: PyTree, group=None) -> torch.Tensor:
     """sqrt of the float32 sum of squares, summed leaf by leaf in tree
-    order."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree)))
+    order; with `group` (the DP ranks each holding a shard of every
+    leaf), the local sum is all-reduced over it first."""
+    sq = sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree))
+    if group is not None:
+        dist.all_reduce(sq, group=group)
+    return torch.sqrt(sq)
 
 
 @torch.no_grad()
 def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
-                 cfg: AdamWConfig, lr: torch.Tensor,
-                 chunk_leading: int = 0) -> Tuple[PyTree, PyTree, torch.Tensor]:
+                 cfg: AdamWConfig, lr: torch.Tensor, chunk_leading: int = 0,
+                 group=None) -> Tuple[PyTree, PyTree, torch.Tensor]:
     """Returns (params, state, grad_norm), params and moments updated in
     place; `lr` is the scheduled value. Gradients are clipped to
     ``cfg.grad_clip`` global norm; weight decay is decoupled.
 
     chunk_leading > 0: leaves whose leading dim equals it (the scanned layer
     stacks) are updated one slice at a time, which bounds the float32
-    temporaries to one layer's worth. Its work is one profiler range,
-    "adamw_update"."""
+    temporaries to one layer's worth. `group`: the DP group over which
+    `grads` are sharded (ZeRO-3), for the global norm. Its work is one
+    profiler range, "adamw_update"."""
     with torch.profiler.record_function("adamw_update"):
-        return _update(grads, state, params, cfg, lr, chunk_leading)
+        return _update(grads, state, params, cfg, lr, chunk_leading, group)
 
 
-def _update(grads, state, params, cfg, lr, chunk_leading):
-    gnorm = global_norm(grads)
+def _update(grads, state, params, cfg, lr, chunk_leading, group):
+    gnorm = global_norm(grads, group)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
     step = state["step"] + 1
     b1, b2 = cfg.beta1, cfg.beta2

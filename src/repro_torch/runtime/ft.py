@@ -1,11 +1,17 @@
-"""Fault tolerance: straggler-absorbing data reassignment.
+"""Fault-tolerance controller: restart-on-failure and straggler-absorbing
+data reassignment, the port of ``repro/runtime/ft.py``.
 
-The port's own copy of ``reassign_host_shards`` (pure Python, as in the JAX
-package); the restart controller waits for the training slice.
+A failed step must be retryable without losing more than
+``checkpoint_every`` steps: restore the latest atomic checkpoint and
+continue from its data step, which works because the data pipeline is a
+pure function of the step index.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import logging
+from typing import Callable, Dict, List, Optional, Sequence
+
+log = logging.getLogger(__name__)
 
 
 def reassign_host_shards(num_hosts: int, failed: Sequence[int]
@@ -30,3 +36,39 @@ def reassign_host_shards(num_hosts: int, failed: Sequence[int]
     for i, lost in enumerate(sorted(failed_set)):
         out[survivors[i % len(survivors)]].append(lost)
     return out
+
+
+class FaultTolerantRunner:
+    """Runs a trainer (``runtime.trainer.Trainer``) to a step count,
+    restarting from the latest checkpoint on any exception."""
+
+    def __init__(self, trainer_factory: Callable[[], object],
+                 max_restarts: int = 3):
+        if max_restarts < 0:
+            raise ValueError(f"max_restarts must be >= 0, got {max_restarts}")
+        self.trainer_factory = trainer_factory
+        self.max_restarts = max_restarts
+        self.restarts = 0
+
+    def run(self, total_steps: int,
+            failure_hook: Optional[Callable[[int], None]] = None):
+        """Run to `total_steps`, restarting from the latest checkpoint on any
+        exception (up to max_restarts). Returns the final trainer."""
+        trainer = self.trainer_factory()
+        while True:
+            try:
+                if trainer.params is None:
+                    trainer.restore_if_available()
+                remaining = total_steps - trainer.step
+                if remaining <= 0:
+                    return trainer
+                trainer.train(remaining, failure_hook=failure_hook)
+                return trainer
+            except Exception as e:  # noqa: BLE001 - controller must catch all
+                self.restarts += 1
+                log.warning("step failed (%s); restart %d/%d",
+                            e, self.restarts, self.max_restarts)
+                if self.restarts > self.max_restarts:
+                    raise
+                # fresh trainer: re-reads the latest atomic checkpoint
+                trainer = self.trainer_factory()

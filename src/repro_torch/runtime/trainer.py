@@ -1,6 +1,6 @@
-"""Training runtime: the data-parallel step, microbatch accumulation (HDOT
-subdomains of the global batch), checkpoint/restart. The port of
-``repro/runtime/trainer.py`` without its ZeRO-3 branches.
+"""Training runtime: the data-parallel and ZeRO-3 steps, microbatch
+accumulation (HDOT subdomains of the global batch), checkpoint/restart. The
+port of ``repro/runtime/trainer.py``.
 
 With a DP-only mesh (every non-DP axis of size 1) each rank trains on its
 contiguous slice of the global batch, indexed pod-major over the DP axes
@@ -9,9 +9,14 @@ sum over the DP axes is the explicit schedule from ``core/overlap.py``:
 ``ParallelConfig.overlap`` picks the HDOT buckets issued during the
 backward or the monolithic two-phase baseline, and
 ``ParallelConfig.grad_buckets`` sets the over-decomposition degree. Without
-a mesh the step is the plain accumulation. Parameters and optimizer state
-are updated in place on the trainer's device ("cuda" unless the caller
-asks for "cpu").
+a mesh the step is the plain accumulation. With
+``ParallelConfig.param_shard`` (ZeRO-3) the parameters and the AdamW
+moments are this rank's shards of bucket-wise flat buffers
+(``core/overlap.py``'s ``FsdpLayout``), gathered and reduce-scattered by
+the step (``launch/steps.py``'s ``make_fsdp_train_step``); checkpoints hold
+the global flat buffers under the JAX package's keys. Parameters and
+optimizer state are updated in place on the trainer's device ("cuda"
+unless the caller asks for "cpu").
 """
 from __future__ import annotations
 
@@ -24,13 +29,17 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
                                     restore_checkpoint)
+from repro_torch.checkpoint.checkpointer import _host
 from repro_torch.config.base import RunConfig
 from repro_torch.core.cost import CostModel
 from repro_torch.data.pipeline import SyntheticLMDataset
+from repro_torch.core.overlap import (_gather, fsdp_group, fsdp_unshard_full,
+                                      shard_slice)
 from repro_torch.launch.mesh import coords_rank, resolve_device
 from repro_torch.launch.steps import (check_ported, explicit_sync_axes,
+                                      fsdp_init_state, make_fsdp_train_step,
                                       make_train_step)
-from repro_torch.models.layers import ParamTree, tree_leaves
+from repro_torch.models.layers import ParamTree, tree_leaves, tree_map
 from repro_torch.models.model import TRAINED_FAMILIES, ModelOptions, build_model
 from repro_torch.models.transformer import _not_ported
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -70,6 +79,12 @@ class Trainer:
         self.params: Optional[ParamTree] = None
         self.opt_state: Optional[PyTree] = None
         self._step_fn = None
+        # ZeRO-3: params/opt live as this rank's shards of bucket-wise flat
+        # buffers (see core.overlap.FsdpLayout); None = replicated state
+        self._fsdp_layout = None
+        # set to a list before the first step to record the ZeRO-3 step's
+        # collectives in issue order (core.overlap); None records nothing
+        self.fsdp_log: Optional[list] = None
         self.metrics_log: list = []
         # measured-cost model for dynamic re-partitioning: per-step wall
         # clock keyed by this rank. The hook fires every
@@ -82,10 +97,17 @@ class Trainer:
                    params: Optional[ParamTree] = None) -> None:
         """Fresh parameters from `seed` (default ``run.train.seed``), or
         `params` (e.g. :func:`repro_torch.models.convert.params_from_jax`),
-        made trainable; zero optimizer state."""
+        made trainable; zero optimizer state. Under ZeRO-3 this rank's
+        shards (``fsdp_init_state``: drawn bucket by bucket, or cut from
+        `params`)."""
+        seed = self.run.train.seed if seed is None else seed
+        if self.run.parallel.param_shard:
+            self.params, self.opt_state, self._fsdp_layout = fsdp_init_state(
+                self.model, self.run.parallel, self.mesh, seed, params)
+            self._step_fn = None
+            return
         if params is None:
-            params = self.model.init(
-                self.run.train.seed if seed is None else seed, self.device)
+            params = self.model.init(seed, self.device)
         params.requires_grad_(True)
         if self._step_fn is not None and self._step_fn.buckets is not None:
             self._step_fn.buckets.remove()     # its hooks sit on old params
@@ -94,11 +116,40 @@ class Trainer:
         self._step_fn = None
 
     def full_params(self) -> ParamTree:
-        """The parameter tree (replicated: every rank holds all of it)."""
-        return self.params
+        """The parameter tree (replicated: every rank holds all of it).
+        Under ZeRO-3 it is reassembled from the flat shards, buffer by
+        buffer: a collective, every rank of the DP group must call it (for
+        tests and oracles; the step never gathers outside itself)."""
+        if self._fsdp_layout is None:
+            return self.params
+        return fsdp_unshard_full(self._global_flat(self.params),
+                                 self._fsdp_layout)
+
+    def _global_flat(self, flat: Dict[str, torch.Tensor], host=False
+                     ) -> Dict[str, Any]:
+        """The global flat buffers of this rank's shards `flat`, gathered
+        one buffer at a time in layout order (every rank takes part in each
+        gather); with `host`, rank 0 copies each to the host (numpy, bf16
+        widened) before the next is gathered, and the other ranks keep
+        nothing."""
+        group, _ = fsdp_group(self.mesh, self.sync_axes, self._fsdp_layout)
+        out = {}
+        for key in self._fsdp_layout.keys:
+            full = _gather(flat[key], group, self._fsdp_layout.n_shards)[0]
+            if not host:
+                out[key] = full
+            elif self.rank == 0:
+                out[key] = _host(full)
+        return out
 
     def _build_step(self) -> Callable:
         run = self.run
+        if run.parallel.param_shard:
+            return make_fsdp_train_step(
+                self.model, run.parallel, self.mesh, self.opt_cfg,
+                warmup_steps=run.train.warmup_steps,
+                total_steps=run.train.total_steps,
+                layout=self._fsdp_layout, log=self.fsdp_log)
         return make_train_step(self.model, run.parallel, self.opt_cfg,
                                warmup_steps=run.train.warmup_steps,
                                total_steps=run.train.total_steps,
@@ -112,7 +163,22 @@ class Trainer:
         if self.params is None:
             self.init_state()
         target = {"params": self.params, "opt": self.opt_state}
-        _, tree, extra = restore_checkpoint(d, target)
+        if self._fsdp_layout is not None:
+            # ZeRO-3: the checkpoint holds the global flat buffers; params
+            # AND moments go back to this rank's shards
+            _, index = fsdp_group(self.mesh, self.sync_axes,
+                                  self._fsdp_layout)
+            cpu = {k: torch.empty(0, dtype=v.dtype)
+                   for k, v in self.params.items()}
+            _, tree, extra = restore_checkpoint(d, {
+                "params": cpu,
+                "opt": {"m": {k: torch.empty(0) for k in cpu},
+                        "v": {k: torch.empty(0) for k in cpu},
+                        "step": torch.empty(0, dtype=torch.int32)}})
+            tree = tree_map(lambda t: t if t.dim() == 0 else shard_slice(
+                t, self._fsdp_layout.n_shards, index), tree)
+        else:
+            _, tree, extra = restore_checkpoint(d, target)
         # copy into the live tensors: the step's gradient hooks sit on them
         with torch.no_grad():
             for dst, src in zip(tree_leaves(target), tree_leaves(tree)):
@@ -122,10 +188,18 @@ class Trainer:
 
     def save(self) -> None:
         """Write a checkpoint (rank 0 only: the replicas hold the same
-        state)."""
+        state). Under ZeRO-3 the global flat buffers of params and moments,
+        under the JAX package's keys, gathered buffer by buffer to the
+        host (every rank takes part in each gather; rank 0 writes)."""
+        tree = {"params": self.params, "opt": self.opt_state}
+        if self._fsdp_layout is not None:
+            tree = {"params": self._global_flat(self.params, host=True),
+                    "opt": {"m": self._global_flat(self.opt_state["m"], True),
+                            "v": self._global_flat(self.opt_state["v"], True),
+                            "step": self.opt_state["step"]}}
         if self.rank != 0:
             return
-        self.ckpt.save(self.step, {"params": self.params, "opt": self.opt_state},
+        self.ckpt.save(self.step, tree,
                        extra={"data_step": self.step,
                               "data": self.data.state(self.step)})
 

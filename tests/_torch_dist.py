@@ -20,7 +20,10 @@ same ones. A job naming
 under both schedules; one naming ``train`` trains the reduced model under
 each (overlap, accum_steps) case it lists, starting from the checkpoint
 the parent wrote to ``<workdir>/init``, with every ``dist.all_reduce``
-logged (:func:`run_train`).
+logged (:func:`run_train`); one naming ``zero3`` trains it under ZeRO-3,
+gathering all and streaming, with the collectives' issue order logged
+(:func:`run_zero3`), and one naming ``zero3_full`` trains a model at its
+published widths under streaming ZeRO-3, timed (:func:`run_zero3_full`).
 """
 from __future__ import annotations
 
@@ -433,8 +436,222 @@ def check_issue_order(ranks, spec):
     return want
 
 
+# ParallelConfig fields of each ZeRO-3 case: gathering all on the per-layer
+# layout, and streaming (the reference's comparator pair); "repl" is the
+# replicated trainer with the same options
+ZERO3_CASES = {
+    "gather": dict(param_shard=True, scan_layers=False, remat="full",
+                   bucket_order="layer"),
+    "stream": dict(param_shard=True, fsdp_streaming=True, scan_layers=False,
+                   remat="full"),
+    "repl": dict(scan_layers=False, remat="full"),
+}
+
+
+def zero3_trainer(spec, case, mesh, device):
+    """A Trainer of the ZeRO-3 job's model (its arch, reduced unless
+    ``spec["full"]``; float32 unless ``spec["dtype"]`` says "bf16"; with
+    ``spec["accum"]`` microbatches, default 1) under
+    `case` of ZERO3_CASES on `mesh` (None: no mesh), with the options the
+    cases share: unrolled, remat "full", the unfused loss."""
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = get_arch(spec["arch"])
+    if not spec.get("full"):
+        cfg = cfg.reduced()
+    dtype = torch.bfloat16 if spec.get("dtype") == "bf16" else torch.float32
+    steps = spec["steps"]
+    run = RunConfig(
+        model=cfg, parallel=ParallelConfig(
+            accum_steps=spec.get("accum", 1), **ZERO3_CASES[case]),
+        train=TrainConfig(global_batch=spec["global_batch"],
+                          seq_len=spec["seq_len"], lr=spec["lr"],
+                          warmup_steps=max(1, steps // 10),
+                          total_steps=steps, checkpoint_every=10 ** 9,
+                          seed=3, **({"checkpoint_dir": spec["ckpt"]}
+                                     if "ckpt" in spec else {})))
+    return Trainer(run, mesh=mesh, device=device, options=ModelOptions(
+        dtype=dtype, scan_layers=False, remat="full", fused_xent=False))
+
+
+def run_zero3(spec, device):
+    """Each case of ``spec["cases"]`` on the job's mesh: a ZeRO-3 Trainer
+    initialised from seed 0 (each rank drawing its shards bucket by
+    bucket) and its initial shards kept, `steps` steps with its
+    collectives logged; its losses, grad norms, the full parameters (gathered, flattened in tree order), this
+    rank's shards of params and moments (concatenated in layout order) and
+    their sizes, whether every padding element of the global buffers is
+    zero, and the log."""
+    mesh = make_mesh(tuple(spec["mesh"]), tuple(spec["axes"]), device)
+    out = {}
+    for case in spec["cases"]:
+        t = zero3_trainer(spec, case, mesh, device)
+        t.init_state(seed=0)
+        layout = t._fsdp_layout
+        tag = f"z3{case}"
+        out[f"{tag}_init"] = torch.cat(
+            [t.params[k].detach().float() for k in layout.keys]).cpu().numpy()
+        t.fsdp_log = []
+        t.train(spec["steps"])
+        for key in ("loss", "grad_norm"):
+            out[f"{tag}_{key}"] = np.array([m[key] for m in t.metrics_log])
+        out[f"{tag}_params"] = torch.cat(
+            [p.detach().reshape(-1).float() for p in
+             tree_leaves(t.full_params())]).cpu().numpy()
+        pad_zero = True
+        for name, flat in (("p", t.params), ("m", t.opt_state["m"]),
+                           ("v", t.opt_state["v"])):
+            out[f"{tag}_shard_{name}"] = torch.cat(
+                [flat[k].detach().float() for k in layout.keys]).cpu().numpy()
+            full = t._global_flat(flat)
+            pad_zero &= all(not full[g.key][g.size:].any()
+                            for g in layout.groups)
+        out[f"{tag}_pad_zero"] = np.array(pad_zero)
+        out[f"{tag}_shard_sizes"] = np.array(
+            [t.params[k].numel() for k in layout.keys])
+        out[f"{tag}_padded"] = np.array([g.padded for g in layout.groups])
+        out[f"{tag}_keys"] = np.array(list(layout.keys))
+        out[f"{tag}_log"] = np.array([f"{w}:{k}" for w, k in t.fsdp_log])
+    return out
+
+
+def _busy(intervals) -> list:
+    """The union of (start, end) intervals, as disjoint sorted ones."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(xs, ys) -> float:
+    """The length of the intersection of two disjoint sorted interval
+    lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def nccl_exposure(prof) -> dict:
+    """Device time of one traced step from a torch.profiler run: the NCCL
+    kernels' busy time, the other device work's (compute, copies), and the
+    NCCL time none of that overlaps (ms)."""
+    from torch.autograd import DeviceType
+
+    comm, comp = [], []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            iv = (ev.time_range.start, ev.time_range.end)
+            (comm if "nccl" in ev.name.lower() else comp).append(iv)
+    comm, comp = _busy(comm), _busy(comp)
+    comm_us = sum(b - a for a, b in comm)
+    hidden = _overlap(comm, comp)
+    return {"nccl_ms": comm_us / 1e3,
+            "compute_ms": sum(b - a for a, b in comp) / 1e3,
+            "nccl_exposed_ms": (comm_us - hidden) / 1e3}
+
+
+def run_zero3_full(spec, device):
+    """Streaming ZeRO-3 at a published width on the job's ("data",) mesh:
+    bf16, init from seed 0 bucket by bucket, ``spec["steps"]`` steps (the
+    first a warm-up) with the host clock around each (synchronised), then,
+    with ``spec["trace"]``, one more step traced on every rank
+    (torch.profiler; the NCCL time no compute kernel overlaps). Returns
+    the losses, grad norms, step times, this card's peak memory and
+    parameter-shard bytes."""
+    mesh = make_mesh(tuple(spec["mesh"]), ("data",), device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    t = zero3_trainer(dict(spec, full=True, dtype="bf16"), "stream", mesh,
+                      device)
+    t.init_state(seed=0)
+    torch.cuda.synchronize(device)
+    out = {"init_s": np.array(time.perf_counter() - t0)}
+    times = []
+    for _ in range(spec["steps"]):
+        torch.cuda.synchronize(device)
+        ts = time.perf_counter()
+        t.train(1)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - ts)
+    out["peak_bytes"] = np.array(torch.cuda.max_memory_allocated(device))
+    if spec.get("trace"):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t.train(1)
+            torch.cuda.synchronize(device)
+        for k, v in nccl_exposure(prof).items():
+            out[k] = np.array(v)
+    out.update(step_s=np.array(times),
+               loss=np.array([m["loss"] for m in t.metrics_log]),
+               grad_norm=np.array([m["grad_norm"] for m in t.metrics_log]),
+               shard_bytes=np.array(t._fsdp_layout.shard_bytes()),
+               n_params=np.array(t.run.model.num_params()))
+    return out
+
+
+def _bucket(key: str) -> int:
+    return int(key[1:key.index("_")])
+
+
+def check_zero3_log(log, keys, streaming: bool, steps: int,
+                    working_set: int = 2) -> None:
+    """The issue order of a ZeRO-3 run's collectives (``"ag:<key>"``,
+    ``"rs:<key>"``, ``"free:<key>"``), for an untied model on the
+    per-layer layout, whose bucket b is forward depth b. Gathering all,
+    each step gathers every buffer once in forward layout order, then
+    reduce-scatters each once in reverse layout order. Streaming, each
+    step gathers in forward depth order (embedding, layers, head), then
+    regathers the layers in reverse depth order in the backward and
+    reduce-scatters each buffer once, in reverse layout order, a layer's
+    before the layer two below it is regathered; and never are more than
+    `working_set` buckets' gathered buffers live at once."""
+    keys = [str(k) for k in keys]
+    events = [tuple(str(e).split(":")) for e in log]
+    ags = [k for w, k in events if w == "ag"]
+    rss = [k for w, k in events if w == "rs"]
+    last = _bucket(keys[-1])
+    regather = [k for b in range(last - 1, 0, -1) for k in keys
+                if _bucket(k) == b]
+    per_step = keys + regather if streaming else keys
+    assert ags == per_step * steps, (ags, per_step)
+    assert rss == keys[::-1] * steps, rss
+    if not streaming:
+        return
+    live, worst = set(), 0
+    for w, k in events:
+        if w == "ag":
+            live.add(k)
+        elif w == "free":
+            live.discard(k)
+        worst = max(worst, len({_bucket(x) for x in live}))
+    assert worst <= working_set, worst
+    issued = [(w, _bucket(k)) for w, k in events if w in ("ag", "rs")]
+    step = issued[len(keys):len(per_step) + len(keys)]  # step 1's backward
+    for b in range(last - 1, 2, -1):
+        assert step.index(("rs", b)) < step.index(("ag", b - 2)), (b, step)
+
+
 def run(job, u0, device, workdir=None):
     out = run_apps(job, device)
+    if "zero3" in job:
+        out.update(run_zero3(job["zero3"], device))
+    if "zero3_full" in job:
+        out.update(run_zero3_full(job["zero3_full"], device))
     if "gradsync" in job:
         out.update(run_gradsync(job["gradsync"], device))
     if "train" in job:

@@ -2,7 +2,9 @@
 SSD scan kernels against their plain PyTorch versions, the solver and the
 server (dense, MoE, Mamba-2, RecurrentGemma) on CUDA against the CPU, and
 (given 4 cards) NCCL ranks against one rank: the solvers, the staged
-all-reduce, MoE expert parallelism and the data-parallel trainer. Marked ``gpu``;
+all-reduce, MoE expert parallelism, the data-parallel and the ZeRO-3
+trainer; and Qwen3-8B at full width trained under streaming ZeRO-3 over
+4 cards. Marked ``gpu``;
 without a card every test here skips. Imports no jax, so it runs where the
 JAX package is not installed:
 
@@ -367,6 +369,113 @@ def test_nccl_2x2_trainer_matches_one_rank(cuda, tmp_path):
             params_close(got[f"{tag}_params"], want_p, leaves)
             params_close(got[f"{tag}_params"],
                          got[f"two_phase{accum}_params"], leaves)
+
+
+def test_nccl_2x2_zero3_matches_one_rank(cuda, tmp_path):
+    """Four NCCL ranks, one card each, train the reduced qwen3-8b (float32,
+    unrolled, remat "full", the unfused loss, 3 steps) under ZeRO-3 on a
+    (2, 2) ("pod", "data") mesh, gathering all and streaming on the
+    per-layer layout: every rank reports the same losses, grad norms and
+    full parameters; streaming equals gathering all bit for bit (the same
+    buffers reduced at the same sizes); both match the replicated trainer
+    on one card with the global batch (losses and grad norms rtol 1e-5,
+    parameters within 1e-4 of each leaf's largest entry, as on gloo);
+    each rank holds padded / 4 of every buffer, the padding stays zero,
+    and the collectives follow the schedule (check_zero3_log)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    from _torch_dist import (check_zero3_log, params_close, spawn,
+                             zero3_trainer)
+
+    from repro_torch.models.layers import tree_leaves
+
+    spec = dict(arch="qwen3-8b", steps=3, global_batch=8, seq_len=16,
+                lr=5e-3, cases=["gather", "stream"], mesh=[2, 2],
+                axes=["pod", "data"])
+    ranks = spawn(dict(mesh=[2, 2], backend="nccl", zero3=spec), None,
+                  tmp_path, 300)
+    one = zero3_trainer(spec, "repl", None, cuda)
+    one.init_state(seed=0)
+    one.train(spec["steps"])
+    want_p = torch.cat([p.detach().reshape(-1) for p in
+                        tree_leaves(one.params)]).cpu().numpy()
+    leaves = tree_leaves(one.params)
+    for case in spec["cases"]:
+        tag = f"z3{case}"
+        for out in ranks:
+            for key in ("loss", "grad_norm", "params"):
+                np.testing.assert_array_equal(out[f"{tag}_{key}"],
+                                              ranks[0][f"{tag}_{key}"])
+            assert (out[f"{tag}_shard_sizes"] * 4 == out[f"{tag}_padded"]
+                    ).all()
+            assert bool(out[f"{tag}_pad_zero"])
+            check_zero3_log(out[f"{tag}_log"], out[f"{tag}_keys"],
+                            case == "stream", spec["steps"])
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(ranks[0][f"{tag}_{key}"],
+                                       [m[key] for m in one.metrics_log],
+                                       rtol=1e-5)
+        params_close(ranks[0][f"{tag}_params"], want_p, leaves)
+    for out in ranks:
+        for key in ("loss", "grad_norm", "params", "shard_p", "shard_m",
+                    "shard_v"):
+            np.testing.assert_array_equal(out[f"z3stream_{key}"],
+                                          out[f"z3gather_{key}"])
+
+
+def test_nccl_4_zero3_trains_qwen3_8b_full_width(cuda, tmp_path):
+    """Qwen3-8B at its published widths (36 layers, d_model 4096, 32/8
+    heads of 128, d_ff 12288, vocab 151936, untied; 8.19 B parameters,
+    98 GB of bf16 params and grads and f32 AdamW moments: more than one
+    card holds) trains under streaming ZeRO-3 over four NCCL ranks, one
+    card each, on a (4,) ("data",) mesh: random bf16 weights from seed 0,
+    global batch 8 x 2048 tokens (2 x 2048 a card), a warm-up step and 3
+    timed steps, then one traced step. Holds: the losses finite and
+    equal on every rank, the first within 0.5 of ln V + 1/2, and every
+    card's peak under 80 GiB. Prints one JSON line: step ms, tokens/s per card and in total, MFU
+    (6·N·tokens, N the parameters less the embedding, over 989 TFLOP/s a
+    card), the peak GiB of each card, and rank 0's traced NCCL time that
+    no compute kernel overlaps."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import json
+    import math
+
+    from _torch_dist import spawn
+
+    from repro_torch.config.registry import get_arch
+
+    spec = dict(arch="qwen3-8b", steps=4, global_batch=8, seq_len=2048,
+                lr=3e-4, mesh=[4], trace=True)
+    ranks = spawn(dict(mesh=[4], backend="nccl", zero3_full=spec), None,
+                  tmp_path, 900)
+    cfg = get_arch("qwen3-8b")
+    for out in ranks:
+        assert np.isfinite(out["loss"]).all()
+        np.testing.assert_array_equal(out["loss"], ranks[0]["loss"])
+        assert out["peak_bytes"] < 80 * 2 ** 30
+    first = float(ranks[0]["loss"][0])
+    assert abs(first - (math.log(cfg.vocab_size) + 0.5)) <= 0.5, first
+    step_s = float(np.median(ranks[0]["step_s"][1:]))
+    tokens = spec["global_batch"] * spec["seq_len"]
+    n_matmul = cfg.num_params() - cfg.vocab_size * cfg.d_model
+    print(json.dumps({
+        "test": "zero3_qwen3_8b_full_width", "cards": 4,
+        "gpu": torch.cuda.get_device_name(0),
+        "init_s": float(ranks[0]["init_s"]),
+        "step_ms": [1e3 * x for x in ranks[0]["step_s"][1:].tolist()],
+        "step_ms_median": 1e3 * step_s,
+        "warmup_step_ms": 1e3 * float(ranks[0]["step_s"][0]),
+        "tokens_per_s": tokens / step_s,
+        "tokens_per_s_per_card": tokens / step_s / 4,
+        "mfu": 6 * n_matmul * tokens / step_s / (4 * 989e12),
+        "peak_gib": [float(o["peak_bytes"]) / 2 ** 30 for o in ranks],
+        "param_shard_gib": float(ranks[0]["shard_bytes"]) / 2 ** 30,
+        "losses": ranks[0]["loss"].tolist(),
+        "grad_norms": ranks[0]["grad_norm"].tolist(),
+        "traced_step_rank0": {k: float(ranks[0][k]) for k in
+                              ("nccl_ms", "compute_ms", "nccl_exposed_ms")},
+    }))
 
 
 FLASH_CASES = [  # (b, sq, sk, hq, hkv, d, causal, window)

@@ -9,7 +9,10 @@ int8 codec, against numpy's sum and against the JAX package's staged
 all-reduce on four forced host devices (a subprocess); MoE expert
 parallelism (moe_apply_ep over a2a_scan) on (2,) and (4,) ("model",) and
 (2, 2) ("data", "model") against the JAX package's dense dispatch, with
-Q = 1, 2, 4 capacity slices and the all-to-alls' issue order.
+Q = 1, 2, 4 capacity slices and the all-to-alls' issue order; ZeRO-3
+(gathering all and streaming) on (2,), (4,) and (2, 2) ("pod", "data")
+against the replicated trainer on one rank, streaming bit-equal to
+gathering all, with each rank's shards and the collectives' issue order.
 
 Each job spawns its ranks as separate processes (``tests/_torch_dist.py``,
 which imports no jax) with a FileStore of their own in a temporary
@@ -37,7 +40,8 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from _torch_dist import (_star, _sum3, app_input, check_issue_order,
-                         moe_config, moe_input, params_close, spawn)
+                         check_zero3_log, moe_config, moe_input, params_close,
+                         spawn)
 from repro.core import halo as jhalo
 from repro.core import stencil as jst
 from repro.launch.mesh import make_grid_mesh as jgrid_mesh
@@ -146,22 +150,30 @@ SLAB, PAIR, TRIPLE = ["data"], ["rows", "cols"], ["planes", "rows", "cols"]
 # every model-axis size here (C = 32 on 2 ranks, 16 on 4) takes Q = 1, 2, 4
 MOE = dict(seed=21, experts=8, top_k=2, factor=8.0, batch=4, seq=32,
            decode_batch=8, chunks=[1, 2, 4], model_batch=4)
+# ZeRO-3: reduced qwen3-8b in float32, gathering all and streaming on the
+# per-layer layout, (8, 16) tokens a step (tests/_torch_dist.py run_zero3)
+ZERO3 = dict(arch="qwen3-8b", steps=3, global_batch=8, seq_len=16, lr=5e-3,
+             cases=["gather", "stream"])
 APP_JOBS = {
     "2": dict(mesh=[2], rk3=dict(RK3, mesh=[2], axes=SLAB),
               hpccg=dict(HPCCG, mesh=[2], axes=SLAB),
-              moe=dict(MOE, mesh=[2], axes=["model"])),
+              moe=dict(MOE, mesh=[2], axes=["model"]),
+              zero3=dict(ZERO3, mesh=[2], axes=["data"])),
     "4": dict(mesh=[4], rk3=dict(RK3, mesh=[4], axes=SLAB),
-              moe=dict(MOE, mesh=[4], axes=["model"])),
+              moe=dict(MOE, mesh=[4], axes=["model"]),
+              zero3=dict(ZERO3, mesh=[4], axes=["data"])),
     "2x2": dict(mesh=[2, 2], rk3=dict(RK3, mesh=[2, 2], axes=PAIR),
                 hpccg=dict(HPCCG, mesh=[2, 2], axes=PAIR),
                 allreduce=dict(mesh=[2, 2], shape=[16, 8], seed=100,
                                per_rank=True, odd_rows=5),
-                moe=dict(MOE, mesh=[2, 2], axes=["data", "model"])),
+                moe=dict(MOE, mesh=[2, 2], axes=["data", "model"]),
+                zero3=dict(ZERO3, mesh=[2, 2], axes=["pod", "data"])),
     "2x2x2": dict(mesh=[2, 2, 2],
                   hpccg=dict(HPCCG, mesh=[2, 2, 2], axes=TRIPLE)),
 }
 RK3_JOBS = [k for k, v in APP_JOBS.items() if "rk3" in v]
 MOE_JOBS = [k for k, v in APP_JOBS.items() if "moe" in v]
+ZERO3_JOBS = [k for k, v in APP_JOBS.items() if "zero3" in v]
 HPCCG_JOBS = [k for k, v in APP_JOBS.items() if "hpccg" in v]
 
 
@@ -691,3 +703,95 @@ def test_trainer_ranks_issue_buckets_in_reverse_topological_order(
     assert want == [[i for i, _ in b] for b in jmake_buckets(
         jm.abstract_params(), 8, jm.param_layers(), "reverse_topo")]
     assert len(want) == 6
+
+
+# ------------------------------------------------------------------ ZeRO-3
+@pytest.fixture(scope="module")
+def zero3_one_rank():
+    """The replicated trainer on one rank with the ZeRO-3 job's model,
+    options, seed and global batch, trained: (its metrics, its parameters
+    flattened in tree order, their leaves, the trainer)."""
+    from _torch_dist import zero3_trainer
+
+    from repro_torch.models.layers import tree_leaves
+
+    t = zero3_trainer(ZERO3, "repl", None, "cpu")
+    t.init_state(seed=0)
+    t.train(ZERO3["steps"])
+    metrics = {k: np.array([m[k] for m in t.metrics_log])
+               for k in ("loss", "grad_norm")}
+    flat = torch.cat([p.detach().reshape(-1) for p in
+                      tree_leaves(t.params)]).numpy()
+    return metrics, flat, tree_leaves(t.params), t
+
+
+@pytest.mark.parametrize("name", ZERO3_JOBS)
+def test_zero3_ranks_match_the_replicated_trainer(app_runs, zero3_one_rank,
+                                                  name):
+    """ZeRO-3 (gathering all and streaming) on (2,), (4,) and (2, 2)
+    ("pod", "data") gloo ranks, reduced qwen3-8b in float32, 3 steps,
+    each rank on its slice of the global batch: every rank reports the
+    same losses, grad norms (the clip norm all-reduced over the DP group)
+    and full parameters; the losses and grad norms match the replicated
+    trainer on one rank with the global batch within rtol 1e-5, the
+    parameters within 1e-4 of each leaf's largest entry, the tolerance of
+    the replicated trainer's own ranks-vs-one-rank test (the global mean
+    gradient is summed in another order, and AdamW turns a last-bit
+    gradient difference on an entry whose second moment is at the
+    rounding scale into a larger step: on 2 ranks one embedding entry
+    of 32768 moves 4.2e-6, 1.2e-5 of the leaf's largest)."""
+    metrics, flat, leaves, _ = zero3_one_rank
+    ranks = app_runs(name)
+    for case in ZERO3["cases"]:
+        tag = f"z3{case}"
+        for out in ranks[1:]:
+            for key in ("loss", "grad_norm", "params"):
+                np.testing.assert_array_equal(out[f"{tag}_{key}"],
+                                              ranks[0][f"{tag}_{key}"])
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(ranks[0][f"{tag}_{key}"],
+                                       metrics[key], rtol=1e-5)
+        params_close(ranks[0][f"{tag}_params"], flat, leaves)
+
+
+@pytest.mark.parametrize("name", ZERO3_JOBS)
+def test_zero3_streaming_bit_equal_to_gather_all_on_ranks(app_runs, name):
+    """On every rank streaming and gathering all give the same losses,
+    grad norms, full parameters and shards of params and both moments,
+    bit for bit."""
+    for out in app_runs(name):
+        for key in ("loss", "grad_norm", "params", "shard_p", "shard_m",
+                    "shard_v"):
+            np.testing.assert_array_equal(out[f"z3stream_{key}"],
+                                          out[f"z3gather_{key}"])
+
+
+@pytest.mark.parametrize("name", ZERO3_JOBS)
+def test_zero3_ranks_hold_their_shards_and_issue_the_schedule(
+        app_runs, zero3_one_rank, name):
+    """Each of the n ranks holds padded / n elements of every buffer (rank
+    r the r-th slice, drawn bucket by bucket: bit-equal to the full
+    init's buffers cut), the padding of params and moments is zero after
+    3 steps, and the logged collectives follow the schedule
+    (check_zero3_log: gathers forward, reduce-scatters in reverse layout
+    order, streaming's backward regathers in reverse depth order with at
+    most 2 buckets gathered at once)."""
+    from repro_torch.core.overlap import fsdp_layout, fsdp_shard_full
+
+    model = zero3_one_rank[3].model
+    ranks = app_runs(name)
+    n = len(ranks)
+    layout = fsdp_layout(model.param_specs(), n, 8, model.param_layers(),
+                         "layer")
+    full = fsdp_shard_full(model.init(0, "cpu"), layout)
+    for r, out in enumerate(ranks):
+        for case in ZERO3["cases"]:
+            tag = f"z3{case}"
+            assert [str(k) for k in out[f"{tag}_keys"]] == list(layout.keys)
+            assert (out[f"{tag}_shard_sizes"] * n
+                    == out[f"{tag}_padded"]).all()
+            assert bool(out[f"{tag}_pad_zero"])
+            check_zero3_log(out[f"{tag}_log"], layout.keys,
+                            case == "stream", ZERO3["steps"])
+            want = torch.cat([full[k].reshape(n, -1)[r] for k in layout.keys])
+            np.testing.assert_array_equal(out[f"{tag}_init"], want.numpy())

@@ -231,3 +231,29 @@ def test_grad_buckets_layout_is_zero_copy():
     sync.remove()
     assert [f.data_ptr() for fs in sync.flats for f in fs] == before
     assert all(p.grad is g for p, g in zip(tree_leaves(tp), sync.grads))
+
+
+def test_grad_buckets_let_their_parameters_go():
+    """After a backward through the buckets' hooks, dropping the
+    parameters and the buckets frees both (the hooks hold the buckets
+    weakly: a strong cycle runs through autograd's C++ state, where the
+    cyclic GC cannot collect it, and kept a trainer's parameters and
+    gradient buffers alive for the rest of the process); the hooks of
+    buckets already gone do nothing."""
+    import gc
+    import weakref
+
+    p = {"a": torch.ones(3, requires_grad=True),
+         "b": torch.ones(2, requires_grad=True)}
+    sync = GradBuckets(p, None, ("data",), 2, {"a": 1, "b": 0})
+    sync.start()
+    (p["a"] * 3.0 + p["b"].sum()).sum().backward()
+    sync.finish()
+    refs = [weakref.ref(p["a"]), weakref.ref(sync)]
+    del sync
+    gc.collect()
+    assert refs[1]() is None
+    (p["a"] * 2.0).sum().backward()          # the dead buckets' hook
+    del p
+    gc.collect()
+    assert refs[0]() is None
