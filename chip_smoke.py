@@ -63,10 +63,18 @@ phase 15:
               each) on BatchServer(slots=8, max_len=2176), through
               run_continuous and then run_wave, counts read after each:
               flash must launch 36 times per prefill and every request gets
-              its 64 tokens. Then: last-token prefill logits under flash and
+              its 64 tokens; then run_continuous once more with
+              decode_step_fn = the TP decode step (models/decode_tp.py) on
+              a one-rank ("data", "model") mesh: no ring, but the step's
+              fused weight slices and per-row cache writes at full width
+              (row "continuous_tp", counted: flash only in the prefills).
+              Then: last-token prefill logits under flash and
               under dense attention for one 2048-token prompt, teacher-forced
               decode logits of two requests in the 8-slot layout against a
-              1-slot one, and the reduced config on the card against the CPU.
+              1-slot one, the same 8-slot steps through the TP step against
+              model.decode_step (within the bf16 bounds; the TP run's tokens
+              equal to the continuous run's are reported), and the reduced
+              config on the card against the CPU.
   9. serve_profile  a traced admission prefill and a traced window of 5
               decode steps: top device ops and the device's idle share.
  10. lru      lru_scan's CUDA kernel against its plain version: (1, 2048,
@@ -564,16 +572,22 @@ def routing_differs(a: list, b: list, layers: int) -> dict:
 
 
 def serve_run(model, params, prompts, scheduler: str, dev, card,
-              phase: int) -> dict:
+              phase: int, decode_step_fn=None) -> dict:
     """One counted run of a main serving path: every kernel count is set to
-    0 just before and read just after."""
+    0 just before and read just after. `scheduler` "wave" runs run_all,
+    any other run_continuous, which decodes through `decode_step_fn` (the
+    TP step) where one is given."""
     from repro_torch.runtime.server import BatchServer, Request
 
-    server = BatchServer(model, params, slots=SLOTS, max_len=MAX_LEN)
+    prefill = StepTimer(model.prefill)
+    decode = StepTimer(decode_step_fn or model.decode_step)
+    server = BatchServer(model, params, slots=SLOTS, max_len=MAX_LEN,
+                         decode_step_fn=decode if decode_step_fn else None)
     for pr in prompts:
         server.submit(Request(prompt=pr, max_new_tokens=NEW_TOKENS))
-    prefill, decode = StepTimer(model.prefill), StepTimer(model.decode_step)
-    model.prefill, model.decode_step = prefill, decode
+    model.prefill = prefill
+    if decode_step_fn is None:
+        model.decode_step = decode
     wrappers = counted_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -582,12 +596,14 @@ def serve_run(model, params, prompts, scheduler: str, dev, card,
     moe = model.cfg.family == "moe"
     with MoeProbe() if moe else contextlib.nullcontext() as probe:
         t0 = time.perf_counter()
-        served = (server.run_continuous() if scheduler == "continuous"
-                  else server.run_all())
+        served = (server.run_all() if scheduler == "wave"
+                  else server.run_continuous())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    del model.prefill, model.decode_step      # back to the class's methods
+    del model.prefill                         # back to the class's methods
+    if decode_step_fn is None:
+        del model.decode_step
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     n_prefills = server.stats["prefills"]
     check(len(served) == len(prompts), f"{scheduler}: served {len(served)}")
@@ -624,9 +640,11 @@ def serve_run(model, params, prompts, scheduler: str, dev, card,
     return {"row": row, "served": {r.rid: r.output for r in served}}
 
 
-def teacher_forced(model, params, prompts, forced, slots: int, rows, dev):
+def teacher_forced(model, params, prompts, forced, slots: int, rows, dev,
+                   decode=None):
     """Decode logits of slots `rows` when every slot of a `slots`-slot cache
-    is admitted from `prompts` (batch-1 prefills) and fed `forced` tokens."""
+    is admitted from `prompts` (batch-1 prefills) and fed `forced` tokens,
+    through `decode` (default ``model.decode_step``)."""
     from repro_torch.runtime.server import (
         _mark_prefill_tail,
         _scatter_slot,
@@ -644,7 +662,8 @@ def teacher_forced(model, params, prompts, forced, slots: int, rows, dev):
     out = []
     for n in range(steps):
         tok = torch.tensor([[f[n]] for f in forced], device=dev)
-        logits, caches = model.decode_step(params, tok, caches, pos + n)
+        logits, caches = (decode or model.decode_step)(params, tok, caches,
+                                                       pos + n)
         out.append(logits[rows, -1].float())
     return torch.stack(out, 1)          # (len(rows), steps, vocab)
 
@@ -720,6 +739,18 @@ def serve_phase(arch: str, phase: int, dev, card) -> dict:
                                                   device=dev)})
     runs = {sch: serve_run(model, params, prompts, sch, dev, card, phase)
             for sch in ("continuous", "wave")}
+    tp_step = None
+    if cfg.family == "dense":
+        # the TP decode step on a one-rank ("data", "model") mesh: no ring,
+        # but the restructured step (fused slices, per-row cache writes)
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.decode_tp import build_decode_step
+
+        tp_step = build_decode_step(model, make_mesh((1, 1),
+                                                     ("data", "model"), dev))
+        runs["continuous_tp"] = serve_run(model, params, prompts,
+                                          "continuous_tp", dev, card, phase,
+                                          decode_step_fn=tp_step)
 
     probe = MoeProbe() if moe else contextlib.nullcontext()
     with probe:
@@ -800,6 +831,21 @@ def serve_phase(arch: str, phase: int, dev, card) -> dict:
                 decode_ids.append([a for a in probe.take()[0]
                                    if a.shape[1] == 1])
         one = torch.cat(ones)
+        tp_agree = None
+        if tp_step is not None:
+            # the same 8-slot teacher-forced steps through the TP step
+            tp8 = teacher_forced(model, params, prompts[:SLOTS], forced,
+                                 SLOTS, rows, dev, decode=tp_step)
+            checks["tp_step_vs_decode_step_teacher_forced"] = dict(
+                logit_diff(tp8, eight),
+                bit_identical=bool(torch.equal(tp8, eight)))
+            a, b = runs["continuous_tp"]["served"], runs["continuous"]["served"]
+            same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
+            tp_agree = {"tokens_equal": same,
+                        "tokens": sum(len(a[r]) for r in a),
+                        "requests_equal": sum(a[r] == b[r] for r in a)}
+            del tp8, tp_step
+            torch.cuda.empty_cache()
         key = "teacher_forced_8_vs_1_slot"
         checks[key] = dict(
             logit_diff(eight, one),
@@ -843,6 +889,7 @@ def serve_phase(arch: str, phase: int, dev, card) -> dict:
     row = {"phase": "serve_checks", "n": phase, "arch": cfg.name, **checks,
            "bounds": {"mean_abs": LOGIT_MEAN_BOUND,
                       "max_abs": LOGIT_MAX_BOUND},
+           "tp_continuous_vs_continuous_tokens": tp_agree,
            "f32_prefill_plus_decode_vs_prefill": f32_diff,
            "f32_bound_max_abs": F32_RECURRENCE_TOL,
            "reduced_card_vs_cpu_f32_max_abs": small_err, "gpu": card}

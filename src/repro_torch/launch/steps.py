@@ -42,14 +42,14 @@ PyTree = Any
 def check_ported(parallel: ParallelConfig, mesh=None) -> None:
     """Raise for what the train steps do not honour. ZeRO-3 needs an
     explicit DP-only mesh (``ValueError``, as in the JAX package: it never
-    quietly replicates); ``NotImplementedError`` for the collective-matmul
-    rings, chunked MoE all-to-alls (expert parallelism, which needs the TP
-    axis), compressed gradients, and a mesh whose non-DP axes (the TP axis)
-    have more than one rank."""
+    quietly replicates); ``NotImplementedError`` for chunked MoE all-to-alls
+    (expert parallelism, which needs the TP axis), compressed gradients,
+    and a mesh whose non-DP axes (the TP axis) have more than one rank.
+    ``collective_matmul`` is read nowhere, as in the JAX package, whose
+    trainer trains the same step with it set (the TP rings serve decode:
+    ``models/decode_tp.py``)."""
     if parallel.param_shard:
         _require_explicit_mesh(parallel, mesh)
-    if parallel.collective_matmul:
-        raise _not_ported("collective_matmul (the TP rings)")
     if parallel.moe_a2a_chunks > 1:
         raise _not_ported(
             "moe_a2a_chunks > 1 in training: expert parallelism inside the "

@@ -42,6 +42,7 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.model import LanguageModel
 
@@ -139,8 +140,26 @@ def _stream_seed(seed: int, rid: int, n: int) -> int:
 
 
 class BatchServer:
+    """`decode_step_fn`, if given, replaces ``model.decode_step`` in
+    ``run_continuous`` (``run_wave`` keeps the model's, as in the JAX
+    package): the TP step of :func:`repro_torch.models.decode_tp.
+    build_decode_step`. In a program of more than one rank such a step is
+    collective: every rank runs this server over the same queue, admitting
+    and prefilling alike, and calls the step together. The ranks must then
+    choose the same token ids, or their schedulers part and the next ring
+    waits forever, so every id the server chooses (admission and decode) is
+    broadcast from global rank 0 whenever a `decode_step_fn` is given and
+    the default process group has more than one rank. Rounding is not left
+    to decide it: the admission prefills run on separate cards, and the
+    step's logits, though computed from the same gathered rows on every
+    rank, come out of GEMMs the ranks launch separately. ``stats
+    ["ids_off_rank0"]`` counts the ids of live rows that this rank had
+    chosen otherwise before the broadcast. A server on each rank of its own
+    (its own queue, or no collective step) takes no `decode_step_fn`."""
+
     def __init__(self, model: LanguageModel, params, slots: int = 8,
-                 max_len: int = 1024, greedy: bool = True, seed: int = 0):
+                 max_len: int = 1024, greedy: bool = True, seed: int = 0,
+                 decode_step_fn: Optional[Callable] = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_len < 1:
@@ -154,9 +173,13 @@ class BatchServer:
         self.seed = seed
         self.queue: List[Request] = []
         self.stats = {"decode_steps": 0, "prefills": 0, "waves": 0,
-                      "admitted": 0}
+                      "admitted": 0, "ids_off_rank0": 0}
         self._next_rid = 0
         self._cont = None
+        self._decode_step_fn = decode_step_fn
+        self._agree = (decode_step_fn is not None and dist.is_available()
+                       and dist.is_initialized()
+                       and dist.get_world_size() > 1)
 
     def submit(self, req: Request) -> None:
         if not req.prompt:
@@ -199,11 +222,20 @@ class BatchServer:
         is None are idle (greedy only: they cost nothing extra)."""
         rows = logits[:, -1, :]
         if self.greedy:
-            return rows.argmax(dim=-1).tolist()
-        ids = [self._sample_row(rows[i], r) if r is not None
-               else torch.zeros((), dtype=torch.int64, device=rows.device)
-               for i, r in enumerate(reqs)]
-        return torch.stack(ids).tolist()
+            ids = rows.argmax(dim=-1)
+        else:
+            ids = torch.stack([
+                self._sample_row(rows[i], r) if r is not None
+                else torch.zeros((), dtype=torch.int64, device=rows.device)
+                for i, r in enumerate(reqs)])
+        if not self._agree:
+            return ids.tolist()
+        mine = ids.clone()
+        dist.broadcast(ids, src=0)
+        mine, ids = torch.stack([mine, ids]).tolist()
+        self.stats["ids_off_rank0"] += sum(
+            a != b for a, b, r in zip(mine, ids, reqs) if r is not None)
+        return ids
 
     def _sample_row(self, row: torch.Tensor, req: Request) -> torch.Tensor:
         """A categorical draw from one row of logits (Gumbel-max), keyed by
@@ -299,7 +331,8 @@ class BatchServer:
             # one decode step over ALL slots; idle rows carry stale token/pos
             # and only ever write their own cache rows, which admission
             # replaces wholesale
-            logits, st["caches"] = self.model.decode_step(
+            decode = self._decode_step_fn or self.model.decode_step
+            logits, st["caches"] = decode(
                 self.params, self._tensor(st["tok"])[:, None], st["caches"],
                 self._tensor(st["pos"]))
             self.stats["decode_steps"] += 1

@@ -12,10 +12,12 @@ global results and its message counts to ``<workdir>/rank<r>.npz``. With
 ``"nccl"`` rank r runs on CUDA device r.
 
 A job runs Heat2D when it names ``iters``, and any of the other
-applications it names (``rk3``, ``hpccg``, ``allreduce``, ``moe``), each on
-a mesh of its own over the same ranks; their inputs are made here from a
-numpy seed (:func:`app_input`, :func:`moe_input`), so the parent makes the
-same ones. A job naming
+applications it names (``rk3``, ``hpccg``, ``allreduce``, ``moe``, the TP
+rings ``tp_ring`` and the TP decode step ``tp_decode``), each on a mesh of
+its own over the same ranks; their inputs are made here from a numpy seed
+(:func:`app_input`, :func:`moe_input`, :func:`ring_input`) or the port's
+init (:func:`tp_model`), so the parent makes the same ones. The rings'
+point-to-point sends are counted (``_SendLog.sends``). A job naming
 ``gradsync`` sums an integer-valued mixed-dtype tree (:func:`sync_tree`)
 under both schedules; one naming ``train`` trains the reduced model under
 each (overlap, accum_steps) case it lists, starting from the checkpoint
@@ -23,7 +25,9 @@ the parent wrote to ``<workdir>/init``, with every ``dist.all_reduce``
 logged (:func:`run_train`); one naming ``zero3`` trains it under ZeRO-3,
 gathering all and streaming, with the collectives' issue order logged
 (:func:`run_zero3`), and one naming ``zero3_full`` trains a model at its
-published widths under streaming ZeRO-3, timed (:func:`run_zero3_full`).
+published widths under streaming ZeRO-3, timed (:func:`run_zero3_full`);
+one naming ``tp_full`` serves a model at its published widths through the
+TP decode step, timed and traced (:func:`run_tp_full`).
 """
 from __future__ import annotations
 
@@ -66,10 +70,11 @@ def _sum3(p):
 
 class _SendLog:
     """Counts ``batch_isend_irecv`` calls per mesh axis (one call is one
-    exchange of one axis)."""
+    exchange of one axis, or one hop of a collective-matmul ring) and the
+    point-to-point sends they carry (``sends``)."""
 
     def __init__(self, mesh):
-        self.mesh, self.calls = mesh, []
+        self.mesh, self.calls, self.sends = mesh, [], 0
         self._orig = dist.batch_isend_irecv
 
     def __call__(self, ops):
@@ -77,6 +82,7 @@ class _SendLog:
         peer = rank_coords(ops[0].peer, self.mesh.sizes)
         axis = [k for k, (a, b) in enumerate(zip(me, peer)) if a != b]
         self.calls.append(axis[0])
+        self.sends += sum(op.op is dist.isend for op in ops)
         return self._orig(ops)
 
     def per_axis(self):
@@ -101,6 +107,16 @@ class _ReduceLog:
     def per_axis(self):
         return np.bincount(np.asarray(self.calls, np.int64),
                            minlength=len(self.mesh.sizes))
+
+
+def _logged_sends(mesh, fn):
+    """(fn(), the point-to-point sends it made)."""
+    log = _SendLog(mesh)
+    dist.batch_isend_irecv = log
+    try:
+        return fn(), log.sends
+    finally:
+        dist.batch_isend_irecv = log._orig
 
 
 def app_input(spec: dict, rank: int = 0) -> np.ndarray:
@@ -167,6 +183,10 @@ def run_apps(job, device):
             ).numpy()
     if "moe" in job:
         out.update(run_moe(job["moe"], device))
+    if "tp_ring" in job:
+        out.update(run_tp_ring(job["tp_ring"], device))
+    if "tp_decode" in job:
+        out.update(run_tp_decode(job["tp_decode"], device))
     return out
 
 
@@ -284,6 +304,271 @@ def run_moe_model(spec, mesh, d, device):
     return {"moe_model_prefill": logits.cpu().numpy(),
             "moe_model_decode": step.cpu().numpy(),
             "moe_model_a2a_calls": np.array(len(calls))}
+
+
+# the ring job's cases, (mode, chunks): the JAX suite's (tests/test_system.py)
+RING_CASES = (("two_phase", None), ("hdot", None), ("hdot", 1), ("hdot", 3))
+
+
+def ring_input(spec, n: int):
+    """(x, w, h, v) of the ring job on `n` ranks, standard normal float32
+    from numpy seed ``spec["seed"] + n``: x (rows·n, m) and w (m, cols·n)
+    for ag_matmul, h (rows·n, cols·n) and v (cols·n, m) for matmul_rs.
+    Rank r holds x's rows, w's and h's columns and v's rows of block r."""
+    rng = np.random.default_rng(spec["seed"] + n)
+    rows, cols, m = spec["rows"] * n, spec["cols"] * n, spec["m"]
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    return draw(rows, m), draw(m, cols), draw(rows, cols), draw(cols, m)
+
+
+def run_tp_ring(spec, device):
+    """ag_matmul and matmul_rs of every RING_CASES case on the job's
+    ("model",) ring: this rank's output and the sends of each call."""
+    from repro_torch.core import collective_matmul as cm
+
+    mesh = make_mesh(tuple(spec["mesh"]), ("model",), device)
+    r = mesh.rank
+    x, w, h, v = ring_input(spec, mesh.size)
+    rb = slice(r * spec["rows"], (r + 1) * spec["rows"])
+    cb = slice(r * spec["cols"], (r + 1) * spec["cols"])
+    args = {"ag": (cm.ag_matmul, x[rb], w[:, cb]),
+            "rs": (cm.matmul_rs, h[:, cb], v[cb])}
+    out = {}
+    for mode, chunks in RING_CASES:
+        for name, (fn, a, b) in args.items():
+            y, sends = _logged_sends(mesh, lambda: fn(
+                torch.from_numpy(a).to(device), torch.from_numpy(b).to(device),
+                mesh, "model", mode, chunks))
+            out[f"ring_{name}_{mode}_{chunks}"] = y.cpu().numpy()
+            out[f"ring_{name}_{mode}_{chunks}_sends"] = np.array(sends)
+    return out
+
+
+# the TP decode job's traffic: tests/test_decode_tp.py's (6 requests through
+# 4 slots, with refills)
+TP_PROMPTS = [[5, 9, 3], [7, 1], [2, 2, 2, 2, 8], [11], [4, 6], [1, 2, 3]]
+TP_MAX_NEW = [4, 6, 2, 1, 5, 3]
+
+
+def tp_fields(spec) -> dict:
+    """The TP decode job's changes to the reduced qwen3-8b config:
+    ``spec["layers"]`` layers and ``spec["heads"]`` (query, KV) heads (the
+    reduced config's 2 KV heads do not divide over 4 ranks)."""
+    return dict(num_layers=spec["layers"], num_heads=spec["heads"][0],
+                num_kv_heads=spec["heads"][1])
+
+
+def tp_model(spec, device):
+    """(model, params) of the TP decode job: reduced qwen3-8b changed by
+    :func:`tp_fields`, float32, dense attention, scanned, the port's init
+    from ``spec["seed"]`` drawn on the CPU (its CRC-32 leaf seeds give
+    every process the same tree)."""
+    import dataclasses
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions, build_model
+
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(),
+                              **tp_fields(spec))
+    model = build_model(cfg, ModelOptions(attn_impl="dense",
+                                          dtype=torch.float32))
+    return model, model.init(spec["seed"], "cpu").to(device)
+
+
+def tp_admitted(model, params, spec, device):
+    """(token, caches, pos) of one teacher-forced decode step: the first
+    `slots` prompts admitted into a `slots`-slot server's caches (batch-1
+    prefills, as the server admits), token 7 + i in slot i."""
+    from repro_torch.runtime.server import (_mark_prefill_tail,
+                                            _scatter_slot, make_slot_caches)
+
+    slots, max_len = spec["slots"], spec["max_len"]
+    caches = make_slot_caches(model, slots, max_len, device)
+    for i, p in enumerate(TP_PROMPTS[:slots]):
+        _, pc = model.prefill(params, {"tokens": torch.tensor([p],
+                                                              device=device)},
+                              max_len=max_len)
+        _scatter_slot(caches, _mark_prefill_tail(pc, len(p)), i, slots)
+    token = torch.tensor([[7 + i] for i in range(slots)], device=device)
+    pos = torch.tensor([len(p) for p in TP_PROMPTS[:slots]], device=device)
+    return token, caches, pos
+
+
+def tp_serve(model, params, spec, decode_step_fn=None):
+    """The job's requests through run_continuous: (outputs by request id,
+    -1 past a request's end, as one array; the server's stats)."""
+    from repro_torch.runtime.server import BatchServer, Request
+
+    srv = BatchServer(model, params, slots=spec["slots"],
+                      max_len=spec["max_len"], decode_step_fn=decode_step_fn)
+    for p, m in zip(TP_PROMPTS, TP_MAX_NEW):
+        srv.submit(Request(prompt=list(p), max_new_tokens=m))
+    toks = np.full((len(TP_PROMPTS), max(TP_MAX_NEW)), -1, np.int64)
+    for r in srv.run_continuous():
+        toks[r.rid, :len(r.output)] = r.output
+    return toks, srv.stats
+
+
+def run_tp_decode(spec, device):
+    """The TP decode step on the job's ("data", "model") mesh, in both
+    modes: one teacher-forced step's logits (every rank's are the global
+    ones) and its sends, then the job's requests served through
+    run_continuous with the step, their tokens, the decode steps and the
+    sends."""
+    from repro_torch.models.decode_tp import build_decode_step
+
+    mesh = make_mesh(tuple(spec["mesh"]), ("data", "model"), device)
+    model, params = tp_model(spec, device)
+    out = {}
+    for mode in ("hdot", "two_phase"):
+        step = build_decode_step(model, mesh, mode=mode)
+        token, caches, pos = tp_admitted(model, params, spec, device)
+        (logits, _), sends = _logged_sends(
+            mesh, lambda: step(params, token, caches, pos))
+        out[f"tp_{mode}_logits"] = logits.cpu().numpy()
+        out[f"tp_{mode}_step_sends"] = np.array(sends)
+        (toks, stats), sends = _logged_sends(
+            mesh, lambda: tp_serve(model, params, spec, step))
+        out[f"tp_{mode}_tokens"] = toks
+        out[f"tp_{mode}_decode_steps"] = np.array(stats["decode_steps"])
+        out[f"tp_{mode}_sends"] = np.array(sends)
+    return out
+
+
+class _Timed:
+    """Times each call of a decode step on the host clock, ending in a
+    synchronize (the server reads the chosen ids back every step anyway)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        torch.cuda.synchronize()
+        self.calls.append(time.perf_counter() - t0)
+        return out
+
+
+def tp_full_prompts(spec, vocab: int):
+    """chip_smoke.py phase 8's prompts: lengths uniform in 128-2048 from
+    numpy seed 0, token ids uniform in [1, vocab)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 2049, spec["requests"])
+    return [rng.integers(1, vocab, n).tolist() for n in lens]
+
+
+def run_tp_full(spec, device):
+    """A model at its published widths (bf16, flash attention, random
+    weights from seed 0) served by run_continuous: first on this card
+    alone (model.decode_step), then through the TP step on each
+    ("data", "model") mesh of ``spec["meshes"]`` in each mode of
+    ``spec["modes"]``. For each run: the tokens, the wall time, every
+    decode step's time, the sends, the flash launches and the card's
+    peak memory. For each TP case also one teacher-forced step after the
+    first `slots` requests are admitted (the first token of each request's
+    one-card output forced), against model.decode_step on a copy of the
+    same caches, and that step once more traced (torch.profiler: its wall
+    time, the NCCL time no compute kernel overlaps, and the host ops with
+    the most self time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.decode_tp import build_decode_step
+    from repro_torch.models.model import ModelOptions, build_model
+    from repro_torch.runtime.server import (BatchServer, Request,
+                                            _mark_prefill_tail, _scatter_slot,
+                                            _walk, make_slot_caches)
+
+    cfg = get_arch(spec["arch"])
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.bfloat16))
+    params = model.init(0, device)
+    meshes = [make_mesh(tuple(m), ("data", "model"), device)
+              for m in spec["meshes"]]
+    prompts = tp_full_prompts(spec, cfg.vocab_size)
+    slots, max_len, new = spec["slots"], spec["max_len"], spec["new_tokens"]
+    model.prefill(params, {"tokens": torch.tensor([prompts[0][:128]],
+                                                  device=device)})  # warm-up
+    out = {}
+
+    def serve(tag, step):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        # the one-card run decodes through model.decode_step itself: each
+        # rank serves alone, with no broadcast of the chosen ids
+        timed = _Timed(step if step is not None else model.decode_step)
+        srv = BatchServer(model, params, slots=slots, max_len=max_len,
+                          decode_step_fn=timed if step is not None else None)
+        if step is None:
+            model.decode_step = timed
+        for pr in prompts:
+            srv.submit(Request(prompt=pr, max_new_tokens=new))
+        flash0 = flash_ops.flash_attention.launches
+        t0 = time.perf_counter()
+        try:
+            served, sends = _logged_sends(meshes[0], srv.run_continuous)
+        finally:
+            if step is None:
+                del model.decode_step
+        torch.cuda.synchronize(device)
+        out[f"{tag}_wall_s"] = np.array(time.perf_counter() - t0)
+        toks = np.full((len(prompts), new), -1, np.int64)
+        for r in served:
+            toks[r.rid, :len(r.output)] = r.output
+        out[f"{tag}_tokens"] = toks
+        out[f"{tag}_step_s"] = np.array(timed.calls)
+        out[f"{tag}_sends"] = np.array(sends)
+        out[f"{tag}_prefills"] = np.array(srv.stats["prefills"])
+        out[f"{tag}_ids_off_rank0"] = np.array(srv.stats["ids_off_rank0"])
+        out[f"{tag}_flash"] = np.array(flash_ops.flash_attention.launches
+                                       - flash0)
+        out[f"{tag}_peak_bytes"] = np.array(
+            torch.cuda.max_memory_allocated(device))
+        return toks
+
+    one = serve("one", None)
+    for mesh in meshes:
+        for mode in spec["modes"]:
+            tag = "x".join(map(str, mesh.sizes)) + "_" + mode
+            step = build_decode_step(model, mesh, mode=mode)
+            serve(tag, step)
+            caches = make_slot_caches(model, slots, max_len, device)
+            for i, pr in enumerate(prompts[:slots]):
+                _, pc = model.prefill(params, {"tokens": torch.tensor(
+                    [pr], device=device)}, max_len=max_len)
+                _scatter_slot(caches, _mark_prefill_tail(pc, len(pr)), i,
+                              slots)
+            token = torch.from_numpy(one[:slots, :1].copy()).to(device)
+            pos = torch.tensor([len(p) for p in prompts[:slots]],
+                               device=device)
+            ref = _walk(caches, lambda _, t: t.clone())
+            got = step(params, token, caches, pos)[0]
+            want = model.decode_step(params, token, ref, pos)[0]
+            d = (got - want).abs()
+            out[f"{tag}_forced_mean_abs"] = np.array(float(d.mean()))
+            out[f"{tag}_forced_max_abs"] = np.array(float(d.max()))
+            del ref, got, want, d
+            torch.cuda.synchronize(device)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()     # the profiler's start excluded
+                step(params, token, caches, pos + 1)
+                torch.cuda.synchronize(device)
+                out[f"{tag}_traced_s"] = np.array(time.perf_counter() - t0)
+            for k, v in nccl_exposure(prof).items():
+                out[f"{tag}_{k}"] = np.array(v)
+            host = sorted(prof.key_averages(),
+                          key=lambda e: -e.self_cpu_time_total)[:8]
+            out[f"{tag}_host_top"] = np.array(json.dumps(
+                [[e.key, e.count, e.self_cpu_time_total / 1e3]
+                 for e in host]))
+            del step, caches, prof
+            torch.cuda.empty_cache()
+    return out
 
 
 def sync_tree(rank: int):
@@ -648,6 +933,8 @@ def check_zero3_log(log, keys, streaming: bool, steps: int,
 
 def run(job, u0, device, workdir=None):
     out = run_apps(job, device)
+    if "tp_full" in job:
+        out.update(run_tp_full(job["tp_full"], device))
     if "zero3" in job:
         out.update(run_zero3(job["zero3"], device))
     if "zero3_full" in job:

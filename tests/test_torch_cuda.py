@@ -3,8 +3,9 @@ SSD scan kernels against their plain PyTorch versions, the solver and the
 server (dense, MoE, Mamba-2, RecurrentGemma) on CUDA against the CPU, and
 (given 4 cards) NCCL ranks against one rank: the solvers, the staged
 all-reduce, MoE expert parallelism, the data-parallel and the ZeRO-3
-trainer; and Qwen3-8B at full width trained under streaming ZeRO-3 over
-4 cards. Marked ``gpu``;
+trainer, the TP rings and the TP decode step; Qwen3-8B at full width
+trained under streaming ZeRO-3 over 4 cards, and served through the TP
+decode step over 4 cards. Marked ``gpu``;
 without a card every test here skips. Imports no jax, so it runs where the
 JAX package is not installed:
 
@@ -175,7 +176,10 @@ def test_nccl_2x2_ranks_match_one_rank(cuda, tmp_path):
     of the plain sum) and through the int8 codec (within 0.03 relative; the
     int16 payload sums exactly); and MoE expert parallelism on a (2, 2)
     (data, model) mesh, Q = 1 and 2, against the dense dispatch on one
-    rank (_check_moe_ep_ranks)."""
+    rank (_check_moe_ep_ranks); and the TP rings on a (4,) ring against
+    numpy (rtol 1e-4; sends ring_permute_count a call) and the TP decode
+    step on a (2, 2) (data, model) mesh, reduced qwen3-8b in float32,
+    serving token for token what one rank serves (_check_tp_ranks)."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA devices")
     from _torch_dist import _star, app_input, spawn
@@ -193,9 +197,12 @@ def test_nccl_2x2_ranks_match_one_rank(cuda, tmp_path):
                scan_steps=4, chunk_weights=[[9.0] * 6 + [1.0] * 16, None],
                sweep_tile=[8, 10], sweep_sweeps=2, rk3=rk3, hpccg=hpccg,
                allreduce=dict(mesh=[2, 2], shape=[16, 8], seed=100,
-                              per_rank=True, odd_rows=5), moe=moe)
+                              per_rank=True, odd_rows=5), moe=moe,
+               tp_ring=dict(TP_RING, mesh=[4]),
+               tp_decode=dict(TP_DECODE, mesh=[2, 2]))
     ranks = spawn(job, u0, tmp_path, 300)
     _check_moe_ep_ranks(ranks, moe, cuda)
+    _check_tp_ranks(ranks, cuda)
     v0 = torch.from_numpy(app_input(rk3))
     want_rk3 = rk3_solve(v0, make_grid_mesh(1, 1, device="cpu"),
                          ("rows", "cols"), 3, 0.01, "two_phase").numpy()
@@ -238,6 +245,58 @@ def test_nccl_2x2_ranks_match_one_rank(cuda, tmp_path):
         for tag, scan in scans.items():
             np.testing.assert_array_equal(out[f"scan_{tag}"], scan.numpy())
             assert out[f"sends_{tag}"].tolist() == [4, 4]
+
+
+# tests/test_torch_dist.py's RING and TP jobs
+TP_RING = dict(seed=30, rows=15, cols=4, m=8)
+TP_DECODE = dict(layers=2, heads=[8, 4], seed=0, slots=4, max_len=16)
+
+
+def _check_tp_ranks(ranks, device):
+    """The TP jobs on the ranks: every ring output within rtol 1e-4 of
+    numpy's product (the JAX suite's bound), hdot within 1e-5 of
+    two_phase, ring_permute_count sends a hdot call; the TP decode step
+    on (2, 2), both modes, serves the one-rank server's tokens on `device`
+    (the card) token for token, with expected_permute_total sends a hdot
+    step, and its teacher-forced logits within 1e-4 of model.decode_step
+    on the card (the f32 model tolerance)."""
+    from _torch_dist import (RING_CASES, ring_input, tp_admitted, tp_model,
+                             tp_serve)
+
+    from repro_torch.core.collective_matmul import ring_permute_count
+    from repro_torch.models.decode_tp import expected_permute_total
+
+    x, w, h, v = ring_input(TP_RING, 4)
+    rows, cols = TP_RING["rows"], TP_RING["cols"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, params = tp_model(TP_DECODE, device)
+    tokens, stats = tp_serve(model, params, TP_DECODE)
+    logits, _ = model.decode_step(params, *tp_admitted(model, params,
+                                                       TP_DECODE, device))
+    per_step = expected_permute_total(model.cfg, TP_DECODE["slots"], 2, 2)
+    for r, out in enumerate(ranks):
+        want = {"ag": (x @ w)[:, r * cols:(r + 1) * cols],
+                "rs": (h @ v)[r * rows:(r + 1) * rows]}
+        for mode, chunks in RING_CASES:
+            for op in ("ag", "rs"):
+                got = out[f"ring_{op}_{mode}_{chunks}"]
+                np.testing.assert_allclose(got, want[op], rtol=1e-4,
+                                           atol=1e-4)
+                np.testing.assert_allclose(
+                    got, out[f"ring_{op}_two_phase_None"], rtol=1e-5,
+                    atol=1e-5)
+                assert int(out[f"ring_{op}_{mode}_{chunks}_sends"]) == (
+                    ring_permute_count(rows, 4, chunks=chunks)
+                    if mode == "hdot" else 0)
+        for mode in ("hdot", "two_phase"):
+            np.testing.assert_array_equal(out[f"tp_{mode}_tokens"], tokens)
+            steps = int(out[f"tp_{mode}_decode_steps"])
+            assert steps == stats["decode_steps"]
+            assert int(out[f"tp_{mode}_sends"]) == (
+                per_step * steps if mode == "hdot" else 0)
+            np.testing.assert_allclose(out[f"tp_{mode}_logits"],
+                                       logits.cpu().numpy(), rtol=1e-4,
+                                       atol=1e-4)
 
 
 def _check_moe_ep_ranks(ranks, spec, device):
@@ -476,6 +535,108 @@ def test_nccl_4_zero3_trains_qwen3_8b_full_width(cuda, tmp_path):
         "traced_step_rank0": {k: float(ranks[0][k]) for k in
                               ("nccl_ms", "compute_ms", "nccl_exposed_ms")},
     }))
+
+
+def test_nccl_4_tp_decode_serves_qwen3_8b_full_width(cuda, tmp_path):
+    """Qwen3-8B at its published widths (36 layers, d_model 4096, 32/8
+    heads of 128, d_ff 12288, vocab 151936; random bf16 weights from seed
+    0, replicated on every card) served by run_continuous over four NCCL
+    ranks, one card each, through the TP decode step on the ("data",
+    "model") meshes (1, 4) and (2, 2), under hdot and two_phase; chip_smoke
+    .py phase 8's traffic (16 requests, prompts uniform in 128-2048 tokens
+    from numpy seed 0, 64 new tokens each, 8 slots, max_len 2176, greedy).
+    Every rank first serves the same traffic alone (model.decode_step).
+
+    Holds, for each mesh and mode: every request gets its 64 tokens; the
+    sends a decode step equal expected_permute_total (two_phase none); the
+    flash kernel launched 36 times a prefill; on every rank, a
+    teacher-forced first decode step after identical admissions within
+    the bf16 logit bounds (mean 0.1, max 1.0) of that rank's own
+    model.decode_step; every card's peak under 80 GiB. Every rank serves
+    rank 0's ids by construction (the server broadcasts them), so what is
+    reported instead is how many ids each rank had chosen otherwise before
+    the broadcast. Prints one JSON line per run: the cards' names and
+    power limits (nvidia-smi), output tokens/s, the median decode-step ms,
+    the peak GiB of each card, the sends a step, the ids each rank chose
+    otherwise than rank 0, rank 0's traced decode step (its wall time,
+    NCCL time, the NCCL time no compute overlaps, the share hidden, the
+    device's idle share, the host ops with the most self time), and,
+    reported, not held (the rings reassociate bf16 sums), the share of
+    tokens equal to the one-card server's and to the other mode's."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import json
+    import statistics
+    import subprocess
+
+    from _torch_dist import spawn
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.decode_tp import expected_permute_total
+
+    spec = dict(arch="qwen3-8b", requests=16, new_tokens=64, slots=8,
+                max_len=2176, meshes=[[1, 4], [2, 2]],
+                modes=["hdot", "two_phase"])
+    ranks = spawn(dict(mesh=[4], backend="nccl", tp_full=spec), None,
+                  tmp_path, 1500)
+    cfg = get_arch("qwen3-8b")
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    r0 = ranks[0]
+    tags = ["one"] + [f"{dp}x{tp}_{mode}" for dp, tp in spec["meshes"]
+                      for mode in spec["modes"]]
+    for tag in tags:
+        toks = r0[f"{tag}_tokens"]
+        assert (toks >= 0).all() and (toks < cfg.vocab_size).all(), tag
+        for out in ranks:
+            assert out[f"{tag}_peak_bytes"] < 80 * 2 ** 30
+        prefills = int(r0[f"{tag}_prefills"])
+        assert int(r0[f"{tag}_flash"]) == 36 * prefills, tag
+        step_s = r0[f"{tag}_step_s"]
+        row = {"test": "tp_decode_qwen3_8b_full_width", "run": tag,
+               "cards": 1 if tag == "one" else 4, "gpu": gpu,
+               "output_tokens_per_s": toks.size / float(r0[f"{tag}_wall_s"]),
+               "wall_s": float(r0[f"{tag}_wall_s"]),
+               "decode_steps": len(step_s),
+               "decode_step_ms_median": 1e3 * statistics.median(step_s),
+               "prefills": prefills, "flash_launches": int(r0[f"{tag}_flash"]),
+               "peak_gib": [float(o[f"{tag}_peak_bytes"]) / 2 ** 30
+                            for o in ranks]}
+        if tag != "one":
+            mesh_tag, mode = tag.split("_", 1)
+            dp, tp = map(int, mesh_tag.split("x"))
+            sends = int(r0[f"{tag}_sends"])
+            assert sends == (expected_permute_total(cfg, spec["slots"], dp,
+                                                    tp) * len(step_s)
+                             if mode == "hdot" else 0), (tag, sends)
+            forced = [{k: float(out[f"{tag}_forced_{k}"])
+                       for k in ("mean_abs", "max_abs")} for out in ranks]
+            for r, f in enumerate(forced):
+                assert f["mean_abs"] <= 0.1 and f["max_abs"] <= 1.0, \
+                    (tag, r, f)
+            other = mesh_tag + ("_two_phase" if mode == "hdot" else "_hdot")
+            nccl = float(r0[f"{tag}_nccl_ms"])
+            exposed = float(r0[f"{tag}_nccl_exposed_ms"])
+            compute = float(r0[f"{tag}_compute_ms"])
+            wall = 1e3 * float(r0[f"{tag}_traced_s"])
+            row.update(
+                sends_per_step=sends / len(step_s),
+                ids_off_rank0=[int(out[f"{tag}_ids_off_rank0"])
+                               for out in ranks],
+                teacher_forced_vs_decode_step=forced,
+                traced_step_rank0={
+                    "wall_ms": wall, "nccl_ms": nccl, "compute_ms": compute,
+                    "nccl_exposed_ms": exposed,
+                    "nccl_hidden_share": (nccl - exposed) / nccl
+                    if nccl else None,
+                    "device_idle_share": 1 - (compute + exposed) / wall,
+                    "host_top_self_ms": json.loads(
+                        str(r0[f"{tag}_host_top"]))},
+                tokens_equal_one_card=float((toks == r0["one_tokens"]).mean()),
+                tokens_equal_other_mode=float(
+                    (toks == r0[f"{other}_tokens"]).mean()))
+        print(json.dumps(row))
 
 
 FLASH_CASES = [  # (b, sq, sk, hq, hkv, d, causal, window)

@@ -12,7 +12,12 @@ parallelism (moe_apply_ep over a2a_scan) on (2,) and (4,) ("model",) and
 Q = 1, 2, 4 capacity slices and the all-to-alls' issue order; ZeRO-3
 (gathering all and streaming) on (2,), (4,) and (2, 2) ("pod", "data")
 against the replicated trainer on one rank, streaming bit-equal to
-gathering all, with each rank's shards and the collectives' issue order.
+gathering all, with each rank's shards and the collectives' issue order;
+the TP rings (ag_matmul, matmul_rs) on (2,), (3,) and (4,) ranks against
+numpy and the JAX package's rings on forced host devices, with their
+point-to-point sends counted, and the TP decode step on (1, 4) and (2, 2)
+("data", "model") against the port's and the JAX package's one-device
+servers and the JAX build_decode_step.
 
 Each job spawns its ranks as separate processes (``tests/_torch_dist.py``,
 which imports no jax) with a FileStore of their own in a temporary
@@ -29,6 +34,7 @@ two_phase, and so is HPCCG's hdot to its two_phase on each rank count.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -39,9 +45,10 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
-from _torch_dist import (_star, _sum3, app_input, check_issue_order,
-                         check_zero3_log, moe_config, moe_input, params_close,
-                         spawn)
+from _torch_dist import (RING_CASES, TP_PROMPTS, _star, _sum3, app_input,
+                         check_issue_order, check_zero3_log, moe_config,
+                         moe_input, params_close, ring_input, spawn,
+                         tp_admitted, tp_model, tp_serve)
 from repro.core import halo as jhalo
 from repro.core import stencil as jst
 from repro.launch.mesh import make_grid_mesh as jgrid_mesh
@@ -154,20 +161,31 @@ MOE = dict(seed=21, experts=8, top_k=2, factor=8.0, batch=4, seq=32,
 # per-layer layout, (8, 16) tokens a step (tests/_torch_dist.py run_zero3)
 ZERO3 = dict(arch="qwen3-8b", steps=3, global_batch=8, seq_len=16, lr=5e-3,
              cases=["gather", "stream"])
+# the TP rings: 15 rows a rank (uneven bidirectional pieces, as
+# tests/test_system.py's), 4 columns a rank, inner width 8; the TP decode
+# step: reduced qwen3-8b with 2 layers in float32, 4 slots, max_len 16
+# (tests/test_decode_tp.py's setup), with 8/4 heads so that (1, 4) divides
+RING = dict(seed=30, rows=15, cols=4, m=8)
+TP = dict(layers=2, heads=[8, 4], seed=0, slots=4, max_len=16)
 APP_JOBS = {
     "2": dict(mesh=[2], rk3=dict(RK3, mesh=[2], axes=SLAB),
               hpccg=dict(HPCCG, mesh=[2], axes=SLAB),
               moe=dict(MOE, mesh=[2], axes=["model"]),
-              zero3=dict(ZERO3, mesh=[2], axes=["data"])),
+              zero3=dict(ZERO3, mesh=[2], axes=["data"]),
+              tp_ring=dict(RING, mesh=[2])),
+    "3": dict(mesh=[3], tp_ring=dict(RING, mesh=[3])),
     "4": dict(mesh=[4], rk3=dict(RK3, mesh=[4], axes=SLAB),
               moe=dict(MOE, mesh=[4], axes=["model"]),
-              zero3=dict(ZERO3, mesh=[4], axes=["data"])),
+              zero3=dict(ZERO3, mesh=[4], axes=["data"]),
+              tp_ring=dict(RING, mesh=[4]),
+              tp_decode=dict(TP, mesh=[1, 4])),
     "2x2": dict(mesh=[2, 2], rk3=dict(RK3, mesh=[2, 2], axes=PAIR),
                 hpccg=dict(HPCCG, mesh=[2, 2], axes=PAIR),
                 allreduce=dict(mesh=[2, 2], shape=[16, 8], seed=100,
                                per_rank=True, odd_rows=5),
                 moe=dict(MOE, mesh=[2, 2], axes=["data", "model"]),
-                zero3=dict(ZERO3, mesh=[2, 2], axes=["pod", "data"])),
+                zero3=dict(ZERO3, mesh=[2, 2], axes=["pod", "data"]),
+                tp_decode=dict(TP, mesh=[2, 2])),
     "2x2x2": dict(mesh=[2, 2, 2],
                   hpccg=dict(HPCCG, mesh=[2, 2, 2], axes=TRIPLE)),
 }
@@ -175,6 +193,8 @@ RK3_JOBS = [k for k, v in APP_JOBS.items() if "rk3" in v]
 MOE_JOBS = [k for k, v in APP_JOBS.items() if "moe" in v]
 ZERO3_JOBS = [k for k, v in APP_JOBS.items() if "zero3" in v]
 HPCCG_JOBS = [k for k, v in APP_JOBS.items() if "hpccg" in v]
+RING_JOBS = [k for k, v in APP_JOBS.items() if "tp_ring" in v]
+TP_JOBS = [k for k, v in APP_JOBS.items() if "tp_decode" in v]
 
 
 @pytest.fixture(scope="module")
@@ -795,3 +815,211 @@ def test_zero3_ranks_hold_their_shards_and_issue_the_schedule(
                             case == "stream", ZERO3["steps"])
             want = torch.cat([full[k].reshape(n, -1)[r] for k in layout.keys])
             np.testing.assert_array_equal(out[f"{tag}_init"], want.numpy())
+
+
+# ----------------------------------------------------- TP rings and decode
+@pytest.fixture(scope="module")
+def jax_tp():
+    """The JAX package on 4 forced host devices (one subprocess): ag_matmul
+    and matmul_rs of every RING_CASES case on (2,), (3,) and (4,) rings
+    (the global outputs), and its build_decode_step's teacher-forced
+    logits on the (1, 4) and (2, 2) ("data", "model") meshes in both modes,
+    on the port's parameters of the TP job (its init, exported with numpy)
+    and the same admitted caches."""
+    repo = Path(__file__).resolve().parents[1]
+    code = f"""
+    import dataclasses, functools, json, sys
+    sys.path.insert(0, {str(repo / "tests")!r})
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import Mesh, PartitionSpec as P
+    from repro.config.registry import get_arch
+    from repro.core.collective_matmul import ag_matmul, matmul_rs
+    from repro.launch.mesh import make_mesh
+    from repro.models.decode_tp import build_decode_step
+    from repro.models.model import ModelOptions, build_model
+    from repro.runtime.server import (_mark_prefill_tail, _scatter_slot,
+                                      make_slot_caches)
+    from _torch_dist import (RING_CASES, TP_PROMPTS, ring_input, tp_fields,
+                             tp_model)
+    from repro_torch.models.layers import tree_map
+
+    ring, tp = {RING!r}, {TP!r}
+    out = {{}}
+    for n in (2, 3, 4):
+        mesh = Mesh(np.array(jax.devices()[:n]), ("model",))
+        x, w, h, v = ring_input(ring, n)
+        for mode, chunks in RING_CASES:
+            for name, fn, a, b, specs, ospec in (
+                    ("ag", ag_matmul, x, w, (P("model", None), P(None, "model")),
+                     P(None, "model")),
+                    ("rs", matmul_rs, h, v, (P(None, "model"), P("model", None)),
+                     P("model", None))):
+                f = jax.jit(jax.shard_map(
+                    functools.partial(fn, axis_name="model", mode=mode,
+                                      chunks=chunks),
+                    mesh=mesh, in_specs=specs, out_specs=ospec))
+                out[f"ring_{{name}}_{{n}}_{{mode}}_{{chunks}}"] = np.asarray(
+                    f(a, b)).tolist()
+    tmodel, tparams = tp_model(tp, "cpu")
+    params = jax.tree.map(jnp.asarray, tree_map(lambda t: t.numpy(), tparams))
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(), **tp_fields(tp))
+    model = build_model(cfg, ModelOptions(attn_impl="dense",
+                                          dtype=jnp.float32))
+    slots, max_len = tp["slots"], tp["max_len"]
+    caches = make_slot_caches(model, slots, max_len)
+    for i, p in enumerate(TP_PROMPTS[:slots]):
+        _, pc = model.prefill(params, {{"tokens": jnp.asarray([p])}},
+                              max_len=max_len)
+        caches = _scatter_slot(caches, _mark_prefill_tail(pc, len(p)), i,
+                               slots)
+    token = jnp.asarray([[7 + i] for i in range(slots)])
+    pos = jnp.asarray([len(p) for p in TP_PROMPTS[:slots]])
+    for shape in ((1, 4), (2, 2)):
+        for mode in ("hdot", "two_phase"):
+            step = build_decode_step(model, make_mesh(shape, ("data", "model")),
+                                     mode=mode)
+            logits, _ = jax.jit(step)(params, token, caches, pos)
+            out[f"tp_{{shape[0]}}x{{shape[1]}}_{{mode}}"] = np.asarray(
+                logits).tolist()
+    print(json.dumps(out))
+    """
+    return {k: np.asarray(v, np.float32)
+            for k, v in run_devices(code, 4).items()}
+
+
+def _ring_blocks(n: int, r: int):
+    return (slice(r * RING["rows"], (r + 1) * RING["rows"]),
+            slice(r * RING["cols"], (r + 1) * RING["cols"]))
+
+
+@pytest.mark.parametrize("name", RING_JOBS)
+def test_tp_rings_match_numpy_and_count_sends(app_runs, name):
+    """ag_matmul and matmul_rs on (2,), (3,) and (4,) gloo rings, 15 rows
+    a rank, both modes, chunks None, 1 and 3: every rank's output within
+    rtol 1e-4 of numpy's x @ w (the JAX suite's bound), hdot within 1e-5
+    of two_phase, and each hdot call sent ring_permute_count messages
+    (two_phase none)."""
+    from repro_torch.core.collective_matmul import ring_permute_count
+
+    ranks = app_runs(name)
+    n = len(ranks)
+    x, w, h, v = ring_input(RING, n)
+    for r, out in enumerate(ranks):
+        rb, cb = _ring_blocks(n, r)
+        want = {"ag": (x @ w)[:, cb], "rs": (h @ v)[rb]}
+        for mode, chunks in RING_CASES:
+            sends = (ring_permute_count(RING["rows"], n, chunks=chunks)
+                     if mode == "hdot" else 0)
+            assert sends == 0 or sends >= n - 1
+            for op in ("ag", "rs"):
+                got = out[f"ring_{op}_{mode}_{chunks}"]
+                np.testing.assert_allclose(got, want[op], rtol=1e-4,
+                                           atol=1e-4)
+                np.testing.assert_allclose(
+                    got, out[f"ring_{op}_two_phase_None"], rtol=1e-5,
+                    atol=1e-5)
+                assert int(out[f"ring_{op}_{mode}_{chunks}_sends"]) == sends
+
+
+@pytest.mark.parametrize("name", RING_JOBS)
+def test_tp_rings_match_jax(app_runs, jax_tp, name):
+    """The same inputs through the JAX package's rings on n forced host
+    devices: every rank's block within rtol 1e-5."""
+    ranks = app_runs(name)
+    n = len(ranks)
+    for r, out in enumerate(ranks):
+        rb, cb = _ring_blocks(n, r)
+        for mode, chunks in RING_CASES:
+            want = jax_tp[f"ring_ag_{n}_{mode}_{chunks}"][:, cb]
+            np.testing.assert_allclose(out[f"ring_ag_{mode}_{chunks}"], want,
+                                       rtol=1e-5, atol=1e-5)
+            want = jax_tp[f"ring_rs_{n}_{mode}_{chunks}"][rb]
+            np.testing.assert_allclose(out[f"ring_rs_{mode}_{chunks}"], want,
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def tp_one_rank():
+    """The TP job on one rank, the port's plain path: the served tokens,
+    the teacher-forced step's logits (model.decode_step), and the JAX
+    BatchServer's tokens on the same parameters."""
+    from repro.config.registry import get_arch as jax_arch
+    from repro.models.model import ModelOptions as JaxOptions
+    from repro.models.model import build_model as jax_build
+    from repro.runtime.server import BatchServer as JaxServer
+    from repro.runtime.server import Request as JaxRequest
+    from _torch_dist import TP_MAX_NEW, tp_fields
+
+    from repro_torch.models.layers import tree_map
+
+    model, params = tp_model(TP, "cpu")
+    tokens, stats = tp_serve(model, params, TP)
+    logits, _ = model.decode_step(params, *tp_admitted(model, params, TP,
+                                                       "cpu"))
+    jm = jax_build(dataclasses.replace(jax_arch("qwen3-8b").reduced(),
+                                       **tp_fields(TP)),
+                   JaxOptions(attn_impl="dense", dtype=jnp.float32))
+    jp = jax.tree.map(jnp.asarray, tree_map(lambda t: t.numpy(), params))
+    srv = JaxServer(jm, jp, slots=TP["slots"], max_len=TP["max_len"])
+    for p, m in zip(TP_PROMPTS, TP_MAX_NEW):
+        srv.submit(JaxRequest(prompt=list(p), max_new_tokens=m))
+    jax_tokens = np.full_like(tokens, -1)
+    for r in srv.run_continuous():
+        jax_tokens[r.rid, :len(r.output)] = r.output
+    return {"tokens": tokens, "stats": stats, "logits": logits.numpy(),
+            "jax_tokens": jax_tokens, "cfg": model.cfg}
+
+
+def _tp_mesh(name):
+    dp, tp = APP_JOBS[name]["tp_decode"]["mesh"]
+    return dp, tp
+
+
+@pytest.mark.parametrize("name", TP_JOBS)
+def test_tp_decode_serves_the_one_rank_and_jax_tokens(app_runs, tp_one_rank,
+                                                      name):
+    """run_continuous with the TP step on (1, 4) and (2, 2) ("data",
+    "model") gloo ranks, both modes, reduced qwen3-8b in float32 (6
+    requests through 4 slots, with refills): every rank serves the port's
+    one-rank tokens and the JAX BatchServer's, token for token, and sends
+    expected_permute_total messages a decode step (two_phase none)."""
+    from repro_torch.models.decode_tp import expected_permute_total
+
+    dp, tp = _tp_mesh(name)
+    per_step = expected_permute_total(tp_one_rank["cfg"], TP["slots"], dp, tp)
+    assert per_step == (4 * TP["layers"] + 1) * (tp - 1)
+    np.testing.assert_array_equal(tp_one_rank["tokens"],
+                                  tp_one_rank["jax_tokens"])
+    for out in app_runs(name):
+        for mode in ("hdot", "two_phase"):
+            np.testing.assert_array_equal(out[f"tp_{mode}_tokens"],
+                                          tp_one_rank["tokens"])
+            steps = int(out[f"tp_{mode}_decode_steps"])
+            assert steps == tp_one_rank["stats"]["decode_steps"]
+            assert int(out[f"tp_{mode}_sends"]) == (
+                per_step * steps if mode == "hdot" else 0)
+
+
+@pytest.mark.parametrize("name", TP_JOBS)
+def test_tp_decode_step_matches_jax_build_decode_step(app_runs, jax_tp,
+                                                      tp_one_rank, name):
+    """One teacher-forced step after identical admissions: every rank's
+    logits (all slots, gathered over "data") within rtol 1e-5, atol 1e-5
+    of the JAX build_decode_step's on the same mesh shape and mode (4
+    forced host devices), and of model.decode_step on one rank; the step
+    sent expected_permute_total messages (two_phase none)."""
+    from repro_torch.models.decode_tp import expected_permute_total
+
+    dp, tp = _tp_mesh(name)
+    for out in app_runs(name):
+        for mode in ("hdot", "two_phase"):
+            got = out[f"tp_{mode}_logits"]
+            assert got.shape == (TP["slots"], 1,
+                                 tp_one_rank["cfg"].vocab_size)
+            np.testing.assert_allclose(got, jax_tp[f"tp_{dp}x{tp}_{mode}"],
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(got, tp_one_rank["logits"],
+                                       rtol=1e-5, atol=1e-5)
+            assert int(out[f"tp_{mode}_step_sends"]) == (
+                expected_permute_total(tp_one_rank["cfg"], TP["slots"], dp,
+                                       tp) if mode == "hdot" else 0)

@@ -228,10 +228,30 @@ def test_build_run_matches_jax(tmp_path):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
+def test_collective_matmul_flag_trains_the_same_step(tmp_path):
+    """``ParallelConfig.collective_matmul`` is read nowhere, in the JAX
+    package too (its trainer trains the same step with it set): two steps
+    with it set equal two without it, bit for bit."""
+    run, _ = _runs(tmp_path / "a")
+    ring = dataclasses.replace(
+        run, parallel=dataclasses.replace(run.parallel,
+                                          collective_matmul=True),
+        train=dataclasses.replace(run.train,
+                                  checkpoint_dir=str(tmp_path / "b")))
+    plain, flagged = Trainer(run, device="cpu"), Trainer(ring, device="cpu")
+    plain.train(2)
+    flagged.train(2)
+    assert [m["loss"] for m in flagged.metrics_log] == [
+        m["loss"] for m in plain.metrics_log]
+    for a, b in zip(tree_leaves({"p": plain.params, "o": plain.opt_state}),
+                    tree_leaves({"p": flagged.params,
+                                 "o": flagged.opt_state})):
+        assert torch.equal(a, b)
+
+
 def test_what_this_slice_does_not_train_raises(tmp_path):
     run, _ = _runs(tmp_path)
-    for field, value in (("collective_matmul", True),
-                         ("moe_a2a_chunks", 2),
+    for field, value in (("moe_a2a_chunks", 2),
                          ("grad_compression", "int8_ef")):
         bad = dataclasses.replace(run, parallel=dataclasses.replace(
             run.parallel, **{field: value}))
