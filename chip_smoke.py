@@ -16,7 +16,10 @@ vocab 92544) under the gradient-bucket schedule, phases 18-19, and under
 streaming ZeRO-3, phase 22; serving Qwen3-30B-A3B (48 layers, d_model
 2048, 32/4 heads of 128 with qk-norm, 128 experts of width 768, top-8,
 vocab 151936; 30.5 B parameters, 3.35 B active), phases 20-21, run after
-phase 15:
+phase 15; Whisper-base (6 + 6 layers, d_model 512, 8 heads of 64, 1500
+frames, vocab 51865, tied) served and trained, phases 23-24; and
+LLaVA-NeXT-34B (60 layers, d_model 7168, 56/8 heads of 128, d_ff 20480,
+vocab 64000, 576 patches; 34.4 B parameters) served, phase 25, last:
 
   1. build    nvcc builds every kernel of all paths from the checkout's
               sources (four), one process per source, all started together;
@@ -51,8 +54,9 @@ phase 15:
               wave prefill, a ragged prompt, a 1024 window at 4096;
               RecurrentGemma-2B at head dim 256, MQA 10/1: a 2048 prefill,
               a 2048 window at 4096, a ragged prompt; Qwen3-30B-A3B's
-              admission prefill at GQA group 8, 32/4 heads) and an f32
-              non-causal case; tolerance 2e-2 in bf16, 2e-5 in f32 (the JAX
+              admission prefill at GQA group 8, 32/4 heads; Whisper's
+              encoder, (8, 1500, 8/8, 64); LLaVA's prefill, (4, 1088,
+              56/8, 128), GQA group 7) and an f32 non-causal case; tolerance 2e-2 in bf16, 2e-5 in f32 (the JAX
               suite's). Kernel, plain and library (scaled_dot_product_
               attention, timed here only) times come from CUDA events
               around back-to-back runs;
@@ -203,6 +207,34 @@ phase 15:
               restore_fsdp_checkpoint under the per-layer layout into a
               streaming and a gathering-all trainer (each bit-equal to the
               writer's state re-cut), 2 more steps on each: bit-equal.
+ 23. serve    Whisper-base at its published widths, bf16, seed 0,
+              through model.prefill / model.decode_step (the server
+              refuses the family, as the reference's does): 8 requests,
+              stub frames (8, 1500, 512) from numpy seed 0 times 0.02,
+              4-token prompts, 200 new tokens each, greedy, max_len 448,
+              one prefill and 199 decode steps at a shared position
+              (counted: flash 12 launches in the prefill, 6 encoder and 6
+              decoder layers, none in decode). Encoder and decoder prefill
+              ms, decode-step ms, output tokens/s, peak memory; the
+              cross-attention caches must be bit-unchanged by decode.
+              Checks: the prefill's and 8 teacher-forced decode steps'
+              logits under flash against dense attention within the bf16
+              bounds; a traced prefill and 5 decode steps.
+ 24. train    Whisper-base at its published widths as build_run sets it
+              up (bf16, seed 0, remat "full", AdamW, the synthetic data
+              pipeline, the reference's float32 stub frames, dense
+              attention): 16 x 448 text tokens and 16 x 1500 frames a
+              step, a warm-up and 4 timed steps, then one traced step by
+              op family. MFU on 6·(N_enc·1500 + N_dec·448)·16 (the encoder
+              and the cross-attention K/V projections run over the
+              frames). Checks: losses finite, the first loss within rtol
+              1e-3 of the CPU's (same parameters and batch, forward
+              only), no kernel of the port launched.
+ 25. serve    LLaVA-NeXT-34B as phase 23 (4 requests, stub patches (4,
+              576, 7168), 512-token prompts, 64 new tokens, max_len 1152;
+              decode positions from 576 + 512; flash 60 launches a
+              prefill at GQA group 7; 4 teacher-forced steps), run last,
+              after everything before it is freed.
 
 Each phase prints one JSON line (a serve phase one per scheduler and one of
 checks); then the nvidia-smi line, the kernels line and, last,
@@ -215,6 +247,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -251,6 +284,8 @@ FLASH_CASES = [  # (dtype, b, s_q, s_k, hq, hkv, d, causal, window)
     ("bf16", 1, 4096, 4096, 10, 1, 256, True, 2048),   # window 2048
     ("bf16", 1, 1000, 1000, 10, 1, 256, True, 2048),   # ragged prompt
     ("bf16", 1, 2048, 2048, 32, 4, 128, True, None),   # GQA group 8 (MoE)
+    ("bf16", 8, 1500, 1500, 8, 8, 64, True, None),     # Whisper encoder
+    ("bf16", 4, 1088, 1088, 56, 8, 128, True, None),   # LLaVA, GQA group 7
 ]
 LRU_CASES = [  # (b, l, w, b dtype, h0)
     (1, 2048, 2560, "f32", False),     # RecurrentGemma admission prefill
@@ -273,7 +308,9 @@ SERVE_ARCHS = [("qwen3-8b", 8, 9), ("recurrentgemma-2b", 12, 13),
 PER_PREFILL = {"qwen3-8b": {"flash_attention": 36},
                "recurrentgemma-2b": {"lru_scan": 18, "flash_attention": 8},
                "mamba2-780m": {"ssd_scan": 48},
-               "qwen3-moe-30b-a3b": {"flash_attention": 48}}
+               "qwen3-moe-30b-a3b": {"flash_attention": 48},
+               "whisper-base": {"flash_attention": 12},   # 6 enc + 6 dec
+               "llava-next-34b": {"flash_attention": 60}}
 FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}  # tests/test_kernels.py's
 # names of the port's CUDA kernels in a trace (their __global__ functions)
 PORT_KERNELS = ("tile_sweep", "half_sweep", "flash_fwd", "lru_scan_kernel",
@@ -500,12 +537,13 @@ def counted_wrappers():
 
 
 def per_prefill(cfg) -> dict:
-    """Kernel launches one prefill makes: one a layer of each kind."""
-    from repro_torch.models.transformer import block_kinds
+    """Kernel launches one prefill makes: one a layer of each kind (and
+    one an encoder layer)."""
+    from repro_torch.models.transformer import ATTN_KINDS, block_kinds
 
     kinds = block_kinds(cfg)
-    got = {"flash_attention": sum(k in ("attn", "attn_moe", "local_attn")
-                                  for k in kinds),
+    enc = cfg.encdec.enc_layers if cfg.family == "encdec" else 0
+    got = {"flash_attention": sum(k in ATTN_KINDS for k in kinds) + enc,
            "lru_scan": kinds.count("rglru"), "ssd_scan": kinds.count("ssm")}
     return {k: v for k, v in got.items() if v}
 
@@ -1832,6 +1870,349 @@ def zero3_phase(dev, card, kernel_ops) -> list:
     return rows
 
 
+# ------------------------------------- 23-25. encoder-decoder and VLM serving
+# arch: (requests, prompt tokens, new tokens, max_len, teacher-forced steps
+# of the check). Both serve the unrolled layout: Whisper's stack is never
+# uniform; LLaVA's scanned draw takes fan_in = 60 layers for its stacked
+# weights (the reference's init, ROADMAP.md Queue 3), 10.9x too large
+# without qk-norm, and rounding alone then moves its bf16 logits past the
+# bounds (scanned_draw_check reports by how much).
+FRONTEND_SERVE = {
+    "whisper-base": (8, 4, 200, 448, 8),      # Whisper's 4-token SOT prefix
+    "llava-next-34b": (4, 512, 64, 1152, 4),  # 576 patches before the text
+}
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 16, 448
+TRAIN_LOSS_RTOL = 1e-3                   # bf16 card vs CPU, a mean over
+                                         # 7,168 tokens of O(10) losses
+
+
+def frontend_batch(cfg, requests: int, prompt_len: int, dev) -> dict:
+    """Prompts and stub frontend embeddings (Whisper's frames, LLaVA's
+    patches) from numpy seed 0, the stubs times 0.02, in bf16."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    key, n = (("frames", cfg.encdec.enc_seq) if cfg.family == "encdec"
+              else ("patches", cfg.num_vision_patches))
+    stub = rng.standard_normal((requests, n, cfg.d_model)) * 0.02
+    toks = rng.integers(1, cfg.vocab_size, (requests, prompt_len))
+    return {"tokens": torch.from_numpy(toks).to(dev),
+            key: torch.from_numpy(stub.astype(np.float32)).to(
+                dev, torch.bfloat16)}
+
+
+def first_decode_pos(cfg, prompt_len: int) -> int:
+    """The position of the first decode token: a VLM's patches come
+    first."""
+    return prompt_len + (cfg.num_vision_patches if cfg.family == "vlm"
+                         else 0)
+
+
+def forced_logits(model, params, batch, forced, max_len: int, start: int):
+    """The prefill's last logits and those of decode steps fed `forced`
+    (b, k) tokens one at a time: (b, k + 1, vocab) f32."""
+    logits, caches = model.prefill(params, batch, max_len=max_len)
+    out = [logits[:, -1].float()]
+    for n in range(forced.shape[1]):
+        logits, caches = model.decode_step(params, forced[:, n:n + 1],
+                                           caches, start + n)
+        out.append(logits[:, -1].float())
+    del caches
+    return torch.stack(out, 1)
+
+
+def frontend_serve_phase(arch: str, phase: int, dev, card) -> dict:
+    """Phases 23 and 25: `arch` at its published widths through
+    ``model.prefill`` / ``model.decode_step`` with the stub frontend
+    inputs in the batch (``BatchServer`` admits by token-only prefill and
+    refuses these families, as the reference's does), greedy, all
+    requests of one prompt length: one prefill, then decode steps at one
+    shared position. Counted: every kernel count set to 0 just before,
+    read after the prefill and after the last step. Then the checks (the
+    flash prefill and teacher-forced decode steps against dense attention,
+    the plain function; Whisper's cross-attention caches unchanged by
+    decode) and a traced prefill and 5 decode steps."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions, build_model
+    from repro_torch.models.transformer import uniform_stack
+
+    cfg = get_arch(arch)
+    requests, plen, new, max_len, n_forced = FRONTEND_SERVE[arch]
+    check(per_prefill(cfg) == PER_PREFILL[arch],
+          f"{arch}: launches per prefill {per_prefill(cfg)}")
+    start = first_decode_pos(cfg, plen)
+    check(start + new <= max_len, f"{arch}: {start} + {new} > {max_len}")
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.bfloat16,
+                                          scan_layers=False))
+    torch.cuda.synchronize()
+    free_gib = torch.cuda.mem_get_info(dev)[0] / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gib = sum(p.numel() * p.element_size()
+                    for p in params.parameters()) / 2**30
+    emit({"phase": "serve_setup", "n": phase, "arch": cfg.name,
+          "family": cfg.family, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+          "enc_layers": cfg.encdec.enc_layers if cfg.encdec else None,
+          "frontend_positions": (cfg.encdec.enc_seq if cfg.encdec
+                                 else cfg.num_vision_patches),
+          "per_prefill": per_prefill(cfg),
+          "params": sum(p.numel() for p in params.parameters()),
+          "param_gib": param_gib, "free_gib_before": free_gib,
+          "init_s": init_s, "layout": "unrolled",
+          "requests": requests, "prompt_len": plen,
+          "new_tokens": new, "max_len": max_len, "gpu": card})
+    batch = frontend_batch(cfg, requests, plen, dev)
+    model.prefill(params, {k: v[:1] for k, v in batch.items()},
+                  max_len=max_len)                       # warm-up
+    prefill = StepTimer(model.prefill)
+    decode = StepTimer(model.decode_step)
+    encode = StepTimer(model._encode) if cfg.family == "encdec" else None
+    if encode is not None:
+        model._encode = encode
+    wrappers = counted_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch, max_len=max_len)
+    after_prefill = {k: fn.launches for k, fn in wrappers.items()}
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    out = [tok]
+    cross = None
+    if cfg.family == "encdec":
+        cross = [{k: c[k].clone() for k in ("cross_k", "cross_v")}
+                 for c in caches]
+    for n in range(new - 1):
+        logits, caches = decode(params, tok, caches, start + n)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    if encode is not None:
+        del model._encode
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    tokens = torch.cat(out, 1)
+    check(tokens.shape == (requests, new), f"{arch}: tokens {tokens.shape}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"{arch}: token id out of range")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    for name, fn in wrappers.items():
+        want = per_prefill(cfg).get(name, 0)
+        check(after_prefill[name] == want and launches[name] == want,
+              f"{arch}: {name} launched {after_prefill[name]} in the "
+              f"prefill and {launches[name]} in all, expected {want} and "
+              f"none in decode")
+    cross_same = None
+    if cross is not None:
+        cross_same = all(torch.equal(c[k], kept[k]) for c, kept in
+                         zip(caches, cross) for k in kept)
+        check(cross_same, f"{arch}: decode changed cross_k/cross_v")
+    del caches, cross, logits
+    torch.cuda.empty_cache()
+    prefill_s = prefill.calls[0]
+    row = {"phase": "serve", "n": phase, "arch": cfg.name,
+           "path": "model.prefill + model.decode_step",
+           "requests": requests, "prompt_tokens": requests * plen,
+           "output_tokens": requests * new, "decode_steps": len(decode.calls),
+           "wall_s": wall, "prefill_ms": 1e3 * prefill_s,
+           "decode_s": sum(decode.calls),
+           "decode_step_ms_median": 1e3 * statistics.median(decode.calls),
+           "output_tokens_per_s": requests * new / wall,
+           "peak_mem_gib": peak,
+           "launches": {k: v for k, v in launches.items()
+                        if k in per_prefill(cfg)},
+           "launches_in_prefill": {k: v for k, v in after_prefill.items()
+                                   if k in per_prefill(cfg)},
+           "cross_kv_unchanged_by_decode": cross_same, "gpu": card}
+    if encode is not None:
+        row["encoder_ms"] = 1e3 * encode.calls[0]
+        row["decoder_prefill_ms"] = 1e3 * (prefill_s - encode.calls[0])
+    emit(row)
+
+    # checks: kernel against the plain function (dense attention) on the
+    # prefill and teacher-forced decode steps fed the greedy tokens
+    forced = tokens[:, 1:1 + n_forced]
+    got = forced_logits(model, params, batch, forced, max_len, start)
+    dense = build_model(cfg, ModelOptions(attn_impl="dense",
+                                          dtype=torch.bfloat16,
+                                          scan_layers=False))
+    want = forced_logits(dense, params, batch, forced, max_len, start)
+    diff = logit_diff(got, want)
+    greedy_same = bool(torch.equal(got[:, 0].argmax(-1), tokens[:, 0]))
+    del got, want
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_checks", "n": phase, "arch": cfg.name,
+          "flash_vs_dense_prefill_and_teacher_forced": dict(
+              diff, steps=n_forced),
+          "bounds": {"mean_abs": LOGIT_MEAN_BOUND,
+                     "max_abs": LOGIT_MAX_BOUND},
+          "first_token_equals_served": greedy_same, "gpu": card})
+    within_bounds(diff, f"{arch} flash vs dense, prefill + {n_forced} steps")
+    check(greedy_same, f"{arch}: the check's prefill chose other tokens")
+
+    # where the time goes: a traced prefill and 5 decode steps
+    logits, caches = model.prefill(params, batch, max_len=max_len)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+
+    def five():
+        for n in range(5):
+            model.decode_step(params, tok, caches, start + n)
+
+    five()   # warm (the positions are rewritten by the traced steps)
+    emit({"phase": "serve_profile", "n": phase, "arch": cfg.name,
+          "prefill": traced(lambda: model.prefill(params, batch,
+                                                  max_len=max_len)),
+          "decode_5_steps": traced(five), "gpu": card})
+    del caches, logits, params, model, dense
+    torch.cuda.empty_cache()
+    if uniform_stack(cfg):
+        scanned_draw_check(cfg, batch, max_len, phase, dev, card)
+    return {"launches": launches, "row": row}
+
+
+def scanned_draw_check(cfg, batch, max_len: int, phase: int, dev,
+                       card) -> None:
+    """The scanned layout's draw of `cfg` (stacked leaves, fan_in = the
+    layer count, as the reference's init takes it): the prefill's logits
+    under flash against dense attention, reported and not held. Its
+    weights are sqrt(d_model / layers) larger than the unrolled draw's, so
+    without qk-norm its attention scores and activations amplify every
+    rounding (ROADMAP.md Queue 3)."""
+    from repro_torch.models.model import ModelOptions, build_model
+
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.bfloat16))
+    dense = build_model(cfg, ModelOptions(attn_impl="dense",
+                                          dtype=torch.bfloat16))
+    params = model.init(0, dev)
+    got, _ = model.prefill(params, batch, max_len=max_len)
+    want, _ = dense.prefill(params, batch, max_len=max_len)
+    emit({"phase": "serve_checks", "n": phase, "arch": cfg.name,
+          "layout": "scanned (fan_in = layers)",
+          "flash_vs_dense_prefill": logit_diff(got, want),
+          "wq_std_scanned_over_unrolled": float(
+              params["layers"]["attn"]["wq"][0].float().std())
+          * cfg.d_model ** 0.5, "held": False, "gpu": card})
+    del got, want, params, model, dense
+    torch.cuda.empty_cache()
+
+
+def encdec_train_flops(cfg, batch: int, seq: int) -> dict:
+    """FLOPs of one encoder-decoder training step. Model FLOPs
+    6·(N_enc·enc_seq + N_dec·seq)·batch: the encoder's layers, the frame
+    projection and every decoder layer's cross-attention K/V projections
+    run over the enc_seq frames (N_enc), the rest of the decoder's layers
+    over the text (N_dec); the tied head's product (6·V·d a token) and the
+    dense attention's einsums (QK^T and PV over the whole squares, three
+    times the forward: the forward and two backward products) beside
+    them."""
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
+    enc, layers = cfg.encdec.enc_layers, cfg.num_layers
+    attn = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    kv = 2 * d * cfg.num_kv_heads * hd
+    ffn = 3 * d * cfg.d_ff
+    n_enc = (attn + ffn) * enc + d * d + kv * layers
+    n_dec = (2 * attn - kv + ffn) * layers
+    check(n_enc + n_dec + cfg.vocab_size * d == cfg.num_params() + d * d,
+          "encdec_train_flops: the counts miss a weight")
+    es = cfg.encdec.enc_seq
+    attn_fwd = 4 * batch * h * hd * (enc * es * es
+                                     + layers * (seq * seq + seq * es))
+    return {"n_enc": n_enc, "n_dec": n_dec,
+            "model_flops": 6 * (n_enc * es + n_dec * seq) * batch,
+            "head_flops": 6 * cfg.vocab_size * d * seq * batch,
+            "attention_flops": 3 * attn_fwd}
+
+
+def whisper_train_phase(dev, card, kernel_ops) -> dict:
+    """Phase 24: Whisper-base trained at its published widths as
+    ``launch/train.py``'s ``build_run`` sets it up (remat "full", AdamW,
+    the synthetic data pipeline, the reference's float32 stub frames),
+    16 x 448 text tokens and 16 x 1500 frames a step, no mesh: the first
+    loss on the CPU (the same parameters and batch, forward only), then a
+    warm-up step and 4 timed steps (host clock, each ending in the
+    metrics' read-back) and one traced step."""
+    import dataclasses
+
+    from repro_torch.launch.train import build_run
+    from repro_torch.models.layers import tree_map
+    from repro_torch.runtime.trainer import Trainer
+
+    run = build_run("whisper-base", reduced=False, steps=TRAIN_STEPS + 1,
+                    global_batch=WHISPER_TRAIN_BATCH,
+                    seq_len=WHISPER_TRAIN_SEQ,
+                    checkpoint_dir=str(ROOT / "build" / "chip_smoke_ckpt"))
+    run = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, checkpoint_every=10 ** 9))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = Trainer(run, device=dev)
+    t.init_state(seed=0)
+    cfg = t.run.model
+    # the first step's loss on the CPU: forward only, same inputs
+    host = tree_map(lambda p: p.detach().cpu(), t.params)
+    batch = {k: v.cpu() for k, v in t._place_batch(0).items()}
+    check(batch["frames"].dtype == torch.float32, "stub frames not f32")
+
+    def cpu_first_loss():
+        with torch.no_grad():
+            return float(t.model.train_loss(host, batch))
+
+    cpu_loss, cpu_s = timed(cpu_first_loss)
+    del host, batch
+    before = launch_counts(kernel_ops)
+    times = []
+    for _ in range(TRAIN_STEPS):
+        _, dt = timed(lambda: t.train(1))
+        times.append(dt)
+    launches = launch_counts(kernel_ops) - before
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log = t.metrics_log
+    tokens = WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    flops = encdec_train_flops(cfg, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ)
+    first = log[0]["loss"]
+    row = {"phase": "train", "n": 24, "arch": cfg.name,
+           "batch": WHISPER_TRAIN_BATCH, "seq": WHISPER_TRAIN_SEQ,
+           "enc_seq": cfg.encdec.enc_seq, "frames_dtype": "float32",
+           "remat": t.run.parallel.remat, "attn_impl": t.options.attn_impl,
+           "step_ms_median": 1e3 * step_s,
+           "step_ms": [1e3 * x for x in times[1:]],
+           "warmup_step_ms": 1e3 * times[0],
+           "tokens_per_s": tokens / step_s,
+           "frames_per_s": WHISPER_TRAIN_BATCH * cfg.encdec.enc_seq / step_s,
+           "mfu": flops["model_flops"] / step_s / BF16_FLOPS, **flops,
+           "peak_mem_gib": peak,
+           "losses": [m["loss"] for m in log],
+           "grad_norms": [m["grad_norm"] for m in log],
+           "first_loss_cpu": cpu_loss, "cpu_forward_s": cpu_s,
+           "first_loss_rel_diff": abs(first - cpu_loss) / abs(cpu_loss),
+           "first_loss_rtol": TRAIN_LOSS_RTOL,
+           "kernel_launches": launches, "gpu": card}
+    emit(row)
+    check(all(math.isfinite(x) for x in row["losses"] + row["grad_norms"]),
+          "whisper train: non-finite loss or norm")
+    check(launches == 0, "whisper train: a kernel of the port launched")
+    check(row["first_loss_rel_diff"] <= TRAIN_LOSS_RTOL,
+          f"whisper train: first loss {first} vs CPU {cpu_loss}")
+    prof = traced_families(lambda: t.train(1), family)
+    check(launch_counts(kernel_ops) - before == 0,
+          "whisper train: a kernel of the port launched in the traced step")
+    emit({"phase": "train_profile", "n": 24, "arch": cfg.name, **prof,
+          "gpu": card})
+    del t
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2069,6 +2450,25 @@ def main() -> int:
     check(zero3_launches == 0, "a kernel of the port launched in ZeRO-3")
     emit({"phase": "zero3_seconds", "n": 22, "phase22_s": zero3_s,
           "kernel_launches": zero3_launches})
+
+    # ----------- 23-24. Whisper-base served and trained at full width
+    whisper, whisper_s = timed(lambda: frontend_serve_phase(
+        "whisper-base", 23, dev, card))
+    served["whisper-base"] = whisper["launches"]
+    before = launch_counts(kernel_ops)
+    _, wtrain_s = timed(lambda: whisper_train_phase(dev, card, kernel_ops))
+    check(launch_counts(kernel_ops) == before,
+          "a kernel of the port launched in Whisper's training")
+
+    # ---- 25. LLaVA-NeXT-34B (64 GiB of weights): last, on a freed card
+    gc.collect()
+    torch.cuda.empty_cache()
+    llava, llava_s = timed(lambda: frontend_serve_phase(
+        "llava-next-34b", 25, dev, card))
+    served["llava-next-34b"] = llava["launches"]
+    emit({"phase": "frontend_seconds", "n": [23, 24, 25],
+          "phase23_s": whisper_s, "phase24_s": wtrain_s,
+          "phase25_s": llava_s})
 
     # -------------------------------------------------------------- results
     flash_launches = sum(v.get("flash_attention", 0) for v in served.values())

@@ -3,16 +3,17 @@
 Pure Python, no torch.
 
 The fields, defaults and ``__post_init__`` checks are the JAX package's.
-Every family's config is served by the port but ``encdec`` and ``vlm``
-(``ROADMAP.md``). The trainer (``runtime/trainer.py``) trains the dense
-and MoE families, data-parallel or ZeRO-3 (``param_shard``,
-``fsdp_streaming``; on a DP-only mesh, else ``ValueError``), and honours
-every field of :class:`ParallelConfig` but ``grad_compression`` and
-``moe_a2a_chunks > 1`` (expert parallelism inside a trained model waits
-for tensor parallelism: on a data-parallel mesh MoE takes the dense
-dispatch), which :func:`repro_torch.launch.steps.check_ported` rejects
-with ``NotImplementedError``. ``collective_matmul`` is read nowhere, in
-the JAX package too: a trainer trains the same step with it set.
+Every family's config is served by the port. The trainer
+(``runtime/trainer.py``) trains the dense, MoE, encoder-decoder and VLM
+families, data-parallel or ZeRO-3 (``param_shard``, ``fsdp_streaming``;
+on a DP-only mesh, else ``ValueError``), and honours every field of
+:class:`ParallelConfig` but ``moe_a2a_chunks > 1`` (expert parallelism
+inside a trained model waits for tensor parallelism: on a data-parallel
+mesh MoE takes the dense dispatch), which
+:func:`repro_torch.launch.steps.check_ported` rejects with
+``NotImplementedError``. ``collective_matmul`` and ``grad_compression``
+are read nowhere, in the JAX package too: a trainer trains the same step
+with either set.
 """
 from __future__ import annotations
 

@@ -6,9 +6,13 @@ kernels). ``--scheduler continuous`` (default) runs continuous batching
 (token-granular slot re-admission, ``runtime/server.py:run_continuous``);
 ``--scheduler wave`` runs the static wave baseline. Attention runs through
 the flash kernel (``attn_impl="flash"``), the path this port serves with.
-Every ported family serves: dense GQA (``qwen3-8b``), MoE
+Every family the server admits serves: dense GQA (``qwen3-8b``), MoE
 (``qwen3-moe-30b-a3b``, ``mixtral-8x7b``), Mamba-2 (``mamba2-780m``) and
-RecurrentGemma (``recurrentgemma-2b``).
+RecurrentGemma (``recurrentgemma-2b``). The encoder-decoder and VLM
+families (``whisper-base``, ``llava-next-34b``) need frames or patches
+with each prompt, which the server's token-only admission does not take:
+it raises ``NotImplementedError`` for them, as the JAX package's
+continuous scheduler does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --device cpu

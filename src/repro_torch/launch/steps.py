@@ -43,11 +43,12 @@ def check_ported(parallel: ParallelConfig, mesh=None) -> None:
     """Raise for what the train steps do not honour. ZeRO-3 needs an
     explicit DP-only mesh (``ValueError``, as in the JAX package: it never
     quietly replicates); ``NotImplementedError`` for chunked MoE all-to-alls
-    (expert parallelism, which needs the TP axis), compressed gradients,
-    and a mesh whose non-DP axes (the TP axis) have more than one rank.
-    ``collective_matmul`` is read nowhere, as in the JAX package, whose
-    trainer trains the same step with it set (the TP rings serve decode:
-    ``models/decode_tp.py``)."""
+    (expert parallelism, which needs the TP axis) and a mesh whose non-DP
+    axes (the TP axis) have more than one rank. ``collective_matmul`` and
+    ``grad_compression`` are read nowhere, as in the JAX package, whose
+    trainer trains the same step with either set (the TP rings serve
+    decode: ``models/decode_tp.py``; the int8 codec serves
+    ``core/reduction.py``'s staged all-reduce)."""
     if parallel.param_shard:
         _require_explicit_mesh(parallel, mesh)
     if parallel.moe_a2a_chunks > 1:
@@ -56,8 +57,6 @@ def check_ported(parallel: ParallelConfig, mesh=None) -> None:
             "model (moe_apply_ep over a2a_scan) needs a 'model' axis, and "
             "training on one waits for tensor parallelism of the other "
             "layers")
-    if parallel.grad_compression != "none":
-        raise _not_ported(f"grad_compression={parallel.grad_compression!r}")
     if mesh is not None:
         big = {a: s for a, s in mesh.shape.items()
                if a not in parallel.dp_axes and s > 1}

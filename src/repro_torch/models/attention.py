@@ -1,4 +1,5 @@
-"""Attention: GQA (+qk-norm, +sliding window), prefill and decode paths.
+"""Attention: GQA (+qk-norm, +sliding window), prefill and decode paths,
+and cross-attention.
 
 The port of ``repro/models/attention.py``. Implementations (``impl``):
 
@@ -10,6 +11,10 @@ The port of ``repro/models/attention.py``. Implementations (``impl``):
 ``blockwise`` and the sharded flash-decode wait for later slices
 (``ROADMAP.md``) and raise. Both implementations share the projection, rope
 and mask logic, so they are interchangeable and cross-checked in tests.
+
+Cross-attention (the encoder-decoder family) is the reference's: plain
+attention over the encoder's keys and values, which prefill computes once
+(:func:`encode_cross_kv`) and decode reads from the cache.
 
 KV caches are dicts of tensors. Unlike the JAX package (whose arrays are
 immutable), prefill and decode write the cache IN PLACE and return the same
@@ -24,7 +29,8 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.launch.mesh import resolve_device
-from repro_torch.models.layers import ParamSpec, apply_rope, rms_norm
+from repro_torch.models.layers import (ParamSpec, apply_rope,
+                                      promoted_einsum, rms_norm)
 
 Cache = Dict[str, torch.Tensor]
 NEG = -1e30
@@ -108,7 +114,7 @@ def sdpa(q, k, v, q_pos, k_pos, causal=True, window=None, impl="dense",
     if impl in ("blockwise", "blockwise_unrolled"):
         raise NotImplementedError(
             f"attention impl {impl!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 4)")
+            f"Queue 1 item 11)")
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
@@ -227,3 +233,39 @@ def _decode_dense(q, k, v, cache: Cache, pos, positions, window
     out = _sdpa_dense(q, ck, cv, positions, k_pos, causal=True,
                       window=window, kv_valid=k_pos >= 0)
     return out, cache
+
+
+# ------------------------------------------------------------ cross-attention
+def cross_attention_specs(cfg: ModelConfig,
+                          dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
+    return attention_specs(cfg, dtype)
+
+
+def cross_attention(p, x, enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Decoder-to-encoder attention over keys and values computed once at
+    prefill (:func:`encode_cross_kv`): no rope on the queries, no mask over
+    the ``enc_seq`` keys. Plain attention (``_sdpa_dense``), as in the
+    reference, whatever the model's ``attn_impl``; its output is in x's
+    dtype whatever the keys' (the reference's ``q.dtype``)."""
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k, v = enc_kv
+    q_pos = torch.arange(s, device=x.device).expand(b, s)
+    k_pos = torch.arange(k.shape[1], device=x.device).expand(b, k.shape[1])
+    out = _sdpa_dense(q, k, v, q_pos, k_pos, causal=False, window=None)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention keys and values of the encoder's output, in the
+    wider of its dtype and the weights' (float32 under the trainer's f32
+    stub frames, as in the reference)."""
+    k = promoted_einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = promoted_einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v

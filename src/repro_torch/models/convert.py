@@ -4,10 +4,13 @@
 dicts and lists of numpy arrays (``jax.tree.map(np.asarray, params)``),
 scanned (stacked layers) or unrolled (a list of layers), and returns the
 port's :class:`~repro_torch.models.layers.ParamTree` in the layout that
-``options.scan_layers`` asks for (a stack whose layers differ in kind,
-RecurrentGemma's, is unrolled in both). The layouts are the same tree by
-construction, so the conversion is a check and a copy: a missing or extra
-leaf, or a leaf of the wrong shape, raises ``ValueError``.
+``options.scan_layers`` asks for (a stack that is never uniform,
+RecurrentGemma's or the encoder-decoder's, is unrolled in both; Whisper's
+encoder is a list of layers in both, beside ``enc_norm``/``enc_norm_b``,
+the LayerNorm biases ``*_b`` and ``audio_proj``; the VLM has
+``vision_proj``). The layouts are the same tree by construction, so the
+conversion is a check and a copy: a missing or extra leaf, or a leaf of
+the wrong shape, raises ``ValueError``.
 """
 from __future__ import annotations
 

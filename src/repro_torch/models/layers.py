@@ -1,4 +1,4 @@
-"""Param specs and common layers (norms, rope, SwiGLU MLP).
+"""Param specs and common layers (norms, rope, sinusoids, SwiGLU MLP).
 
 The port of ``repro/models/layers.py``. A module publishes a tree of
 :class:`ParamSpec` (shape, dtype, initializer) in the JAX package's layout —
@@ -200,6 +200,44 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     must not depend on how many slots run beside it."""
     return F.rms_norm(x.float(), (x.shape[-1],), weight.float(),
                       eps).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (Whisper's, with bias) in f32, rounded once to x's dtype:
+    the mean, then the mean of the squared deviations, as the reference
+    computes them."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
+def sinusoidal_embedding(seq: int, dim: int, device=None) -> torch.Tensor:
+    """(seq, dim) f32 sinusoids: sin on the even columns, cos on the odd,
+    frequencies exp(-ln(10000) j / dim) for j = 0, 2, ... Built on
+    `device` (no host-to-device copy). The exponential is taken in f64
+    and rounded once: the correctly rounded frequencies, which the
+    reference's compiled exp gives (a 1-ulp error in one would move the
+    angle at position 1500 by ~1e-4)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=device) * (-math.log(10000.0) / dim)
+    div = torch.exp(exps.double()).float()
+    emb = torch.empty((seq, dim), dtype=torch.float32, device=device)
+    emb[:, 0::2] = torch.sin(pos * div)
+    emb[:, 1::2] = torch.cos(pos * div)
+    return emb
+
+
+def promoted_einsum(eq: str, x: torch.Tensor, w: torch.Tensor
+                    ) -> torch.Tensor:
+    """``einsum`` over operands of two dtypes, computed in the wider one,
+    as ``jnp.einsum`` and ``@`` promote them (torch refuses the mix)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum(eq, x.to(dt), w.to(dt))
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -9,12 +9,21 @@ The port of ``repro/models/model.py``:
 Parameters are a :class:`~repro_torch.models.layers.ParamTree` in the JAX
 package's layout (``init``, or :func:`repro_torch.models.convert.
 params_from_jax`); caches are dicts of tensors that prefill and decode
-update in place. The families ported are ``dense``, ``moe`` (capacity
+update in place. Every family is ported: ``dense``, ``moe`` (capacity
 dispatch, with expert parallelism where ``options.mesh`` has a ``"model"``
-axis), ``ssm`` (Mamba-2) and ``hybrid`` (RecurrentGemma); the others wait
-for later slices (``ROADMAP.md``) and raise ``NotImplementedError``.
-``train_loss`` trains the dense and MoE families: the recurrent families'
-kernels are forward-only, so their training raises.
+axis), ``ssm`` (Mamba-2), ``hybrid`` (RecurrentGemma), ``encdec``
+(Whisper: an encoder over stub frame embeddings ``batch["frames"]`` (b,
+enc_seq, d_model), a decoder that cross-attends to it) and ``vlm``
+(LLaVA: stub patch embeddings ``batch["patches"]`` (b, patches, d_model)
+projected and put before the text). ``train_loss`` trains all but the
+recurrent families, whose kernels are forward-only, so their training
+raises ``NotImplementedError``.
+
+As in the reference, Whisper's encoder layers are causal and roped (they
+are the ``"attn"`` block), a decode step embeds the sinusoid of position
+0, and frames wider than the weights (the trainer's float32 stubs) carry
+the encoder, its output and the cross-attention keys and values in the
+wider dtype (``ROADMAP.md`` Queue 3).
 
 float32 runs on the card assume full-precision matmuls
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default); the
@@ -33,9 +42,12 @@ from repro_torch.models.layers import (
     ParamSpec,
     ParamTree,
     init_from_specs,
+    layer_norm,
     layers_from_specs,
-    rms_norm,
+    promoted_einsum,
+    sinusoidal_embedding,
     tag_layer,
+    tree_map,
 )
 from repro_torch.models.xent import linear_xent
 
@@ -56,8 +68,8 @@ class ModelOptions:
     mesh: Optional[Any] = None
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-TRAINED_FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+TRAINED_FAMILIES = ("dense", "moe", "encdec", "vlm")
 
 
 class LanguageModel:
@@ -70,23 +82,46 @@ class LanguageModel:
     # ------------------------------------------------------------------ specs
     def param_specs(self) -> PyTree:
         """Every leaf carries layer provenance (``ParamSpec.layer``): depth 0
-        for the embedding, ``1..N`` through the stack, ``N + 1`` on the
-        head, so the grad-sync schedule knows which gradients complete
-        first in the backward."""
+        for the embedding and the frontend projections, ``1..N`` through
+        the stack, ``N + 1`` on the head, so the grad-sync schedule knows
+        which gradients complete first in the backward. The encoder's
+        backward runs after the decoder stack's (its gradients gather the
+        cross-attention of every decoder layer), so an encoder-decoder's
+        encoder layers take depths ``1..enc_layers``, its final norm
+        ``enc_layers + 1``, and the decoder stack starts above them, as
+        in the reference."""
         cfg, dt = self.cfg, self.opt.dtype
-        head_depth = 1 + cfg.num_layers
+        enc_depth = cfg.encdec.enc_layers + 1 if cfg.family == "encdec" else 0
+        stack0 = enc_depth + 1
+        head_depth = stack0 + cfg.num_layers
         specs: Dict[str, Any] = {
             "embed": ParamSpec((cfg.vocab_size, cfg.d_model), dt,
                                scale=cfg.d_model ** -0.5, layer=0),
             "layers": tfm.stack_specs(cfg, self.opt.scan_layers, dt,
-                                      depth0=1),
+                                      depth0=stack0),
         }
         specs.update(tag_layer(tfm._norm_specs(cfg, "final_norm"),
                                head_depth))
         if not cfg.tie_embeddings:
             specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dt,
                                          layer=head_depth)
+        if cfg.family == "encdec":
+            specs["encoder"] = [
+                tag_layer(tfm.layer_specs(self._enc_cfg(), "attn", dt), 1 + i)
+                for i in range(cfg.encdec.enc_layers)]
+            specs.update(tag_layer(tfm._norm_specs(cfg, "enc_norm"),
+                                   enc_depth))
+            specs["audio_proj"] = ParamSpec((cfg.d_model, cfg.d_model), dt,
+                                            layer=0)
+        if cfg.family == "vlm":
+            # stub projection of precomputed patch embeddings
+            specs["vision_proj"] = ParamSpec((cfg.d_model, cfg.d_model), dt,
+                                             layer=0)
         return specs
+
+    def _enc_cfg(self) -> ModelConfig:
+        return dataclasses.replace(self.cfg,
+                                   num_layers=self.cfg.encdec.enc_layers)
 
     def init(self, seed: int = 0, device="cuda") -> ParamTree:
         return ParamTree(init_from_specs(self.param_specs(), seed, device))
@@ -101,27 +136,72 @@ class LanguageModel:
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         # F.embedding: a gather whose backward is deterministic on the card
         x = torch.nn.functional.embedding(tokens, params["embed"])
+        if self.cfg.family == "encdec":
+            # rows 0..s-1 of the sinusoid: a decode step (s = 1) adds row 0
+            # whatever its position, as the reference does
+            x = x + sinusoidal_embedding(tokens.shape[1], self.cfg.d_model,
+                                         x.device).to(x.dtype)[None]
         # the scale is rounded to the activation dtype first, as in the JAX
         # package (11.3125 in bf16 at d_model 128)
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
                                 device=x.device)
 
     def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        x = tfm._norm(params, x, self.cfg, "final_norm")
         if self.cfg.tie_embeddings:
             logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
         else:
             logits = x @ params["lm_head"]
         return logits.float()
 
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over stub frame embeddings (b, enc_seq,
+        d_model): the projection plus the sinusoid, the encoder layers
+        (block "attn" of this family: LayerNorm, causal roped
+        self-attention through ``attn_impl``, as in the reference; not
+        rematerialized) and the final LayerNorm. It runs in the wider of
+        the frames' and the weights' dtypes, each product promoting its
+        weights as ``jnp.result_type`` would."""
+        cfg = self.cfg
+        x = (promoted_einsum("bsd,de->bse", frames, params["audio_proj"])
+             + sinusoidal_embedding(frames.shape[1], cfg.d_model,
+                                    frames.device).to(frames.dtype)[None])
+        b, t, _ = x.shape
+        pos = torch.arange(t, device=x.device).expand(b, t)
+        enc_cfg = self._enc_cfg()
+        for p_l in params["encoder"]:
+            p_l = tree_map(lambda w: w.to(torch.promote_types(w.dtype,
+                                                              x.dtype)), p_l)
+            x, _, _ = tfm.layer_apply(p_l, x, enc_cfg, "attn", pos, "train",
+                                      None, None, self.opt.attn_impl)
+        return layer_norm(x, params["enc_norm"], params["enc_norm_b"],
+                          cfg.norm_eps)
+
+    def _prepend_frontend(self, params, x: torch.Tensor,
+                          batch: Dict) -> torch.Tensor:
+        """The VLM's projected patches (cast to the text's dtype) before the
+        text; other families' x unchanged."""
+        if self.cfg.family != "vlm":
+            return x
+        patches = promoted_einsum("bsd,de->bse", batch["patches"],
+                                  params["vision_proj"])
+        return torch.cat([patches.to(x.dtype), x], dim=1)
+
     # ---------------------------------------------------------------- forward
     def _forward(self, params, batch: Dict, mode: str, caches=None,
                  pos=None) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
         """Hidden states (before the final norm), the caches and the MoE aux
         loss summed over the layers (None without MoE blocks). `mode` is
-        "train" (full sequence, no cache), "prefill" or "decode"."""
+        "train" (full sequence, no cache), "prefill" or "decode". Train
+        and prefill take the frontend inputs of their family (``frames``,
+        ``patches``); decode takes none."""
         tokens = batch["token"] if mode == "decode" else batch["tokens"]
         x = self._embed(params, tokens)
+        enc_out = None
+        if mode != "decode":
+            x = self._prepend_frontend(params, x, batch)
+            if self.cfg.family == "encdec":
+                enc_out = self._encode(params, batch["frames"])
         b, s, _ = x.shape
         if mode == "decode":
             # scalar pos: every slot at the same position (wave scheduler);
@@ -131,7 +211,8 @@ class LanguageModel:
             positions = torch.arange(s, device=x.device).expand(b, s)
         return tfm.stack_apply(params["layers"], x, self.cfg, positions, mode,
                                caches, pos, self.opt.attn_impl,
-                               remat=self.opt.remat, mesh=self.opt.mesh)
+                               remat=self.opt.remat, mesh=self.opt.mesh,
+                               enc_out=enc_out)
 
     # ------------------------------------------------------------ entry points
     def train_loss(self, params, batch: Dict) -> torch.Tensor:
@@ -140,15 +221,18 @@ class LanguageModel:
         (``options.fused_xent``): :func:`~repro_torch.models.xent.
         linear_xent` on the final-normed activations; otherwise the f32
         logits' log-softmax. The MoE family adds its aux load-balancing
-        loss, as the reference does."""
+        loss, as the reference does; the VLM's patch positions are not in
+        the loss."""
         if self.cfg.family not in TRAINED_FAMILIES:
             raise NotImplementedError(
                 f"training the {self.cfg.family!r} family is not ported: "
                 f"its kernels are forward-only; see ROADMAP.md (Queue 1)")
         x, _, aux = self._forward(params, batch, "train")
+        if self.cfg.family == "vlm":
+            x = x[:, self.cfg.num_vision_patches:]
         targets = batch["targets"]
         if self.opt.fused_xent:
-            x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+            x = tfm._norm(params, x, self.cfg, "final_norm")
             w = (params["embed"].t() if self.cfg.tie_embeddings
                  else params["lm_head"])
             loss = linear_xent(x, w, targets)
@@ -182,8 +266,10 @@ class LanguageModel:
         Gradients land in `stream` (:meth:`~repro_torch.core.overlap.
         FsdpStream.finish`), reduce-scattered: the SUM over the DP shards.
         Scanned stacks raise ``ValueError`` (per-layer gathers need visible
-        layer boundaries), as does the reference; the families this port
-        does not train raise as in :meth:`train_loss`."""
+        layer boundaries), as does the reference, and so does the
+        encoder-decoder (its encoder's output is read by every decoder
+        layer); the families this port does not train raise as in
+        :meth:`train_loss`."""
         cfg = self.cfg
         if cfg.family not in TRAINED_FAMILIES:
             raise NotImplementedError(
@@ -194,11 +280,17 @@ class LanguageModel:
                 "train_loss_streamed needs the unrolled stack "
                 "(scan_layers=False): per-layer gather placement requires "
                 "visible layer boundaries")
+        if cfg.family == "encdec":
+            raise ValueError(
+                "train_loss_streamed supports decoder-only stacks (the "
+                "encoder's cross-attention KV is consumed by every decoder "
+                "layer, so its buckets have no single free point)")
         head_depth = 1 + cfg.num_layers
         head_depths = (head_depth, 0) if cfg.tie_embeddings else (head_depth,)
 
         p0 = stream.materialize(pflat, 0)
         x = self._embed(p0, batch["tokens"])
+        x = self._prepend_frontend(p0, x, batch)
         del p0                      # the table dies here, not at the end
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -212,6 +304,8 @@ class LanguageModel:
                                     None, None, self.opt.attn_impl,
                                     remat=self.opt.remat, mesh=self.opt.mesh,
                                     stream=layer_stream)
+        if cfg.family == "vlm":
+            x = x[:, cfg.num_vision_patches:]
         loss = self._xent(stream.materialize(pflat, *head_depths), x,
                           batch["targets"])
         return loss if aux is None else loss + aux.to(loss.dtype)
@@ -220,9 +314,13 @@ class LanguageModel:
                 ) -> Tuple[torch.Tensor, Any]:
         """`max_len` sizes the ring caches for the decode phase that follows;
         without it the cache holds exactly the prompt and the FIRST generated
-        token evicts prompt token 0. Returns ((b, 1, vocab) f32 logits of the
-        last token, caches)."""
+        token evicts prompt token 0. The VLM's caches also hold its patch
+        positions, which come first: decode positions continue from
+        ``num_vision_patches + prompt length``. Returns ((b, 1, vocab) f32
+        logits of the last token, caches)."""
         b, s = batch["tokens"].shape
+        if self.cfg.family == "vlm":
+            s += self.cfg.num_vision_patches
         caches = self.init_caches(b, max(s, max_len or 0),
                                   params["embed"].device)
         x, caches, _ = self._forward(params, batch, "prefill", caches=caches)

@@ -1,25 +1,30 @@
 """Layer stacks: the port of ``repro/models/transformer.py`` for dense
-attention models (kind ``"attn"``), mixtures of experts (``"attn_moe"``:
-attention, then :mod:`repro_torch.models.moe` in place of the MLP), Mamba-2
-(``"ssm"``) and RecurrentGemma (``"rglru"`` and ``"local_attn"``).
+attention models (kind ``"attn"``, also the VLM backbone and Whisper's
+encoder layers), mixtures of experts (``"attn_moe"``: attention, then
+:mod:`repro_torch.models.moe` in place of the MLP), Mamba-2 (``"ssm"``),
+RecurrentGemma (``"rglru"`` and ``"local_attn"``) and the encoder-decoder's
+decoder (``"decoder"``: self-attention, then cross-attention over the
+encoder's output, then the MLP; LayerNorm with bias in the whole family).
 
 A stack runs :func:`layer_apply` either over a scanned layout (every leaf
 stacked with a leading layer dim, as ``lax.scan`` takes it in the JAX
 package) or over an unrolled list of per-layer trees; here both are a Python
-loop. A hybrid stack is never uniform, so it is always unrolled. In "train"
-mode a scanned stack is unbound into its layers once per call (so its
-stacked gradient is assembled once, when layer 0's backward ends), and
+loop. A hybrid or encoder-decoder stack is never uniform, so it is always
+unrolled. In "train" mode a scanned stack is unbound into its layers once
+per call (so its stacked gradient is assembled once, when layer 0's
+backward ends), and
 ``remat="full"`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` does). A block returns
 its MoE aux loss (None for the other kinds) and the stack sums it over
-the layers, as the reference's scan carry does. Block kind ``"decoder"``
-(encoder-decoder) waits for its slice and raises ``NotImplementedError``.
+the layers, as the reference's scan carry does.
 
 Decode caches are written in place through per-layer views (of the stacked
 tensors, in the scanned layout): the attention rings by the attention
 code, the recurrent state (``h``/``conv``, ``state``/``conv_*``) here,
-copied from what the block returns. The JAX package returns new cache
-trees instead.
+copied from what the block returns; a decoder layer's prefill puts the
+cross-attention keys and values (``cross_k``, ``cross_v``) into its cache
+dict as the encoder gave them, and decode reads them unchanged. The JAX
+package returns new cache trees instead.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamSpec,
     ParamTree,
+    layer_norm,
     map_specs,
     mlp_apply,
     mlp_specs,
@@ -45,8 +51,8 @@ from repro_torch.models.layers import (
     tag_layer,
 )
 
-PORTED_KINDS = ("attn", "attn_moe", "local_attn", "ssm", "rglru")
-ATTN_KINDS = ("attn", "attn_moe", "local_attn")
+PORTED_KINDS = ("attn", "attn_moe", "local_attn", "ssm", "rglru", "decoder")
+ATTN_KINDS = ("attn", "attn_moe", "local_attn", "decoder")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -80,7 +86,17 @@ def uniform_stack(cfg: ModelConfig) -> bool:
 
 # ---------------------------------------------------------------------- specs
 def _norm_specs(cfg: ModelConfig, name: str) -> Dict[str, ParamSpec]:
+    if cfg.family == "encdec":   # Whisper's LayerNorm, with a bias
+        return {name: ParamSpec((cfg.d_model,), torch.float32, "ones"),
+                name + "_b": ParamSpec((cfg.d_model,), torch.float32,
+                                       "zeros")}
     return {name: ParamSpec((cfg.d_model,), torch.float32, "ones")}
+
+
+def _norm(p, x, cfg: ModelConfig, name: str) -> torch.Tensor:
+    if cfg.family == "encdec":
+        return layer_norm(x, p[name], p[name + "_b"], cfg.norm_eps)
+    return rms_norm(x, p[name], cfg.norm_eps)
 
 
 def layer_specs(cfg: ModelConfig, kind: str,
@@ -96,6 +112,9 @@ def layer_specs(cfg: ModelConfig, kind: str,
         s["rglru"] = rglru_mod.rglru_specs(cfg, dtype)
     else:
         s["attn"] = attn.attention_specs(cfg, dtype)
+    if kind == "decoder":
+        s.update(_norm_specs(cfg, "norm_cross"))
+        s["cross"] = attn.cross_attention_specs(cfg, dtype)
     s.update(_norm_specs(cfg, "norm2"))
     if kind == "attn_moe":
         s["moe"] = moe_mod.moe_specs(cfg, dtype)
@@ -107,38 +126,51 @@ def layer_specs(cfg: ModelConfig, kind: str,
 # ---------------------------------------------------------------------- apply
 def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, mode: str, cache, pos,
-                attn_impl: str, mesh=None):
+                attn_impl: str, mesh=None, enc_out=None):
     """One block, `mode` "train" (full sequence, no cache), "prefill" or
     "decode". `mesh` reaches an "attn_moe" block's
-    :func:`~repro_torch.models.moe.moe_apply`. Returns (x, cache, aux), the
-    cache updated in place, aux the block's f32 MoE aux loss (None for the
-    other kinds)."""
+    :func:`~repro_torch.models.moe.moe_apply`; `enc_out` (train and
+    prefill) is the encoder's output a "decoder" block cross-attends to
+    (decode reads its keys and values from the cache). Returns (x, cache,
+    aux), the cache updated in place, aux the block's f32 MoE aux loss
+    (None for the other kinds)."""
     if kind not in PORTED_KINDS:
         raise _not_ported(f"block kind {kind!r}")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     aux = None
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = _norm(p, x, cfg, "norm1")
     if kind in ("ssm", "rglru"):
         y, cache = _recurrent(p, h, cfg, kind, mode, cache)
         x = x + y
         if kind == "ssm":
             return x, cache, aux
-        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        h = _norm(p, x, cfg, "norm2")
         return x + mlp_apply(p["mlp"], h), cache, aux
     window = (cfg.hybrid.local_window if kind == "local_attn"
               else cfg.sliding_window)
+    self_cache = cache["self"] if kind == "decoder" and cache else cache
     if mode == "train":
         y = attn.self_attention(p["attn"], h, cfg, positions, causal=True,
                                 impl=attn_impl, window=window)
     elif mode == "prefill":
-        y, cache = attn.prefill_attention(p["attn"], h, cfg, positions, cache,
-                                          impl=attn_impl, window=window)
+        y, _ = attn.prefill_attention(p["attn"], h, cfg, positions,
+                                      self_cache, impl=attn_impl,
+                                      window=window)
     elif mode == "decode":
-        y, cache = attn.decode_attention(p["attn"], h, cfg, cache, pos,
-                                         window=window)
+        y, _ = attn.decode_attention(p["attn"], h, cfg, self_cache, pos,
+                                     window=window)
     x = x + y
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if kind == "decoder":
+        h = _norm(p, x, cfg, "norm_cross")
+        if mode == "decode":
+            kv = (cache["cross_k"], cache["cross_v"])
+        else:
+            kv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
+            if mode == "prefill":
+                cache["cross_k"], cache["cross_v"] = kv
+        x = x + attn.cross_attention(p["cross"], h, kv, cfg)
+    h = _norm(p, x, cfg, "norm2")
     if kind == "attn_moe":
         y, aux = moe_mod.moe_apply(p["moe"], h, cfg, mesh)
         return x + y, cache, aux
@@ -214,14 +246,15 @@ def is_unrolled(layers) -> bool:
 
 def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
                 pos, attn_impl: str, remat: str = "none", mesh=None,
-                stream=None):
+                stream=None, enc_out=None):
     """Run the full stack. `params` matches :func:`stack_specs`' layout
     (stacked tree for scan, list for unrolled), `caches` that of
     :func:`stack_cache_specs` (or None in "train" mode). The caches are
     written in place through per-layer views. `remat` ("none" | "full")
     applies in "train" mode: "full" keeps only each layer's input and
     recomputes the layer in the backward. `mesh` goes to the MoE
-    blocks. Returns (x, caches, aux), aux the f32 sum of the
+    blocks, `enc_out` (the encoder's output, train and prefill) to the
+    decoder blocks. Returns (x, caches, aux), aux the f32 sum of the
     layers' MoE aux losses (None for a stack without MoE blocks).
 
     `stream` is the streaming-ZeRO-3 hook ("train" mode, unrolled): a
@@ -236,7 +269,7 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
         if remat == "dots":
             raise NotImplementedError(
                 "remat='dots' (save the matmul outputs) is not ported; "
-                "see ROADMAP.md (Queue 1 item 4)")
+                "see ROADMAP.md (Queue 1 item 11)")
         raise ValueError(f"unknown remat {remat!r}")
     kinds = block_kinds(cfg)
     unrolled = is_unrolled(params)
@@ -253,7 +286,8 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
                 if stream is not None:
                     p_l = stream(i, p_l)
                 xx, _, aux_l = layer_apply(p_l, xx, cfg, kind, positions,
-                                           mode, None, None, attn_impl, mesh)
+                                           mode, None, None, attn_impl, mesh,
+                                           enc_out)
                 return xx, aux_l
             x, aux_l = (checkpoint(f, x, use_reentrant=False)
                         if remat == "full" or stream is not None else f(x))
@@ -265,7 +299,7 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
         if caches is not None:
             cache_l = caches[i] if is_unrolled(caches) else _layer(caches, i)
         x, _, aux_l = layer_apply(p_l, x, cfg, kind, positions, mode,
-                                  cache_l, pos, attn_impl, mesh)
+                                  cache_l, pos, attn_impl, mesh, enc_out)
         aux = add(aux, aux_l)
     return x, caches, aux
 
@@ -288,7 +322,12 @@ def stack_cache_specs(cfg: ModelConfig, batch: int, max_len: int, scan: bool,
             w = min(max_len, cfg.hybrid.local_window)
         elif cfg.sliding_window is not None:
             w = min(max_len, cfg.sliding_window)
-        return attn.cache_specs(cfg, batch, w, dtype)
+        c = attn.cache_specs(cfg, batch, w, dtype)
+        if kind != "decoder":
+            return c
+        cross = ParamSpec((batch, cfg.encdec.enc_seq, cfg.num_kv_heads,
+                           cfg.resolved_head_dim), dtype, "zeros")
+        return {"self": c, "cross_k": cross, "cross_v": cross}
 
     if scan and uniform_stack(cfg):
         return map_specs(lambda s: _stacked(s, cfg.num_layers),

@@ -27,6 +27,14 @@ decode would read as "position 0, attended". Both schedulers mark it empty
 admission, so its ``run_wave`` attends to empty slots whenever ``max_len``
 exceeds the prompt (``ROADMAP.md`` Queue 3); the port's wave does not.
 
+Both schedulers admit by a token-only prefill, so they refuse the
+encoder-decoder and VLM families (``NotImplementedError``), whose prefill
+needs frames or patches per request: these are served through
+``LanguageModel.prefill`` / ``decode_step`` with the frontend inputs in
+the batch. The JAX package's ``run_continuous`` refuses them likewise; its
+``run_wave`` fails on the missing input (``KeyError``, ``ROADMAP.md``
+Queue 3).
+
 Caches are updated in place, as everywhere in the port. Besides attention
 rings they may hold recurrent state (Mamba-2's ``state`` and ``conv_*``,
 RecurrentGemma's ``h`` and ``conv``): admission replaces a slot's rows of
@@ -199,6 +207,13 @@ class BatchServer:
             self._next_rid += 1
         self.queue.append(req)
 
+    def _refuse_frontend_families(self) -> None:
+        if self.model.cfg.family in ("vlm", "encdec"):
+            raise NotImplementedError(
+                "the server admits via token-only prefill; family "
+                f"{self.model.cfg.family!r} needs frontend inputs per "
+                "request (serve it through model.prefill / decode_step)")
+
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
@@ -250,6 +265,7 @@ class BatchServer:
     # ------------------------------------------------------- wave scheduler
     def run_wave(self) -> List[Request]:
         """Serve up to `slots` queued requests to completion."""
+        self._refuse_frontend_families()
         if not self.queue:
             return []
         reqs, self.queue = self.queue[:self.slots], self.queue[self.slots:]
@@ -297,6 +313,7 @@ class BatchServer:
         come — the loop then idles instead of returning when the queue
         drains.
         """
+        self._refuse_frontend_families()
         st = self._continuous_state()
         served: List[Request] = []
         while True:

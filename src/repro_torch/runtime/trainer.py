@@ -16,7 +16,9 @@ moments are this rank's shards of bucket-wise flat buffers
 the step (``launch/steps.py``'s ``make_fsdp_train_step``); checkpoints hold
 the global flat buffers under the JAX package's keys. Parameters and
 optimizer state are updated in place on the trainer's device ("cuda"
-unless the caller asks for "cpu").
+unless the caller asks for "cpu"). Encoder-decoder and VLM batches carry
+the reference's frontend stubs (``_augment_frontend``: constant float32
+frames or patches).
 """
 from __future__ import annotations
 
@@ -203,10 +205,27 @@ class Trainer:
                        extra={"data_step": self.step,
                               "data": self.data.state(self.step)})
 
+    def _augment_frontend(self, batch: Dict[str, np.ndarray]
+                          ) -> Dict[str, np.ndarray]:
+        """The modality-frontend STUBS of the reference: encoder-decoder and
+        VLM batches carry precomputed frame or patch embeddings, here the
+        constant 0.02 in float32, as the reference builds them (so the
+        encoder runs in float32, ``ROADMAP.md`` Queue 3)."""
+        cfg = self.run.model
+        b = batch["tokens"].shape[0]
+        if cfg.family == "encdec" and "frames" not in batch:
+            batch = dict(batch, frames=np.full(
+                (b, cfg.encdec.enc_seq, cfg.d_model), 0.02, np.float32))
+        if cfg.family == "vlm" and "patches" not in batch:
+            batch = dict(batch, patches=np.full(
+                (b, cfg.num_vision_patches, cfg.d_model), 0.02, np.float32))
+        return batch
+
     def _place_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        """This rank's rows of step `step`'s global batch, as int64 tensors
-        on the device: the whole batch without an explicit mesh, else the
-        contiguous slice of DP index pod-major over the sync axes."""
+        """This rank's rows of step `step`'s global batch, with the
+        frontend stubs, on the device (token ids as int64): the whole
+        batch without an explicit mesh, else the contiguous slice of DP
+        index pod-major over the sync axes."""
         if self.explicit:
             sizes = [self.mesh.shape[a] for a in self.sync_axes]
             coords = [self.mesh.coords[self.mesh.axis_index(a)]
@@ -215,7 +234,9 @@ class Trainer:
                                          int(np.prod(sizes)))
         else:
             batch = self.data.batch_at(step)
-        return {k: torch.from_numpy(v).to(self.device, torch.int64)
+        batch = self._augment_frontend(batch)
+        return {k: torch.from_numpy(v).to(
+                    self.device, torch.int64 if v.dtype.kind in "iu" else None)
                 for k, v in batch.items()}
 
     def train(self, num_steps: int,

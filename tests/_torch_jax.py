@@ -77,3 +77,36 @@ def f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+def frontend_stub(cfg, b: int, seed: int = 0):
+    """(key, numpy float32 array) of the family's stub frontend input:
+    Whisper's frames (b, enc_seq, d_model), LLaVA's patches (b, patches,
+    d_model), normal times 0.02 from `seed`; None for other families."""
+    if cfg.family == "encdec":
+        key, n = "frames", cfg.encdec.enc_seq
+    elif cfg.family == "vlm":
+        key, n = "patches", cfg.num_vision_patches
+    else:
+        return None
+    rng = np.random.default_rng(seed)
+    return key, (rng.standard_normal((b, n, cfg.d_model)) * 0.02).astype(
+        np.float32)
+
+
+def both_batches(cfg, tokens, dtype: str = "f32", targets=None,
+                 stub_dtype=None, seed: int = 0):
+    """The same batch for both packages: `tokens` (and `targets`), with the
+    family's stub frontend input in `stub_dtype` (default `dtype`)."""
+    jdt, tdt = DTYPES[stub_dtype or dtype]
+    jb = {"tokens": jnp.asarray(tokens, jnp.int32)}
+    tb = {"tokens": torch.from_numpy(np.asarray(tokens, np.int64))}
+    if targets is not None:
+        jb["targets"] = jnp.asarray(targets, jnp.int32)
+        tb["targets"] = torch.from_numpy(np.asarray(targets, np.int64))
+    stub = frontend_stub(cfg, np.shape(tokens)[0], seed)
+    if stub is not None:
+        key, a = stub
+        jb[key] = jnp.asarray(a, jdt)
+        tb[key] = torch.from_numpy(a).to(tdt)
+    return jb, tb

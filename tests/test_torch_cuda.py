@@ -1,6 +1,7 @@
 """The port on the card: the CUDA tile-sweep, flash attention, LRU scan and
 SSD scan kernels against their plain PyTorch versions, the solver and the
-server (dense, MoE, Mamba-2, RecurrentGemma) on CUDA against the CPU, and
+server (dense, MoE, Mamba-2, RecurrentGemma) and the encoder-decoder and
+VLM models on CUDA against the CPU, and
 (given 4 cards) NCCL ranks against one rank: the solvers, the staged
 all-reduce, MoE expert parallelism, the data-parallel and the ZeRO-3
 trainer, the TP rings and the TP decode step; Qwen3-8B at full width
@@ -664,6 +665,10 @@ FLASH_BF16_CASES = [
     (2, 300, 300, 8, 2, 32, False, None),
     (1, 257, 257, 4, 4, 64, True, None),       # head dim 64
     (1, 257, 257, 4, 4, 64, False, None),
+    (8, 1500, 1500, 8, 8, 64, True, None),     # Whisper-base encoder
+    (8, 4, 4, 8, 8, 64, True, None),           # its 4-token decoder prefill
+    (4, 1088, 1088, 56, 8, 128, True, None),   # LLaVA-NeXT-34B, GQA group 7
+    (1, 300, 300, 14, 2, 128, True, None),     # group 7, ragged tiles
 ]
 
 
@@ -724,6 +729,50 @@ def test_served_on_card_equals_cpu(cuda):
         outs[str(dev)] = {r.rid: r.output for r in served}
     assert outs["cpu"] == outs[str(cuda)]
     torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b"])
+def test_frontend_families_on_card_equal_cpu(cuda, arch):
+    """The reduced encoder-decoder and VLM (float32, flash attention, the
+    stub frames or patches in the batch): the prefill and 3 decode steps
+    on the card give the CPU's logits within 1e-4, with one flash launch
+    per attention layer (Whisper's encoder layers too) per prefill and
+    none in decode."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions, build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg, ModelOptions(attn_impl="flash",
+                                          dtype=torch.float32))
+    params = model.init(0, "cpu")
+    rng = np.random.default_rng(0)
+    key, n = (("frames", cfg.encdec.enc_seq) if cfg.family == "encdec"
+              else ("patches", cfg.num_vision_patches))
+    batch = {"tokens": torch.from_numpy(rng.integers(1, 256, (2, 9))),
+             key: torch.from_numpy((rng.standard_normal(
+                 (2, n, cfg.d_model)) * 0.02).astype(np.float32))}
+    start = 6 + (n if key == "patches" else 0)
+    per_prefill = cfg.num_layers + (cfg.encdec.enc_layers
+                                    if key == "frames" else 0)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = params.to(dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        before = flash_ops.flash_attention.launches
+        logits, caches = model.prefill(
+            p, {"tokens": b["tokens"][:, :6], key: b[key]}, max_len=start + 3)
+        launched = flash_ops.flash_attention.launches - before
+        got = [logits.cpu()]
+        for i in range(3):
+            logits, caches = model.decode_step(
+                p, b["tokens"][:, 6 + i:7 + i], caches, start + i)
+            got.append(logits.cpu())
+        assert flash_ops.flash_attention.launches - before == launched == (
+            per_prefill if dev != "cpu" else 0)
+        out[str(dev)] = torch.cat(got, 1)
+    torch.testing.assert_close(out[str(cuda)], out["cpu"], rtol=1e-4,
                                atol=1e-4)
 
 

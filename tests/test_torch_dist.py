@@ -17,7 +17,9 @@ the TP rings (ag_matmul, matmul_rs) on (2,), (3,) and (4,) ranks against
 numpy and the JAX package's rings on forced host devices, with their
 point-to-point sends counted, and the TP decode step on (1, 4) and (2, 2)
 ("data", "model") against the port's and the JAX package's one-device
-servers and the JAX build_decode_step.
+servers and the JAX build_decode_step; and the encoder-decoder's
+data-parallel trainer (reduced Whisper) on (2,) against one rank, its
+decoder stack's gradient buckets issued before its encoder's.
 
 Each job spawns its ranks as separate processes (``tests/_torch_dist.py``,
 which imports no jax) with a FileStore of their own in a temporary
@@ -513,14 +515,20 @@ def test_hierarchical_allreduce_2x2_matches_jax(app_runs):
 TRAIN = dict(arch="internlm2-1.8b", steps=3, global_batch=8, seq_len=32,
              lr=5e-3, cases=[["hdot", 1], ["two_phase", 1], ["hdot", 2],
                              ["two_phase", 2]])
+# Whisper-base (reduced: 2 encoder and 4 decoder layers, 64 frames) with
+# the reference's float32 stub frames
+WHISPER_TRAIN = dict(arch="whisper-base", steps=3, global_batch=4,
+                     seq_len=16, lr=5e-3,
+                     cases=[["hdot", 1], ["two_phase", 1]])
 TRAIN_JOBS = {
-    "2": dict(mesh=[2], gradsync=dict(mesh=[2], axes=["data"])),
+    "2": dict(mesh=[2], gradsync=dict(mesh=[2], axes=["data"]),
+              train=dict(WHISPER_TRAIN, mesh=[2], axes=["data"])),
     "2x2": dict(mesh=[2, 2], gradsync=dict(mesh=[2, 2], axes=["pod", "data"]),
                 train=dict(TRAIN, mesh=[2, 2], axes=["pod", "data"])),
 }
 
 
-def _train_state():
+def _train_state(arch=TRAIN["arch"]):
     """The reduced model's float32 parameters, unrolled (one numpy draw,
     ``tests/_torch_jax.py``), in the port's layout, with zero AdamW state."""
     from _torch_jax import numpy_params
@@ -533,10 +541,10 @@ def _train_state():
     from repro_torch.models.model import ModelOptions
     from repro_torch.optim import adamw_init
 
-    tree = numpy_params(jax_build(jax_arch(TRAIN["arch"]).reduced(),
+    tree = numpy_params(jax_build(jax_arch(arch).reduced(),
                                   JaxOptions(dtype=jnp.float32,
                                              scan_layers=False)))
-    params = params_from_jax(tree, get_arch(TRAIN["arch"]).reduced(),
+    params = params_from_jax(tree, get_arch(arch).reduced(),
                              ModelOptions(dtype=torch.float32,
                                           scan_layers=False), "cpu")
     return {"params": params, "opt": adamw_init(params)}
@@ -554,7 +562,8 @@ def train_runs(tmp_path_factory):
         if name not in cache:
             workdir = tmp_path_factory.mktemp(f"train{name}")
             if "train" in TRAIN_JOBS[name]:
-                save_checkpoint(str(workdir / "init"), 0, _train_state(),
+                arch = TRAIN_JOBS[name]["train"]["arch"]
+                save_checkpoint(str(workdir / "init"), 0, _train_state(arch),
                                 extra={"data_step": 0})
             cache[name] = workdir, spawn(TRAIN_JOBS[name], None, workdir,
                                          SPAWN_DEADLINE_S)
@@ -723,6 +732,81 @@ def test_trainer_ranks_issue_buckets_in_reverse_topological_order(
     assert want == [[i for i, _ in b] for b in jmake_buckets(
         jm.abstract_params(), 8, jm.param_layers(), "reverse_topo")]
     assert len(want) == 6
+
+
+def test_whisper_trainer_on_2_ranks_matches_one_rank(train_runs):
+    """The encoder-decoder's Trainer on 2 gloo ranks ((2,) ("data",),
+    reduced whisper-base, float32, unrolled, the reference's float32 stub
+    frames), 3 steps, each rank on its half of the global batch: both
+    ranks hold the same state; hdot equals two_phase bit for bit (a sum of
+    two); losses, grad norms and final parameters match the port on one
+    rank with the global batch at rtol 1e-4. Each step's hdot all-reduces
+    are the buckets of make_buckets(order="reverse_topo") in emission
+    order, the JAX package's partition, and every bucket of the decoder
+    stack (depths above the encoder's) is issued before any bucket of the
+    encoder (its backward runs after the decoder's)."""
+    from repro.config.registry import get_arch as jax_arch
+    from repro.core.overlap import make_buckets as jmake_buckets
+    from repro.models.model import ModelOptions as JaxOptions
+    from repro.models.model import build_model as jax_build
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.core.overlap import make_buckets
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import ModelOptions, build_model
+    from repro_torch.runtime.trainer import Trainer
+
+    workdir, ranks = train_runs("2")
+    spec = TRAIN_JOBS["2"]["train"]
+    cfg = get_arch(spec["arch"]).reduced()
+    for tag in ("hdot1", "two_phase1"):
+        for key in ("loss", "grad_norm", "params"):
+            np.testing.assert_array_equal(ranks[1][f"{tag}_{key}"],
+                                          ranks[0][f"{tag}_{key}"])
+            np.testing.assert_array_equal(ranks[0][f"hdot1_{key}"],
+                                          ranks[0][f"two_phase1_{key}"])
+    one = Trainer(
+        RunConfig(model=cfg,
+                  parallel=ParallelConfig(remat="none", scan_layers=False),
+                  train=TrainConfig(
+                      global_batch=spec["global_batch"],
+                      seq_len=spec["seq_len"], lr=spec["lr"],
+                      warmup_steps=2, total_steps=spec["steps"],
+                      checkpoint_every=10 ** 6, seed=3,
+                      checkpoint_dir=str(workdir / "init"))),
+        options=ModelOptions(dtype=torch.float32, scan_layers=False),
+        device="cpu")
+    one.train(spec["steps"])
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(ranks[0][f"hdot1_{key}"],
+                                   [m[key] for m in one.metrics_log],
+                                   rtol=1e-4)
+    like = _train_state(spec["arch"])["params"]
+    params_close(ranks[0]["hdot1_params"],
+                 torch.cat([p.detach().reshape(-1)
+                            for p in tree_leaves(one.params)]).numpy(),
+                 tree_leaves(like))
+
+    model = build_model(cfg, ModelOptions(dtype=torch.float32,
+                                          scan_layers=False))
+    want = [[i for i, _ in b] for b in make_buckets(
+        model.init(0, "cpu"), 8, model.param_layers(), "reverse_topo")]
+    jm = jax_build(jax_arch(spec["arch"]).reduced(),
+                   JaxOptions(scan_layers=False))
+    assert want == [[i for i, _ in b] for b in jmake_buckets(
+        jm.abstract_params(), 8, jm.param_layers(), "reverse_topo")]
+    per_step = list(range(len(want))) + [-1]
+    for out in ranks:
+        assert json.loads(str(out["hdot1_buckets"])) == want
+        assert out["hdot1_issued"].tolist() == per_step * spec["steps"]
+    depth = tree_leaves(model.param_layers())
+    enc_top = cfg.encdec.enc_layers + 1               # enc_norm's depth
+    decoder = [k for k, b in enumerate(want)
+               if any(depth[i] > enc_top for i in b)]
+    encoder = [k for k, b in enumerate(want)
+               if any(1 <= depth[i] <= enc_top for i in b)]
+    assert decoder and encoder and max(decoder) < min(encoder), (
+        [sorted({depth[i] for i in b}) for b in want])
 
 
 # ------------------------------------------------------------------ ZeRO-3

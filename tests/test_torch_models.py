@@ -1,6 +1,8 @@
 """The port's models against the JAX package on the CPU: layers, attention
 prefill/decode, and prefill/decode_step logits of reduced configs (dense
-GQA, MoE, Mamba-2, RecurrentGemma), with one numpy-drawn parameter tree
+GQA, MoE, Mamba-2, RecurrentGemma; the encoder-decoder and VLM families
+in ``test_torch_encdec.py`` and ``test_torch_vlm.py``), with one
+numpy-drawn parameter tree
 loaded into both (``_torch_jax.py``).
 
 Tolerances: float32 1e-4 (the two frameworks order float32 sums
@@ -328,10 +330,30 @@ def test_init_is_seeded_by_a_stable_path_hash():
     assert caches["k"].shape == (2, 2, 8, cfg.num_kv_heads, 32)
 
 
-def test_unported_families_raise():
+def test_server_refuses_frontend_families_as_jax():
+    """The encoder-decoder and VLM families need frames or patches with
+    each prompt, which the server's token-only admission does not take:
+    the port's BatchServer raises NotImplementedError in both schedulers.
+    The reference's run_continuous raises so too; its run_wave fails on
+    the missing input with a KeyError (ROADMAP.md Queue 3). Blockwise
+    attention is not ported yet."""
+    from repro.runtime.server import BatchServer as JaxServer
+    from repro.runtime.server import Request as JaxRequest
+    from repro_torch.runtime.server import BatchServer, Request
+
     for arch in ("whisper-base", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(get_arch(arch).reduced())
+        jm, jp, tm, tp = both_models(arch, "f32")
+        for run in ("run_continuous", "run_wave"):
+            server = BatchServer(tm, tp, slots=2, max_len=16)
+            server.submit(Request(prompt=[1, 2, 3], max_new_tokens=2))
+            with pytest.raises(NotImplementedError,
+                               match="token-only prefill"):
+                getattr(server, run)()
+            jserver = JaxServer(jm, jp, slots=2, max_len=16)
+            jserver.submit(JaxRequest(prompt=[1, 2, 3], max_new_tokens=2))
+            with pytest.raises(NotImplementedError if run == "run_continuous"
+                               else KeyError):
+                getattr(jserver, run)()
     q = torch.zeros(1, 4, 4, 32)
     kv = torch.zeros(1, 4, 2, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -228,17 +228,16 @@ def test_build_run_matches_jax(tmp_path):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
-def test_collective_matmul_flag_trains_the_same_step(tmp_path):
-    """``ParallelConfig.collective_matmul`` is read nowhere, in the JAX
-    package too (its trainer trains the same step with it set): two steps
-    with it set equal two without it, bit for bit."""
+def _flag_trains_the_same_step(tmp_path, **flag):
+    """Two steps with a ParallelConfig field set equal two without it,
+    bit for bit: losses, parameters and AdamW state."""
     run, _ = _runs(tmp_path / "a")
-    ring = dataclasses.replace(
-        run, parallel=dataclasses.replace(run.parallel,
-                                          collective_matmul=True),
+    flagged_run = dataclasses.replace(
+        run, parallel=dataclasses.replace(run.parallel, **flag),
         train=dataclasses.replace(run.train,
                                   checkpoint_dir=str(tmp_path / "b")))
-    plain, flagged = Trainer(run, device="cpu"), Trainer(ring, device="cpu")
+    plain = Trainer(run, device="cpu")
+    flagged = Trainer(flagged_run, device="cpu")
     plain.train(2)
     flagged.train(2)
     assert [m["loss"] for m in flagged.metrics_log] == [
@@ -249,14 +248,25 @@ def test_collective_matmul_flag_trains_the_same_step(tmp_path):
         assert torch.equal(a, b)
 
 
+def test_collective_matmul_flag_trains_the_same_step(tmp_path):
+    """``ParallelConfig.collective_matmul`` is read nowhere, in the JAX
+    package too (its trainer trains the same step with it set)."""
+    _flag_trains_the_same_step(tmp_path, collective_matmul=True)
+
+
+def test_grad_compression_flag_trains_the_same_step(tmp_path):
+    """``ParallelConfig.grad_compression`` is read nowhere, in the JAX
+    package too (its trainer trains the same step with "int8_ef" set; the
+    int8 codec serves ``core/reduction.py``'s staged all-reduce)."""
+    _flag_trains_the_same_step(tmp_path, grad_compression="int8_ef")
+
+
 def test_what_this_slice_does_not_train_raises(tmp_path):
     run, _ = _runs(tmp_path)
-    for field, value in (("moe_a2a_chunks", 2),
-                         ("grad_compression", "int8_ef")):
-        bad = dataclasses.replace(run, parallel=dataclasses.replace(
-            run.parallel, **{field: value}))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Trainer(bad, device="cpu")
+    bad = dataclasses.replace(run, parallel=dataclasses.replace(
+        run.parallel, moe_a2a_chunks=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Trainer(bad, device="cpu")
     tp = ProcessMesh(("data", "model"), (1, 2), 0, torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_ported(run.parallel, tp)
