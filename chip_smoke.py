@@ -17,12 +17,15 @@ streaming ZeRO-3, phase 22; serving Qwen3-30B-A3B (48 layers, d_model
 2048, 32/4 heads of 128 with qk-norm, 128 experts of width 768, top-8,
 vocab 151936; 30.5 B parameters, 3.35 B active), phases 20-21, run after
 phase 15; Whisper-base (6 + 6 layers, d_model 512, 8 heads of 64, 1500
-frames, vocab 51865, tied) served and trained, phases 23-24; and
-LLaVA-NeXT-34B (60 layers, d_model 7168, 56/8 heads of 128, d_ff 20480,
-vocab 64000, 576 patches; 34.4 B parameters) served, phase 25, last:
+frames, vocab 51865, tied) served and trained, phases 23-24; the
+recurrent scans' backward kernels, and Mamba-2 780M and RecurrentGemma-2B
+trained at their published widths, phases 26-27; and LLaVA-NeXT-34B (60
+layers, d_model 7168, 56/8 heads of 128, d_ff 20480, vocab 64000, 576
+patches; 34.4 B parameters) served, phase 25, last:
 
   1. build    nvcc builds every kernel of all paths from the checkout's
-              sources (four), one process per source, all started together;
+              sources (four: the LRU and SSD sources hold their backward
+              kernels too), one process per source, all started together;
               prints the build seconds, ptxas's registers and spills (and
               any wgmma wait or fence it had to inject), and the card's
               name and power limit as nvidia-smi gives them.
@@ -235,6 +238,32 @@ vocab 64000, 576 patches; 34.4 B parameters) served, phase 25, last:
               decode positions from 576 + 512; flash 60 launches a
               prefill at GQA group 7; 4 teacher-forced steps), run last,
               after everything before it is freed.
+ 26. recurrent_bwd  the scans' backward kernels against their plain
+              backwards (autograd of the plain versions) on the same
+              inputs and random cotangents, at phase 27's shapes:
+              lru_scan_bwd at (8, 2048, 2560) f32, without and with h0
+              (and a cotangent of h_last), within 1e-5; ssd_chunk_bwd at
+              (8, 2048, 48, 64, 128) chunk 256 with bf16 and with f32 x/B/C,
+              within 5e-2 and 1e-4 (the forward's tolerances); each
+              gradient's error relative to its own largest magnitude, two
+              calls bit-equal; kernel_ms (CUDA events), plain_ms (the plain
+              backward alone, its forward's graph built once), bound_ms
+              (the bytes of inputs, cotangents and gradients over HBM, or
+              the causal half's products at the input type's peak).
+ 27. train    Mamba-2 780M (scanned) and RecurrentGemma-2B at their
+              published widths as phase 18 (bf16, seed 0, remat "full",
+              AdamW, 8 x 2048 tokens of phase 18's data, no mesh): a
+              warm-up and 4 timed steps each, the scans' wrapper counts set
+              to 0 just before and read just after. Step ms, tokens/s, MFU
+              (6·N·tokens, N less the embedding: it misses the SSD's
+              within-chunk products, the scans and a tied head's logits),
+              peak memory, losses and grad norms. Checks: losses and norms
+              finite, the first loss within 1 of ln V; exactly 2 forward
+              launches (the remat recompute runs the layer again) and 1
+              backward launch a recurrent layer a step (Mamba-2 96 + 48,
+              RecurrentGemma 36 + 18), no flash launch (dense attention),
+              no call of a plain scan. Then one traced step by op family,
+              with the port's kernels by name (the SSD backward's nine).
 
 Each phase prints one JSON line (a serve phase one per scheduler and one of
 checks); then the nvidia-smi line, the kernels line and, last,
@@ -301,6 +330,13 @@ SSD_CASES = [  # (b, l, h, p, n, chunk, dtype)
     (2, 256, 4, 32, 16, 64, "f32"),        # small, all f32
 ]
 SSD_TOL = {"bf16": 5e-2, "f32": 1e-4}   # tests/test_kernels.py's
+# phase 26: the scans' backward kernels at phase 27's training shapes
+LRU_BWD_CASES = [(8, 2048, 2560, False),   # RecurrentGemma-2B's a and b
+                 (8, 2048, 2560, True)]    # with h0 and a cotangent of h_last
+SSD_BWD_SHAPE = (8, 2048, 48, 64, 128, 256)   # Mamba-2 780M: b, l, h, p, n,
+SSD_BWD_DTYPES = ("bf16", "f32")              # chunk; bf16 is the training's
+# phase 27: the recurrent families trained at full width
+RECURRENT_TRAIN = ("mamba2-780m", "recurrentgemma-2b")
 # serving phases: (arch, phase number of the serve rows, of the trace)
 SERVE_ARCHS = [("qwen3-8b", 8, 9), ("recurrentgemma-2b", 12, 13),
                ("mamba2-780m", 14, 15), ("qwen3-moe-30b-a3b", 20, 21)]
@@ -314,7 +350,7 @@ PER_PREFILL = {"qwen3-8b": {"flash_attention": 36},
 FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}  # tests/test_kernels.py's
 # names of the port's CUDA kernels in a trace (their __global__ functions)
 PORT_KERNELS = ("tile_sweep", "half_sweep", "flash_fwd", "lru_scan_kernel",
-                "ssd_chunk")
+                "ssd_chunk", "ssd_bwd")
 SLOTS, MAX_LEN, REQUESTS, NEW_TOKENS = 8, 2176, 16, 64
 # Bounds on |logit difference| between two bf16 runs of a full-width model
 # that differ only in where they round (flash vs dense attention; the
@@ -392,6 +428,14 @@ def sweep_bound_ms(nx: int, ny: int, itemsize: int, sweeps: int,
     t_ops = ops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def short_name(key: str) -> str:
+    """A demangled kernel name without its return type, anonymous
+    namespace and parameter list: ``ssd_bwd::bwd_rows<float, 64>``."""
+    key = key.replace("(anonymous namespace)::", "")
+    key = key[5:] if key.startswith("void ") else key
+    return key.split("(")[0][:80]
 
 
 def dev_us(e):
@@ -1000,8 +1044,9 @@ def traced_families(fn, family_of) -> dict:
     kernel's family from its name and the ranges above it), the largest
     kernels, and the device's busy time against the traced window's wall
     clock. The port's CUDA kernels are launched through ctypes, outside
-    any aten op, so no CPU event holds them: their family, "port kernels",
-    is read from the kernel table by name."""
+    any aten op (in a backward, inside an autograd node's range), so their
+    family, "port kernels", is read from the kernel table by name, and
+    they are left out of the event walk."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1021,6 +1066,8 @@ def traced_families(fn, family_of) -> dict:
             ranges.add(up.name)
             up = up.cpu_parent
         for k in ev.kernels:
+            if any(p in k.name for p in PORT_KERNELS):
+                continue    # read from the kernel table below, once
             ms = k.duration / 1e3
             fam = family_of(k.name, ranges)
             fams[fam] = fams.get(fam, 0.0) + ms
@@ -1033,11 +1080,16 @@ def traced_families(fn, family_of) -> dict:
         and any(k in e.key for k in PORT_KERNELS)) / 1e3
     busy = total + fams["port kernels"]
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    ours = [{"name": short_name(e.key), "count": e.count,
+             "ms": dev_us(e) / 1e3} for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and any(k in e.key for k in PORT_KERNELS)]
     return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / (1e3 * wall),
             "kernel_launches": launches,
             "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
-            "top_kernels": [{"name": n[:100], "ms": ms} for n, ms in top]}
+            "top_kernels": [{"name": n[:100], "ms": ms} for n, ms in top],
+            "port_kernels": sorted(ours, key=lambda k: -k["ms"])}
 
 
 def serve_profile(serve, phase: int, dev, card) -> dict:
@@ -1233,7 +1285,9 @@ def ssd_case(ssd_ops, ssd_ref, dev, card, b, l, h, p, n, chunk,
 
 
 def launch_counts(ops_modules) -> int:
-    return sum(m.launches for m in ops_modules)
+    """Kernel launches of the wrappers, forward and backward."""
+    return sum(m.launches + getattr(m, "bwd_launches", 0)
+               for m in ops_modules)
 
 
 def timed(fn):
@@ -2213,6 +2267,280 @@ def whisper_train_phase(dev, card, kernel_ops) -> dict:
     return row
 
 
+# ------------------------------------------- 26-27. the recurrent training
+def rel_errs(names, got, want) -> dict:
+    """Each gradient's max |error| over its own largest magnitude."""
+    return {name: float((g.float() - w.float()).abs().max()
+                        / w.float().abs().max().clamp_min(1e-30))
+            for name, g, w in zip(names, got, want)}
+
+
+def plain_bwd_ms(forward, leaves, cots) -> float:
+    """CUDA-event time of the plain backward alone: the plain forward's
+    graph built once, then autograd.grad through it (retain_graph)."""
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        outs = forward(*leaves)
+    ms = time_ms(lambda: torch.autograd.grad(outs, leaves, cots,
+                                             retain_graph=True), reps=3)
+    del outs
+    return ms
+
+
+def lru_bwd_case(lru_ops, lru_ref, dev, card, b, l, w, with_h0) -> dict:
+    """Phase 26: lru_scan_bwd against the plain backward (autograd of the
+    plain version) on the same inputs and cotangents: each gradient within
+    LRU_TOL of its largest magnitude, two calls bit-equal; CUDA-event
+    times; bound from the bytes (a, h, dh read, da, db written, and with
+    h0: h0, dh_last read, dh0 written)."""
+    gen = torch.Generator(device=dev).manual_seed(l + w + b + with_h0)
+    a = 0.5 + 0.49 * torch.rand((b, l, w), generator=gen, device=dev)
+    x = torch.randn((b, l, w), generator=gen, device=dev)
+    h0 = torch.randn((b, w), generator=gen, device=dev) if with_h0 else None
+    dh = torch.randn((b, l, w), generator=gen, device=dev)
+    dl = torch.randn((b, w), generator=gen, device=dev) if with_h0 else None
+    h, _ = lru_ops._launch(a, x, h0)
+    names = ("da", "db", "dh0") if with_h0 else ("da", "db")
+    got = lru_ops._launch_bwd(a, h, h0, dh, dl)[:len(names)]
+    again = lru_ops._launch_bwd(a, h, h0, dh, dl)[:len(names)]
+    want = lru_ref.lru_scan_vjp_ref(a, x, h0, dh, dl)[:len(names)]
+    torch.cuda.synchronize()
+    errs = rel_errs(names, got, want)
+    abs_err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+    bit_equal = all(torch.equal(g, g2) for g, g2 in zip(got, again))
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"lru bwd: non-finite gradient at {(b, l, w)}")
+    check(bit_equal, "lru bwd: two calls differ")
+    check(max(errs.values()) <= LRU_TOL,
+          f"lru bwd off the plain backward: {errs} at {(b, l, w, with_h0)}")
+    del got, again, want
+    k_ms = time_ms(lambda: lru_ops._launch_bwd(a, h, h0, dh, dl))
+    leaves = [a, x] + ([h0] if with_h0 else [])
+    p_ms = plain_bwd_ms(
+        lambda *t: lru_ref.lru_scan_ref(t[0], t[1],
+                                        t[2] if with_h0 else None)[
+            :2 if with_h0 else 1],
+        leaves, [dh, dl] if with_h0 else [dh])
+    nbytes = 5 * a.numel() * 4 + (3 * b * w * 4 if with_h0 else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * a.numel() / F32_FLOPS * 1e3   # a fma and a product a step
+    row = {"phase": "recurrent_bwd", "n": 26, "kernel": "lru_scan_bwd",
+           "shape": [b, l, w], "dtype": "f32", "h0": with_h0,
+           "rel_err": errs, "tol": LRU_TOL, "max_abs_err": abs_err,
+           "bit_equal": bit_equal, "kernel_ms": k_ms, "plain_ms": p_ms,
+           "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "mbytes": nbytes / 1e6, "kernel_gb_per_s": nbytes / k_ms / 1e6,
+           "gpu": card}
+    emit(row)
+    return row
+
+
+def ssd_bwd_flops(b, c, q, h, p, n) -> int:
+    """The products of ssd_chunk_bwd's causal half: per (b, c) S = C B^T,
+    dC and dB's q x q part (each q(q+1)/2 dot products of n); per head dM
+    and M^T dY (q(q+1)/2 dot products of p each), V = dSt^T B_j and the
+    states' dSt u_j (q n p each)."""
+    qq = q * (q + 1)
+    return b * c * (3 * qq * n + h * (2 * qq * p + 4 * q * n * p))
+
+
+def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name) -> dict:
+    """Phase 26: ssd_chunk_bwd against the plain backward (autograd of
+    ssd_chunk_terms) at Mamba-2 780M's training shape, random cotangents
+    of y_diag, states and decay_in: each gradient within SSD_TOL of its
+    largest magnitude, two calls bit-equal; CUDA-event times; bound the
+    larger of the bytes (inputs, cotangents, gradients once each) and the
+    causal half's products at the input type's peak."""
+    import torch.nn.functional as F
+
+    b, l, h, p, n, chunk = SSD_BWD_SHAPE
+    c = l // chunk
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(l + h + p + n)
+    x = torch.randn((b, l, h, p), generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device=dev))
+    A = -torch.exp(0.2 * torch.randn((h,), generator=gen, device=dev))
+    B = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
+    C = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
+    dy = torch.randn((b, c, chunk, h, p), generator=gen, device=dev)
+    dst = torch.randn((b, c, h, n, p), generator=gen, device=dev)
+    ddi = torch.randn((b, c, chunk, h), generator=gen, device=dev)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+
+    def kernel():
+        return ssd_ops._launch_bwd(x, dt, A, B, C, chunk, dy, dst, ddi)
+
+    got, again = kernel(), kernel()
+    parts = (x.reshape(b, c, chunk, h, p), dt.reshape(b, c, chunk, h), A,
+             B.reshape(b, c, chunk, n), C.reshape(b, c, chunk, n))
+    cots = (dy, dst.transpose(-1, -2), ddi)
+    want = ssd_ref.ssd_chunk_terms_vjp_ref(*parts, *cots)
+    torch.cuda.synchronize()
+    got = [g.reshape(w_.shape) for g, w_ in zip(got, want)]
+    again = [g.reshape(w_.shape) for g, w_ in zip(again, want)]
+    errs = rel_errs(names, got, want)
+    abs_err = max(float((g.float() - w_.float()).abs().max())
+                  for g, w_ in zip(got, want))
+    bit_equal = all(torch.equal(g, g2) for g, g2 in zip(got, again))
+    tol = SSD_TOL[dtype_name]
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"ssd bwd: non-finite gradient ({dtype_name})")
+    check(bit_equal, f"ssd bwd: two calls differ ({dtype_name})")
+    check(max(errs.values()) <= tol,
+          f"ssd bwd off the plain backward: {errs} ({dtype_name})")
+    del got, again, want
+    k_ms = time_ms(kernel)
+    p_ms = plain_bwd_ms(
+        lambda *t: [o for i, o in enumerate(ssd_ref.ssd_chunk_terms(*t))
+                    if i != 2], parts, cots)
+    flops = ssd_bwd_flops(b, c, chunk, h, p, n)
+    item = x.element_size()
+    nbytes = (2 * (x.numel() + B.numel() + C.numel()) * item
+              + 4 * (2 * dt.numel() + 2 * h + dy.numel() + dst.numel()
+                     + ddi.numel()))
+    peak = BF16_FLOPS if dtype_name == "bf16" else F32_FLOPS
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "recurrent_bwd", "n": 26, "kernel": "ssd_chunk_bwd",
+           "shape": [b, l, h, p, n], "chunk": chunk, "dtype": dtype_name,
+           "rel_err": errs, "tol": tol, "max_abs_err": abs_err,
+           "bit_equal": bit_equal, "kernel_ms": k_ms, "plain_ms": p_ms,
+           "library_ms": None, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "kernel_tflops": flops / k_ms / 1e9, "gpu": card}
+    emit(row)
+    return row
+
+
+@contextlib.contextmanager
+def plain_scans_counted():
+    """While entered, counts the calls of the scans' plain versions (the
+    LRU scan and the SSD chunk terms): the training path on the card must
+    make none."""
+    from repro_torch.kernels.lru_scan import ref as lru_ref
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    calls = {"lru_scan_ref": 0, "ssd_chunk_terms": 0}
+    saved = [(mod, name, getattr(mod, name))
+             for mod, name in ((lru_ref, "lru_scan_ref"),
+                               (ssd_ref, "ssd_chunk_terms"))]
+    for mod, name, fn in saved:
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def recurrent_family(name: str, ranges) -> str:
+    """Phase 19's op families, with the f32 and f64 products of the
+    recurrent blocks named (the RG-LRU's gates and Mamba-2's dt; the dense
+    attention's scores in RecurrentGemma's 8 attention layers)."""
+    low = name.lower()
+    if "dgemm" in low or "gemm_f64" in low:
+        return "f64 gemm (Mamba-2 dt)"
+    fam = family(name, ranges)
+    return ("f32 gemm (RG-LRU gates, attention)"
+            if fam == "f32 gemm (attention)" else fam)
+
+
+def recurrent_train_flops(cfg, tokens: int) -> dict:
+    """6·N·tokens, N the parameters less the embedding (as phase 18);
+    beside it the tied head's logits (RecurrentGemma reads the embedding
+    as its head, so N leaves them out)."""
+    n_matmul = cfg.num_params() - cfg.vocab_size * cfg.d_model
+    head = cfg.vocab_size * cfg.d_model if cfg.tie_embeddings else 0
+    return {"n_matmul": n_matmul, "model_flops": 6 * n_matmul * tokens,
+            "tied_head_flops": 6 * head * tokens}
+
+
+def recurrent_train_phase(arch: str, dev, card) -> dict:
+    """Phase 27 for one arch: the full-width model trained as phase 18
+    (bf16, seed 0, scanned where the stack is uniform, remat "full",
+    AdamW, 8 x 2048 tokens of phase 18's data, no mesh), the counts of the
+    scans' wrappers set to 0 just before the steps and read just after,
+    with the plain scans counted; then one traced step by op family."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = train_run("hdot", None, dev=dev, arch=arch)
+    t.init_state(seed=0)
+    cfg = t.run.model
+    wrappers = {"ssd_scan": ssd_ops.ssd, "lru_scan": lru_ops.lru_scan,
+                "flash_attention": flash_ops.flash_attention}
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "bwd_launches"):
+            w.bwd_launches = 0
+    times = []
+    with plain_scans_counted() as plain:
+        for _ in range(TRAIN_STEPS):
+            _, s = timed(lambda: t.train(1))
+            times.append(s)
+    counts = {k: {"fwd": w.launches, "bwd": getattr(w, "bwd_launches", 0)}
+              for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    plain = dict(plain)
+    log = t.metrics_log
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    flops = recurrent_train_flops(cfg, tokens)
+    scan = "ssd_scan" if cfg.family == "ssm" else "lru_scan"
+    layers = per_prefill(cfg)[scan]
+    # remat "full": each recurrent layer's forward runs again in the
+    # backward's recompute, then its backward once
+    want = {"fwd": 2 * layers * TRAIN_STEPS, "bwd": layers * TRAIN_STEPS}
+    row = {"phase": "train", "n": 27, "arch": cfg.name,
+           "vocab": cfg.vocab_size, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "remat": t.run.parallel.remat, "scan_layers": True,
+           "attn_impl": t.options.attn_impl,
+           "step_ms_median": 1e3 * step_s,
+           "step_ms": [1e3 * x for x in times[1:]],
+           "warmup_step_ms": 1e3 * times[0],
+           "tokens_per_s": tokens / step_s,
+           "mfu": flops["model_flops"] / step_s / BF16_FLOPS, **flops,
+           "mfu_note": "6·N·tokens over 989 TFLOP/s, N the parameters "
+                       "less the embedding; misses the SSD's within-chunk "
+                       "products, the scans, the dense attention's scores, "
+                       "the remat recompute and a tied head's logits",
+           "peak_mem_gib": peak,
+           "losses": [m["loss"] for m in log],
+           "grad_norms": [m["grad_norm"] for m in log],
+           "ln_vocab": math.log(cfg.vocab_size),
+           "launches": counts, "launches_expected": {scan: want},
+           "recurrent_layers": layers, "plain_scan_calls": plain,
+           "gpu": card}
+    emit(row)
+    check(all(math.isfinite(x) for x in row["losses"] + row["grad_norms"]),
+          f"{arch} train: non-finite loss or norm")
+    check(abs(row["losses"][0] - row["ln_vocab"]) <= 1.0,
+          f"{arch} train: first loss {row['losses'][0]}")
+    check(counts[scan] == want,
+          f"{arch} train: {scan} launched {counts[scan]}, want {want}")
+    check(all(v == {"fwd": 0, "bwd": 0} for k, v in counts.items()
+              if k != scan),
+          f"{arch} train: another kernel launched: {counts}")
+    check(not any(plain.values()), f"{arch} train: a plain scan ran: {plain}")
+    prof = traced_families(lambda: t.train(1), recurrent_family)
+    emit({"phase": "train_profile", "n": 27, "arch": cfg.name, **prof,
+          "gpu": card})
+    check(prof["families_ms"]["port kernels"] > 0,
+          f"{arch} train: no kernel of the port in the traced step")
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"row": row, "launches": counts}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2460,6 +2788,26 @@ def main() -> int:
     check(launch_counts(kernel_ops) == before,
           "a kernel of the port launched in Whisper's training")
 
+    # -------- 26. the scans' backward kernels against the plain backwards
+    from repro_torch.kernels.lru_scan import ref as lru_ref
+
+    bwd_s0 = time.perf_counter()
+    lru_bwd_rows = [lru_bwd_case(lru_ops, lru_ref, dev, card, *c)
+                    for c in LRU_BWD_CASES]
+    ssd_bwd_rows = {d: ssd_bwd_case(ssd_ops, ssd_ref, dev, card, d)
+                    for d in SSD_BWD_DTYPES}
+    bwd_s = time.perf_counter() - bwd_s0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 27. Mamba-2 780M and RecurrentGemma-2B trained at full width,
+    # forward and backward through the scan kernels (counted)
+    trained, rtrain_s = timed(lambda: {
+        arch: recurrent_train_phase(arch, dev, card)
+        for arch in RECURRENT_TRAIN})
+    emit({"phase": "recurrent_seconds", "n": [26, 27], "phase26_s": bwd_s,
+          "phase27_s": rtrain_s})
+
     # ---- 25. LLaVA-NeXT-34B (64 GiB of weights): last, on a freed card
     gc.collect()
     torch.cuda.empty_cache()
@@ -2481,7 +2829,13 @@ def main() -> int:
         kernel_entry("lru_scan", LRU_SOURCE, LRU_REPLACES,
                      served["recurrentgemma-2b"]["lru_scan"], lru_rows[0]),
         kernel_entry("ssd_scan", SSD_SOURCE, SSD_REPLACES,
-                     served["mamba2-780m"]["ssd_scan"], ssd_rows[0])]})
+                     served["mamba2-780m"]["ssd_scan"], ssd_rows[0]),
+        kernel_entry("lru_scan_bwd", LRU_SOURCE, LRU_REPLACES,
+                     trained["recurrentgemma-2b"]["launches"]["lru_scan"][
+                         "bwd"], lru_bwd_rows[0]),
+        kernel_entry("ssd_chunk_bwd", SSD_SOURCE, SSD_REPLACES,
+                     trained["mamba2-780m"]["launches"]["ssd_scan"]["bwd"],
+                     ssd_bwd_rows["bf16"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,3 +8,14 @@ Each kernel package provides:
 
 Kernels are built by nvcc at first use (:mod:`repro_torch.kernels._build`).
 """
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd wants a gradient of any of `tensors` (None
+    allowed): the wrappers go through their ``torch.autograd.Function``
+    only then, since ``Function.apply`` alone costs ~0.07 ms of host time,
+    more than a short scan kernel takes on the card."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

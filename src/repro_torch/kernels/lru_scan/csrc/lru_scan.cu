@@ -61,8 +61,25 @@
 // them, which stays within the JAX suite's 1e-5 of the plain version
 // (tests/test_torch_lru.py emulates this order on the CPU).
 //
+// Backward (lru_scan_bwd): the vector-Jacobian product of (h, h_last) is
+// the reverse recurrence g_t = dh_t + a_{t+1} g_{t+1}, g_{L-1} = dh_{L-1} +
+// dh_last, then db_t = g_t, da_t = g_t h_{t-1} (h_{-1} = h0, or 0) and
+// dh0 = a_0 g_0. It is the same scan run from the end of the sequence: at
+// step s of the reversed sequence (t = L-1-s) the multiplier is a_{t+1}
+// (the identity at s = 0), the addend dh_t and the carry into the first
+// step dh_last. So the backward is this kernel instantiated with kBwd: the
+// same segments, cluster carry and persistent spans, with the loads and
+// the stores indexed from the end; its replay also reads the forward's
+// h_{t-1} and writes da_t and db_t. Bound: bytes, one pass reading a, h
+// and dh and writing da and db, 20 B an f32 element: 839 MB, 0.250 ms at
+// (8, 2048, 2560) f32 at 3.35 TB/s. The carry is f32 and g is rounded
+// once to b's dtype for db; with bf16 b the saved h is bf16, so da_t uses
+// h_{t-1} rounded to bf16 (the plain backward, autograd of the plain
+// version, uses the f32 carry): da is then within a bf16 rounding of it.
+//
 // C interface, loaded with ctypes: every pointer and the stream are void*;
-// h0 may be null. Returns the launch's error (0 if none).
+// h0 (and, in the backward, dh_last and dh0) may be null. Returns the
+// launch's error (0 if none).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -93,22 +110,44 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// The kSteps steps of segment `seg` (steps seg * kSteps on) of one channel,
-// all loads issued before any is used; steps past the end (and lanes past
-// the width) are the identity (a = 1, b = 0).
-template <typename TA, typename TB>
+// The kSteps steps of segment `seg` (steps seg * kSteps on, of the
+// sequence in the scan's order) of one channel, all loads issued before any
+// is used; steps past the end (and lanes past the width) are the identity
+// (a = 1, b = 0). The backward's step s is t = l-1-s: multiplier a_{t+1}
+// (the identity at s = 0), addend dh_t.
+template <bool kBwd, typename TA, typename TB>
 __device__ __forceinline__ void load_steps(const TA* ap, const TB* bp,
                                            int seg, int l, int w, bool ok,
                                            float (&av)[kSteps],
                                            float (&bv)[kSteps]) {
-  const int t0 = seg * kSteps;
+  const int s0 = seg * kSteps;
 #pragma unroll
   for (int u = 0; u < kSteps; ++u) {
-    const bool in = ok && t0 + u < l;
-    av[u] = in ? to_f(ap[(long long)(t0 + u) * w]) : 1.f;
-    bv[u] = in ? to_f(bp[(long long)(t0 + u) * w]) : 0.f;
+    const int s = s0 + u;
+    const bool in = ok && s < l;
+    const int t = kBwd ? l - 1 - s : s;
+    av[u] = in && (!kBwd || s > 0)
+                ? to_f(ap[(long long)(kBwd ? t + 1 : t) * w])
+                : 1.f;
+    bv[u] = in ? to_f(bp[(long long)t * w]) : 0.f;
   }
 }
+
+// The pointers of one scan. Forward: b the addends, cin = h0, out = h,
+// last = h_last. Backward: b = dh, cin = dh_last, out = db, last = dh0, and
+// h, h0 the forward's (h0 may be null), da the multipliers' gradient.
+template <typename TA, typename TB>
+struct Args {
+  const TA* a;
+  const TB* b;
+  const float* cin;
+  TB* out;
+  float* last;
+  const TB* h;
+  const float* h0;
+  TA* da;
+  int batch, l, w;
+};
 
 // One work item of a cluster: span `span_idx` of the channel group
 // `group` (32 channels of one batch row).
@@ -134,17 +173,17 @@ __device__ __forceinline__ Item locate(int q, int nspan, int gw, int l,
 
 // A persistent cluster of nc blocks along the sequence (grid (P, nc), P
 // clusters resident at once) walks its work items: channel groups
-// blockIdx.x, blockIdx.x + P, ..., each span by span in sequence order.
-template <typename TA, typename TB>
+// blockIdx.x, blockIdx.x + P, ..., each span by span in the scan's order
+// (from the end of the sequence in the backward).
+template <bool kBwd, typename TA, typename TB>
 __global__ void __launch_bounds__(kLanes* kWarps, kMinBlocks)
-    lru_scan_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
-                    const float* __restrict__ h0, TB* __restrict__ h,
-                    float* __restrict__ h_last, int batch, int l, int w) {
+    lru_scan_kernel(const Args<TA, TB> p) {
   __shared__ float seg_p[kWarps][kLanes], seg_h[kWarps][kLanes];
   __shared__ float blk_p[2][kLanes], blk_h[2][kLanes];  // by item parity
   __shared__ float rem_p[kMaxCluster][kLanes], rem_h[kMaxCluster][kLanes];
   __shared__ float carry_s[2][kLanes];  // into the item, by item parity
   cg::cluster_group cluster = cg::this_cluster();
+  const int l = p.l, w = p.w;
   const int nc = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int lane = threadIdx.x, warp = threadIdx.y;
@@ -152,7 +191,7 @@ __global__ void __launch_bounds__(kLanes* kWarps, kMinBlocks)
   const int span = nc * kWarps * kSteps;
   const int nspan = (l + span - 1) / span;
   const int gw = (w + kLanes - 1) / kLanes;
-  const int groups = gw * batch;
+  const int groups = gw * p.batch;
   const int mine_groups =
       groups > (int)blockIdx.x
           ? (groups - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
@@ -162,7 +201,8 @@ __global__ void __launch_bounds__(kLanes* kWarps, kMinBlocks)
   float av[kSteps], bv[kSteps], an[kSteps], bn[kSteps];
   if (items > 0) {
     const Item nx = locate(0, nspan, gw, l, w);
-    load_steps(a + nx.base, b + nx.base, seg0, l, w, nx.ok, an, bn);
+    load_steps<kBwd>(p.a + nx.base, p.b + nx.base, seg0, l, w, nx.ok, an,
+                     bn);
   }
   for (int q = 0, par = 0; q < items; ++q, par ^= 1) {
     const Item it = locate(q, nspan, gw, l, w);
@@ -174,11 +214,12 @@ __global__ void __launch_bounds__(kLanes* kWarps, kMinBlocks)
     }
     if (q + 1 < items) {  // the next item's steps, while this one composes
       const Item nx = locate(q + 1, nspan, gw, l, w);
-      load_steps(a + nx.base, b + nx.base,
-                 nx.span_idx * nc * kWarps + seg0, l, w, nx.ok, an, bn);
+      load_steps<kBwd>(p.a + nx.base, p.b + nx.base,
+                       nx.span_idx * nc * kWarps + seg0, l, w, nx.ok, an,
+                       bn);
     }
-    if (warp == 0 && it.span_idx == 0)  // a group starts from h0 (or 0)
-      carry_s[par][lane] = (h0 != nullptr && it.ok) ? h0[it.hrow] : 0.f;
+    if (warp == 0 && it.span_idx == 0)  // a group starts from cin (or 0)
+      carry_s[par][lane] = (p.cin != nullptr && it.ok) ? p.cin[it.hrow] : 0.f;
     float prod = 1.f, hend = 0.f;
 #pragma unroll
     for (int u = 0; u < kSteps; ++u) {
@@ -220,13 +261,37 @@ __global__ void __launch_bounds__(kLanes* kWarps, kMinBlocks)
 #pragma unroll
     for (int j = 0; j < kWarps - 1; ++j)
       if (j < warp) hh = fmaf(seg_p[j][lane], hh, seg_h[j][lane]);
-    TB* hp = h + it.base;
+    if (!kBwd) {
+      TB* hp = p.out + it.base;
 #pragma unroll
-    for (int u = 0; u < kSteps; ++u) {
-      hh = fmaf(av[u], hh, bv[u]);
-      if (it.ok && t0 + u < l) {
-        hp[(long long)(t0 + u) * w] = from_f<TB>(hh);
-        if (t0 + u == l - 1) h_last[it.hrow] = hh;
+      for (int u = 0; u < kSteps; ++u) {
+        hh = fmaf(av[u], hh, bv[u]);
+        if (it.ok && t0 + u < l) {
+          hp[(long long)(t0 + u) * w] = from_f<TB>(hh);
+          if (t0 + u == l - 1) p.last[it.hrow] = hh;
+        }
+      }
+    } else {  // hh is g_t: db_t = g_t, da_t = g_t h_{t-1}, dh0 = a_0 g_0
+      float hv[kSteps];  // h_{t-1} of each step, all loads issued first
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int t = l - 1 - (t0 + u);
+        hv[u] = !(it.ok && t0 + u < l) ? 0.f
+                : t > 0 ? to_f(p.h[it.base + (long long)(t - 1) * w])
+                : p.h0 != nullptr ? p.h0[it.hrow]
+                                  : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        hh = fmaf(av[u], hh, bv[u]);
+        if (it.ok && t0 + u < l) {
+          const int t = l - 1 - (t0 + u);
+          const long long o = it.base + (long long)t * w;
+          p.out[o] = from_f<TB>(hh);
+          p.da[o] = from_f<TA>(hh * hv[u]);
+          if (t == 0 && p.last != nullptr)
+            p.last[it.hrow] = to_f(p.a[it.base]) * hh;
+        }
       }
     }
     __syncthreads();  // seg_*, rem_* and carry_s are rewritten next item
@@ -245,11 +310,11 @@ int cluster_for(int l) {
   return need < kMaxCluster ? need : kMaxCluster;
 }
 
-template <typename TA, typename TB>
-int launch(const void* a, const void* b, const float* h0, void* h,
-           float* h_last, int batch, int l, int w, cudaStream_t st) {
-  const int nc = cluster_for(l);
-  const long long groups = (long long)((w + kLanes - 1) / kLanes) * batch;
+template <bool kBwd, typename TA, typename TB>
+int launch(const Args<TA, TB>& args, cudaStream_t st) {
+  const int nc = cluster_for(args.l);
+  const long long groups =
+      (long long)((args.w + kLanes - 1) / kLanes) * args.batch;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kLanes, kWarps);
   cfg.dynamicSmemBytes = 0;
@@ -270,7 +335,8 @@ int launch(const void* a, const void* b, const float* h0, void* h,
   int& p = resident[nc][dev & 63];
   if (p == 0) {
     cfg.gridDim = dim3(1, nc, 1);
-    err = cudaOccupancyMaxActiveClusters(&p, lru_scan_kernel<TA, TB>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(
+        &p, lru_scan_kernel<kBwd, TA, TB>, &cfg);
     if (err != cudaSuccess || p < 1) {
       cudaGetLastError();
       p = 0;
@@ -278,15 +344,40 @@ int launch(const void* a, const void* b, const float* h0, void* h,
     }
   }
   cfg.gridDim = dim3((unsigned)(groups < p ? groups : p), nc, 1);
-  err = cudaLaunchKernelEx(&cfg, lru_scan_kernel<TA, TB>,
-                           static_cast<const TA*>(a),
-                           static_cast<const TB*>(b), h0, static_cast<TB*>(h),
-                           h_last, batch, l, w);
+  err = cudaLaunchKernelEx(&cfg, lru_scan_kernel<kBwd, TA, TB>, args);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the next launch must not see it
     return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int batch, int l, int w, int a_dtype, int b_dtype) {
+  return batch < 1 || l < 1 || w < 1 ||
+         (long long)((w + kLanes - 1) / kLanes) * batch > 0x7fffffff ||
+         a_dtype < 0 || a_dtype > 1 || b_dtype < 0 || b_dtype > 1;
+}
+
+// Both directions, by the two dtypes (0 = float32, 1 = bf16).
+template <bool kBwd>
+int dispatch(const void* a, const void* b, const void* cin, void* out,
+             void* last, const void* h, const void* h0, void* da, int batch,
+             int l, int w, int a_dtype, int b_dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* cf = static_cast<const float*>(cin);
+  const float* h0f = static_cast<const float*>(h0);
+  float* lf = static_cast<float*>(last);
+#define LRU_LAUNCH(TA, TB)                                                  \
+  return launch<kBwd, TA, TB>(                                              \
+      Args<TA, TB>{static_cast<const TA*>(a), static_cast<const TB*>(b), cf, \
+                   static_cast<TB*>(out), lf, static_cast<const TB*>(h),    \
+                   h0f, static_cast<TA*>(da), batch, l, w},                 \
+      st)
+  if (a_dtype == 0 && b_dtype == 0) LRU_LAUNCH(float, float);
+  if (a_dtype == 0 && b_dtype == 1) LRU_LAUNCH(float, __nv_bfloat16);
+  if (a_dtype == 1 && b_dtype == 0) LRU_LAUNCH(__nv_bfloat16, float);
+  LRU_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+#undef LRU_LAUNCH
 }
 
 }  // namespace
@@ -304,20 +395,22 @@ extern "C" void lru_scan_plan(int l, int* out) {
 extern "C" int lru_scan_fwd(const void* a, const void* b, const void* h0,
                             void* h, void* h_last, int batch, int l, int w,
                             int a_dtype, int b_dtype, void* stream) {
-  if (batch < 1 || l < 1 || w < 1 ||
-      (long long)((w + kLanes - 1) / kLanes) * batch > 0x7fffffff ||
-      a_dtype < 0 ||
-      a_dtype > 1 || b_dtype < 0 || b_dtype > 1)
+  if (bad_shape(batch, l, w, a_dtype, b_dtype))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* h0f = static_cast<const float*>(h0);
-  float* hl = static_cast<float*>(h_last);
-  if (a_dtype == 0 && b_dtype == 0)
-    return launch<float, float>(a, b, h0f, h, hl, batch, l, w, st);
-  if (a_dtype == 0 && b_dtype == 1)
-    return launch<float, __nv_bfloat16>(a, b, h0f, h, hl, batch, l, w, st);
-  if (a_dtype == 1 && b_dtype == 0)
-    return launch<__nv_bfloat16, float>(a, b, h0f, h, hl, batch, l, w, st);
-  return launch<__nv_bfloat16, __nv_bfloat16>(a, b, h0f, h, hl, batch, l, w,
-                                               st);
+  return dispatch<false>(a, b, h0, h, h_last, nullptr, nullptr, nullptr,
+                         batch, l, w, a_dtype, b_dtype, stream);
+}
+
+// The backward of lru_scan_fwd. a, h (the forward's output), dh, da, db:
+// (batch, seq, width) contiguous, a and da in a's dtype, h, dh and db in
+// b's; h0 (the forward's, f32), dh_last and dh0: (batch, width) f32, each
+// may be null (no h0: h_{-1} = 0; no dh_last: zero; no dh0: not written).
+extern "C" int lru_scan_bwd(const void* a, const void* h, const void* h0,
+                            const void* dh, const void* dh_last, void* da,
+                            void* db, void* dh0, int batch, int l, int w,
+                            int a_dtype, int b_dtype, void* stream) {
+  if (bad_shape(batch, l, w, a_dtype, b_dtype))
+    return (int)cudaErrorInvalidValue;
+  return dispatch<true>(a, dh, dh_last, db, dh0, h, h0, da, batch, l, w,
+                        a_dtype, b_dtype, stream);
 }

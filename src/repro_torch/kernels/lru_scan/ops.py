@@ -4,7 +4,12 @@
 (``csrc/lru_scan.cu``) for a CUDA tensor and runs the plain PyTorch version
 (:mod:`.ref`) for a CPU tensor; ``"plain"`` forces the plain version and
 ``"kernel"`` on a CPU tensor raises. There is no fallback from the kernel to
-the plain version. ``lru_scan.launches`` counts the kernel launches.
+the plain version. On the kernel path a scan whose gradient is wanted is
+a ``torch.autograd.Function`` whose backward is the same source's
+``lru_scan_bwd`` kernel (the reverse recurrence), so a CUDA tensor is
+trained through kernels only; on the CPU autograd differentiates the plain
+version. ``lru_scan.launches`` counts the forward kernel's launches and
+``lru_scan.bwd_launches`` the backward's.
 
 Any sequence length is taken. The Pallas kernel raises unless its chunk
 (``min(256, seq)``) divides the length, so on a TPU the JAX package cannot
@@ -19,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, needs_grad
 from repro_torch.kernels.lru_scan import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lru_scan.cu"
@@ -66,12 +71,36 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
             raise ValueError(
                 "lru_scan: impl='kernel' needs CUDA tensors; the CPU runs "
                 "impl='plain'")
+        if needs_grad(a, b, h0):
+            return _Scan.apply(a, b, h0)
         return _launch(a, b, h0)
     raise ValueError(f"unknown impl {impl!r}")
 
 
 lru_scan.launches = 0
+lru_scan.bwd_launches = 0
 lru_scan.last_plan = None   # launch shape of the last kernel call
+
+
+class _Scan(torch.autograd.Function):
+    """The kernel scan under autograd: the forward saves a, h and h0 (no
+    copy), the backward launches ``lru_scan_bwd``. A gradient that does
+    not reach h or h_last counts as zero."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        a = a.contiguous()
+        h, h_last = _launch(a, b, h0)
+        ctx.set_materialize_grads(False)
+        ctx.h0_dtype = None if h0 is None else h0.dtype
+        ctx.save_for_backward(a, h, None if h0 is None else h0.float())
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = _launch_bwd(a, h, h0, dh, dh_last)
+        return da, db, None if h0 is None else dh0.to(ctx.h0_dtype)
 
 
 def _library():
@@ -79,6 +108,9 @@ def _library():
     if lib.lru_scan_fwd.argtypes is None:
         lib.lru_scan_fwd.restype = ctypes.c_int
         lib.lru_scan_fwd.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.lru_scan_bwd.restype = ctypes.c_int
+        lib.lru_scan_bwd.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.lru_scan_plan.restype = None
         lib.lru_scan_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
@@ -113,3 +145,31 @@ def _launch(a, b, h0):
     lru_scan.launches += 1
     lru_scan.last_plan = kernel_plan(l)
     return h, h_last
+
+
+def _launch_bwd(a, h, h0, dh, dh_last):
+    """(da in a.dtype, db in h.dtype, dh0 f32 or None) from the kernel's
+    reverse scan; dh and dh_last may be None (zero)."""
+    fn = _library().lru_scan_bwd
+    bsz, l, w = a.shape
+    dh = (torch.zeros_like(h) if dh is None
+          else dh.to(h.dtype).contiguous())
+    dh_last = None if dh_last is None else dh_last.float().contiguous()
+    da = torch.empty_like(a)
+    db = torch.empty_like(h)
+    dh0 = (None if h0 is None else
+           torch.empty((bsz, w), dtype=torch.float32, device=a.device))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), h.data_ptr(), ptr(h0), dh.data_ptr(),
+                 ptr(dh_last), da.data_ptr(), db.data_ptr(), ptr(dh0), bsz,
+                 l, w, _DTYPES[a.dtype], _DTYPES[h.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"lru_scan backward kernel launch failed: CUDA error {err}")
+    lru_scan.bwd_launches += 1
+    return da, db, dh0

@@ -12,8 +12,10 @@ first step in float32, as the Pallas kernel carries it
 ``h_last`` in float32.
 
 :func:`lru_scan_sequential` is the O(seq) loop, the ground truth of the
-tests. This module is the CPU path of :func:`repro_torch.kernels.lru_scan.
-ops.lru_scan` and the card's oracle for the CUDA kernel.
+tests. :func:`lru_scan_vjp_ref` is the plain backward, autograd of
+:func:`lru_scan_ref`. This module is the CPU path of
+:func:`repro_torch.kernels.lru_scan.ops.lru_scan` and the card's oracle for
+the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -40,6 +42,28 @@ def lru_scan_ref(a: torch.Tensor, b: torch.Tensor,
         af = torch.cat([af[:, :off], af[:, off:] * af[:, :-off]], dim=1)
         off *= 2
     return bf.to(b.dtype), bf[:, -1]
+
+
+def lru_scan_vjp_ref(a: torch.Tensor, b: torch.Tensor,
+                     h0: Optional[torch.Tensor], dh: torch.Tensor,
+                     dh_last: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                Optional[torch.Tensor]]:
+    """The plain backward: the gradients of :func:`lru_scan_ref` at (a, b,
+    h0) for the cotangents dh of h and dh_last of h_last (None: zero).
+    Returns (da, db, dh0), dh0 None without h0."""
+    leaves = [t.detach().requires_grad_(True) for t in (a, b)]
+    if h0 is not None:
+        leaves.append(h0.detach().requires_grad_(True))
+    with torch.enable_grad():
+        h, h_last = lru_scan_ref(leaves[0], leaves[1],
+                                 leaves[2] if h0 is not None else None)
+        outs, cots = [h], [dh]
+        if dh_last is not None:
+            outs.append(h_last)
+            cots.append(dh_last)
+        grads = torch.autograd.grad(outs, leaves, cots)
+    return grads[0], grads[1], grads[2] if h0 is not None else None
 
 
 def lru_scan_sequential(a: torch.Tensor, b: torch.Tensor,

@@ -816,6 +816,826 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
              : launch_tc<P>(x, dt, A, B, C, y, s, di, b, nc, q, h, n, st);
 }
 
+// ================================================================ backward
+//
+// ssd_chunk_bwd: the vector-Jacobian product of the three outputs above
+// (kernels/ssd_scan/ref.py ssd_chunk_terms), per (b, c) and head, with
+// u_j = x_j dt_j, S = C B^T, L_ij = exp(cs_i - cs_j) (j <= i), M = S o L,
+// w_j = exp(cs_last - cs_j) and the cotangents dY (of y_diag), dSt (of the
+// (n x p) states) and dD (of decay_in):
+//   dM      = dY u^T (j <= i)            dl = dM o M   (d of cs_i - cs_j)
+//   du_j    = sum_i M_ij dY_i + w_j V_j,  V_j = dSt^T B_j (a p-vector)
+//   dw_j    = u_j . V_j
+//   dC_i    = sum_h sum_j (dM o L)_ij B_j
+//   dB_j    = sum_h sum_i (dM o L)_ij C_i + sum_h w_j dSt u_j
+//   dcs_i   = rowsum(dl)_i - colsum(dl)_i + dD_i exp(cs_i) - dw_i w_i
+//             (+ sum_j dw_j w_j at i = q-1)
+//   dA_k    = sum_{i >= k} dcs_i            (the reverse cumsum, f64)
+//   ddt_k   = dA_k A + du_k . x_k,  dx_k = du_k dt_k,  dA(h) += dA_k dt_k
+// Nothing large is kept from the forward: cs (f64, as the forward takes
+// it), S, L and u are recomputed. B and C are shared by every head (one
+// group), so dB and dC sum over heads, and dA over (b, c, q): every sum has
+// one owner that adds in a fixed order (a block looping over heads, or
+// per-(b, c) partials summed by a second kernel), with no float atomics, so
+// two calls give bit-equal gradients.
+//
+// Nine kernels on one stream (namespace ssd_bwd, which names them in a
+// trace), all SIMT f32 (the q x q products could run on mma.sync or wgmma
+// later). The sums over heads are cut into groups of kHeadGroup heads, a
+// block each, whose partials a second kernel adds in group order:
+//   1. bwd_cs     cs per (b, c, head), f64, into the workspace;
+//   2. bwd_S      S = C B^T per (b, c), 32 x 32 tiles, j <= i;
+//   3. bwd_rows   per (b, c, 32 rows i, head group), heads in order: dM,
+//                 rowsum(dl) per head, and the group's sum of dM o L (in
+//                 shared memory, each element by one thread) into the
+//                 workspace;
+//   4. bwd_dC     per (b, c, 32 rows i): the groups' sums added in order
+//                 (sum_h dM o L, kept for 6.) and dC of its rows;
+//   5. bwd_cols   per (b, c, head, 32 rows j): du (the M^T dY and the
+//                 states terms), colsum(dl), dw, dx and du . x;
+//   6. bwd_dBh    per (b, c, 32 rows j, head group): the group's sum of
+//                 w_j dSt u_j, heads in order, into the workspace;
+//   7. bwd_dB     per (b, c, 32 rows j): (sum_h dM o L)^T C, then the
+//                 groups' sums of 6. in order;
+//   8. bwd_dt     per (b, c), a warp per head: dcs, its reverse cumsum in
+//                 f64, ddt, and the (b, c) partial of dA;
+//   9. bwd_dA     per head, the partials summed over (b, c) in order.
+// Bound at Mamba-2 780M's training shape (8, 2048, 48, 64, 128), chunk 256,
+// bf16: the bytes (x, B, C, dx, dB, dC in bf16; dt, dY, dSt, dD, ddt in
+// f32) are 0.53 GB, 0.16 ms at 3.35 TB/s; the products of the causal half
+// (S, dM, the M^T dY, V, dSt u, dC, dB) are 53 GFLOP, 0.054 ms at the bf16
+// tensor-core rate: the bound is the bytes'. This SIMT version does those
+// products on the CUDA cores (and dM twice, in kernels 3 and 5).
+
+namespace ssd_bwd {
+
+constexpr int kT = 32;        // rows of a tile (i or j)
+constexpr int kThreadsB = 256;
+constexpr int kHeadGroup = 8;  // heads a block of the head sums adds
+
+__device__ __forceinline__ float ld(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, long long i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// The sum over the 16 lanes of a half warp (lanes 16k .. 16k+15); every
+// lane gets the same bits (each step adds the same two values).
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o /= 2) v += __shfl_xor_sync(~0u, v, o);
+  return v;
+}
+
+struct BDims {
+  int bc, q, h, n;  // b * chunks, chunk length, heads, state size
+};
+
+// The workspace, in bytes from its start: cs (f64, (bc, h, q)), S and
+// sum_h dM o L (f32, (bc, q, q)), rowsum(dl), colsum(dl), dw (f32, (bc, h,
+// q)), du . x (f32, (bc, q, h)), dA's partials (f64, (bc, h)), and the
+// head groups' partial sums of dM o L (f32, (groups, bc, q, q)) and of the
+// states' dB term (f32, (groups, bc, q, n)).
+struct Work {
+  double* cs;
+  float *S, *dS, *rows, *cols, *dw, *ddtu;
+  double* dAp;
+  float *dSp, *dBp;
+};
+
+__host__ __device__ inline int head_groups(int h) {
+  return (h + kHeadGroup - 1) / kHeadGroup;
+}
+
+__host__ __device__ inline long long align256(long long x) {
+  return (x + 255) / 256 * 256;
+}
+
+inline long long work_layout(const BDims& d, char* base, Work* w) {
+  const long long bhq = (long long)d.bc * d.h * d.q;
+  const long long qq = (long long)d.bc * d.q * d.q;
+  const long long g = head_groups(d.h);
+  const long long sizes[10] = {8 * bhq, 4 * qq,  4 * qq,
+                               4 * bhq, 4 * bhq, 4 * bhq,
+                               4 * bhq, 8LL * d.bc * d.h, 4 * g * qq,
+                               4 * g * d.bc * d.q * d.n};
+  long long off[10], total = 0;
+  for (int k = 0; k < 10; ++k) {
+    off[k] = total;
+    total += align256(sizes[k]);
+  }
+  if (w != nullptr) {
+    w->cs = reinterpret_cast<double*>(base + off[0]);
+    w->S = reinterpret_cast<float*>(base + off[1]);
+    w->dS = reinterpret_cast<float*>(base + off[2]);
+    w->rows = reinterpret_cast<float*>(base + off[3]);
+    w->cols = reinterpret_cast<float*>(base + off[4]);
+    w->dw = reinterpret_cast<float*>(base + off[5]);
+    w->ddtu = reinterpret_cast<float*>(base + off[6]);
+    w->dAp = reinterpret_cast<double*>(base + off[7]);
+    w->dSp = reinterpret_cast<float*>(base + off[8]);
+    w->dBp = reinterpret_cast<float*>(base + off[9]);
+  }
+  return total;
+}
+
+// 1. cs = cumsum(dt * A) per (b, c, head), in f64, as the forward takes it:
+// a warp per head, consecutive rows a lane, then a shuffle scan.
+__global__ void __launch_bounds__(kThreadsB)
+    bwd_cs(const float* __restrict__ dt, const float* __restrict__ A,
+           double* __restrict__ cs, BDims d) {
+  const int bc = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int hh = blockIdx.y * (kThreadsB / 32) + warp;
+  if (hh >= d.h) return;  // whole warps
+  const int q = d.q;
+  const long long row0 = (long long)bc * q;
+  const double a = A[hh];
+  const int per = (q + 31) / 32;
+  const int i0 = min(q, lane * per), i1 = min(q, i0 + per);
+  double* out = cs + ((long long)bc * d.h + hh) * q;
+  double run = 0.0;
+  for (int i = i0; i < i1; ++i) {
+    run += (double)dt[(row0 + i) * d.h + hh] * a;
+    out[i] = run;
+  }
+  double incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2) {
+    const double up = __shfl_up_sync(~0u, incl, o);
+    if (lane >= o) incl += up;
+  }
+  const double excl = incl - run;
+  for (int i = i0; i < i1; ++i) out[i] += excl;
+}
+
+// 2. S = C B^T per (b, c): a 32 x 32 tile a block, tiles with j <= i only.
+template <typename T>
+__global__ void __launch_bounds__(kThreadsB)
+    bwd_S(const T* __restrict__ B, const T* __restrict__ C,
+          float* __restrict__ S, BDims d) {
+  const int it = blockIdx.x, jt = blockIdx.y, bc = blockIdx.z;
+  if (jt > it) return;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int n = d.n, q = d.q, LDN = n + 1;
+  float* Cs = reinterpret_cast<float*>(smem_b);  // [kT][n + 1]
+  float* Bs = Cs + kT * LDN;                      // [kT][n + 1]
+  const long long row0 = (long long)bc * q;
+  const int i0 = it * kT, j0 = jt * kT, tid = threadIdx.x;
+  for (int e = tid; e < kT * n; e += kThreadsB) {
+    const int r = e / n, k = e % n;
+    Cs[r * LDN + k] = i0 + r < q ? ld(C, (row0 + i0 + r) * n + k) : 0.f;
+    Bs[r * LDN + k] = j0 + r < q ? ld(B, (row0 + j0 + r) * n + k) : 0.f;
+  }
+  __syncthreads();
+  const int ra = tid / 16, ja = tid % 16;
+  float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
+  const float* c0 = Cs + ra * LDN;
+  const float* c1 = Cs + (ra + 16) * LDN;
+  const float* b0 = Bs + ja * LDN;
+  const float* b1 = Bs + (ja + 16) * LDN;
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) {
+    const float cv0 = c0[k], cv1 = c1[k], bv0 = b0[k], bv1 = b1[k];
+    s00 = fmaf(cv0, bv0, s00);
+    s01 = fmaf(cv0, bv1, s01);
+    s10 = fmaf(cv1, bv0, s10);
+    s11 = fmaf(cv1, bv1, s11);
+  }
+  const float sv[2][2] = {{s00, s01}, {s10, s11}};
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int i = i0 + ra + 16 * u, j = j0 + ja + 16 * v;
+      if (i < q && j < q) S[(row0 + i) * q + j] = sv[u][v];
+    }
+}
+
+// Rows of the head-dim tiles: P + 4 floats, so that every row starts on
+// 16 bytes (tile_dm reads 4 head-dim values at once) and the 8 rows of a
+// quarter warp's 16-byte loads fall in distinct banks.
+template <int P>
+__host__ __device__ constexpr int ldp() {
+  return P + 4;
+}
+
+// The float offset, past q doubles of cs, where a block's float tiles
+// start: 16-byte aligned whatever q.
+__host__ __device__ inline int tiles_at(int q) { return (8 * q + 15) / 16 * 4; }
+
+// Loads a 32-row tile of u = x dt (head hh, rows r0..) into Us[kT][ldp].
+template <typename T, int P>
+__device__ __forceinline__ void load_u(float* Us, const T* __restrict__ x,
+                                       const float* __restrict__ dt,
+                                       long long row0, int r0, int hh,
+                                       const BDims& d) {
+  for (int e = threadIdx.x; e < kT * P; e += kThreadsB) {
+    const int r = e / P, pp = e % P, j = r0 + r;
+    Us[r * ldp<P>() + pp] =
+        j < d.q ? ld(x, ((row0 + j) * d.h + hh) * P + pp) *
+                      dt[(row0 + j) * d.h + hh]
+                : 0.f;
+  }
+}
+
+// Loads a 32-row tile of dY (head hh, rows r0..) into Ys[kT][ldp].
+template <int P>
+__device__ __forceinline__ void load_dy(float* Ys, const float* __restrict__ dy,
+                                        long long row0, int r0, int hh,
+                                        const BDims& d) {
+  for (int e = threadIdx.x; e < kT * P; e += kThreadsB) {
+    const int r = e / P, pp = e % P, i = r0 + r;
+    Ys[r * ldp<P>() + pp] =
+        i < d.q ? dy[((row0 + i) * d.h + hh) * P + pp] : 0.f;
+  }
+}
+
+// dM for the thread's 2 x 2 elements (rows ra, ra + 16 of Ys; rows ja,
+// ja + 16 of Us): dY_i . u_j over the head dim, 4 values a load, summed in
+// head-dim order.
+template <int P>
+__device__ __forceinline__ void tile_dm(const float* Ys, const float* Us,
+                                        int ra, int ja, float (&m)[2][2]) {
+  const float* y0 = Ys + ra * ldp<P>();
+  const float* y1 = Ys + (ra + 16) * ldp<P>();
+  const float* u0 = Us + ja * ldp<P>();
+  const float* u1 = Us + (ja + 16) * ldp<P>();
+  float m00 = 0.f, m01 = 0.f, m10 = 0.f, m11 = 0.f;
+#pragma unroll 4
+  for (int pp = 0; pp < P; pp += 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(y0 + pp);
+    const float4 a1 = *reinterpret_cast<const float4*>(y1 + pp);
+    const float4 b0 = *reinterpret_cast<const float4*>(u0 + pp);
+    const float4 b1 = *reinterpret_cast<const float4*>(u1 + pp);
+    const float av0[4] = {a0.x, a0.y, a0.z, a0.w};
+    const float av1[4] = {a1.x, a1.y, a1.z, a1.w};
+    const float bv0[4] = {b0.x, b0.y, b0.z, b0.w};
+    const float bv1[4] = {b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      m00 = fmaf(av0[k], bv0[k], m00);
+      m01 = fmaf(av0[k], bv1[k], m01);
+      m10 = fmaf(av1[k], bv0[k], m10);
+      m11 = fmaf(av1[k], bv1[k], m11);
+    }
+  }
+  m[0][0] = m00;
+  m[0][1] = m01;
+  m[1][0] = m10;
+  m[1][1] = m11;
+}
+
+template <int P>
+__host__ __device__ inline int rows_smem(int q) {
+  const int ldq = (q + 31) / 32 * 32 + 16;
+  return 4 * (tiles_at(q) + 2 * kT * ldp<P>() + kT * ldq);
+}
+
+// 3. Per (b, c, 32 rows i, head group), the group's heads in order: per
+// head dM against every key tile j <= i, rowsum(dl) of the head into the
+// workspace, and the group's sum of dM o L accumulated in shared memory
+// (each element by one thread, heads in order), then into the workspace.
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreadsB)
+    bwd_rows(const T* __restrict__ x, const float* __restrict__ dt,
+             const float* __restrict__ dy, const double* __restrict__ cs,
+             const float* __restrict__ S, float* __restrict__ rows,
+             float* __restrict__ dSp, BDims d) {
+  constexpr int LDP = ldp<P>();
+  const int it = blockIdx.x, bc = blockIdx.y, q = d.q, h = d.h;
+  const int h_lo = blockIdx.z * kHeadGroup;
+  const int h_hi = min(h, h_lo + kHeadGroup);
+  const int LDQ = (q + 31) / 32 * 32 + 16;  // rows 16 banks apart
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  double* csh = reinterpret_cast<double*>(smem_b);           // [q]
+  float* Ys = reinterpret_cast<float*>(smem_b) + tiles_at(q);  // [kT][LDP]
+  float* Us = Ys + kT * LDP;                                   // [kT][LDP]
+  float* acc = Us + kT * LDP;                                  // [kT][LDQ]
+  const int tid = threadIdx.x, ra = tid / 16, ja = tid % 16;
+  const int i0 = it * kT;
+  const long long row0 = (long long)bc * q;
+  const int jend = min(q, i0 + kT);  // keys j < jend
+  for (int e = tid; e < kT * LDQ; e += kThreadsB) acc[e] = 0.f;
+  for (int hh = h_lo; hh < h_hi; ++hh) {
+    __syncthreads();  // the last head's tiles are consumed
+    const double* csg = cs + ((long long)bc * h + hh) * q;
+    for (int e = tid; e < q; e += kThreadsB) csh[e] = csg[e];
+    load_dy<P>(Ys, dy, row0, i0, hh, d);
+    float rp[2] = {0.f, 0.f};
+    for (int j0 = 0; j0 < jend; j0 += kT) {
+      __syncthreads();  // Us consumed; csh and Ys written
+      load_u<T, P>(Us, x, dt, row0, j0, hh, d);
+      __syncthreads();
+      float m[2][2];
+      tile_dm<P>(Ys, Us, ra, ja, m);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int r = ra + 16 * u, i = i0 + r, j = j0 + ja + 16 * v;
+          if (j <= i && i < q) {
+            const float L = expf((float)(csh[i] - csh[j]));
+            const float dml = m[u][v] * L;
+            rp[u] = fmaf(dml, S[(row0 + i) * q + j], rp[u]);
+            acc[r * LDQ + j] += dml;
+          }
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float v = half_warp_sum(rp[u]);
+      const int i = i0 + ra + 16 * u;
+      if (ja == 0 && i < q) rows[((long long)bc * h + hh) * q + i] = v;
+    }
+  }
+  __syncthreads();
+  float* out = dSp + (long long)blockIdx.z * d.bc * q * q;
+  for (int e = tid; e < kT * jend; e += kThreadsB) {
+    const int r = e / jend, j = e % jend;
+    if (i0 + r < q) out[(row0 + i0 + r) * q + j] = acc[r * LDQ + j];
+  }
+}
+
+__host__ __device__ inline int dC_smem(int n) {
+  return 4 * (kT * (kT + 1) + kT * (n + 1));
+}
+
+// 4. Per (b, c, 32 rows i): sum_h dM o L, the head groups' partial sums
+// added in group order, into the workspace (for 7.), and dC of the rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreadsB)
+    bwd_dC(const T* __restrict__ B, const float* __restrict__ dSp,
+           float* __restrict__ dS, T* __restrict__ dC, BDims d) {
+  constexpr int LDT = kT + 1, NM = kMaxState / 16;
+  const int it = blockIdx.x, bc = blockIdx.y, q = d.q, n = d.n;
+  const int groups = head_groups(d.h), LDN = n + 1;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  float* Ts = reinterpret_cast<float*>(smem_b);  // [kT][LDT]  rows i
+  float* Bs = Ts + kT * LDT;                      // [kT][LDN]
+  const int tid = threadIdx.x, ra = tid / 16, ja = tid % 16;
+  const int i0 = it * kT;
+  const long long row0 = (long long)bc * q;
+  const long long part = (long long)d.bc * q * q;
+  const int jend = min(q, i0 + kT);
+  float ca[2][NM];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm) ca[u][mm] = 0.f;
+  for (int j0 = 0; j0 < jend; j0 += kT) {
+    __syncthreads();
+    for (int e = tid; e < kT * kT; e += kThreadsB) {
+      const int r = e / kT, jj = e % kT, i = i0 + r, j = j0 + jj;
+      float v = 0.f;
+      if (i < q && j < jend) {
+        const long long o = (row0 + i) * q + j;
+        for (int g = 0; g < groups; ++g) v += dSp[g * part + o];
+        dS[o] = v;
+      }
+      Ts[r * LDT + jj] = v;
+    }
+    for (int e = tid; e < kT * n; e += kThreadsB) {
+      const int r = e / n, k = e % n;
+      Bs[r * LDN + k] = j0 + r < q ? ld(B, (row0 + j0 + r) * n + k) : 0.f;
+    }
+    __syncthreads();
+    for (int jj = 0; jj < kT; ++jj) {
+      const float a0 = Ts[ra * LDT + jj], a1 = Ts[(ra + 16) * LDT + jj];
+#pragma unroll
+      for (int mm = 0; mm < NM; ++mm) {
+        const int k = ja + 16 * mm;
+        if (k < n) {
+          const float bv = Bs[jj * LDN + k];
+          ca[0][mm] = fmaf(a0, bv, ca[0][mm]);
+          ca[1][mm] = fmaf(a1, bv, ca[1][mm]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = i0 + ra + 16 * u;
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm) {
+      const int k = ja + 16 * mm;
+      if (i < q && k < n) st(dC, (row0 + i) * n + k, ca[u][mm]);
+    }
+  }
+}
+
+template <int P>
+__host__ __device__ inline int cols_smem(int q) {
+  return 4 * (tiles_at(q) + 3 * kT * ldp<P>() + 2 * kT * (kT + 1) + 16 * kT);
+}
+
+// 5. Per (b, c, head, 32 rows j): du_j = sum_{i >= j} M_ij dY_i over the
+// row tiles i, colsum(dl)_j, then V_j = dSt^T B_j (state in tiles of 32),
+// du_j += w_j V_j, dw_j = u_j . V_j, dx_j = du_j dt_j and du_j . x_j.
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreadsB)
+    bwd_cols(const T* __restrict__ x, const float* __restrict__ dt,
+             const T* __restrict__ B, const float* __restrict__ dy,
+             const float* __restrict__ dst, const double* __restrict__ cs,
+             const float* __restrict__ S, T* __restrict__ dx,
+             float* __restrict__ cols, float* __restrict__ dw,
+             float* __restrict__ ddtu, BDims d) {
+  constexpr int LDP = ldp<P>(), LDT = kT + 1;
+  constexpr int MP = P < 16 ? 1 : P / 16;  // head-dim columns a thread
+  const int jt = blockIdx.x, hh = blockIdx.y, bc = blockIdx.z;
+  const int q = d.q, h = d.h, n = d.n;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  double* csh = reinterpret_cast<double*>(smem_b);           // [q]
+  float* Us = reinterpret_cast<float*>(smem_b) + tiles_at(q);  // [kT][LDP]
+  float* Ys = Us + kT * LDP;                                   // [kT][LDP]
+  float* Ds = Ys + kT * LDP;                          // [kT][LDP]  dSt rows
+  float* Ms = Ds + kT * LDP;                          // [kT][LDT]  M^T
+  float* Bs = Ms + kT * LDT;                          // [kT][LDT]  B_j cols
+  float* red = Bs + kT * LDT;                         // [16][kT]
+  const int tid = threadIdx.x, ra = tid / 16, ja = tid % 16;
+  const int j0 = jt * kT;
+  const long long row0 = (long long)bc * q;
+  const long long hq = ((long long)bc * h + hh) * q;
+  for (int e = tid; e < q; e += kThreadsB) csh[e] = cs[hq + e];
+  load_u<T, P>(Us, x, dt, row0, j0, hh, d);
+  float acc[2][MP], cp[2] = {0.f, 0.f};
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int m = 0; m < MP; ++m) acc[a][m] = 0.f;
+  for (int i0 = j0; i0 < q; i0 += kT) {
+    __syncthreads();  // Ys and Ms consumed (csh and Us written)
+    load_dy<P>(Ys, dy, row0, i0, hh, d);
+    __syncthreads();
+    float m[2][2];
+    tile_dm<P>(Ys, Us, ra, ja, m);  // rows i (ra), columns j (ja)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int i = i0 + ra + 16 * u, j = j0 + ja + 16 * v;
+        float M = 0.f;
+        if (j <= i && i < q) {
+          M = S[(row0 + i) * q + j] * expf((float)(csh[i] - csh[j]));
+          cp[v] = fmaf(m[u][v], M, cp[v]);
+        }
+        Ms[(ja + 16 * v) * LDT + ra + 16 * u] = M;
+      }
+    __syncthreads();
+    for (int ii = 0; ii < kT; ++ii) {
+      const float m0 = Ms[ra * LDT + ii], m1 = Ms[(ra + 16) * LDT + ii];
+#pragma unroll
+      for (int mm = 0; mm < MP; ++mm) {
+        const float yv =
+            (P >= 16 || ja < P) ? Ys[ii * LDP + ja + 16 * mm] : 0.f;
+        acc[0][mm] = fmaf(m0, yv, acc[0][mm]);
+        acc[1][mm] = fmaf(m1, yv, acc[1][mm]);
+      }
+    }
+  }
+  // colsum(dl): the 16 row groups' partials of each column, in order
+  red[ra * kT + ja] = cp[0];
+  red[ra * kT + ja + 16] = cp[1];
+  __syncthreads();
+  if (tid < kT && j0 + tid < q) {
+    float s = 0.f;
+    for (int r = 0; r < 16; ++r) s += red[r * kT + tid];
+    cols[hq + j0 + tid] = s;
+  }
+  // V_j = dSt^T B_j: (j rows ra, ra + 16) x (head dim ja + 16 m)
+  float vv[2][MP];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int m = 0; m < MP; ++m) vv[a][m] = 0.f;
+  const float* dsth = dst + ((long long)bc * h + hh) * n * P;
+  for (int k0 = 0; k0 < n; k0 += kT) {
+    __syncthreads();
+    for (int e = tid; e < kT * kT; e += kThreadsB) {
+      const int r = e / kT, kk = e % kT, j = j0 + r;
+      Bs[r * LDT + kk] =
+          j < q && k0 + kk < n ? ld(B, (row0 + j) * n + k0 + kk) : 0.f;
+    }
+    for (int e = tid; e < kT * P; e += kThreadsB) {
+      const int kk = e / P, pp = e % P;
+      Ds[kk * LDP + pp] =
+          k0 + kk < n ? dsth[(long long)(k0 + kk) * P + pp] : 0.f;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kT; ++kk) {
+      const float b0 = Bs[ra * LDT + kk], b1 = Bs[(ra + 16) * LDT + kk];
+#pragma unroll
+      for (int mm = 0; mm < MP; ++mm) {
+        const float dv =
+            (P >= 16 || ja < P) ? Ds[kk * LDP + ja + 16 * mm] : 0.f;
+        vv[0][mm] = fmaf(b0, dv, vv[0][mm]);
+        vv[1][mm] = fmaf(b1, dv, vv[1][mm]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int j = j0 + ra + 16 * a;
+    const bool jv = j < q;
+    const float w = jv ? expf((float)(csh[q - 1] - csh[j])) : 0.f;
+    const float dtj = jv ? dt[(row0 + j) * h + hh] : 0.f;
+    float dwp = 0.f, dtp = 0.f;
+#pragma unroll
+    for (int mm = 0; mm < MP; ++mm) {
+      const int pp = ja + 16 * mm;
+      if (P >= 16 || ja < P) {
+        const long long o = ((row0 + j) * h + hh) * P + pp;
+        const float xv = jv ? ld(x, o) : 0.f;
+        dwp = fmaf(Us[(ra + 16 * a) * LDP + pp], vv[a][mm], dwp);
+        const float du = fmaf(w, vv[a][mm], acc[a][mm]);
+        dtp = fmaf(du, xv, dtp);
+        if (jv) st(dx, o, du * dtj);
+      }
+    }
+    dwp = half_warp_sum(dwp);
+    dtp = half_warp_sum(dtp);
+    if (ja == 0 && jv) {
+      dw[hq + j] = dwp;
+      ddtu[(row0 + j) * h + hh] = dtp;
+    }
+  }
+}
+
+__host__ __device__ inline int dB_smem(int n) {
+  return 4 * (kT * (kT + 1) + kT * (n + 1) + kT);
+}
+
+// 6. Per (b, c, 32 rows j, head group): the group's sum of w_j dSt u_j,
+// heads in order (head dim in tiles of 32), into the workspace.
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreadsB)
+    bwd_dBh(const T* __restrict__ x, const float* __restrict__ dt,
+            const float* __restrict__ dst, const double* __restrict__ cs,
+            float* __restrict__ dBp, BDims d) {
+  constexpr int LDT = kT + 1, NM = kMaxState / 16;
+  const int jt = blockIdx.x, bc = blockIdx.y, q = d.q, h = d.h, n = d.n;
+  const int h_lo = blockIdx.z * kHeadGroup;
+  const int h_hi = min(h, h_lo + kHeadGroup);
+  const int LDN = n + 1;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  float* Ts = reinterpret_cast<float*>(smem_b);  // [kT][LDT]  w u rows j
+  float* Cs = Ts + kT * LDT;                      // [kT][LDN]  dSt^T
+  float* ws = Cs + kT * LDN;                      // [kT]
+  const int tid = threadIdx.x, ra = tid / 16, ja = tid % 16;
+  const int j0 = jt * kT;
+  const long long row0 = (long long)bc * q;
+  float ca[2][NM];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm) ca[u][mm] = 0.f;
+  for (int hh = h_lo; hh < h_hi; ++hh) {
+    const double* csg = cs + ((long long)bc * h + hh) * q;
+    const float* dsth = dst + ((long long)bc * h + hh) * n * P;
+    __syncthreads();
+    if (tid < kT)
+      ws[tid] = j0 + tid < q ? expf((float)(csg[q - 1] - csg[j0 + tid])) : 0.f;
+    for (int p0 = 0; p0 < P; p0 += kT) {
+      __syncthreads();  // ws written; Ts and Cs consumed
+      for (int e = tid; e < kT * kT; e += kThreadsB) {
+        const int r = e / kT, pp = e % kT, j = j0 + r;
+        Ts[r * LDT + pp] =
+            j < q && p0 + pp < P
+                ? ld(x, ((row0 + j) * h + hh) * P + p0 + pp) *
+                      dt[(row0 + j) * h + hh] * ws[r]
+                : 0.f;
+      }
+      for (int e = tid; e < kT * n; e += kThreadsB) {
+        const int k = e / kT, pp = e % kT;
+        Cs[pp * LDN + k] =
+            p0 + pp < P ? dsth[(long long)k * P + p0 + pp] : 0.f;
+      }
+      __syncthreads();
+      for (int pp = 0; pp < kT; ++pp) {
+        const float t0 = Ts[ra * LDT + pp], t1 = Ts[(ra + 16) * LDT + pp];
+#pragma unroll
+        for (int mm = 0; mm < NM; ++mm) {
+          const int k = ja + 16 * mm;
+          if (k < n) {
+            const float cv = Cs[pp * LDN + k];
+            ca[0][mm] = fmaf(t0, cv, ca[0][mm]);
+            ca[1][mm] = fmaf(t1, cv, ca[1][mm]);
+          }
+        }
+      }
+    }
+  }
+  float* out = dBp + (long long)blockIdx.z * d.bc * q * n;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = j0 + ra + 16 * u;
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm) {
+      const int k = ja + 16 * mm;
+      if (j < q && k < n) out[(row0 + j) * n + k] = ca[u][mm];
+    }
+  }
+}
+
+// 7. Per (b, c, 32 rows j): dB_j = sum_{i >= j} (sum_h dM o L)_ij C_i, then
+// the head groups' sums of 6. added in group order.
+template <typename T>
+__global__ void __launch_bounds__(kThreadsB)
+    bwd_dB(const T* __restrict__ C, const float* __restrict__ dS,
+           const float* __restrict__ dBp, T* __restrict__ dB, BDims d) {
+  constexpr int LDT = kT + 1, NM = kMaxState / 16;
+  const int jt = blockIdx.x, bc = blockIdx.y, q = d.q, n = d.n;
+  const int groups = head_groups(d.h), LDN = n + 1;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  float* Ts = reinterpret_cast<float*>(smem_b);  // [kT][LDT]  dS rows i
+  float* Cs = Ts + kT * LDT;                      // [kT][LDN]
+  const int tid = threadIdx.x, ra = tid / 16, ja = tid % 16;
+  const int j0 = jt * kT;
+  const long long row0 = (long long)bc * q;
+  float ca[2][NM];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm) ca[u][mm] = 0.f;
+  for (int i0 = j0; i0 < q; i0 += kT) {
+    __syncthreads();
+    for (int e = tid; e < kT * kT; e += kThreadsB) {
+      const int ii = e / kT, jj = e % kT, i = i0 + ii, j = j0 + jj;
+      Ts[ii * LDT + jj] = i < q && j < q ? dS[(row0 + i) * q + j] : 0.f;
+    }
+    for (int e = tid; e < kT * n; e += kThreadsB) {
+      const int ii = e / n, k = e % n;
+      Cs[ii * LDN + k] = i0 + ii < q ? ld(C, (row0 + i0 + ii) * n + k) : 0.f;
+    }
+    __syncthreads();
+    for (int ii = 0; ii < kT; ++ii) {
+      const float t0 = Ts[ii * LDT + ra], t1 = Ts[ii * LDT + ra + 16];
+#pragma unroll
+      for (int mm = 0; mm < NM; ++mm) {
+        const int k = ja + 16 * mm;
+        if (k < n) {
+          const float cv = Cs[ii * LDN + k];
+          ca[0][mm] = fmaf(t0, cv, ca[0][mm]);
+          ca[1][mm] = fmaf(t1, cv, ca[1][mm]);
+        }
+      }
+    }
+  }
+  const long long part = (long long)d.bc * q * n;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = j0 + ra + 16 * u;
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm) {
+      const int k = ja + 16 * mm;
+      if (j < q && k < n) {
+        const long long o = (row0 + j) * n + k;
+        float v = ca[u][mm];
+        for (int g = 0; g < groups; ++g) v += dBp[g * part + o];
+        st(dB, o, v);
+      }
+    }
+  }
+}
+
+// 8. Per (b, c), a warp per head (heads warp, warp + 8, ...): dcs, the
+// reverse cumsum dA_k (f64), ddt and the (b, c) partial sum of dA_k dt_k.
+__global__ void __launch_bounds__(kThreadsB)
+    bwd_dt(const float* __restrict__ dt, const float* __restrict__ A,
+           const float* __restrict__ ddi, Work w, float* __restrict__ ddt,
+           BDims d) {
+  const int bc = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = d.q, h = d.h;
+  const long long row0 = (long long)bc * q;
+  const int per = (q + 31) / 32;
+  const int i0 = min(q, lane * per), i1 = min(q, i0 + per);
+  for (int hh = warp; hh < h; hh += kThreadsB / 32) {
+    const long long hq = ((long long)bc * h + hh) * q;
+    const double* c = w.cs + hq;
+    const double clast = c[q - 1];
+    float sw = 0.f;  // sum_j dw_j w_j, the gradient into cs_{q-1}
+    for (int i = i0; i < i1; ++i)
+      sw = fmaf(w.dw[hq + i], expf((float)(clast - c[i])), sw);
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) sw += __shfl_xor_sync(~0u, sw, o);
+    auto dcs = [&](int i) -> double {
+      const float wi = expf((float)(clast - c[i]));
+      double v = (double)w.rows[hq + i] - (double)w.cols[hq + i] +
+                 (double)ddi[(row0 + i) * h + hh] * (double)expf((float)c[i]) -
+                 (double)w.dw[hq + i] * (double)wi;
+      return i == q - 1 ? v + (double)sw : v;
+    };
+    double tot = 0.0;
+    for (int i = i0; i < i1; ++i) tot += dcs(i);
+    double incl = tot;  // the sum over this lane and the lanes after it
+#pragma unroll
+    for (int o = 1; o < 32; o *= 2) {
+      const double dn = __shfl_down_sync(~0u, incl, o);
+      if (lane + o < 32) incl += dn;
+    }
+    double run = incl - tot, dap = 0.0;
+    const double a = A[hh];
+    for (int i = i1 - 1; i >= i0; --i) {
+      run += dcs(i);  // dA_i = sum_{k >= i} dcs_k
+      const long long o = (row0 + i) * h + hh;
+      ddt[o] = (float)(run * a + (double)w.ddtu[o]);
+      dap += run * (double)dt[o];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) dap += __shfl_xor_sync(~0u, dap, o);
+    if (lane == 0) w.dAp[(long long)bc * h + hh] = dap;
+  }
+}
+
+// 9. dA per head: the (b, c) partials summed in order.
+__global__ void bwd_dA(const double* __restrict__ dAp, float* __restrict__ dA,
+                       BDims d) {
+  const int hh = blockIdx.x * blockDim.x + threadIdx.x;
+  if (hh >= d.h) return;
+  double s = 0.0;
+  for (int bc = 0; bc < d.bc; ++bc) s += dAp[(long long)bc * d.h + hh];
+  dA[hh] = (float)s;
+}
+
+template <typename K>
+cudaError_t smem_opt_in(K kernel, int bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+             : cudaSuccess;
+}
+
+template <typename T, int P>
+int launch_bwd(const T* x, const float* dt, const float* A, const T* B,
+               const T* C, const float* dy, const float* dst,
+               const float* ddi, T* dx, float* ddt, float* dA, T* dB, T* dC,
+               char* ws, int b, int nc, int q, int h, int n,
+               cudaStream_t st) {
+  const BDims d{b * nc, q, h, n};
+  Work w;
+  work_layout(d, ws, &w);
+  const int tiles = (q + kT - 1) / kT;
+  const int groups = head_groups(h);
+  const int s_smem = 2 * kT * (n + 1) * 4;
+  const int r_smem = rows_smem<P>(q), c_smem = cols_smem<P>(q);
+  const int b_smem = dB_smem(n), dc_smem = dC_smem(n);
+  if (r_smem > 232448 || c_smem > 232448 || s_smem > 232448 ||
+      (long long)b * nc > 65535 || h > 65535)  // grid y and z
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = smem_opt_in(bwd_S<T>, s_smem)) != cudaSuccess ||
+      (e = smem_opt_in(bwd_rows<T, P>, r_smem)) != cudaSuccess ||
+      (e = smem_opt_in(bwd_dC<T>, dc_smem)) != cudaSuccess ||
+      (e = smem_opt_in(bwd_cols<T, P>, c_smem)) != cudaSuccess ||
+      (e = smem_opt_in(bwd_dBh<T, P>, b_smem)) != cudaSuccess ||
+      (e = smem_opt_in(bwd_dB<T>, dc_smem)) != cudaSuccess)
+    return (int)e;
+  bwd_cs<<<dim3(d.bc, (h + 7) / 8), kThreadsB, 0, st>>>(dt, A, w.cs, d);
+  bwd_S<T><<<dim3(tiles, tiles, d.bc), kThreadsB, s_smem, st>>>(B, C, w.S,
+                                                               d);
+  bwd_rows<T, P><<<dim3(tiles, d.bc, groups), kThreadsB, r_smem, st>>>(
+      x, dt, dy, w.cs, w.S, w.rows, w.dSp, d);
+  bwd_dC<T><<<dim3(tiles, d.bc), kThreadsB, dc_smem, st>>>(B, w.dSp, w.dS,
+                                                           dC, d);
+  bwd_cols<T, P><<<dim3(tiles, h, d.bc), kThreadsB, c_smem, st>>>(
+      x, dt, B, dy, dst, w.cs, w.S, dx, w.cols, w.dw, w.ddtu, d);
+  bwd_dBh<T, P><<<dim3(tiles, d.bc, groups), kThreadsB, b_smem, st>>>(
+      x, dt, dst, w.cs, w.dBp, d);
+  bwd_dB<T><<<dim3(tiles, d.bc), kThreadsB, dc_smem, st>>>(C, w.dS, w.dBp,
+                                                           dB, d);
+  bwd_dt<<<d.bc, kThreadsB, 0, st>>>(dt, A, ddi, w, ddt, d);
+  bwd_dA<<<(h + 127) / 128, 128, 0, st>>>(w.dAp, dA, d);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_bwd_typed(const void* x, const float* dt, const float* A,
+                     const void* B, const void* C, const float* dy,
+                     const float* dst, const float* ddi, void* dx,
+                     float* ddt, float* dA, void* dB, void* dC, char* ws,
+                     int b, int nc, int q, int h, int n, int dtype,
+                     cudaStream_t st) {
+  if (dtype == 0)
+    return launch_bwd<float, P>(
+        static_cast<const float*>(x), dt, A, static_cast<const float*>(B),
+        static_cast<const float*>(C), dy, dst, ddi, static_cast<float*>(dx),
+        ddt, dA, static_cast<float*>(dB), static_cast<float*>(dC), ws, b,
+        nc, q, h, n, st);
+  using bf = __nv_bfloat16;
+  return launch_bwd<bf, P>(
+      static_cast<const bf*>(x), dt, A, static_cast<const bf*>(B),
+      static_cast<const bf*>(C), dy, dst, ddi, static_cast<bf*>(dx), ddt, dA,
+      static_cast<bf*>(dB), static_cast<bf*>(dC), ws, b, nc, q, h, n, st);
+}
+
+}  // namespace ssd_bwd
+
 }  // namespace
 
 // x (b, nc*q, h, p), B and C (b, nc*q, n): all f32 (dtype 0) or all bf16
@@ -854,4 +1674,54 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Bytes of the workspace ssd_chunk_bwd needs (the wrapper allocates it).
+extern "C" long long ssd_chunk_bwd_workspace(int b, int nc, int q, int h,
+                                             int n) {
+  const ssd_bwd::BDims d{b * nc, q, h, n};
+  return ssd_bwd::work_layout(d, nullptr, nullptr);
+}
+
+// The backward of ssd_chunk_fwd. Inputs as there (x, B, C all f32, dtype
+// 0, or all bf16, dtype 1; dt, A f32) and the outputs' cotangents, f32:
+// dy (b, nc, q, h, p), dst (b, nc, h, n, p) and ddi (b, nc, q, h). Writes
+// dx (b, nc*q, h, p), dB and dC (b, nc*q, n) in the inputs' dtype, ddt
+// (b, nc*q, h) and dA (h) in f32; ws: ssd_chunk_bwd_workspace bytes,
+// 256-byte aligned. All contiguous. Returns cudaGetLastError() after the
+// launches (0 if none).
+extern "C" int ssd_chunk_bwd(const void* x, const void* dt, const void* A,
+                             const void* B, const void* C, const void* dy,
+                             const void* dst, const void* ddi, void* dx,
+                             void* ddt, void* dA, void* dB, void* dC,
+                             void* ws, int b, int nc, int q, int h, int p,
+                             int n, int dtype, void* stream) {
+  if (b < 1 || nc < 1 || q < 1 || h < 1 || n < 1 || n > kMaxState ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const float* dyf = static_cast<const float*>(dy);
+  const float* dsf = static_cast<const float*>(dst);
+  const float* dif = static_cast<const float*>(ddi);
+  float* ddtf = static_cast<float*>(ddt);
+  float* dAf = static_cast<float*>(dA);
+  char* w = static_cast<char*>(ws);
+#define SSD_BWD(PP)                                                      \
+  case PP:                                                               \
+    return ssd_bwd::launch_bwd_typed<PP>(x, dtf, Af, B, C, dyf, dsf, dif, \
+                                         dx, ddtf, dAf, dB, dC, w, b, nc, \
+                                         q, h, n, dtype, st)
+  switch (p) {
+    SSD_BWD(8);
+    SSD_BWD(16);
+    SSD_BWD(32);
+    SSD_BWD(64);
+    SSD_BWD(128);
+    SSD_BWD(256);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SSD_BWD
 }

@@ -7,6 +7,13 @@ forces the plain version and ``"kernel"`` on a CPU tensor raises. There is
 no fallback from the kernel to the plain version. ``ssd.launches`` counts
 the kernel launches (one per call of :func:`ssd` on the kernel path).
 
+On the kernel path the within-chunk terms, when their gradient is wanted,
+are a ``torch.autograd.Function`` whose backward is the same source's ``ssd_chunk_bwd`` (their
+vector-Jacobian product, recomputing cs, L, C B^T and x dt); the
+cross-chunk part stays PyTorch under autograd, as it stays ``jnp`` outside
+the Pallas call in the reference. ``ssd.bwd_launches`` counts the
+backward's calls. On the CPU autograd differentiates the plain version.
+
 As in the JAX package (``repro/kernels/ssd_scan/ssd_scan.py``), the kernel
 computes the chunk-local terms and the short recurrence across chunks and
 the off-diagonal term run outside it, in PyTorch
@@ -21,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, needs_grad
 from repro_torch.kernels.ssd_scan import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
@@ -95,6 +102,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
 
 ssd.launches = 0
+ssd.bwd_launches = 0
 
 
 def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
@@ -108,19 +116,25 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()  # 16-byte async copies
 
 
-def _kernel_fn():
-    fn = _build.load(SOURCE).ssd_chunk_fwd  # nvcc at first use
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-    return fn
+def _library():
+    lib = _build.load(SOURCE)  # nvcc at first use
+    if lib.ssd_chunk_fwd.argtypes is None:
+        lib.ssd_chunk_fwd.restype = ctypes.c_int
+        lib.ssd_chunk_fwd.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.ssd_chunk_bwd.restype = ctypes.c_int
+        lib.ssd_chunk_bwd.argtypes = [ctypes.c_void_p] * 14 + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.ssd_chunk_bwd_workspace.restype = ctypes.c_longlong
+        lib.ssd_chunk_bwd_workspace.argtypes = [ctypes.c_int] * 5
+    return lib
 
 
 def chunk_terms_kernel(x, dt, A, B, C, chunk: int):
     """The CUDA kernel's three outputs, as the Pallas kernel gives them:
     y_diag (b,c,q,h,p), states (b,c,h,n,p) and decay_in (b,c,q,h), all
-    float32. The length must be a multiple of `chunk`."""
+    float32. The length must be a multiple of `chunk`. Differentiable: the
+    backward is the ``ssd_chunk_bwd`` kernel."""
     b, l, h, p = x.shape
     n = B.shape[-1]
     if l % chunk != 0:
@@ -134,11 +148,37 @@ def chunk_terms_kernel(x, dt, A, B, C, chunk: int):
         raise ValueError(
             f"ssd kernel: head dim {p} (one of {HEAD_DIMS}) or state size "
             f"{n} (at most {MAX_STATE}) not supported")
-    c = l // chunk
-    fn = _kernel_fn()
     x, B, C = _aligned(x), _aligned(B), _aligned(C)
-    dt = dt.float().contiguous()
-    A = A.float().contiguous()
+    dt, A = dt.float().contiguous(), A.float().contiguous()
+    if needs_grad(x, dt, A, B, C):
+        return _ChunkTerms.apply(x, dt, A, B, C, chunk)
+    return _launch_fwd(x, dt, A, B, C, chunk)
+
+
+class _ChunkTerms(torch.autograd.Function):
+    """The within-chunk terms under autograd: the forward saves its inputs
+    (no copy), the backward launches ``ssd_chunk_bwd``. An output whose
+    gradient is None counts as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _launch_fwd(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dst, ddi):
+        x, dt, A, B, C = ctx.saved_tensors
+        return (*_launch_bwd(x, dt, A, B, C, ctx.chunk, dy, dst, ddi),
+                None)
+
+
+def _launch_fwd(x, dt, A, B, C, chunk):
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    c = l // chunk
+    fn = _library().ssd_chunk_fwd
     dev = x.device
     y_diag = torch.empty((b, c, chunk, h, p), dtype=torch.float32, device=dev)
     states = torch.empty((b, c, h, n, p), dtype=torch.float32, device=dev)
@@ -153,3 +193,40 @@ def chunk_terms_kernel(x, dt, A, B, C, chunk: int):
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd.launches += 1
     return y_diag, states, decay_in
+
+
+def _launch_bwd(x, dt, A, B, C, chunk, dy, dst, ddi):
+    """(dx, ddt, dA, dB, dC) from the ``ssd_chunk_bwd`` kernel, for the
+    cotangents of y_diag (b,c,q,h,p), states (b,c,h,n,p) and decay_in
+    (b,c,q,h); a None cotangent is zero."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    c = l // chunk
+    dev = x.device
+    lib = _library()
+
+    def cot(t, shape):
+        return (torch.zeros(shape, dtype=torch.float32, device=dev)
+                if t is None else t.float().contiguous())
+
+    dy = cot(dy, (b, c, chunk, h, p))
+    dst = cot(dst, (b, c, h, n, p))
+    ddi = cot(ddi, (b, c, chunk, h))
+    dx, dB, dC = (torch.empty_like(t) for t in (x, B, C))
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    work = torch.empty(lib.ssd_chunk_bwd_workspace(b, c, chunk, h, n),
+                       dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_chunk_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), dst.data_ptr(), ddi.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), work.data_ptr(), b, c, chunk, h, p, n,
+            _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"ssd_scan backward kernel launch failed: CUDA error {err}")
+    ssd.bwd_launches += 1
+    return dx, ddt, dA, dB, dC

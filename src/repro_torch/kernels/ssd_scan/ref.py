@@ -14,7 +14,8 @@ float32 whatever the inputs (the JAX oracle's choice, and the Pallas
 kernel's); ``y`` comes back in ``x.dtype``, the final state in float32.
 
 :func:`ssd_sequential` is the O(seq) recurrence (tests only) and
-:func:`ssd_decode_step_ref` the one-token step of decoding.
+:func:`ssd_decode_step_ref` the one-token step of decoding; :func:`ssd_chunk_terms_vjp_ref` is the
+plain backward of the within-chunk terms (the CUDA backward's oracle).
 """
 from __future__ import annotations
 
@@ -53,6 +54,22 @@ def ssd_chunk_terms(xc, dtc, A, Bc, Cc):
     states = torch.einsum("bckn,bckhp->bchpn", Bc,
                           xdt * decay_states[..., None])
     return y_diag, states, torch.exp(total[:, :, 0, :]), torch.exp(cs)
+
+
+def ssd_chunk_terms_vjp_ref(xc, dtc, A, Bc, Cc, dy_diag, dstates,
+                            ddecay_in):
+    """The plain backward of the within-chunk terms: the gradients of
+    :func:`ssd_chunk_terms` at (xc, dtc, A, Bc, Cc) for the cotangents of
+    y_diag (b,c,q,h,p), states (b,c,h,p,n) and decay_in (b,c,q,h) (the
+    kernel path takes decay_chunk from decay_in[:, :, -1], so its
+    cotangent arrives there). Returns (dx, ddt, dA, dB, dC) in the
+    inputs' shapes and dtypes."""
+    leaves = [t.detach().requires_grad_(True)
+              for t in (xc, dtc, A, Bc, Cc)]
+    with torch.enable_grad():
+        y_diag, states, _, decay_in = ssd_chunk_terms(*leaves)
+        return torch.autograd.grad((y_diag, states, decay_in), leaves,
+                                   (dy_diag, dstates, ddecay_in))
 
 
 def ssd_combine(y_diag, states, decay_chunk, decay_in, Cc,

@@ -15,9 +15,9 @@ axis), ``ssm`` (Mamba-2), ``hybrid`` (RecurrentGemma), ``encdec``
 (Whisper: an encoder over stub frame embeddings ``batch["frames"]`` (b,
 enc_seq, d_model), a decoder that cross-attends to it) and ``vlm``
 (LLaVA: stub patch embeddings ``batch["patches"]`` (b, patches, d_model)
-projected and put before the text). ``train_loss`` trains all but the
-recurrent families, whose kernels are forward-only, so their training
-raises ``NotImplementedError``.
+projected and put before the text). ``train_loss`` trains every family;
+on the card the recurrent families' scans run their CUDA kernels forward
+and backward (``torch.autograd.Function``s whose backwards are kernels too).
 
 As in the reference, Whisper's encoder layers are causal and roped (they
 are the ``"attn"`` block), a decode step embeds the sinusoid of position
@@ -69,7 +69,6 @@ class ModelOptions:
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-TRAINED_FAMILIES = ("dense", "moe", "encdec", "vlm")
 
 
 class LanguageModel:
@@ -223,10 +222,6 @@ class LanguageModel:
         logits' log-softmax. The MoE family adds its aux load-balancing
         loss, as the reference does; the VLM's patch positions are not in
         the loss."""
-        if self.cfg.family not in TRAINED_FAMILIES:
-            raise NotImplementedError(
-                f"training the {self.cfg.family!r} family is not ported: "
-                f"its kernels are forward-only; see ROADMAP.md (Queue 1)")
         x, _, aux = self._forward(params, batch, "train")
         if self.cfg.family == "vlm":
             x = x[:, self.cfg.num_vision_patches:]
@@ -260,21 +255,19 @@ class LanguageModel:
         at their point of use: the embedding's backward never needs the
         table (it scatters the cotangent), and the head weight's saved copy
         spans only the forward/backward boundary, where it IS the working
-        set. A tied embedding gathers depth 0 a second time for the head.
-        Uses the unfused log-softmax loss, as the reference does.
+        set. A tied embedding gathers depth 0 a second time for the head,
+        as the reference does: its two gradients are reduce-scattered apart
+        and summed, so on more than one rank its gradient differs from
+        gathering all's in the last bits (``ROADMAP.md`` Queue 3). Uses the
+        unfused log-softmax loss, as the reference does.
 
         Gradients land in `stream` (:meth:`~repro_torch.core.overlap.
         FsdpStream.finish`), reduce-scattered: the SUM over the DP shards.
         Scanned stacks raise ``ValueError`` (per-layer gathers need visible
         layer boundaries), as does the reference, and so does the
         encoder-decoder (its encoder's output is read by every decoder
-        layer); the families this port does not train raise as in
-        :meth:`train_loss`."""
+        layer)."""
         cfg = self.cfg
-        if cfg.family not in TRAINED_FAMILIES:
-            raise NotImplementedError(
-                f"training the {cfg.family!r} family is not ported: its "
-                f"kernels are forward-only; see ROADMAP.md (Queue 1)")
         if self.opt.scan_layers:
             raise ValueError(
                 "train_loss_streamed needs the unrolled stack "

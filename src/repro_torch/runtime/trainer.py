@@ -42,8 +42,7 @@ from repro_torch.launch.steps import (check_ported, explicit_sync_axes,
                                       fsdp_init_state, make_fsdp_train_step,
                                       make_train_step)
 from repro_torch.models.layers import ParamTree, tree_leaves, tree_map
-from repro_torch.models.model import TRAINED_FAMILIES, ModelOptions, build_model
-from repro_torch.models.transformer import _not_ported
+from repro_torch.models.model import ModelOptions, build_model
 from repro_torch.optim import AdamWConfig, adamw_init
 
 PyTree = Any
@@ -66,8 +65,6 @@ class Trainer:
         self.options = options or ModelOptions(
             attn_impl="dense", scan_layers=run.parallel.scan_layers,
             remat=run.parallel.remat)
-        if run.model.family not in TRAINED_FAMILIES:
-            raise _not_ported(f"training the {run.model.family!r} family")
         self.model = build_model(run.model, self.options)
         self.data = dataset or SyntheticLMDataset(
             vocab_size=run.model.vocab_size, seq_len=run.train.seq_len,

@@ -767,8 +767,8 @@ def run_zero3(spec, device):
     initialised from seed 0 (each rank drawing its shards bucket by
     bucket) and its initial shards kept, `steps` steps with its
     collectives logged; its losses, grad norms, the full parameters (gathered, flattened in tree order), this
-    rank's shards of params and moments (concatenated in layout order) and
-    their sizes, whether every padding element of the global buffers is
+    rank's shards of params and moments (concatenated in layout order; the
+    moments after the first step too) and their sizes, whether every padding element of the global buffers is
     zero, and the log."""
     mesh = make_mesh(tuple(spec["mesh"]), tuple(spec["axes"]), device)
     out = {}
@@ -780,7 +780,12 @@ def run_zero3(spec, device):
         out[f"{tag}_init"] = torch.cat(
             [t.params[k].detach().float() for k in layout.keys]).cpu().numpy()
         t.fsdp_log = []
-        t.train(spec["steps"])
+        t.train(1)
+        for name in ("m", "v"):      # the moments after the first step
+            out[f"{tag}_shard_{name}1"] = torch.cat(
+                [t.opt_state[name][k].detach().float()
+                 for k in layout.keys]).cpu().numpy()
+        t.train(spec["steps"] - 1)
         for key in ("loss", "grad_norm"):
             out[f"{tag}_{key}"] = np.array([m[key] for m in t.metrics_log])
         out[f"{tag}_params"] = torch.cat(

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA tile-sweep, flash attention, LRU scan and
-SSD scan kernels against their plain PyTorch versions, the solver and the
-server (dense, MoE, Mamba-2, RecurrentGemma) and the encoder-decoder and
-VLM models on CUDA against the CPU, and
+SSD scan kernels (the scans forward and backward) against their plain
+PyTorch versions, the solver and the server (dense, MoE, Mamba-2,
+RecurrentGemma), the encoder-decoder and VLM models and the recurrent
+families' training on CUDA against the CPU, and
 (given 4 cards) NCCL ranks against one rank: the solvers, the staged
 all-reduce, MoE expert parallelism, the data-parallel and the ZeRO-3
 trainer, the TP rings and the TP decode step; Qwen3-8B at full width
@@ -923,6 +924,196 @@ def test_ssd_kernel_needs_a_cuda_tensor():
     dt, A, B = torch.zeros(1, 8, 2), -torch.ones(2), torch.zeros(1, 8, 4)
     with pytest.raises(ValueError, match="needs CUDA"):
         ssd_ops.ssd(x, dt, A, B, B, 8, impl="kernel")
+
+
+def _rel_err(got, want):
+    """max |got - want| over the largest |want|: each gradient's error
+    relative to its own scale."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("b,l,w,a_dtype,b_dtype,h0", LRU_CASES)
+def test_lru_bwd_kernel_matches_plain(cuda, b, l, w, a_dtype, b_dtype, h0):
+    """lru_scan's backward kernel (through autograd of the kernel path)
+    against the plain backward (autograd of the plain version): each
+    gradient within 1e-5 of its largest magnitude in f32. With a bf16 a or
+    b, within 1e-2: the kernel's da_t uses the forward's h_{t-1} as saved,
+    rounded to bf16 (relative error up to 2^-8), and bf16 gradients are
+    rounded once. Two calls give bit-equal gradients."""
+    from repro_torch.kernels.lru_scan import ref as lru_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(l * 5 + w)
+    a = (0.5 + 0.49 * torch.rand((b, l, w), generator=gen,
+                                 device=cuda)).to(a_dtype)
+    x = torch.randn((b, l, w), generator=gen, device=cuda).to(b_dtype)
+    h = torch.randn((b, w), generator=gen, device=cuda) if h0 else None
+    dh = torch.randn((b, l, w), generator=gen, device=cuda).to(b_dtype)
+    dl = torch.randn((b, w), generator=gen, device=cuda) if h0 else None
+    leaves = [t.requires_grad_(True) for t in (a, x) + ((h,) if h0 else ())]
+
+    def kernel_grads():
+        before = lru_ops.lru_scan.bwd_launches
+        gh, gl = lru_ops.lru_scan(leaves[0], leaves[1],
+                                  leaves[2] if h0 else None, "kernel")
+        if dl is None:     # h_last's cotangent is None: zero
+            got = torch.autograd.grad(gh, leaves, dh)
+        else:
+            got = torch.autograd.grad((gh, gl), leaves, (dh, dl))
+        torch.cuda.synchronize()
+        assert lru_ops.lru_scan.bwd_launches == before + 1
+        return got
+
+    got, again = kernel_grads(), kernel_grads()
+    want = lru_ref.lru_scan_vjp_ref(a, x, h, dh, dl)
+    tol = 1e-5 if a_dtype == b_dtype == torch.float32 else 1e-2
+    for g, g2, w_ in zip(got, again, want):
+        assert g.dtype == w_.dtype and torch.equal(g, g2)
+        assert _rel_err(g, w_) <= tol
+
+
+def test_lru_bwd_takes_a_strided_cotangent(cuda):
+    """A non-contiguous cotangent of h is made contiguous."""
+    from repro_torch.kernels.lru_scan import ref as lru_ref
+
+    a = (0.5 + 0.4 * torch.rand((2, 300, 70), device=cuda)).requires_grad_()
+    x = torch.randn((2, 300, 70), device=cuda).requires_grad_()
+    dh = torch.randn((2, 70, 300), device=cuda).transpose(1, 2)
+    gh, _ = lru_ops.lru_scan(a, x, impl="kernel")
+    got = torch.autograd.grad(gh, (a, x), dh)
+    want = lru_ref.lru_scan_vjp_ref(a, x, None, dh)
+    for g, w_ in zip(got, want):
+        assert _rel_err(g, w_) <= 1e-5
+
+
+SSD_BWD_CASES = [  # (b, l, h, p, n, chunk, dtype)
+    (1, 100, 3, 16, 8, 32, torch.float32),      # ragged: padded with dt = 0
+    (2, 64, 5, 8, 4, 16, torch.float32),        # head dim 8
+    (1, 7, 4, 32, 130, 7, torch.float32),       # odd state and chunk
+    (1, 40, 1, 256, 8, 40, torch.float32),      # head dim 256, one chunk
+    (1, 300, 6, 64, 32, 128, torch.bfloat16),   # bf16, ragged
+    (2, 512, 48, 64, 128, 256, torch.float32),  # Mamba-2's widths, f32
+    (2, 512, 48, 64, 128, 256, torch.bfloat16),  # and bf16
+]
+
+
+def _ssd_inputs(cuda, b, l, h, p, n, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, l, h, p), generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, h), generator=gen, device=cuda))
+    A = -torch.exp(0.2 * torch.randn((h,), generator=gen, device=cuda))
+    B, C = (torch.randn((b, l, n), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    return x, dt, A, B, C, gen
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,dtype", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_plain(cuda, b, l, h, p, n, chunk, dtype):
+    """The gradients of ops.ssd (y and the final state, random
+    cotangents) through the kernel path (ssd_chunk_bwd for the
+    within-chunk terms, autograd for the rest) against autograd of the
+    plain path: each within 1e-4 (f32) or 5e-2 (bf16) of its largest
+    magnitude, the forward's SSD tolerances; then the chunk terms'
+    backward alone against ssd_chunk_terms_vjp_ref, and two calls
+    bit-equal."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    x, dt, A, B, C, gen = _ssd_inputs(cuda, b, l, h, p, n, dtype, l + h)
+    dy = torch.randn((b, l, h, p), generator=gen, device=cuda).to(dtype)
+    ds = torch.randn((b, h, p, n), generator=gen, device=cuda)
+    leaves = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    grads = {}
+    for impl in ("kernel", "plain"):
+        before = ssd_ops.ssd.bwd_launches
+        y, st = ssd_ops.ssd(*leaves, chunk, impl=impl)
+        grads[impl] = torch.autograd.grad((y, st), leaves, (dy, ds))
+        torch.cuda.synchronize()
+        assert ssd_ops.ssd.bwd_launches == before + (impl == "kernel")
+    for g, w_ in zip(grads["kernel"], grads["plain"]):
+        assert g.dtype == w_.dtype and bool(torch.isfinite(g).all())
+        assert _rel_err(g, w_) <= tol
+    # the within-chunk terms' backward alone, on a chunk multiple
+    lc = l // chunk * chunk
+    if lc == 0:
+        return
+    xs, dts, Bs, Cs = (t.detach()[:, :lc] for t in (x, dt, B, C))
+    c = lc // chunk
+    cots = (torch.randn((b, c, chunk, h, p), generator=gen, device=cuda),
+            torch.randn((b, c, h, n, p), generator=gen, device=cuda),
+            torch.randn((b, c, chunk, h), generator=gen, device=cuda))
+    runs = [ssd_ops._launch_bwd(xs.contiguous(), dts.contiguous(),
+                                A.detach(), Bs.contiguous(), Cs.contiguous(),
+                                chunk, *cots) for _ in range(2)]
+    parts = (xs.reshape(b, c, chunk, h, p), dts.reshape(b, c, chunk, h),
+             A.detach(), Bs.reshape(b, c, chunk, n),
+             Cs.reshape(b, c, chunk, n))
+    want = ssd_ref.ssd_chunk_terms_vjp_ref(
+        *parts, cots[0], cots[1].transpose(-1, -2), cots[2])
+    for g, g2, w_ in zip(*runs, want):
+        assert torch.equal(g, g2)
+        assert _rel_err(g.reshape(w_.shape), w_) <= tol
+
+
+@pytest.mark.parametrize("arch,kernel,layers", [
+    ("mamba2-780m", "ssd", 4), ("recurrentgemma-2b", "lru", 3)])
+def test_recurrent_trained_on_card_equals_cpu(cuda, arch, kernel, layers):
+    """The reduced Mamba-2 (scanned) and RecurrentGemma in float32, remat
+    "full", 2 steps from the same parameters on the card (the scans'
+    forward and backward kernels) and on the CPU (autograd of the plain
+    versions): losses and grad norms within rtol 1e-4 (the trainer
+    tolerance of the CPU tests), parameters within 1e-4 of each leaf's
+    largest entry except where AdamW's second moment is below (1e3 *
+    eps)^2: there it divides a gradient of about eps by one of about eps,
+    so last-bit differences of the gradient become O(1) differences of the
+    step, and an entry may differ by up to the summed learning rates
+    (tests/test_torch_trainer.py::test_moe_trainer_matches_jax's rule; on
+    the card one embedding entry of reduced Mamba-2, whose v is 1.3e-16,
+    moved 1.6e-4). 2 forward launches (the remat recompute) and 1 backward
+    launch a recurrent layer a step."""
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import ModelOptions
+    from repro_torch.runtime.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrapper = ssd_ops.ssd if kernel == "ssd" else lru_ops.lru_scan
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        run = RunConfig(
+            model=get_arch(arch).reduced(),
+            parallel=ParallelConfig(remat="full", scan_layers=True),
+            train=TrainConfig(global_batch=4, seq_len=64, total_steps=2,
+                              warmup_steps=1, lr=5e-3, seed=3,
+                              checkpoint_every=10 ** 9))
+        t = Trainer(run, device=dev, options=ModelOptions(
+            dtype=torch.float32, scan_layers=True, remat="full"))
+        t.init_state(params=t.model.init(0, "cpu").to(dev))
+        before = (wrapper.launches, wrapper.bwd_launches)
+        t.train(2)
+        torch.cuda.synchronize()
+        launched = (wrapper.launches - before[0],
+                    wrapper.bwd_launches - before[1])
+        assert launched == ((4 * layers, 2 * layers) if dev.type == "cuda"
+                            else (0, 0))
+        runs[dev.type] = t
+    a, b = runs["cuda"], runs["cpu"]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([m[key] for m in a.metrics_log],
+                                   [m[key] for m in b.metrics_log],
+                                   rtol=1e-4)
+    eps, lr_sum = b.opt_cfg.eps, sum(m["lr"] for m in b.metrics_log)
+    for p, q, v in zip(tree_leaves(a.params), tree_leaves(b.params),
+                       tree_leaves(b.opt_state["v"])):
+        p, q, v = p.detach().cpu(), q.detach(), v.detach()
+        diff = (p - q).abs()
+        tiny = (v > 0) & (v < (1e3 * eps) ** 2)
+        assert bool((diff[~tiny] <= 1e-4 * q[~tiny].abs()
+                     + 1e-4 * q.abs().max()).all())
+        assert bool((diff[tiny] <= lr_sum).all())
 
 
 @pytest.mark.parametrize("arch,kernel,per_prefill", [

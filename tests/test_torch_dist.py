@@ -520,9 +520,17 @@ TRAIN = dict(arch="internlm2-1.8b", steps=3, global_batch=8, seq_len=32,
 WHISPER_TRAIN = dict(arch="whisper-base", steps=3, global_batch=4,
                      seq_len=16, lr=5e-3,
                      cases=[["hdot", 1], ["two_phase", 1]])
+# the recurrent families: reduced Mamba-2 (4 layers, 8 SSD heads of 16,
+# state 16, chunk 32: two chunks a sequence) data-parallel, and reduced
+# RecurrentGemma-2B (rglru, rglru, attn, rglru) under ZeRO-3, float32
+MAMBA_TRAIN = dict(arch="mamba2-780m", steps=3, global_batch=4, seq_len=64,
+                   lr=5e-3, cases=[["hdot", 1], ["two_phase", 1]])
+RG_ZERO3 = dict(ZERO3, arch="recurrentgemma-2b")
 TRAIN_JOBS = {
     "2": dict(mesh=[2], gradsync=dict(mesh=[2], axes=["data"]),
               train=dict(WHISPER_TRAIN, mesh=[2], axes=["data"])),
+    "2r": dict(mesh=[2], train=dict(MAMBA_TRAIN, mesh=[2], axes=["data"]),
+               zero3=dict(RG_ZERO3, mesh=[2], axes=["data"])),
     "2x2": dict(mesh=[2, 2], gradsync=dict(mesh=[2, 2], axes=["pod", "data"]),
                 train=dict(TRAIN, mesh=[2, 2], axes=["pod", "data"])),
 }
@@ -571,7 +579,8 @@ def train_runs(tmp_path_factory):
     return get
 
 
-@pytest.mark.parametrize("name", list(TRAIN_JOBS))
+@pytest.mark.parametrize(
+    "name", [k for k, v in TRAIN_JOBS.items() if "gradsync" in v])
 def test_grad_sync_hdot_equals_two_phase_on_ranks(train_runs, name):
     """Integer-valued mixed-dtype gradients (bf16, f32, f16, a scalar)
     summed over (2,) ("data",) and (2, 2) ("pod", "data"): hdot equals
@@ -807,6 +816,113 @@ def test_whisper_trainer_on_2_ranks_matches_one_rank(train_runs):
                if any(1 <= depth[i] <= enc_top for i in b)]
     assert decoder and encoder and max(decoder) < min(encoder), (
         [sorted({depth[i] for i in b}) for b in want])
+
+
+def test_mamba2_trainer_on_2_ranks_matches_one_rank(train_runs):
+    """The ssm family's Trainer on 2 gloo ranks ((2,) ("data",), reduced
+    mamba2-780m, float32, unrolled), 3 steps, each rank on its half of the
+    global batch: both ranks hold the same state; hdot equals two_phase
+    bit for bit; losses, grad norms and final parameters match the port on
+    one rank with the global batch at rtol 1e-4. Each step's hdot
+    all-reduces are the buckets of make_buckets(order="reverse_topo") in
+    emission order, the JAX package's partition (the layer depths of the
+    Mamba-2 blocks), the buckets deeper than layer 1 issued before layer
+    1's first gradient is ready."""
+    from repro.config.registry import get_arch as jax_arch
+    from repro.core.overlap import make_buckets as jmake_buckets
+    from repro.models.model import ModelOptions as JaxOptions
+    from repro.models.model import build_model as jax_build
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import ModelOptions
+    from repro_torch.runtime.trainer import Trainer
+
+    workdir, ranks = train_runs("2r")
+    spec = TRAIN_JOBS["2r"]["train"]
+    for key in ("loss", "grad_norm", "params"):
+        for tag in ("hdot1", "two_phase1"):
+            np.testing.assert_array_equal(ranks[1][f"{tag}_{key}"],
+                                          ranks[0][f"{tag}_{key}"])
+        np.testing.assert_array_equal(ranks[0][f"hdot1_{key}"],
+                                      ranks[0][f"two_phase1_{key}"])
+    one = Trainer(
+        RunConfig(model=get_arch(spec["arch"]).reduced(),
+                  parallel=ParallelConfig(remat="none", scan_layers=False),
+                  train=TrainConfig(
+                      global_batch=spec["global_batch"],
+                      seq_len=spec["seq_len"], lr=spec["lr"],
+                      warmup_steps=2, total_steps=spec["steps"],
+                      checkpoint_every=10 ** 6, seed=3,
+                      checkpoint_dir=str(workdir / "init"))),
+        options=ModelOptions(dtype=torch.float32, scan_layers=False),
+        device="cpu")
+    one.train(spec["steps"])
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(ranks[0][f"hdot1_{key}"],
+                                   [m[key] for m in one.metrics_log],
+                                   rtol=1e-4)
+    params_close(ranks[0]["hdot1_params"],
+                 torch.cat([p.detach().reshape(-1)
+                            for p in tree_leaves(one.params)]).numpy(),
+                 tree_leaves(_train_state(spec["arch"])["params"]))
+    want = check_issue_order(ranks, spec)
+    jm = jax_build(jax_arch(spec["arch"]).reduced(),
+                   JaxOptions(scan_layers=False))
+    assert want == [[i for i, _ in b] for b in jmake_buckets(
+        jm.abstract_params(), 8, jm.param_layers(), "reverse_topo")]
+
+
+def test_recurrentgemma_zero3_on_2_ranks(train_runs):
+    """The hybrid family under ZeRO-3 on 2 gloo ranks (reduced
+    recurrentgemma-2b, float32, unrolled, remat "full", the unfused loss,
+    3 steps): both ranks report the same losses, grad norms and full
+    parameters. Streaming (each layer's bucket gathered inside its remat
+    region, regathered in the backward) equals gathering all bit for bit
+    in every bucket's first-step gradient (the AdamW moments after step 1)
+    except the tied embedding's: streaming gathers depth 0 twice, for the
+    lookup and for the head, as the reference's ``materialize(pflat,
+    *head_depths)`` does, and sums the two reduce-scatters, where gathering
+    all reduce-scatters the sum (ROADMAP.md Queue 3); that bucket is within
+    1e-6 of its largest entry. After 3 steps both match the replicated
+    trainer on one rank with the global batch (losses and grad norms at
+    rtol 1e-5, parameters within 1e-4 of each leaf's largest entry)."""
+    from _torch_dist import zero3_trainer
+
+    from repro_torch.models.layers import tree_leaves
+
+    _, ranks = train_runs("2r")
+    for tag in ("z3stream", "z3gather"):
+        for key in ("loss", "grad_norm", "params"):
+            np.testing.assert_array_equal(ranks[1][f"{tag}_{key}"],
+                                          ranks[0][f"{tag}_{key}"])
+    for out in ranks:
+        keys = [str(k) for k in out["z3stream_keys"]]
+        assert keys == [str(k) for k in out["z3gather_keys"]]
+        tied = keys.index(next(k for k in keys if k.startswith("b00_")))
+        bounds = np.cumsum([0] + out["z3stream_shard_sizes"].tolist())
+        for name in ("m1", "v1"):
+            got, want = (out[f"z3{c}_shard_{name}"]
+                         for c in ("stream", "gather"))
+            for i in range(len(keys)):
+                a, b = (v[bounds[i]:bounds[i + 1]] for v in (got, want))
+                if i == tied:
+                    np.testing.assert_allclose(
+                        a, b, rtol=0, atol=1e-6 * np.abs(b).max())
+                else:
+                    np.testing.assert_array_equal(a, b)
+    one = zero3_trainer(RG_ZERO3, "repl", None, "cpu")
+    one.init_state(seed=0)
+    one.train(RG_ZERO3["steps"])
+    flat = torch.cat([p.detach().reshape(-1)
+                      for p in tree_leaves(one.params)]).numpy()
+    for tag in ("z3stream", "z3gather"):
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(ranks[0][f"{tag}_{key}"],
+                                       [m[key] for m in one.metrics_log],
+                                       rtol=1e-5)
+        params_close(ranks[0][f"{tag}_params"], flat,
+                     tree_leaves(one.params))
 
 
 # ------------------------------------------------------------------ ZeRO-3

@@ -1,10 +1,10 @@
 """The port's Trainer, checkpointer and training launcher on the CPU: three
 steps from the JAX package's parameters against the JAX ``Trainer``
 (losses, grad norms and final parameters at rtol 1e-4, float32, reduced
-internlm2-1.8b and qwen3-moe-30b-a3b), checkpoints that restore across the two packages, a
-resumed run equal to an uninterrupted one bit for bit, the launcher's
-output lines, and the ``NotImplementedError``s of what the port does not
-train.
+internlm2-1.8b, qwen3-moe-30b-a3b, mamba2-780m and recurrentgemma-2b),
+checkpoints that restore across the two packages, a resumed run equal to an
+uninterrupted one bit for bit, the launcher's output lines, and the
+``NotImplementedError``s of what the port does not train.
 """
 from __future__ import annotations
 
@@ -94,6 +94,24 @@ def test_trainer_matches_jax(tmp_path, scan, accum):
     unrolled over 2 microbatches) against the JAX Trainer without a mesh,
     float32: losses, grad norms, learning rates and final parameters."""
     t, _, want = _train_both(tmp_path, "internlm2-1.8b", scan, accum)
+    for got, w in zip(tree_leaves(t.params), tree_leaves(want)):
+        np.testing.assert_allclose(f32(got), f32(w), rtol=1e-4,
+                                   atol=1e-4 * np.abs(f32(w)).max())
+
+
+@pytest.mark.parametrize("arch,scan,accum", [
+    ("mamba2-780m", False, 1), ("mamba2-780m", True, 2),
+    ("recurrentgemma-2b", False, 1)])
+def test_recurrent_trainer_matches_jax(tmp_path, arch, scan, accum):
+    """The recurrent families (reduced Mamba-2 and RecurrentGemma, no
+    mesh, float32) train three steps from the same parameters as the JAX
+    Trainer, whose scans run their ``ref`` path under jax.grad (its Pallas
+    scans cannot be differentiated, ROADMAP.md Queue 3): losses, grad
+    norms and learning rates at rtol 1e-4, the final parameters within
+    1e-4 of each leaf's largest entry. Mamba-2 also scanned over 2
+    microbatches (RecurrentGemma's stack is not uniform, so it is always
+    unrolled)."""
+    t, _, want = _train_both(tmp_path, arch, scan, accum)
     for got, w in zip(tree_leaves(t.params), tree_leaves(want)):
         np.testing.assert_allclose(f32(got), f32(w), rtol=1e-4,
                                    atol=1e-4 * np.abs(f32(w)).max())
@@ -270,15 +288,12 @@ def test_what_this_slice_does_not_train_raises(tmp_path):
     tp = ProcessMesh(("data", "model"), (1, 2), 0, torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_ported(run.parallel, tp)
-    for arch in ("mamba2-780m", "recurrentgemma-2b"):
-        ssm = dataclasses.replace(run, model=get_arch(arch).reduced())
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Trainer(ssm, device="cpu")
-        model = build_model(get_arch(arch).reduced())
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            model.train_loss(model.init(0, "cpu"),
-                             {"tokens": torch.zeros(1, 4, dtype=torch.long),
-                              "targets": torch.zeros(1, 4, dtype=torch.long)})
+    for arch in ("mamba2-780m", "recurrentgemma-2b"):   # trained since
+        rec = dataclasses.replace(run, model=get_arch(arch).reduced())
+        t = Trainer(rec, device="cpu")
+        t.train(1)
+        assert np.isfinite(t.metrics_log[0]["loss"])
+        assert np.isfinite(t.metrics_log[0]["grad_norm"])
     dots = build_model(run.model, ModelOptions(remat="dots"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         dots.train_loss(dots.init(0, "cpu"),
