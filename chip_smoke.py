@@ -2351,7 +2351,9 @@ def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name) -> dict:
     of y_diag, states and decay_in: each gradient within SSD_TOL of its
     largest magnitude, two calls bit-equal; CUDA-event times; bound the
     larger of the bytes (inputs, cotangents, gradients once each) and the
-    causal half's products at the input type's peak."""
+    causal half's products at the input type's peak; the device time of
+    each of its kernels (``ssd_bwd::`` names) from one traced backward
+    under autograd."""
     import torch.nn.functional as F
 
     b, l, h, p, n, chunk = SSD_BWD_SHAPE
@@ -2391,6 +2393,15 @@ def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name) -> dict:
           f"ssd bwd off the plain backward: {errs} ({dtype_name})")
     del got, again, want
     k_ms = time_ms(kernel)
+    # one backward under autograd (as training runs it), so that the
+    # profiler ties the ctypes launches to the backward node's range
+    xg = x.detach().requires_grad_(True)
+    outs = ssd_ops.chunk_terms_kernel(xg, dt, A, B, C, chunk)
+    device = [k for k in traced_families(
+        lambda: torch.autograd.grad(outs, xg, (dy, dst, ddi),
+                                    retain_graph=True),
+        recurrent_family)["port_kernels"] if "ssd_bwd" in k["name"]]
+    del outs, xg
     p_ms = plain_bwd_ms(
         lambda *t: [o for i, o in enumerate(ssd_ref.ssd_chunk_terms(*t))
                     if i != 2], parts, cots)
@@ -2409,7 +2420,8 @@ def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name) -> dict:
            "library_ms": None, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-           "kernel_tflops": flops / k_ms / 1e9, "gpu": card}
+           "kernel_tflops": flops / k_ms / 1e9, "device_kernels": device,
+           "gpu": card}
     emit(row)
     return row
 

@@ -408,6 +408,28 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
 // address of row l % 8 of matrix l / 8; plain, register i of lane (g, t)
 // holds row g, columns 2t, 2t+1 of matrix i; .trans, rows 2t, 2t+1 of
 // column g.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* row) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -476,20 +498,21 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
 // Rows [r0, r0 + rows) of a (q, n) bf16 slab into shared memory rows of
 // np + 8 halves, zeros past q and past n. 16-byte copies where the rows
 // allow them (n a multiple of 8), else element loads.
+template <int NT = kTcThreads>  // threads that share the copies
 __device__ __forceinline__ void load_bc(__nv_bfloat16* dst,
                                         const __nv_bfloat16* src, int r0,
                                         int rows, int q, int n, int np,
                                         int tid) {
   const int ld = np + 8;
   if (n % 8 == 0) {
-    for (int e = tid; e < rows * (np / 8); e += kTcThreads) {
+    for (int e = tid; e < rows * (np / 8); e += NT) {
       const int r = e / (np / 8), col = (e % (np / 8)) * 8;
       const bool ok = r0 + r < q && col < n;
       cp_async16(dst + r * ld + col,
                  ok ? src + (long long)(r0 + r) * n + col : src, ok);
     }
   } else {
-    for (int e = tid; e < rows * np; e += kTcThreads) {
+    for (int e = tid; e < rows * np; e += NT) {
       const int r = e / np, col = e % np;
       dst[r * ld + col] = r0 + r < q && col < n
                               ? src[(long long)(r0 + r) * n + col]
@@ -839,10 +862,25 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
 // per-(b, c) partials summed by a second kernel), with no float atomics, so
 // two calls give bit-equal gradients.
 //
-// Nine kernels on one stream (namespace ssd_bwd, which names them in a
-// trace), all SIMT f32 (the q x q products could run on mma.sync or wgmma
-// later). The sums over heads are cut into groups of kHeadGroup heads, a
-// block each, whose partials a second kernel adds in group order:
+// Bound at Mamba-2 780M's training shape (8, 2048, 48, 64, 128), chunk 256,
+// bf16: the bytes (x, B, C, dx, dB, dC in bf16; dt, dY, dSt, dD, ddt in
+// f32) are 0.53 GB, 0.16 ms at 3.35 TB/s; the products of the causal half
+// (S, dM, the M^T dY, V, dSt u, dC, dB) are 53 GFLOP, 0.054 ms at the bf16
+// tensor-core rate: the bound is the bytes'.
+//
+// The kernels run on one stream in namespace ssd_bwd (which names them in
+// a trace). bf16 inputs (the training path) take the tensor-core kernel
+// bwd_tc (below, with its design): dM is formed once per (b, c, head, tile
+// i, tile j), every product runs on mma.sync with bf16 parts, and the
+// states' terms sit in the pass that owns rows j; around it bwd_cs,
+// bwd_rows_sum (rowsum's partials), bwd_dC_sum (dC's), bwd_dt and bwd_dA.
+// Head dims 128 and 256, and chunks too long for bwd_tc's shared memory,
+// take the SIMT kernels in bf16 too.
+//
+// f32 inputs (the f32 model checks) keep nine SIMT f32 kernels (as the
+// forward keeps its SIMT f32 path). Their sums over heads are cut into
+// groups of kHeadGroup heads, a block each, whose partials a second kernel
+// adds in group order:
 //   1. bwd_cs     cs per (b, c, head), f64, into the workspace;
 //   2. bwd_S      S = C B^T per (b, c), 32 x 32 tiles, j <= i;
 //   3. bwd_rows   per (b, c, 32 rows i, head group), heads in order: dM,
@@ -857,15 +895,10 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
 //                 w_j dSt u_j, heads in order, into the workspace;
 //   7. bwd_dB     per (b, c, 32 rows j): (sum_h dM o L)^T C, then the
 //                 groups' sums of 6. in order;
-//   8. bwd_dt     per (b, c), a warp per head: dcs, its reverse cumsum in
-//                 f64, ddt, and the (b, c) partial of dA;
+//   8. bwd_dt     per (b, c, 8 heads), a warp per head: dcs, its reverse
+//                 cumsum in f64, ddt, and the (b, c) partial of dA;
 //   9. bwd_dA     per head, the partials summed over (b, c) in order.
-// Bound at Mamba-2 780M's training shape (8, 2048, 48, 64, 128), chunk 256,
-// bf16: the bytes (x, B, C, dx, dB, dC in bf16; dt, dY, dSt, dD, ddt in
-// f32) are 0.53 GB, 0.16 ms at 3.35 TB/s; the products of the causal half
-// (S, dM, the M^T dY, V, dSt u, dC, dB) are 53 GFLOP, 0.054 ms at the bf16
-// tensor-core rate: the bound is the bytes'. This SIMT version does those
-// products on the CUDA cores (and dM twice, in kernels 3 and 5).
+// These do the products on the CUDA cores, and dM twice (kernels 3, 5).
 
 namespace ssd_bwd {
 
@@ -898,17 +931,24 @@ struct BDims {
   int bc, q, h, n;  // b * chunks, chunk length, heads, state size
 };
 
-// The workspace, in bytes from its start: cs (f64, (bc, h, q)), S and
-// sum_h dM o L (f32, (bc, q, q)), rowsum(dl), colsum(dl), dw (f32, (bc, h,
-// q)), du . x (f32, (bc, q, h)), dA's partials (f64, (bc, h)), and the
-// head groups' partial sums of dM o L (f32, (groups, bc, q, q)) and of the
-// states' dB term (f32, (groups, bc, q, n)).
+// The workspace, in bytes from its start: cs (f64, (bc, h, q)), the
+// partials of rowsum(dl) (f32, (T, 4, bc, h, q): row tile, row group, T =
+// ceil(q / kJT); the SIMT kernels write part 0 only), colsum(dl), dw (f32, (bc, h, q)),
+// du . x (f32, (bc, q, h)), dA's partials (f64, (bc, h)); then one region
+// that the two paths use differently: the SIMT kernels' S and sum_h dM o L
+// (f32, (bc, q, q)) and the head groups' partial sums of dM o L (f32,
+// (groups, bc, q, q)) and of the states' dB term (f32, (groups, bc, q,
+// n)); the tensor-core kernel's row-tile partials of dC (f32, (T, bc, q,
+// n)). The size does not depend on the dtype, so it is the larger of the
+// two.
 struct Work {
   double* cs;
   float *S, *dS, *rows, *cols, *dw, *ddtu;
   double* dAp;
-  float *dSp, *dBp;
+  float *dSp, *dBp, *dCp;
 };
+
+constexpr int kJT = 64;  // rows j a block of the tensor-core kernel owns
 
 __host__ __device__ inline int head_groups(int h) {
   return (h + kHeadGroup - 1) / kHeadGroup;
@@ -922,28 +962,31 @@ inline long long work_layout(const BDims& d, char* base, Work* w) {
   const long long bhq = (long long)d.bc * d.h * d.q;
   const long long qq = (long long)d.bc * d.q * d.q;
   const long long g = head_groups(d.h);
-  const long long sizes[10] = {8 * bhq, 4 * qq,  4 * qq,
-                               4 * bhq, 4 * bhq, 4 * bhq,
-                               4 * bhq, 8LL * d.bc * d.h, 4 * g * qq,
+  const long long T = (d.q + kJT - 1) / kJT;
+  const long long sizes[10] = {8 * bhq,     16 * T * bhq, 4 * bhq,
+                               4 * bhq,     4 * bhq,     8LL * d.bc * d.h,
+                               4 * qq,      4 * qq,      4 * g * qq,
                                4 * g * d.bc * d.q * d.n};
   long long off[10], total = 0;
   for (int k = 0; k < 10; ++k) {
     off[k] = total;
     total += align256(sizes[k]);
   }
+  const long long tc = off[6] + align256(4 * T * d.bc * d.q * d.n);
   if (w != nullptr) {
     w->cs = reinterpret_cast<double*>(base + off[0]);
-    w->S = reinterpret_cast<float*>(base + off[1]);
-    w->dS = reinterpret_cast<float*>(base + off[2]);
-    w->rows = reinterpret_cast<float*>(base + off[3]);
-    w->cols = reinterpret_cast<float*>(base + off[4]);
-    w->dw = reinterpret_cast<float*>(base + off[5]);
-    w->ddtu = reinterpret_cast<float*>(base + off[6]);
-    w->dAp = reinterpret_cast<double*>(base + off[7]);
+    w->rows = reinterpret_cast<float*>(base + off[1]);
+    w->cols = reinterpret_cast<float*>(base + off[2]);
+    w->dw = reinterpret_cast<float*>(base + off[3]);
+    w->ddtu = reinterpret_cast<float*>(base + off[4]);
+    w->dAp = reinterpret_cast<double*>(base + off[5]);
+    w->S = reinterpret_cast<float*>(base + off[6]);
+    w->dS = reinterpret_cast<float*>(base + off[7]);
     w->dSp = reinterpret_cast<float*>(base + off[8]);
     w->dBp = reinterpret_cast<float*>(base + off[9]);
+    w->dCp = reinterpret_cast<float*>(base + off[6]);
   }
-  return total;
+  return total > tc ? total : tc;
 }
 
 // 1. cs = cumsum(dt * A) per (b, c, head), in f64, as the forward takes it:
@@ -1504,8 +1547,8 @@ __global__ void __launch_bounds__(kThreadsB)
   }
 }
 
-// 8. Per (b, c), a warp per head (heads warp, warp + 8, ...): dcs, the
-// reverse cumsum dA_k (f64), ddt and the (b, c) partial sum of dA_k dt_k.
+// 8. Per (b, c) and 8 heads, a warp per head: dcs, the reverse cumsum dA_k
+// (f64), ddt and the (b, c) partial sum of dA_k dt_k.
 __global__ void __launch_bounds__(kThreadsB)
     bwd_dt(const float* __restrict__ dt, const float* __restrict__ A,
            const float* __restrict__ ddi, Work w, float* __restrict__ ddt,
@@ -1515,7 +1558,9 @@ __global__ void __launch_bounds__(kThreadsB)
   const long long row0 = (long long)bc * q;
   const int per = (q + 31) / 32;
   const int i0 = min(q, lane * per), i1 = min(q, i0 + per);
-  for (int hh = warp; hh < h; hh += kThreadsB / 32) {
+  {
+    const int hh = blockIdx.y * (kThreadsB / 32) + warp;
+    if (hh >= h) return;  // whole warps
     const long long hq = ((long long)bc * h + hh) * q;
     const double* c = w.cs + hq;
     const double clast = c[q - 1];
@@ -1561,6 +1606,832 @@ __global__ void bwd_dA(const double* __restrict__ dAp, float* __restrict__ dA,
   double s = 0.0;
   for (int bc = 0; bc < d.bc; ++bc) s += dAp[(long long)bc * d.h + hh];
   dA[hh] = (float)s;
+}
+
+// ------------------------------------------ bf16: the tensor-core kernel
+// bwd_tc: per (b, c) and pair of row tiles j of kJT rows (tiles t and
+// T - 1 - t, so that every block walks the same number of tiles i), all
+// heads in order. For each tile j, head by head, the work comes in steps
+// of kIS rows: first the tiles i >= j0 (dY_i and C_i), then the state in
+// tiles of kIS rows (dSt's rows). Warp-specialised, 3 warpgroups:
+//   * Warpgroup 0, the producer, copies each step's tiles with 16-byte
+//     cp.async (C_i into the step's stage, one of kStages; the f32 tile
+//     into a staging tile; at a head's first step also its x_j, cs and
+//     dt_j), splits the f32 tile once into three bf16 parts in the stage
+//     (each thread the pieces it copied itself), and arrives on the
+//     stage's full mbarrier. It refills a stage once the stage's empty
+//     mbarrier says every consumer warp is done with it, so it runs up to
+//     two steps ahead.
+//   * Warpgroups 1-2, 8 consumer warps: warp (r, c) owns rows j0 + 16 r ..
+//     + 15 and half c of each step's columns, and waits for nothing but
+//     its stage and its partner (r, 1 - c): the four row groups run apart
+//     (no block barrier inside a tile). Per step i, warp (r, c) takes the
+//     columns i0 + 16 c .. + 15, on mma.sync m16n8k16:
+//       S^T  = B_j C_i^T                    (B, C exact: 1 product)
+//       dM^T = dt_j (x_j dY_i^T)            (x exact, dY split: 3)
+//     then in registers, j <= i < q: L = 2^((cs_i - cs_j) log2 e), M =
+//     S L, dl = dM M (colsum into registers; the row group's partial of
+//     rowsum into the workspace, added up by bwd_rows_sum), dM L added
+//     into the block's sum over heads (shared memory, each element by one
+//     thread, heads in order). The two warps of a row group swap their
+//     M^T (as split A fragments), so each has the step's 32 columns, and
+//     take half the head dim each:
+//       du_j += M^T dY_i                    (both f32: 6 products of the
+//     parts, hh hm mh mm hl lh, summed smallest first; fewer lose dx
+//     against the plain f32 backward: tests/test_torch_recurrent_bwd.py::
+//     test_ssd_bwd_kernel_precision_choice_beats_plain_float32).
+//     Per state step (rows n of dSt), warp (r, c):
+//       V_j += B_j[:, n] dSt[n, :]           (its half of the head dim; B
+//                                             exact: 3 products)
+//       dBs_j[n] += w_j dt_j (x_j dSt[n, :]^T)  (its half of the 32
+//     states; x exact: 3; the states' dB term, summed over heads in shared
+//     memory). At a head's last step: du += w V, dx = du dt (each warp its
+//     half of the head dim), dw = u . V, du . x and colsum(dl) (the two
+//     halves added in order) leave.
+// After the last head (consumers only): dB_j = dBs_j + sum_i (sum_h dM o
+// L)^T_ji C_i (the head sum split in three parts, C exact) leaves as bf16;
+// the tile's partial of dC_i = sum_j (sum_h dM o L)_ij B_j (rows i >= j0)
+// goes to the workspace, and bwd_dC_sum adds the tiles' partials in order.
+// 384 threads leave ptxas 168 registers a thread, which the consumers fill
+// (setmaxnreg cannot give them more: ptxas allocates for the whole kernel
+// under the launch bound). Measured choices on the H100 (tools/
+// ssd_bwd_ab.py and copies of this file): a producer of 64 threads, or
+// copies issued two steps ahead of the splits, were slower; a single
+// block-wide pipeline of 8 warps (no producer) took 1.35 times as long.
+// Head dims up to 64, chunks up to what shared memory holds (256 at head
+// dim 64 and state 128): at head dim 128 the stages and the head sum do not
+// fit, and the SIMT kernels run.
+constexpr int kIS = 32;       // rows i (or state rows) a step
+constexpr int kProd = 128;    // producer threads (a warpgroup)
+constexpr int kCons = 256;    // consumer threads
+constexpr int kTcB = kProd + kCons;  // threads of bwd_tc
+constexpr int kMaxTcP = 64;   // the largest head dim bwd_tc takes
+constexpr int kStages = 3;    // the producer's stages
+
+struct TDims {
+  int bc, q, h, n, np;  // np: n padded to a multiple of kIS
+  int q32, T, pairs;    // tiles of kIS rows i, tiles of kJT rows j, pairs
+};
+
+template <int P>
+struct TcB {
+  static constexpr int PK = P < 16 ? 16 : P;  // head dim padded to a k step
+  static constexpr int LDX = PK + 8;          // x_j and split rows, halves
+  static constexpr int NTP = P / 8;           // 8-column tiles of a head
+  static constexpr int NTH = NTP > 1 ? NTP / 2 : 1;  // tiles a warp's half
+  static constexpr int NT2 = NTH > 1 ? 2 : 1;  // tiles an ldmatrix gives
+};
+
+// Shared memory of bwd_tc, byte offsets: the head sum of dM o L (float4
+// per (row group, tile i, 8-column tile, lane): the mma accumulator
+// layout), the states' dB term (likewise, per (row group, 8-column tile of
+// n, lane)), cs and dt of two heads, x_j of two heads, B_j, the producer's
+// f32 staging tile, kStages stages (C_i, then the three split parts), the
+// swapped M^T fragments, the halves' row sums, the mbarriers (full and
+// empty per stage).
+struct TcLayout {
+  int dS, dBs, cs, dtb, x, Bj, raw, stage, xch, hs, bar, total;
+  int stage_bytes, sp_at;  // a stage's size; its split parts' offset in it
+};
+
+template <int P>
+__host__ __device__ inline TcLayout tc_layout(int q, int np) {
+  using S = TcB<P>;
+  const int q32 = (q + kIS - 1) / kIS, ldb = np + 8;
+  const int cbytes = kIS * ldb * 2, spbytes = 3 * kIS * S::LDX * 2;
+  const int sizes[11] = {4 * q32 * 4 * 32 * 16, 4 * (np / 8) * 32 * 16,
+                         2 * q * 8,             2 * kJT * 4,
+                         2 * kJT * S::LDX * 2,  kJT * ldb * 2,
+                         kIS * P * 4,  kStages * (cbytes + spbytes),
+                         8 * 3 * 32 * 16,       8 * 3 * 16 * 4,
+                         2 * kStages * 8};
+  int off[11], o = 0;
+  for (int k = 0; k < 11; ++k) {
+    off[k] = o;
+    o += (sizes[k] + 15) / 16 * 16;
+  }
+  return TcLayout{off[0], off[1], off[2], off[3], off[4],  off[5],
+                  off[6], off[7], off[8], off[9], off[10], o,
+                  cbytes + spbytes, cbytes};
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem));
+}
+
+// named barrier `id` over `count` threads (0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+// Waits for the phase of the given parity to complete. A wait that lasts
+// some 20 s is a fault of the kernel (a stage never filled or released):
+// it traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > 40000000000LL)
+      __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two f32 values as three packed bf16 pairs (hi, mid, lo): split3 of each,
+// two values a conversion.
+__device__ __forceinline__ void split3_pair(float a, float b, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h2);
+  const float ra = a - hf.x, rb = b - hf.y;
+  const __nv_bfloat162 m2 = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(m2);
+  hi = bf2_bits(h2);
+  mid = bf2_bits(m2);
+  lo = bf2_bits(__floats2bfloat162_rn(ra - mf.x, rb - mf.y));
+}
+
+// A fragments (16 x 16) in three parts from two accumulator tiles (16 x 8
+// each, columns 0-7 and 8-15 of the k step).
+__device__ __forceinline__ void split3_frag(const float* c0, const float* c1,
+                                            uint32_t a[3][4]) {
+  split3_pair(c0[0], c0[1], a[0][0], a[1][0], a[2][0]);
+  split3_pair(c0[2], c0[3], a[0][1], a[1][1], a[2][1]);
+  split3_pair(c1[0], c1[1], a[0][2], a[1][2], a[2][2]);
+  split3_pair(c1[2], c1[3], a[0][3], a[1][3], a[2][3]);
+}
+
+template <int P>
+__global__ void __launch_bounds__(kTcB, 1)
+    bwd_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+           const __nv_bfloat16* __restrict__ B,
+           const __nv_bfloat16* __restrict__ C, const float* __restrict__ dy,
+           const float* __restrict__ dst, const double* __restrict__ csw,
+           __nv_bfloat16* __restrict__ dx, __nv_bfloat16* __restrict__ dB,
+           float* __restrict__ rows, float* __restrict__ cols,
+           float* __restrict__ dw, float* __restrict__ ddtu,
+           float* __restrict__ dCp, TDims d) {
+  using S = TcB<P>;
+  using bf = __nv_bfloat16;
+  constexpr int PK = S::PK, LDX = S::LDX, NTP = S::NTP, NTH = S::NTH;
+  constexpr int NT2 = S::NT2;
+  const int q = d.q, h = d.h, n = d.n, np = d.np, ldb = np + 8;
+  const int q32 = d.q32, NT8 = np / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcLayout lay = tc_layout<P>(q, np);
+  const uint32_t sbase = smem_u32(smem);
+  float4* dS4 = reinterpret_cast<float4*>(smem + lay.dS);
+  float4* dBs4 = reinterpret_cast<float4*>(smem + lay.dBs);
+  double* csb = reinterpret_cast<double*>(smem + lay.cs);  // [2][q]
+  float* dtb = reinterpret_cast<float*>(smem + lay.dtb);   // [2][kJT]
+  bf* xb = reinterpret_cast<bf*>(smem + lay.x);            // [2][kJT][LDX]
+  bf* Bj = reinterpret_cast<bf*>(smem + lay.Bj);           // [kJT][ldb]
+  float* raw = reinterpret_cast<float*>(smem + lay.raw);  // [kIS][P]
+  // stage b: C_i [kIS][ldb], then the parts [3][kIS][LDX]
+  auto stage_c = [&](int b) {
+    return reinterpret_cast<bf*>(smem + lay.stage + b * lay.stage_bytes);
+  };
+  auto stage_p = [&](int b) {
+    return reinterpret_cast<bf*>(smem + lay.stage + b * lay.stage_bytes +
+                                 lay.sp_at);
+  };
+  uint4* xch = reinterpret_cast<uint4*>(smem + lay.xch);  // [8][3][32]
+  float* hs = reinterpret_cast<float*>(smem + lay.hs);    // [8][3][16]
+  auto full_bar = [&](int b) { return sbase + lay.bar + 8 * b; };
+  auto empty_bar = [&](int b) {
+    return sbase + lay.bar + 8 * kStages + 8 * b;
+  };
+
+  const int pair = blockIdx.x % d.pairs, bcid = blockIdx.x / d.pairs;
+  const int tid = threadIdx.x;
+  const bool producer = tid < kProd;
+  const int ctid = tid - kProd;  // consumer thread index (0 .. 255)
+  const int warp = ctid / 32, lane = tid % 32;  // consumer warp 0 .. 7
+  const int wr = warp % 4, wc = warp / 4;  // row group, column half
+  const int g8 = lane / 4, t4 = lane % 4, mi = lane / 8;
+  const long long row0 = (long long)bcid * q;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  // this warp's 8-column tiles of the head dim (none for c = 1 at P = 8)
+  const int p_nt0 = wc * NTH;
+  const bool p_on = p_nt0 < NTP;
+
+  if (tid == 0) {
+    for (int b = 0; b < kStages; ++b) {
+      mbar_init(full_bar(b), kProd);  // every producer thread
+      mbar_init(empty_bar(b), 8);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (PK > P) {  // columns P .. PK - 1 of x and the parts stay 0
+    for (int e = tid; e < 2 * kJT * (PK - P); e += kTcB)
+      xb[(e / (PK - P)) * LDX + P + e % (PK - P)] = __float2bfloat16_rn(0.f);
+    for (int e = tid; e < kStages * 3 * kIS * (PK - P); e += kTcB) {
+      const int r = e / (PK - P);  // row of stage r / (3 kIS)
+      stage_p(r / (3 * kIS))[(r % (3 * kIS)) * LDX + P + e % (PK - P)] =
+          __float2bfloat16_rn(0.f);
+    }
+  }
+  __syncthreads();  // the mbarriers and the zero columns are in place
+  // Both roles pass the same three block barriers a tile: before it
+  // (the last tile's readers are done), after the consumers' set-up, and
+  // after its heads (every head is in dS and dBs; the stages are idle).
+  int gbase = 0;  // steps of the earlier tiles: the stages' use count
+
+  if (producer) {
+    // -------------------------------------------------------- producer
+    for (int side = 0; side < 2; ++side) {
+      const int jt = side == 0 ? pair : d.T - 1 - pair;
+      if (side == 1 && jt == pair) break;
+      const int j0 = jt * kJT, it0 = j0 / kIS;
+      const int ni = q32 - it0, spH = ni + np / kIS, K = h * spH;
+      __syncthreads();
+      __syncthreads();
+      // the copies of step k: at a head's first step also its x_j, cs, dt_j
+      auto issue = [&](int k) {
+        const int hh = k / spH, s = k % spH, b = (gbase + k) % kStages;
+        if (s == 0) {
+          bf* xd = xb + (hh & 1) * kJT * LDX;
+          for (int e = tid; e < kJT * (P / 8); e += kProd) {
+            const int r = e / (P / 8), c = (e % (P / 8)) * 8, j = j0 + r;
+            const bool ok = j < q;
+            cp_async16(xd + r * LDX + c,
+                       ok ? x + ((row0 + j) * h + hh) * P + c : x, ok);
+          }
+          double* cd = csb + (hh & 1) * q;
+          const double* cg = csw + ((long long)bcid * h + hh) * q;
+          for (int e = tid; e < q; e += kProd) cp_async8(cd + e, cg + e);
+          float* dd = dtb + (hh & 1) * kJT;
+          for (int e = tid; e < kJT; e += kProd) {
+            if (j0 + e < q)
+              cp_async4(dd + e, dt + (row0 + j0 + e) * h + hh);
+            else
+              dd[e] = 0.f;
+          }
+        }
+        if (s < ni) {
+          const int i0 = (it0 + s) * kIS;
+          for (int e = tid; e < kIS * (P / 4); e += kProd) {
+            const int r = e / (P / 4), c = (e % (P / 4)) * 4, i = i0 + r;
+            const bool ok = i < q;
+            cp_async16(raw + r * P + c,
+                       ok ? dy + ((row0 + i) * h + hh) * P + c : dy, ok);
+          }
+          load_bc<kProd>(stage_c(b), C + row0 * n, i0, kIS, q, n, np, tid);
+        } else {
+          const int r0 = (s - ni) * kIS;
+          const float* src = dst + ((long long)bcid * h + hh) * n * P;
+          for (int e = tid; e < kIS * (P / 4); e += kProd) {
+            const int r = e / (P / 4), c = (e % (P / 4)) * 4;
+            const bool ok = r0 + r < n;
+            cp_async16(raw + r * P + c,
+                       ok ? src + (long long)(r0 + r) * P + c : dst, ok);
+          }
+        }
+      };
+      // the f32 tile of step k as three parts, each thread the pieces it
+      // copied (so no barrier between its wait and the split)
+      auto split_own = [&](int k) {
+        bf* o0 = stage_p((gbase + k) % kStages);
+        for (int e = tid; e < kIS * (P / 4); e += kProd) {
+          const int r = e / (P / 4), c = (e % (P / 4)) * 4;
+          const float4 v = *reinterpret_cast<const float4*>(raw + r * P + c);
+          uint32_t h0, m0, l0, h1, m1, l1;
+          split3_pair(v.x, v.y, h0, m0, l0);
+          split3_pair(v.z, v.w, h1, m1, l1);
+          bf* o = o0 + r * LDX + c;
+          *reinterpret_cast<uint2*>(o) = make_uint2(h0, h1);
+          *reinterpret_cast<uint2*>(o + kIS * LDX) = make_uint2(m0, m1);
+          *reinterpret_cast<uint2*>(o + 2 * kIS * LDX) = make_uint2(l0, l1);
+        }
+      };
+      // stage of use u is free once the consumers released use u - 1
+      auto wait_free = [&](int k) {
+        const int g = gbase + k;
+        mbar_wait(empty_bar(g % kStages), ((g / kStages) & 1) ^ 1);
+      };
+      wait_free(0);
+      issue(0);
+      cp_async_commit();
+      for (int k = 1; k <= K; ++k) {
+        cp_async_wait<0>();  // step k - 1's copies (this thread's)
+        split_own(k - 1);
+        mbar_arrive(full_bar((gbase + k - 1) % kStages));
+        if (k < K) {
+          wait_free(k);
+          issue(k);
+          cp_async_commit();
+        }
+      }
+      gbase += K;
+      __syncthreads();
+    }
+    return;
+  }
+
+  // ----------------------------------------------------------- consumers
+  for (int side = 0; side < 2; ++side) {
+    const int jt = side == 0 ? pair : d.T - 1 - pair;
+    if (side == 1 && jt == pair) break;
+    const int j0 = jt * kJT, it0 = j0 / kIS;
+    const int ni = q32 - it0, spH = ni + np / kIS, K = h * spH;
+    const int jr0 = j0 + 16 * wr + g8, jr1 = jr0 + 8;
+    const bool wact = j0 + 16 * wr < q;
+
+    __syncthreads();  // the previous tile's readers of dS, dBs, Bj are done
+    {
+      const int per_w = ni * 4 * 32;
+      for (int e = ctid; e < 4 * per_w; e += kCons)
+        dS4[((e / per_w) * q32 + it0) * 128 + e % per_w] = zero4;
+      for (int e = ctid; e < 4 * NT8 * 32; e += kCons) dBs4[e] = zero4;
+      load_bc<kCons>(Bj, B + row0 * n, j0, kJT, q, n, np, ctid);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    {
+      float du[NTH][4], vv[NTH][4], cpj[2] = {0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < NTH; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) du[t][e] = vv[t][e] = 0.f;
+      double csj0 = 0.0, csj1 = 0.0;
+      float dtj0 = 0.f, dtj1 = 0.f, wj0 = 0.f, wj1 = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const int hh = k / spH, s = k % spH;
+        const int g = gbase + k, b = g % kStages;
+        mbar_wait(full_bar(b), (g / kStages) & 1);
+        const double* cs = csb + (hh & 1) * q;
+        if (s == 0) {  // this head's dt_j, cs_j, w_j = exp(cs_last - cs_j)
+          const float* dd = dtb + (hh & 1) * kJT;
+          dtj0 = dd[16 * wr + g8];
+          dtj1 = dd[16 * wr + g8 + 8];
+          const double cl = cs[q - 1];
+          csj0 = jr0 < q ? cs[jr0] : 0.0;
+          csj1 = jr1 < q ? cs[jr1] : 0.0;
+          wj0 = jr0 < q ? fast_exp2((float)((cl - csj0) * kLog2e)) : 0.f;
+          wj1 = jr1 < q ? fast_exp2((float)((cl - csj1) * kLog2e)) : 0.f;
+        }
+        const bf* xw = xb + (hh & 1) * kJT * LDX + 16 * wr * LDX;
+        // ldmatrix row addresses (shared, bytes): A from x_j and B_j's rows
+        const uint32_t xrow = smem_u32(xw) +
+                              2 * (((mi & 1) * 8 + lane % 8) * LDX +
+                                   (mi >> 1) * 8);
+        const uint32_t arow =
+            sbase + lay.Bj +
+            2 * ((16 * wr + (mi & 1) * 8 + lane % 8) * ldb + (mi >> 1) * 8);
+        // B operands from the parts: rows 16 c .. as n (plain), or rows as
+        // k (.trans, columns from this warp's half of the head dim)
+        const uint32_t spa = smem_u32(stage_p(b));
+        const uint32_t prow =
+            spa +
+            2 * ((16 * wc + (mi >> 1) * 8 + lane % 8) * LDX + (mi & 1) * 8);
+        const uint32_t ptr = spa + 2 * (((mi & 1) * 8 + lane % 8) * LDX +
+                                        (mi >> 1) * 8 + p_nt0 * 8);
+        const uint32_t ptr1 = spa + 2 * ((lane % 16) * LDX);
+        if (s < ni) {
+          // ---------------------------------------------- a tile i
+          const int itg = it0 + s, i0 = itg * kIS, c0 = i0 + 16 * wc;
+          // the row group's 16 rows meet the columns of half k
+          const bool on0 = wact && i0 + 15 >= j0 + 16 * wr;
+          const bool on1 = wact && i0 + 31 >= j0 + 16 * wr;
+          const bool hon = wc ? on1 : on0;
+          float rp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+          uint32_t am[3][4];  // this half's M^T, split, as A fragments
+#pragma unroll
+          for (int z = 0; z < 3; ++z)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) am[z][r] = 0u;
+          if (hon) {
+            float sc[2][4], dm[2][4];
+#pragma unroll
+            for (int t = 0; t < 2; ++t)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sc[t][e] = dm[t][e] = 0.f;
+            // S^T = B_j C_i^T over the state
+            const uint32_t crow =
+                smem_u32(stage_c(b)) +
+                2 * ((16 * wc + (mi >> 1) * 8 + lane % 8) * ldb +
+                     (mi & 1) * 8);
+            for (int kk = 0; kk < np / 16; ++kk) {
+              uint32_t af[4], bfr[4];
+              ldsm_x4(af, arow + 32 * kk);
+              ldsm_x4(bfr, crow + 32 * kk);
+              mma16816(sc[0], af, bfr[0], bfr[1]);
+              mma16816(sc[1], af, bfr[2], bfr[3]);
+            }
+            // dM^T / dt_j = x_j dY_i^T over the head dim, dY's parts lo
+            // first
+#pragma unroll
+            for (int ks = 0; ks < PK / 16; ++ks) {
+              uint32_t af[4];
+              ldsm_x4(af, xrow + 32 * ks);
+#pragma unroll
+              for (int z = 2; z >= 0; --z) {
+                uint32_t bfr[4];
+                ldsm_x4(bfr, prow + 2 * (z * kIS * LDX) + 32 * ks);
+                mma16816(dm[0], af, bfr[0], bfr[1]);
+                mma16816(dm[1], af, bfr[2], bfr[3]);
+              }
+            }
+            // M, dl = dM o M, dM o L; j <= i < q only (exp of the positive
+            // differences above the diagonal could overflow)
+            float4* dsp = dS4 + (wr * q32 + itg) * 128 + 2 * wc * 32 + lane;
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              float o[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int j = e < 2 ? jr0 : jr1;
+                const int i = c0 + nt * 8 + 2 * t4 + (e & 1);
+                float mv = 0.f, dl = 0.f, dml = 0.f;
+                if (i >= j && i < q) {
+                  const float L = fast_exp2(
+                      (float)((cs[i] - (e < 2 ? csj0 : csj1)) * kLog2e));
+                  const float dmv = dm[nt][e] * (e < 2 ? dtj0 : dtj1);
+                  mv = sc[nt][e] * L;
+                  dl = dmv * mv;
+                  dml = dmv * L;
+                }
+                sc[nt][e] = mv;  // M^T from here on
+                cpj[e >> 1] += dl;
+                rp[nt][e & 1] += dl;
+                o[e] = dml;
+              }
+              float4 a = dsp[nt * 32];
+              a.x += o[0];
+              a.y += o[1];
+              a.z += o[2];
+              a.w += o[3];
+              dsp[nt * 32] = a;
+            }
+            split3_frag(sc[0], sc[1], am);
+          }
+          // rowsum's partial over the row group's 16 rows j, per column i,
+          // into the workspace (part (jt, r))
+          float* rowp =
+              rows + ((((long long)jt * 4 + wr) * d.bc + bcid) * h + hh) * q;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              float v = rp[nt][u];
+              v += __shfl_xor_sync(~0u, v, 4);
+              v += __shfl_xor_sync(~0u, v, 8);
+              v += __shfl_xor_sync(~0u, v, 16);
+              const int i = c0 + nt * 8 + 2 * t4 + u;
+              if (g8 == 0 && i < q) rowp[i] = v;
+            }
+          // swap M^T with the other half of the row group
+#pragma unroll
+          for (int z = 0; z < 3; ++z)
+            xch[(warp * 3 + z) * 32 + lane] =
+                make_uint4(am[z][0], am[z][1], am[z][2], am[z][3]);
+          bar_sync(1 + wr, 64);
+          // du_j += M^T dY_i: both f32, six products of the parts
+          if (p_on) {
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              if (!(ks ? on1 : on0)) continue;  // M^T is zero there
+              uint32_t a[3][4];  // the k step's 16 columns, warp (r, ks)'s
+#pragma unroll
+              for (int z = 0; z < 3; ++z) {
+                const uint4 v = xch[((wr + 4 * ks) * 3 + z) * 32 + lane];
+                a[z][0] = v.x;
+                a[z][1] = v.y;
+                a[z][2] = v.z;
+                a[z][3] = v.w;
+              }
+#pragma unroll
+              for (int nt = 0; nt < NTH; nt += NT2) {
+                uint32_t bh[4], bm[4], bl[4];
+                if constexpr (NT2 > 1) {
+                  const uint32_t yt = ptr + 2 * (ks * 16 * LDX + nt * 8);
+                  ldsm_x4_t(bh, yt);
+                  ldsm_x4_t(bm, yt + 2 * kIS * LDX);
+                  ldsm_x4_t(bl, yt + 4 * kIS * LDX);
+                } else {
+                  const uint32_t yt =
+                      ptr1 + 2 * (ks * 16 * LDX + (p_nt0 + nt) * 8);
+                  ldsm_x2_t(bh, yt);
+                  ldsm_x2_t(bm, yt + 2 * kIS * LDX);
+                  ldsm_x2_t(bl, yt + 4 * kIS * LDX);
+                }
+#pragma unroll
+                for (int u = 0; u < NT2; ++u) {
+                  float* c = du[nt + u];
+                  mma16816(c, a[2], bh[2 * u], bh[2 * u + 1]);
+                  mma16816(c, a[0], bl[2 * u], bl[2 * u + 1]);
+                  mma16816(c, a[1], bm[2 * u], bm[2 * u + 1]);
+                  mma16816(c, a[1], bh[2 * u], bh[2 * u + 1]);
+                  mma16816(c, a[0], bm[2 * u], bm[2 * u + 1]);
+                  mma16816(c, a[0], bh[2 * u], bh[2 * u + 1]);
+                }
+              }
+            }
+          }
+          // the partner reads this warp's M^T before it is written again
+          bar_sync(1 + wr, 64);
+        } else if (wact) {
+          // ---------------------------------- state rows n0 .. n0 + kIS
+          const int kc = s - ni;
+          // V_j += B_j[:, n] dSt[n, :], this warp's half of the head dim
+          if (p_on) {
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              uint32_t af[4];
+              ldsm_x4(af, arow + 2 * (kc * kIS + ks * 16));
+#pragma unroll
+              for (int nt = 0; nt < NTH; nt += NT2) {
+#pragma unroll
+                for (int z = 2; z >= 0; --z) {
+                  uint32_t bfr[4];
+                  if constexpr (NT2 > 1) {
+                    ldsm_x4_t(bfr, ptr + 2 * (z * kIS * LDX +
+                                              ks * 16 * LDX + nt * 8));
+                  } else {
+                    ldsm_x2_t(bfr, ptr1 + 2 * (z * kIS * LDX +
+                                               ks * 16 * LDX +
+                                               (p_nt0 + nt) * 8));
+                  }
+#pragma unroll
+                  for (int u = 0; u < NT2; ++u)
+                    mma16816(vv[nt + u], af, bfr[2 * u], bfr[2 * u + 1]);
+                }
+              }
+            }
+          }
+          // the states' dB term: w_j dt_j (x_j dSt[n, :]^T), this warp's
+          // 16 of the step's 32 states
+          float tm[2][4];
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tm[t][e] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < PK / 16; ++ks) {
+            uint32_t af[4];
+            ldsm_x4(af, xrow + 32 * ks);
+#pragma unroll
+            for (int z = 2; z >= 0; --z) {
+              uint32_t bfr[4];
+              ldsm_x4(bfr, prow + 2 * (z * kIS * LDX) + 32 * ks);
+              mma16816(tm[0], af, bfr[0], bfr[1]);
+              mma16816(tm[1], af, bfr[2], bfr[3]);
+            }
+          }
+          const float s0 = wj0 * dtj0, s1 = wj1 * dtj1;
+          float4* bp = dBs4 + (wr * NT8 + kc * 4 + 2 * wc) * 32 + lane;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            float4 a = bp[nt * 32];
+            a.x = fmaf(s0, tm[nt][0], a.x);
+            a.y = fmaf(s0, tm[nt][1], a.y);
+            a.z = fmaf(s1, tm[nt][2], a.z);
+            a.w = fmaf(s1, tm[nt][3], a.w);
+            bp[nt * 32] = a;
+          }
+        }
+        if (s == spH - 1) {
+          // -------- the head's rows j: du, dx, then dw, du . x, colsum(dl)
+          float dwp[2] = {0.f, 0.f}, dtp[2] = {0.f, 0.f};
+          if (p_on) {
+#pragma unroll
+            for (int nt = 0; nt < NTH; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                const int col = (p_nt0 + nt) * 8 + 2 * t4 + (e & 1);
+                const float xv =
+                    __bfloat162float(xw[(g8 + 8 * r) * LDX + col]);
+                const float wv = r ? wj1 : wj0, dv = r ? dtj1 : dtj0;
+                const float duv = fmaf(wv, vv[nt][e], du[nt][e]);
+                dwp[r] = fmaf(xv * dv, vv[nt][e], dwp[r]);
+                dtp[r] = fmaf(duv, xv, dtp[r]);
+                du[nt][e] = duv * dv;  // dx
+                vv[nt][e] = 0.f;
+              }
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int o = 1; o < 4; o *= 2) {
+              dwp[r] += __shfl_xor_sync(~0u, dwp[r], o);
+              dtp[r] += __shfl_xor_sync(~0u, dtp[r], o);
+              cpj[r] += __shfl_xor_sync(~0u, cpj[r], o);
+            }
+          if (t4 == 0) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              hs[(warp * 3 + 0) * 16 + g8 + 8 * r] = dwp[r];
+              hs[(warp * 3 + 1) * 16 + g8 + 8 * r] = dtp[r];
+              hs[(warp * 3 + 2) * 16 + g8 + 8 * r] = cpj[r];
+            }
+          }
+          const long long hq = ((long long)bcid * h + hh) * q;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int j = r ? jr1 : jr0;
+            if (p_on && wact && j < q) {
+              bf* o = dx + ((row0 + j) * h + hh) * P + p_nt0 * 8 + 2 * t4;
+#pragma unroll
+              for (int nt = 0; nt < NTH; ++nt)
+                *reinterpret_cast<__nv_bfloat162*>(o + nt * 8) =
+                    __floats2bfloat162_rn(du[nt][2 * r], du[nt][2 * r + 1]);
+            }
+          }
+          bar_sync(1 + wr, 64);
+          if (wc == 0 && lane < 16) {  // the two halves, in order
+            const int j = j0 + 16 * wr + lane;
+            if (wact && j < q) {
+              const float* a = hs + warp * 48 + lane;
+              const float* c = hs + (warp + 4) * 48 + lane;
+              dw[hq + j] = a[0] + c[0];
+              ddtu[(row0 + j) * h + hh] = a[16] + c[16];
+              cols[hq + j] = a[32] + c[32];
+            }
+          }
+          bar_sync(1 + wr, 64);  // hs is written again at the next head
+#pragma unroll
+          for (int t = 0; t < NTH; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) du[t][e] = 0.f;
+          cpj[0] = cpj[1] = 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar(b));  // this warp is done
+      }
+    }
+    gbase += K;
+    __syncthreads();  // every head is in dS and dBs; the stages are idle
+
+    {
+      // ------- dB_j = dBs_j + sum_i (sum_h dM o L)^T_ji C_i, i in order;
+      // warp (r, c) takes the pairs of 8-column tiles of n with index = c
+      // mod 2. C_i through the C tiles of stages 0 and 1.
+      load_bc<kCons>(stage_c(0), C + row0 * n, it0 * kIS, kIS, q, n, np,
+                     ctid);
+      cp_async_commit();
+      for (int s = 0; s < ni; ++s) {
+        const int itg = it0 + s;
+        if (s + 1 < ni) {
+          load_bc<kCons>(stage_c((s + 1) & 1), C + row0 * n,
+                         (itg + 1) * kIS, kIS, q, n, np, ctid);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        bar_sync(5, kCons);
+        if (wact && itg * kIS + kIS - 1 >= j0 + 16 * wr) {
+          const bf* ct = stage_c(s & 1) + ((mi & 1) * 8 + lane % 8) * ldb +
+                         (mi >> 1) * 8;
+          const float4* dsp = dS4 + (wr * q32 + itg) * 128 + lane;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const float4 f0 = dsp[2 * ks * 32], f1 = dsp[(2 * ks + 1) * 32];
+            const float c0[4] = {f0.x, f0.y, f0.z, f0.w};
+            const float c1[4] = {f1.x, f1.y, f1.z, f1.w};
+            uint32_t a[3][4];
+            split3_frag(c0, c1, a);
+            for (int nt = 2 * wc; nt < NT8; nt += 4) {
+              uint32_t bfr[4];
+              ldsm_x4_t(bfr, ct + ks * 16 * ldb + nt * 8);
+              float4* bp = dBs4 + (wr * NT8 + nt) * 32 + lane;
+              const float4 v0 = bp[0], v1 = bp[32];
+              float a0[4] = {v0.x, v0.y, v0.z, v0.w};
+              float a1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+              for (int z = 2; z >= 0; --z) {
+                mma16816(a0, a[z], bfr[0], bfr[1]);
+                mma16816(a1, a[z], bfr[2], bfr[3]);
+              }
+              bp[0] = make_float4(a0[0], a0[1], a0[2], a0[3]);
+              bp[32] = make_float4(a1[0], a1[1], a1[2], a1[3]);
+            }
+          }
+        }
+        bar_sync(5, kCons);  // stage s is refilled next
+      }
+      if (wact) {
+        for (int nt = 2 * wc; nt < NT8; nt += 4)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float4 v = dBs4[(wr * NT8 + nt + u) * 32 + lane];
+            const float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = e < 2 ? jr0 : jr1;
+              const int col = (nt + u) * 8 + 2 * t4 + (e & 1);
+              if (j < q && col < n)
+                dB[(row0 + j) * n + col] = __float2bfloat16_rn(vals[e]);
+            }
+          }
+      }
+
+      // -- dC's partial of this tile: rows i >= j0, (sum_h dM o L)_ij B_j
+      const int nm = (q - j0 + 15) / 16;
+      const long long cbase = ((long long)jt * d.bc + bcid) * q;
+      for (int mt = warp; mt < nm; mt += 8) {
+        const int ib = j0 + 16 * mt;
+        for (int nt = 0; nt < NT8; nt += 2) {
+          float c[2][4];
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) c[u][e] = 0.f;
+#pragma unroll 1
+          for (int ks = 0; ks < 4; ++ks) {
+            uint32_t ap[3][4];  // rows i, k = j: gathered from dS's layout
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int i = ib + g8 + (r & 1) * 8;
+              const int jl = ks * 16 + 2 * t4 + (r >> 1) * 8;  // even
+              const int ii = i % kIS;
+              // element (j, i) of the head sum: row group jl / 16, row
+              // jl % 16; jl + 1 is the next row of the same 8: lane + 4
+              const float* base = reinterpret_cast<const float*>(
+                  dS4 + (((jl / 16) * q32 + i / kIS) * 4 + ii / 8) * 32);
+              const int ln = ((jl % 16) % 8) * 4 + (ii % 8) / 2;
+              const int e = ((jl % 16) / 8) * 2 + (ii & 1);
+              split3_pair(base[ln * 4 + e], base[(ln + 4) * 4 + e],
+                          ap[0][r], ap[1][r], ap[2][r]);
+            }
+            uint32_t bfr[4];
+            ldsm_x4_t(bfr, Bj + (ks * 16 + (mi & 1) * 8 + lane % 8) * ldb +
+                               nt * 8 + (mi >> 1) * 8);
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int z = 2; z >= 0; --z)
+                mma16816(c[u], ap[z], bfr[2 * u], bfr[2 * u + 1]);
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = ib + g8 + (e >> 1) * 8;
+              const int col = (nt + u) * 8 + 2 * t4 + (e & 1);
+              if (i < q && col < n) dCp[(cbase + i) * n + col] = c[u][e];
+            }
+        }
+      }
+    }
+  }
+}
+
+// rowsum(dl): bwd_tc's partials (row tile, row group) 0 .. 4 (i / kJT + 1)
+// - 1 of row i, added in order into part 0.
+__global__ void bwd_rows_sum(float* __restrict__ rows, BDims d) {
+  const long long bhq = (long long)d.bc * d.h * d.q;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= bhq) return;
+  const int i = (int)(e % d.q);
+  float v = rows[e];
+  for (int k = 1; k < 4 * (i / kJT + 1); ++k) v += rows[k * bhq + e];
+  rows[e] = v;
+}
+
+// dC_i = the row tiles' partials 0 .. i / kJT, added in order.
+__global__ void bwd_dC_sum(const float* __restrict__ dCp,
+                           __nv_bfloat16* __restrict__ dC, BDims d) {
+  const long long tot = (long long)d.bc * d.q * d.n;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= tot) return;
+  const int i = (int)((e / d.n) % d.q);
+  float v = dCp[e];
+  for (int k = 1; k <= i / kJT; ++k) v += dCp[k * tot + e];
+  dC[e] = __float2bfloat16_rn(v);
 }
 
 template <typename K>
@@ -1609,7 +2480,41 @@ int launch_bwd(const T* x, const float* dt, const float* A, const T* B,
       x, dt, dst, w.cs, w.dBp, d);
   bwd_dB<T><<<dim3(tiles, d.bc), kThreadsB, dc_smem, st>>>(C, w.dS, w.dBp,
                                                            dB, d);
-  bwd_dt<<<d.bc, kThreadsB, 0, st>>>(dt, A, ddi, w, ddt, d);
+  bwd_dt<<<dim3(d.bc, (h + 7) / 8), kThreadsB, 0, st>>>(dt, A, ddi, w, ddt,
+                                                        d);
+  bwd_dA<<<(h + 127) / 128, 128, 0, st>>>(w.dAp, dA, d);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 path: bwd_cs, bwd_tc, bwd_dC_sum, bwd_dt, bwd_dA.
+template <int P>
+int launch_bwd_tc(const __nv_bfloat16* x, const float* dt, const float* A,
+                  const __nv_bfloat16* B, const __nv_bfloat16* C,
+                  const float* dy, const float* dst, const float* ddi,
+                  __nv_bfloat16* dx, float* ddt, float* dA,
+                  __nv_bfloat16* dB, __nv_bfloat16* dC, char* ws, int b,
+                  int nc, int q, int h, int n, cudaStream_t st) {
+  const BDims d{b * nc, q, h, n};
+  Work w;
+  work_layout(d, ws, &w);
+  const int np = (n + kIS - 1) / kIS * kIS, T = (q + kJT - 1) / kJT;
+  const TDims td{d.bc, q, h, n, np, (q + kIS - 1) / kIS, T, (T + 1) / 2};
+  const int smem = tc_layout<P>(q, np).total;
+  const long long tot = (long long)d.bc * q * n;
+  if ((long long)d.bc * td.pairs > 0x7fffffffLL || h > 65535 ||
+      (tot + 255) / 256 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = smem_opt_in(bwd_tc<P>, smem);
+  if (e != cudaSuccess) return (int)e;
+  bwd_cs<<<dim3(d.bc, (h + 7) / 8), kThreadsB, 0, st>>>(dt, A, w.cs, d);
+  bwd_tc<P><<<d.bc * td.pairs, kTcB, smem, st>>>(
+      x, dt, B, C, dy, dst, w.cs, dx, dB, w.rows, w.cols, w.dw, w.ddtu,
+      w.dCp, td);
+  bwd_dC_sum<<<(unsigned)((tot + 255) / 256), 256, 0, st>>>(w.dCp, dC, d);
+  const long long bhq = (long long)d.bc * h * q;
+  bwd_rows_sum<<<(unsigned)((bhq + 255) / 256), 256, 0, st>>>(w.rows, d);
+  bwd_dt<<<dim3(d.bc, (h + 7) / 8), kThreadsB, 0, st>>>(dt, A, ddi, w, ddt,
+                                                        d);
   bwd_dA<<<(h + 127) / 128, 128, 0, st>>>(w.dAp, dA, d);
   return (int)cudaGetLastError();
 }
@@ -1628,6 +2533,16 @@ int launch_bwd_typed(const void* x, const float* dt, const float* A,
         ddt, dA, static_cast<float*>(dB), static_cast<float*>(dC), ws, b,
         nc, q, h, n, st);
   using bf = __nv_bfloat16;
+  if constexpr (P <= kMaxTcP) {
+    if (tc_layout<P>(q, (n + kIS - 1) / kIS * kIS).total <= 232448)
+      return launch_bwd_tc<P>(
+          static_cast<const bf*>(x), dt, A, static_cast<const bf*>(B),
+          static_cast<const bf*>(C), dy, dst, ddi, static_cast<bf*>(dx), ddt,
+          dA, static_cast<bf*>(dB), static_cast<bf*>(dC), ws, b, nc, q, h,
+          n, st);
+  }
+  // head dims 128 and 256, or a chunk too long for bwd_tc's shared
+  // memory: the SIMT kernels
   return launch_bwd<bf, P>(
       static_cast<const bf*>(x), dt, A, static_cast<const bf*>(B),
       static_cast<const bf*>(C), dy, dst, ddi, static_cast<bf*>(dx), ddt, dA,

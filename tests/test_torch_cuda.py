@@ -995,6 +995,14 @@ SSD_BWD_CASES = [  # (b, l, h, p, n, chunk, dtype)
     (1, 300, 6, 64, 32, 128, torch.bfloat16),   # bf16, ragged
     (2, 512, 48, 64, 128, 256, torch.float32),  # Mamba-2's widths, f32
     (2, 512, 48, 64, 128, 256, torch.bfloat16),  # and bf16
+    # the bf16 tensor-core path's edges
+    (1, 512, 13, 64, 128, 256, torch.bfloat16),  # 13 heads, odd
+    (1, 256, 4, 32, 130, 128, torch.bfloat16),   # state 130: padded to 160
+    (2, 128, 5, 8, 16, 64, torch.bfloat16),      # head dim 8
+    (1, 128, 2, 256, 32, 64, torch.bfloat16),    # head dim 256: SIMT kernels
+    (1, 200, 2, 128, 64, 100, torch.bfloat16),   # head dim 128: SIMT kernels
+    (1, 300, 3, 64, 64, 100, torch.bfloat16),    # chunk 100: ragged tiles
+    (1, 40, 3, 16, 32, 64, torch.bfloat16),      # one ragged chunk
 ]
 
 

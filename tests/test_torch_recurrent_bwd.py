@@ -4,12 +4,16 @@ versions) against ``jax.vjp`` of the JAX package's ``ref`` functions on
 the same numpy inputs and cotangents (float32: LRU at 1e-5, SSD at 1e-4,
 the JAX suite's forward tolerances); the decompositions the CUDA backward
 kernels compute (``lru_scan_bwd``: the same scan run from the end of the
-sequence; ``ssd_chunk_bwd``: its nine kernels' terms), emulated in
-PyTorch and held against autograd, each cotangent on its own; and the
-reference's own fault: ``jax.grad`` through its Pallas scans raises
-(``ROADMAP.md`` Queue 3), while its ``ref`` path differentiates.
+sequence; ``ssd_chunk_bwd``: the f32 path's nine kernels' terms, and the
+bf16 path's tensor-core decomposition with its split-bf16 products),
+emulated in PyTorch and held against autograd, each cotangent on its own;
+the bf16 path's precision choice against float64 at a full-width chunk;
+and the reference's own fault: ``jax.grad`` through its Pallas scans
+raises (``ROADMAP.md`` Queue 3), while its ``ref`` path differentiates.
 """
 from __future__ import annotations
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -165,9 +169,9 @@ def test_ssd_gradients_match_jax_grad_of_ref(l, chunk, state):
 
 
 def _ssd_bwd_emulation(x, dt, A, B, C, dy, dst_np, ddi):
-    """ssd_chunk_bwd's decomposition (csrc/ssd_scan.cu, kernels 1-9) in
-    PyTorch: f32 products, cs and the reverse cumsum in f64; dst_np in the
-    kernel's (n, p) layout."""
+    """ssd_chunk_bwd's decomposition for f32 inputs (csrc/ssd_scan.cu, the
+    SIMT kernels 1-9) in PyTorch: f32 products, cs and the reverse cumsum
+    in f64; dst_np in the kernel's (n, p) layout."""
     b, c, q, h, p = x.shape
     cs = torch.cumsum(dt.double() * A.double(), dim=2).permute(0, 1, 3, 2)
     lower = torch.ones(q, q, dtype=torch.bool).tril()
@@ -221,6 +225,173 @@ def test_ssd_bwd_decomposition_matches_autograd(which):
             _close(g, w_, 1e-5)
         else:
             assert float(g.abs().max()) == 0.0
+
+
+def _split3(v):
+    """v = hi + mid + lo, each part a bf16 (the kernels' split3)."""
+    hi = v.bfloat16().float()
+    mid = (v - hi).bfloat16().float()
+    return hi, mid, (v - hi - mid).bfloat16().float()
+
+
+# (part of A, part of B) of the products that make M^T dY in the bf16
+# backward, smallest first: hh hm mh mm hl lh (0 = hi, 1 = mid, 2 = lo)
+_DU_PARTS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def _parts_product(a, b, pairs):
+    """a @ b from bf16 parts of both f32 operands, each product exact and
+    summed in f32, in the order of `pairs`."""
+    pa, pb = _split3(a), _split3(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for i, j in pairs:
+        out = out + pa[i] @ pb[j]
+    return out
+
+
+def _exact_split(a, b):
+    """a @ b where a is exact in bf16 and b (f32) is split in three parts:
+    three products summed in f32, lo first."""
+    return sum((a @ part for part in reversed(_split3(b))),
+               torch.zeros(a.shape[:-1] + b.shape[-1:]))
+
+
+def _ssd_bwd_tc_emulation(x, dt, A, B, C, dy, dst_np, ddi,
+                          du_pairs=_DU_PARTS):
+    """ssd_chunk_bwd's bf16 path (csrc/ssd_scan.cu, bwd_tc and the kernels
+    around it) in PyTorch: every product as the tensor cores take it (bf16
+    parts, f32 sums: S = C B^T exact; dM = dt_j (x_j . dY_i) with dY in
+    three parts; M^T dY from parts of both, `du_pairs`; V = B dSt and the
+    states' x_j dSt^T with dSt in three parts; dB and dC from the head sum
+    of dM o L in three parts), L = 2^(f32 of (cs_i - cs_j) log2 e) from an
+    f64 cs, rowsum's partials per row tile (64 rows j) and row group (16)
+    and dC's per row tile added in order, cs and the reverse cumsum in
+    f64. x, B, C hold bf16 values; dst_np in the kernel's (n, p) layout."""
+    b, c, q, h, p = x.shape
+    lower = torch.ones(q, q, dtype=torch.bool).tril()
+    cs = torch.cumsum(dt.double() * A.double(), dim=2).permute(0, 1, 3, 2)
+    L = torch.exp2(((cs[..., :, None] - cs[..., None, :]) * math.log2(math.e))
+                   .float()).masked_fill(~lower, 0.0)       # (b,c,h,i,j)
+    S = C @ B.transpose(-1, -2)                             # (b,c,i,j)
+    xh, dyh = x.permute(0, 1, 3, 2, 4), dy.permute(0, 1, 3, 2, 4)
+    dth = dt.permute(0, 1, 3, 2)                            # (b,c,h,q)
+    dM = _exact_split(xh, dyh.transpose(-1, -2)).transpose(-1, -2)
+    dM = dM * dth[..., None, :] * lower                     # (b,c,h,i,j)
+    M = S[:, :, None] * L
+    dl = dM * M
+    pad = (-q) % 64
+    parts = torch.nn.functional.pad(dl, (0, pad)).reshape(
+        b, c, h, q, -1, 16).sum(-1)                         # tiles x groups
+    rows = parts[..., 0]
+    for k in range(1, parts.shape[-1]):
+        rows = rows + parts[..., k]
+    cols = dl.sum(-2)
+    dS = (dM * L).sum(2)                                    # heads in order
+    w = torch.exp2(((cs[..., -1:] - cs) * math.log2(math.e)).float())
+    V = _exact_split(B[:, :, None], dst_np)                 # (b,c,h,q,p)
+    du = _parts_product(M.transpose(-1, -2), dyh, du_pairs) + w[..., None] * V
+    dw = (xh * dth[..., None] * V).sum(-1)
+    states = ((w * dth)[..., None]
+              * _exact_split(xh, dst_np.transpose(-1, -2))).sum(2)
+    dB = states + sum(part.transpose(-1, -2) @ C
+                      for part in reversed(_split3(dS)))
+    dC = torch.zeros_like(C)
+    for j0 in range(0, q, 64):                              # row tiles j
+        dC = dC + sum(part[..., j0:j0 + 64] @ B[..., j0:j0 + 64, :]
+                      for part in reversed(_split3(dS)))
+    dx = (du * dth[..., None]).permute(0, 1, 3, 2, 4)
+    ddtu = (du * xh).sum(-1)
+    dcs = (rows.double() - cols.double()
+           + ddi.permute(0, 1, 3, 2).double() * torch.exp(cs.float()).double()
+           - dw.double() * w.double())
+    dcs[..., -1] += (dw * w).sum(-1).double()
+    dA_k = dcs.flip(-1).cumsum(-1).flip(-1)
+    ddt = (dA_k * A.double()[:, None] + ddtu.double()).float()
+    dA = (dA_k * dth.double()).sum((0, 1, 3)).float()
+    return dx, ddt.permute(0, 1, 3, 2), dA, dB, dC
+
+
+def _bf16_values(*ts):
+    return [t.bfloat16().float() for t in ts]
+
+
+@pytest.mark.parametrize("which", ["y_diag", "states", "decay_in", "all"])
+def test_ssd_bwd_tc_decomposition_matches_autograd(which):
+    """The bf16 path's decomposition (row tiles of 64 rows j, split parts)
+    against autograd of the plain within-chunk terms on the same bf16
+    values, one cotangent at a time and all three, with a chunk that is
+    not a multiple of the row tile: float32 at 1e-5 of each gradient's
+    largest magnitude."""
+    x, dt, A, B, C, dy, dst, ddi = map(_t, _ssd_inputs(2, 2, 80, 3, 16, 24,
+                                                       seed=12))
+    x, B, C = _bf16_values(x, B, C)
+    keep = {"y_diag": (1, 0, 0), "states": (0, 1, 0),
+            "decay_in": (0, 0, 1), "all": (1, 1, 1)}[which]
+    dy, dst, ddi = (t * k for t, k in zip((dy, dst, ddi), keep))
+    want = ssd_ref.ssd_chunk_terms_vjp_ref(x, dt, A, B, C, dy, dst, ddi)
+    got = _ssd_bwd_tc_emulation(x, dt, A, B, C, dy, dst.transpose(-1, -2),
+                                ddi)
+    for g, w_ in zip(got, want):
+        if float(w_.abs().max()) > 0:
+            _close(g, w_, 1e-5)
+        else:
+            assert float(g.abs().max()) == 0.0
+
+
+def _chunk_terms64(xc, dtc, A, Bc, Cc):
+    """ref.ssd_chunk_terms's y_diag, states and decay_in in float64 (the
+    plain version computes in float32 whatever its inputs)."""
+    dA = dtc * A
+    L = torch.exp(ssd_ref.segsum(dA.transpose(-1, -2)))
+    att = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
+    xdt = xc * dtc[..., None]
+    y = torch.matmul(att[:, :, None] * L,
+                     xdt.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+    cs = torch.cumsum(dA, dim=2)
+    states = torch.einsum("bckn,bckhp->bchpn", Bc,
+                          xdt * torch.exp(cs[:, :, -1:] - cs)[..., None])
+    return y, states, torch.exp(cs)
+
+
+def test_ssd_bwd_kernel_precision_choice_beats_plain_float32():
+    """The bf16 backward's products, emulated (_ssd_bwd_tc_emulation) at
+    one full-width chunk of Mamba-2 780M (q 256, n 128, p 64, two heads,
+    the model's decays: dt = softplus(normal), A = -exp(0.2 normal); cs
+    falls to -213): each of dx, ddt, dA, dB and dC has a mean error
+    against float64 no larger than the plain float32 backward's (autograd
+    of ssd_chunk_terms). On these inputs: plain 1.16e-5, 2.86e-4, 3.23e-2,
+    1.38e-5, 1.40e-5; the kernel's 8.9e-7, 4.9e-5, 7.0e-3, 9.1e-7,
+    6.5e-7. M^T dY has no exact operand; rejected for it: the products
+    hh hm mh of the parts (dx 3.02e-5, ddt 3.75e-4, both above plain),
+    hh hm mh mm (dx 2.40e-5) and any five of the six (dx 1.63e-5 to
+    1.89e-5); 3xTF32 (big and small TF32 parts, bb + bs + sb) passes (dx
+    1.1e-6, ddt 5.0e-5) but costs what the six bf16 products cost on the
+    tensor cores (m16n8k8 at half the bf16 rate) and could not use the
+    bf16 parts of dY that the kernel splits once for dM."""
+    q, h, p, n = 256, 2, 64, 128
+    x, dt, A, B, C, dy, dst, ddi = map(_t, _ssd_inputs(1, 1, q, h, p, n,
+                                                       seed=5))
+    x, B, C = _bf16_values(x, B, C)
+    cots = (dy, dst, ddi)
+    leaves = [t.double().requires_grad_(True) for t in (x, dt, A, B, C)]
+    exact = torch.autograd.grad(_chunk_terms64(*leaves), leaves,
+                                [t.double() for t in cots])
+    plain = ssd_ref.ssd_chunk_terms_vjp_ref(x, dt, A, B, C, *cots)
+    assert float(torch.cumsum(dt.double() * A.double(), 2).min()) < -100
+
+    def mean_errs(got):
+        return [float((g.double() - e).abs().mean())
+                for g, e in zip(got, exact)]
+
+    kernel = _ssd_bwd_tc_emulation(x, dt, A, B, C, dy,
+                                   dst.transpose(-1, -2), ddi)
+    rejected = _ssd_bwd_tc_emulation(x, dt, A, B, C, dy,
+                                     dst.transpose(-1, -2), ddi,
+                                     du_pairs=((1, 0), (0, 1), (0, 0)))
+    err_k, err_p, err_r = map(mean_errs, (kernel, plain, rejected))
+    for name, k_, p_ in zip(("dx", "ddt", "dA", "dB", "dC"), err_k, err_p):
+        assert k_ <= p_, (name, k_, p_)
+    assert err_r[0] > err_p[0]   # three products of M^T dY lose dx
 
 
 def test_jax_pallas_scans_cannot_be_differentiated():

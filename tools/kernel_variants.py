@@ -1,15 +1,20 @@
-"""Time variants of the LRU scan and Heat2D tile-sweep CUDA kernels side by
-side on one card, at the shapes of the main paths:
+"""Time variants of the LRU scan, the Heat2D tile sweep and the bf16 SSD
+backward (``ssd_chunk_bwd``) CUDA kernels side by side on one card, at the
+shapes of the main paths:
 
-    PYTHONPATH=src python3 tools/kernel_variants.py [--kernel lru|heat2d|all]
+    PYTHONPATH=src python3 tools/kernel_variants.py \
+        [--kernel lru|heat2d|ssd_bwd|all]
 
 A variant is a copy of the committed source with other values of its
 constants (``kSteps``, ``kWarps``, ``kMaxCluster``, ``kMinBlocks`` in
 ``lru_scan.cu``; ``kBandBudget``, which sets the blocks a tile is split
-over, and ``kThreads`` in ``heat2d.cu``), written under ``build/exp/``; the
-committed source and every copy are built at once (one nvcc each). Each
-variant is first checked against the plain version (LRU within the JAX
-suite's 1e-5, Heat2D f32 bit for bit), then timed with CUDA events around
+over, and ``kThreads`` in ``heat2d.cu``; ``kProd``, the producer's threads,
+and ``kStages`` of the backward's tensor-core kernel in ``ssd_scan.cu``),
+written under ``build/exp/``; the committed source and every copy are
+built at once (one nvcc each). Each variant is first checked against the
+plain version (LRU within the JAX suite's 1e-5, Heat2D f32 bit for bit)
+or, for the SSD backward, against the committed source (bit for bit: the
+constants do not change the arithmetic), then timed with CUDA events around
 back-to-back calls of its C function, with arguments prepared once into
 outputs made once (the wrapper's host work is not timed), in the order
 A B C ... C B A; a variant's time is the mean of its two turns. Prints one
@@ -32,6 +37,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.heat2d import ops as heat_ops
 from repro_torch.kernels.lru_scan import ops as lru_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 EXP_DIR = _build.REPO_ROOT / "build" / "exp"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, as chip_smoke.py
@@ -50,6 +56,14 @@ HEAT_VARIANTS = {
     "cluster8": {"kBandBudget": 36000},
     "threads128": {"kThreads": 128},
 }
+SSD_BWD_VARIANTS = {
+    "committed": {},
+    "producer64": {"kProd": 64},
+    "stages2": {"kStages": 2},
+}
+# Mamba-2 780M's training shape (chip_smoke.SSD_BWD_SHAPE): b, l, h, p, n,
+# chunk
+SSD_BWD_SHAPE = (8, 2048, 48, 64, 128, 256)
 HEAT_CASES = [((16384, 16384), (256, 256), 0),
               ((16384, 16384), (256, 256), 1),
               ((16384, 16384), (256, 256), 4),
@@ -191,9 +205,57 @@ def heat2d(dev, card, emit):
         del u, want, out, fns
 
 
+def ssd_bwd(dev, card, emit):
+    libs = build_all(ssd_ops.SOURCE, SSD_BWD_VARIANTS, "ssd_chunk_bwd", emit)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, l, h, p, n, chunk = SSD_BWD_SHAPE
+    c = l // chunk
+    bf = torch.bfloat16
+    x = torch.randn((b, l, h, p), generator=gen, device=dev).to(bf)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, h), generator=gen, device=dev))
+    A = -torch.exp(0.2 * torch.randn((h,), generator=gen, device=dev))
+    B, C = (torch.randn((b, l, n), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    cots = (torch.randn((b, c, chunk, h, p), generator=gen, device=dev),
+            torch.randn((b, c, h, n, p), generator=gen, device=dev),
+            torch.randn((b, c, chunk, h), generator=gen, device=dev))
+    fns, first = [], None
+    for name, lib in libs.items():
+        fn = lib.ssd_chunk_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        lib.ssd_chunk_bwd_workspace.restype = ctypes.c_longlong
+        lib.ssd_chunk_bwd_workspace.argtypes = [ctypes.c_int] * 5
+        work = torch.empty(lib.ssd_chunk_bwd_workspace(b, c, chunk, h, n),
+                           dtype=torch.uint8, device=dev)
+        outs = [torch.empty_like(t) for t in (x, dt, A, B, C)]
+        args = (*(t.data_ptr() for t in (x, dt, A, B, C, *cots)),
+                *(o.data_ptr() for o in outs), work.data_ptr(), b, c, chunk,
+                h, p, n, 1, stream)
+        checked(fn(*args), f"ssd_chunk_bwd {name}")
+        torch.cuda.synchronize()
+        if first is None:
+            first = [o.clone() for o in outs]
+        elif not all(torch.equal(o, f) for o, f in zip(outs, first)):
+            raise RuntimeError(f"ssd_chunk_bwd {name} != the committed one")
+        fns.append(lambda fn=fn, args=args, keep=(work, outs):
+                   checked(fn(*args), "ssd_chunk_bwd"))
+    item = x.element_size()
+    nbytes = (2 * (x.numel() + B.numel() + C.numel()) * item
+              + 4 * (2 * dt.numel() + 2 * h + sum(t.numel() for t in cots)))
+    for (name, consts), ms in zip(SSD_BWD_VARIANTS.items(), turns(fns)):
+        emit({"kernel": "ssd_chunk_bwd", "shape": [b, l, h, p, n],
+              "chunk": chunk, "dtype": "bf16", "variant": name,
+              "consts": consts, "launch_ms": ms,
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "gpu": card})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=["lru", "heat2d", "all"],
+    ap.add_argument("--kernel", choices=["lru", "heat2d", "ssd_bwd", "all"],
                     default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -213,6 +275,8 @@ def main(argv=None) -> int:
         lru(dev, card, emit)
     if args.kernel in ("heat2d", "all"):
         heat2d(dev, card, emit)
+    if args.kernel in ("ssd_bwd", "all"):
+        ssd_bwd(dev, card, emit)
     return 0
 
 

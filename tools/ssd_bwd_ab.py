@@ -3,11 +3,14 @@
 against another copy (say, an earlier version kept under ``build/exp/``),
 at Mamba-2 780M's training shape (``chip_smoke.SSD_BWD_SHAPE``), bf16 and
 f32. Both are checked against the plain backward (autograd of the plain
-version) and against each other; the new one is called twice for
-bit-equality; CUDA-event times alternate old, new, new, old, old, new;
-then one traced call of the new one gives its kernels' device times.
-One JSON line per dtype.
+version) and against each other (largest difference over each gradient's
+largest magnitude, and whether each gradient is bit-equal); the new one
+is called twice for bit-equality; CUDA-event times alternate old, new,
+new, old, old, new; then one traced call of the new one gives its
+kernels' device times. One JSON line per dtype.
 
+    git show <commit>:src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu \
+        > build/exp/ssd_scan_old.cu
     PYTHONPATH=src python3 tools/ssd_bwd_ab.py build/exp/ssd_scan_old.cu
 """
 from __future__ import annotations
@@ -85,6 +88,8 @@ def compare(old, dtype, dev, card) -> dict:
            "new_vs_plain": cs.rel_errs(names, shaped(new1), want),
            "old_vs_plain": cs.rel_errs(names, shaped(old1), want),
            "new_vs_old": cs.rel_errs(names, new1, old1),
+           "new_equals_old": {n: torch.equal(a, b_)
+                              for n, a, b_ in zip(names, new1, old1)},
            "new_bit_equal_twice": all(torch.equal(a, b_)
                                       for a, b_ in zip(new1, new2))}
     times = {"old": [], "new": []}
