@@ -4,14 +4,19 @@ The port of ``repro/launch/train.py``, with its flags and output lines plus
 ``--device`` (default ``cuda``; ``cpu`` runs on the CPU). It runs the
 reduced config unless ``--full``. ``--mesh none`` (default) trains without
 a mesh, ``single-device`` on a one-rank ("data", "model") mesh;
-``production`` and ``production-multipod`` build a DP-only mesh over the
+``production`` and ``production-multipod`` build a mesh over the
 ranks a launcher such as ``torchrun`` started (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``; one card per rank, ``LOCAL_RANK``):
 ("data", "model") of (world, 1), or ("pod", "data", "model") of (2,
-world / 2, 1). ``--restarts N`` runs the fault-tolerant runner: a failed
-step restarts from the latest checkpoint, up to N times.
+world / 2, 1). ``--model-axis M`` gives the "model" axis M ranks instead
+of 1: (world / M, M), or (2, world / (2 M), M), and the dense family then
+trains tensor-parallel (the JAX package's production mesh has a 16-wide
+"model" axis, which a few ranks cannot hold, so the width is stated).
+``--restarts N`` runs the fault-tolerant runner: a failed step restarts
+from the latest checkpoint, up to N times.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --device cpu --steps 4
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen3-8b --mesh production --model-axis 2 --device cpu --steps 2
 """
 from __future__ import annotations
 
@@ -47,8 +52,9 @@ def build_run(arch: str, *, reduced: bool = True, steps: int = 50,
     )
 
 
-def _launched_mesh(multi_pod: bool, device: str):
-    """A DP-only mesh over the ranks of the environment's process group."""
+def _launched_mesh(multi_pod: bool, device: str, model_axis: int = 1):
+    """A mesh over the ranks of the environment's process group, with
+    `model_axis` ranks on its "model" axis (1: DP only)."""
     import torch
     import torch.distributed as dist
 
@@ -60,6 +66,10 @@ def _launched_mesh(multi_pod: bool, device: str):
         raise RuntimeError(f"--mesh production needs a launcher's "
                            f"environment (torchrun): {missing} not set")
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    pods = 2 if multi_pod else 1
+    if model_axis < 1 or world % (pods * model_axis):
+        raise ValueError(f"--model-axis {model_axis} does not divide the "
+                         f"{world} ranks into {pods} pod(s)")
     if device == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
     # env:// reads MASTER_ADDR and MASTER_PORT (and joins torchrun's own
@@ -67,12 +77,11 @@ def _launched_mesh(multi_pod: bool, device: str):
     dist.init_process_group("nccl" if device == "cuda" else "gloo",
                             init_method="env://", rank=rank,
                             world_size=world)
+    data = world // (pods * model_axis)
     if multi_pod:
-        if world % 2:
-            raise ValueError(f"--mesh production-multipod needs an even "
-                             f"rank count, got {world}")
-        return make_mesh((2, world // 2, 1), ("pod", "data", "model"), device)
-    return make_mesh((world, 1), ("data", "model"), device)
+        return make_mesh((2, data, model_axis), ("pod", "data", "model"),
+                         device)
+    return make_mesh((data, model_axis), ("data", "model"), device)
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -85,6 +94,9 @@ def main(argv: Optional[list] = None) -> int:
                     help="full (non-reduced) config")
     ap.add_argument("--mesh", choices=["none", "single-device", "production",
                                        "production-multipod"], default="none")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks on the 'model' axis of a production mesh "
+                         "(tensor parallelism; default 1: data parallel)")
     ap.add_argument("--overlap", choices=["hdot", "two_phase"], default="hdot")
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--checkpoint-dir", default=None,
@@ -103,11 +115,15 @@ def main(argv: Optional[list] = None) -> int:
     from repro_torch.runtime.trainer import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
+    if args.model_axis != 1 and not args.mesh.startswith("production"):
+        raise ValueError("--model-axis needs --mesh production or "
+                         "production-multipod")
     mesh = None
     if args.mesh == "single-device":
         mesh = make_mesh((1, 1), ("data", "model"), args.device)
     elif args.mesh in ("production", "production-multipod"):
-        mesh = _launched_mesh(args.mesh == "production-multipod", args.device)
+        mesh = _launched_mesh(args.mesh == "production-multipod", args.device,
+                              args.model_axis)
 
     run = build_run(args.arch, reduced=not args.full, steps=args.steps,
                     global_batch=args.global_batch, seq_len=args.seq_len,

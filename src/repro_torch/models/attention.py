@@ -41,14 +41,18 @@ def attention_specs(cfg: ModelConfig,
                     dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
     hd = cfg.resolved_head_dim
     s: Dict[str, ParamSpec] = {
-        "wq": ParamSpec((cfg.d_model, cfg.num_heads, hd), dtype),
-        "wk": ParamSpec((cfg.d_model, cfg.num_kv_heads, hd), dtype),
-        "wv": ParamSpec((cfg.d_model, cfg.num_kv_heads, hd), dtype),
-        "wo": ParamSpec((cfg.num_heads, hd, cfg.d_model), dtype),
+        "wq": ParamSpec((cfg.d_model, cfg.num_heads, hd),
+                        ("embed", "heads", "head_dim"), dtype),
+        "wk": ParamSpec((cfg.d_model, cfg.num_kv_heads, hd),
+                        ("embed", "kv_heads", "head_dim"), dtype),
+        "wv": ParamSpec((cfg.d_model, cfg.num_kv_heads, hd),
+                        ("embed", "kv_heads", "head_dim"), dtype),
+        "wo": ParamSpec((cfg.num_heads, hd, cfg.d_model),
+                        ("heads", "head_dim", "embed"), dtype),
     }
     if cfg.qk_norm:
-        s["q_norm"] = ParamSpec((hd,), torch.float32, "ones")
-        s["k_norm"] = ParamSpec((hd,), torch.float32, "ones")
+        s["q_norm"] = ParamSpec((hd,), (None,), torch.float32, "ones")
+        s["k_norm"] = ParamSpec((hd,), (None,), torch.float32, "ones")
     return s
 
 
@@ -129,6 +133,37 @@ def self_attention(p, x, cfg: ModelConfig, positions, causal=True,
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
+def self_attention_tp(p, x_rows, cfg: ModelConfig, tp, window=None
+                      ) -> torch.Tensor:
+    """Causal self-attention under the tensor-parallel cut (``tp``, a
+    :class:`~repro_torch.sharding.tp.TPCut`): `x_rows` are this rank's
+    (b, s/tp, d) rows. They are all-gathered over the "model" axis, the
+    queries, keys and values projected with the rank's heads (`p` holds
+    its blocks), attention runs locally over the whole sequence (dense),
+    and ``wo`` contracts the rank's heads; the partial sums are
+    reduce-scattered back to the rows. Where the rules replicate the KV
+    heads but shard the query heads, the rank projects only the KV heads
+    its query heads read (and repeats them per query head when those are
+    not whole groups); where they replicate the query heads, every head is
+    computed and the rank takes its rows of the complete output."""
+    x = tp.gather_seq(x_rows)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q = project_q(p, x, cfg, positions)
+    pk = {"wk": p["wk"], "wv": p["wv"]}
+    if cfg.qk_norm:
+        pk["k_norm"] = p["k_norm"]
+    idx = None
+    if tp.heads and not tp.kv_heads:
+        lo, hi, idx = tp.kv_read(cfg.num_heads, cfg.num_kv_heads)
+        pk["wk"], pk["wv"] = pk["wk"][:, lo:hi], pk["wv"][:, lo:hi]
+    k, v = project_kv(pk, x, cfg, positions)
+    if idx is not None:
+        k, v = k[:, :, idx], v[:, :, idx]
+    out = _sdpa_dense(q, k, v, positions, positions, True, window)
+    return tp.leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp.heads)
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Cache:
     """Ring-buffer KV cache. For SWA archs max_len may be min(seq, window)."""
@@ -150,10 +185,11 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     it empty (:func:`repro_torch.runtime.server._mark_prefill_tail`)."""
     hd = cfg.resolved_head_dim
     shape = (batch, max_len, cfg.num_kv_heads, hd)
+    axes = ("batch", "kv_seq", "act_kv_heads", None)
     return {
-        "k": ParamSpec(shape, dtype, "zeros"),
-        "v": ParamSpec(shape, dtype, "zeros"),
-        "pos": ParamSpec((max_len,), torch.int64, "zeros"),
+        "k": ParamSpec(shape, axes, dtype, "zeros"),
+        "v": ParamSpec(shape, axes, dtype, "zeros"),
+        "pos": ParamSpec((max_len,), ("kv_seq",), torch.int64, "zeros"),
     }
 
 

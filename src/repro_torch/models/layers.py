@@ -1,7 +1,8 @@
 """Param specs and common layers (norms, rope, sinusoids, SwiGLU MLP).
 
 The port of ``repro/models/layers.py``. A module publishes a tree of
-:class:`ParamSpec` (shape, dtype, initializer) in the JAX package's layout —
+:class:`ParamSpec` (shape, logical axes, dtype, initializer) in the JAX
+package's layout —
 ``wq`` is (d_model, heads, head_dim), a scanned stack carries a leading
 layer dim — so the einsums and the conversion from JAX parameters
 (:mod:`repro_torch.models.convert`) stay one-to-one. Materialized
@@ -37,6 +38,7 @@ PyTree = Any
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]          # logical sharding axes (len == ndim)
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"                     # normal | zeros | ones
     scale: Optional[float] = None            # None -> 1/sqrt(fan_in)
@@ -49,6 +51,9 @@ class ParamSpec:
     def __post_init__(self):
         if self.init not in ("normal", "zeros", "ones"):
             raise ValueError(f"unknown init {self.init!r}")
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamSpec shape {tuple(self.shape)} and "
+                             f"logical axes {tuple(self.axes)} disagree")
 
 
 class ParamTree(nn.Module):
@@ -178,6 +183,12 @@ def map_specs(fn, specs: PyTree) -> PyTree:
     return fn(specs)
 
 
+def axes_from_specs(specs: PyTree) -> PyTree:
+    """Logical-axes tree (same structure as the params): each leaf's
+    ``ParamSpec.axes``, which ``sharding.rules.resolve_pspec`` places."""
+    return map_specs(lambda s: s.axes, specs)
+
+
 def layers_from_specs(specs: PyTree) -> PyTree:
     """Layer-provenance tree (same structure as the params): each leaf's
     forward depth, untagged specs defaulting to depth 0 (the input end,
@@ -278,9 +289,9 @@ def conv_tail(x: torch.Tensor, k: int) -> torch.Tensor:
 def mlp_specs(d_model: int, d_ff: int,
               dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
     return {
-        "gate": ParamSpec((d_model, d_ff), dtype),
-        "up": ParamSpec((d_model, d_ff), dtype),
-        "down": ParamSpec((d_ff, d_model), dtype),
+        "gate": ParamSpec((d_model, d_ff), ("embed", "mlp"), dtype),
+        "up": ParamSpec((d_model, d_ff), ("embed", "mlp"), dtype),
+        "down": ParamSpec((d_ff, d_model), ("mlp", "embed"), dtype),
     }
 
 

@@ -41,6 +41,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     ParamSpec,
     ParamTree,
+    axes_from_specs,
     init_from_specs,
     layer_norm,
     layers_from_specs,
@@ -94,7 +95,8 @@ class LanguageModel:
         stack0 = enc_depth + 1
         head_depth = stack0 + cfg.num_layers
         specs: Dict[str, Any] = {
-            "embed": ParamSpec((cfg.vocab_size, cfg.d_model), dt,
+            "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                               ("vocab", "embed"), dt,
                                scale=cfg.d_model ** -0.5, layer=0),
             "layers": tfm.stack_specs(cfg, self.opt.scan_layers, dt,
                                       depth0=stack0),
@@ -102,7 +104,8 @@ class LanguageModel:
         specs.update(tag_layer(tfm._norm_specs(cfg, "final_norm"),
                                head_depth))
         if not cfg.tie_embeddings:
-            specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dt,
+            specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                         ("embed", "vocab"), dt,
                                          layer=head_depth)
         if cfg.family == "encdec":
             specs["encoder"] = [
@@ -110,12 +113,12 @@ class LanguageModel:
                 for i in range(cfg.encdec.enc_layers)]
             specs.update(tag_layer(tfm._norm_specs(cfg, "enc_norm"),
                                    enc_depth))
-            specs["audio_proj"] = ParamSpec((cfg.d_model, cfg.d_model), dt,
-                                            layer=0)
+            specs["audio_proj"] = ParamSpec((cfg.d_model, cfg.d_model),
+                                            ("embed", None), dt, layer=0)
         if cfg.family == "vlm":
             # stub projection of precomputed patch embeddings
-            specs["vision_proj"] = ParamSpec((cfg.d_model, cfg.d_model), dt,
-                                             layer=0)
+            specs["vision_proj"] = ParamSpec((cfg.d_model, cfg.d_model),
+                                             ("embed", None), dt, layer=0)
         return specs
 
     def _enc_cfg(self) -> ModelConfig:
@@ -124,6 +127,12 @@ class LanguageModel:
 
     def init(self, seed: int = 0, device="cuda") -> ParamTree:
         return ParamTree(init_from_specs(self.param_specs(), seed, device))
+
+    def param_axes(self) -> PyTree:
+        """Logical-axes tree matching :meth:`init`'s params (each leaf's
+        ``ParamSpec.axes``; a scanned stack's leaves lead with
+        ``"layers"``), which ``sharding.rules.resolve_pspec`` places."""
+        return axes_from_specs(self.param_specs())
 
     def param_layers(self) -> PyTree:
         """Layer-provenance tree matching :meth:`init`'s params: per-leaf
@@ -214,14 +223,22 @@ class LanguageModel:
                                enc_out=enc_out)
 
     # ------------------------------------------------------------ entry points
-    def train_loss(self, params, batch: Dict) -> torch.Tensor:
+    def train_loss(self, params, batch: Dict, tp=None) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["targets"]`` ((b, s) int64), a 0-d float32 tensor. Fused
         (``options.fused_xent``): :func:`~repro_torch.models.xent.
         linear_xent` on the final-normed activations; otherwise the f32
         logits' log-softmax. The MoE family adds its aux load-balancing
         loss, as the reference does; the VLM's patch positions are not in
-        the loss."""
+        the loss.
+
+        With `tp` (a :class:`~repro_torch.sharding.tp.TPCut`, the dense
+        family), `params` holds this rank's blocks with the embedding and
+        head whole (the train step gathers them over the vocab), `batch`
+        the model line's rows, and the result is the mean over this rank's
+        rows only: its sequence block (:meth:`_train_loss_tp`)."""
+        if tp is not None:
+            return self._train_loss_tp(params, batch, tp)
         x, _, aux = self._forward(params, batch, "train")
         if self.cfg.family == "vlm":
             x = x[:, self.cfg.num_vision_patches:]
@@ -234,6 +251,29 @@ class LanguageModel:
         else:
             loss = self._xent(params, x, targets)
         return loss if aux is None else loss + aux.to(loss.dtype)
+
+    def _train_loss_tp(self, params, batch: Dict, tp) -> torch.Tensor:
+        """The tensor-parallel loss: this rank's tokens (its block of the
+        sequence, sequence parallelism between the blocks) are looked up
+        in the whole table, run through the stack's cut
+        (:func:`~repro_torch.models.transformer.stack_apply` with `tp`),
+        and scored against the whole head (a tied head is the same
+        table), the logits never leaving the rank's rows."""
+        if self.cfg.family != "dense":
+            raise tfm._not_ported(
+                f"tensor-parallel training of the {self.cfg.family!r} "
+                f"family (ROADMAP.md, Queue 1 item 9.1)")
+        tokens, targets = tp.rows(batch["tokens"]), tp.rows(batch["targets"])
+        x = self._embed(params, tokens)
+        x, _, _ = tfm.stack_apply(params["layers"], x, self.cfg, None,
+                                  "train", None, None, "dense",
+                                  remat=self.opt.remat, tp=tp)
+        if not self.opt.fused_xent:
+            return self._xent(params, x, targets)
+        x = tfm._norm(params, x, self.cfg, "final_norm")
+        w = (params["embed"].t() if self.cfg.tie_embeddings
+             else params["lm_head"])
+        return linear_xent(x, w, targets)
 
     def _xent(self, params, x, targets) -> torch.Tensor:
         """The unfused loss: log-softmax of the f32 logits."""

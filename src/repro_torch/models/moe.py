@@ -42,10 +42,12 @@ def moe_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
     m = _require_moe(cfg, "moe_specs")
     d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
     return {
-        "router": ParamSpec((d, e), torch.float32),
-        "gate": ParamSpec((e, d, f), dtype),
-        "up": ParamSpec((e, d, f), dtype),
-        "down": ParamSpec((e, f, d), dtype),
+        "router": ParamSpec((d, e), ("embed", None), torch.float32),
+        "gate": ParamSpec((e, d, f), ("experts", "embed", "expert_mlp"),
+                          dtype),
+        "up": ParamSpec((e, d, f), ("experts", "embed", "expert_mlp"), dtype),
+        "down": ParamSpec((e, f, d), ("experts", "expert_mlp", "embed"),
+                          dtype),
     }
 
 

@@ -30,15 +30,15 @@ def rglru_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
     w = hb.lru_width or d
     k = hb.conv_kernel
     return {
-        "w_gate": ParamSpec((d, w), dtype),
-        "w_in": ParamSpec((d, w), dtype),
-        "conv": ParamSpec((k, w), dtype),
-        "wr": ParamSpec((w, w), dtype),
-        "br": ParamSpec((w,), torch.float32, "zeros"),
-        "wi": ParamSpec((w, w), dtype),
-        "bi": ParamSpec((w,), torch.float32, "zeros"),
-        "a_log": ParamSpec((w,), torch.float32, "zeros"),
-        "w_out": ParamSpec((w, d), dtype),
+        "w_gate": ParamSpec((d, w), ("embed", "lru"), dtype),
+        "w_in": ParamSpec((d, w), ("embed", "lru"), dtype),
+        "conv": ParamSpec((k, w), ("conv", "lru"), dtype),
+        "wr": ParamSpec((w, w), ("lru", None), dtype),
+        "br": ParamSpec((w,), (None,), torch.float32, "zeros"),
+        "wi": ParamSpec((w, w), ("lru", None), dtype),
+        "bi": ParamSpec((w,), (None,), torch.float32, "zeros"),
+        "a_log": ParamSpec((w,), (None,), torch.float32, "zeros"),
+        "w_out": ParamSpec((w, d), ("lru", "embed"), dtype),
     }
 
 
@@ -98,8 +98,9 @@ def rglru_cache_specs(cfg: ModelConfig, batch: int, dtype=torch.bfloat16):
     w = hb.lru_width or cfg.d_model
     k = hb.conv_kernel
     return {
-        "h": ParamSpec((batch, w), torch.float32, "zeros"),
-        "conv": ParamSpec((batch, k - 1, w), dtype, "zeros"),
+        "h": ParamSpec((batch, w), ("batch", "lru"), torch.float32, "zeros"),
+        "conv": ParamSpec((batch, k - 1, w), ("batch", None, "lru"), dtype,
+                          "zeros"),
     }
 
 

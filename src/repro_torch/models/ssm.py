@@ -27,19 +27,19 @@ def ssm_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
     n = s.state_dim
     k = s.conv_kernel
     return {
-        "wz": ParamSpec((d, di), dtype),
-        "wx": ParamSpec((d, di), dtype),
-        "wB": ParamSpec((d, n), dtype),
-        "wC": ParamSpec((d, n), dtype),
-        "wdt": ParamSpec((d, h), dtype),
-        "dt_bias": ParamSpec((h,), torch.float32, "zeros"),
-        "A_log": ParamSpec((h,), torch.float32, "zeros"),
-        "D": ParamSpec((h,), torch.float32, "ones"),
-        "conv_x": ParamSpec((k, di), dtype),
-        "conv_B": ParamSpec((k, n), dtype),
-        "conv_C": ParamSpec((k, n), dtype),
-        "norm": ParamSpec((di,), torch.float32, "ones"),
-        "wo": ParamSpec((di, d), dtype),
+        "wz": ParamSpec((d, di), ("embed", "mlp"), dtype),
+        "wx": ParamSpec((d, di), ("embed", "mlp"), dtype),
+        "wB": ParamSpec((d, n), ("embed", "state"), dtype),
+        "wC": ParamSpec((d, n), ("embed", "state"), dtype),
+        "wdt": ParamSpec((d, h), ("embed", "heads"), dtype),
+        "dt_bias": ParamSpec((h,), ("heads",), torch.float32, "zeros"),
+        "A_log": ParamSpec((h,), ("heads",), torch.float32, "zeros"),
+        "D": ParamSpec((h,), ("heads",), torch.float32, "ones"),
+        "conv_x": ParamSpec((k, di), ("conv", "mlp"), dtype),
+        "conv_B": ParamSpec((k, n), ("conv", "state"), dtype),
+        "conv_C": ParamSpec((k, n), ("conv", "state"), dtype),
+        "norm": ParamSpec((di,), ("mlp",), torch.float32, "ones"),
+        "wo": ParamSpec((di, d), ("mlp", "embed"), dtype),
     }
 
 
@@ -116,10 +116,14 @@ def ssm_cache_specs(cfg: ModelConfig, batch: int, dtype=torch.bfloat16):
     k = s.conv_kernel
     return {
         "state": ParamSpec((batch, h, s.head_dim, s.state_dim),
+                           ("batch", "act_heads", None, None),
                            torch.float32, "zeros"),
-        "conv_x": ParamSpec((batch, k - 1, di), dtype, "zeros"),
-        "conv_B": ParamSpec((batch, k - 1, s.state_dim), dtype, "zeros"),
-        "conv_C": ParamSpec((batch, k - 1, s.state_dim), dtype, "zeros"),
+        "conv_x": ParamSpec((batch, k - 1, di), ("batch", None, "mlp"),
+                            dtype, "zeros"),
+        "conv_B": ParamSpec((batch, k - 1, s.state_dim),
+                            ("batch", None, None), dtype, "zeros"),
+        "conv_C": ParamSpec((batch, k - 1, s.state_dim),
+                            ("batch", None, None), dtype, "zeros"),
     }
 
 

@@ -87,10 +87,11 @@ def uniform_stack(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------- specs
 def _norm_specs(cfg: ModelConfig, name: str) -> Dict[str, ParamSpec]:
     if cfg.family == "encdec":   # Whisper's LayerNorm, with a bias
-        return {name: ParamSpec((cfg.d_model,), torch.float32, "ones"),
-                name + "_b": ParamSpec((cfg.d_model,), torch.float32,
+        return {name: ParamSpec((cfg.d_model,), (None,), torch.float32,
+                                "ones"),
+                name + "_b": ParamSpec((cfg.d_model,), (None,), torch.float32,
                                        "zeros")}
-    return {name: ParamSpec((cfg.d_model,), torch.float32, "ones")}
+    return {name: ParamSpec((cfg.d_model,), (None,), torch.float32, "ones")}
 
 
 def _norm(p, x, cfg: ModelConfig, name: str) -> torch.Tensor:
@@ -126,20 +127,35 @@ def layer_specs(cfg: ModelConfig, kind: str,
 # ---------------------------------------------------------------------- apply
 def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, mode: str, cache, pos,
-                attn_impl: str, mesh=None, enc_out=None):
+                attn_impl: str, mesh=None, enc_out=None, tp=None):
     """One block, `mode` "train" (full sequence, no cache), "prefill" or
     "decode". `mesh` reaches an "attn_moe" block's
     :func:`~repro_torch.models.moe.moe_apply`; `enc_out` (train and
     prefill) is the encoder's output a "decoder" block cross-attends to
     (decode reads its keys and values from the cache). Returns (x, cache,
     aux), the cache updated in place, aux the block's f32 MoE aux loss
-    (None for the other kinds)."""
+    (None for the other kinds).
+
+    `tp` (a :class:`~repro_torch.sharding.tp.TPCut`, "train" mode, kind
+    "attn"): `x` is this rank's rows and `p` its blocks. Each norm runs on
+    the rows; attention (:func:`~repro_torch.models.attention.
+    self_attention_tp`) and the MLP gather the rows over the "model"
+    axis, compute with the rank's heads or columns and reduce-scatter
+    back to the rows (or take them, where the rules replicate)."""
     if kind not in PORTED_KINDS:
         raise _not_ported(f"block kind {kind!r}")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     aux = None
     h = _norm(p, x, cfg, "norm1")
+    if tp is not None:
+        if kind != "attn" or mode != "train":
+            raise _not_ported(f"tensor-parallel {mode} of block kind "
+                              f"{kind!r}")
+        window = cfg.sliding_window
+        x = x + attn.self_attention_tp(p["attn"], h, cfg, tp, window)
+        h = tp.gather_seq(_norm(p, x, cfg, "norm2"))
+        return x + tp.leave(mlp_apply(p["mlp"], h), tp.mlp), cache, aux
     if kind in ("ssm", "rglru"):
         y, cache = _recurrent(p, h, cfg, kind, mode, cache)
         x = x + y
@@ -200,7 +216,8 @@ def _recurrent(p, h, cfg: ModelConfig, kind: str, mode: str, cache):
 
 # ----------------------------------------------------------------- the stacks
 def _stacked(spec: ParamSpec, n: int) -> ParamSpec:
-    return dataclasses.replace(spec, shape=(n,) + spec.shape)
+    return dataclasses.replace(spec, shape=(n,) + spec.shape,
+                               axes=("layers",) + spec.axes)
 
 
 def stack_specs(cfg: ModelConfig, scan: bool, dtype=torch.bfloat16,
@@ -246,7 +263,7 @@ def is_unrolled(layers) -> bool:
 
 def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
                 pos, attn_impl: str, remat: str = "none", mesh=None,
-                stream=None, enc_out=None):
+                stream=None, enc_out=None, tp=None):
     """Run the full stack. `params` matches :func:`stack_specs`' layout
     (stacked tree for scan, list for unrolled), `caches` that of
     :func:`stack_cache_specs` (or None in "train" mode). The caches are
@@ -264,7 +281,12 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
     before the consuming compute, the gathered buffer dies after the
     layer's forward, and the backward's recompute regathers it in reverse
     layer order. Streaming forces remat (without it every gathered buffer
-    would live until its backward)."""
+    would live until its backward).
+
+    `tp` ("train" mode) is the tensor-parallel cut
+    (:func:`layer_apply`): `x` holds this rank's rows, and under remat
+    "full" each layer's recompute re-issues its forward collectives in the
+    backward, in the same order on every rank."""
     if remat not in ("none", "full"):
         if remat == "dots":
             raise NotImplementedError(
@@ -287,7 +309,7 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
                     p_l = stream(i, p_l)
                 xx, _, aux_l = layer_apply(p_l, xx, cfg, kind, positions,
                                            mode, None, None, attn_impl, mesh,
-                                           enc_out)
+                                           enc_out, tp)
                 return xx, aux_l
             x, aux_l = (checkpoint(f, x, use_reentrant=False)
                         if remat == "full" or stream is not None else f(x))
@@ -326,7 +348,9 @@ def stack_cache_specs(cfg: ModelConfig, batch: int, max_len: int, scan: bool,
         if kind != "decoder":
             return c
         cross = ParamSpec((batch, cfg.encdec.enc_seq, cfg.num_kv_heads,
-                           cfg.resolved_head_dim), dtype, "zeros")
+                           cfg.resolved_head_dim),
+                          ("batch", None, "act_kv_heads", None), dtype,
+                          "zeros")
         return {"self": c, "cross_k": cross, "cross_v": cross}
 
     if scan and uniform_stack(cfg):

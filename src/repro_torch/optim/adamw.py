@@ -14,7 +14,7 @@ is over the whole tree by construction).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -59,7 +59,8 @@ def global_norm(tree: PyTree, group=None) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
                  cfg: AdamWConfig, lr: torch.Tensor, chunk_leading: int = 0,
-                 group=None) -> Tuple[PyTree, PyTree, torch.Tensor]:
+                 group=None, gnorm: Optional[torch.Tensor] = None
+                 ) -> Tuple[PyTree, PyTree, torch.Tensor]:
     """Returns (params, state, grad_norm), params and moments updated in
     place; `lr` is the scheduled value. Gradients are clipped to
     ``cfg.grad_clip`` global norm; weight decay is decoupled.
@@ -67,14 +68,18 @@ def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
     chunk_leading > 0: leaves whose leading dim equals it (the scanned layer
     stacks) are updated one slice at a time, which bounds the float32
     temporaries to one layer's worth. `group`: the DP group over which
-    `grads` are sharded (ZeRO-3), for the global norm. Its work is one
-    profiler range, "adamw_update"."""
+    `grads` are sharded (ZeRO-3), for the global norm. `gnorm`: the
+    global norm, already computed (the tensor-parallel step's, over unique
+    elements of blocks placed in several ways). Its work is one profiler
+    range, "adamw_update"."""
     with torch.profiler.record_function("adamw_update"):
-        return _update(grads, state, params, cfg, lr, chunk_leading, group)
+        return _update(grads, state, params, cfg, lr, chunk_leading, group,
+                       gnorm)
 
 
-def _update(grads, state, params, cfg, lr, chunk_leading, group):
-    gnorm = global_norm(grads, group)
+def _update(grads, state, params, cfg, lr, chunk_leading, group, gnorm):
+    if gnorm is None:
+        gnorm = global_norm(grads, group)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
     step = state["step"] + 1
     b1, b2 = cfg.beta1, cfg.beta2

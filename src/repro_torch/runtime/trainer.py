@@ -1,6 +1,7 @@
-"""Training runtime: the data-parallel and ZeRO-3 steps, microbatch
-accumulation (HDOT subdomains of the global batch), checkpoint/restart. The
-port of ``repro/runtime/trainer.py``.
+"""Training runtime: the data-parallel, tensor-parallel and ZeRO-3 steps,
+microbatch accumulation (HDOT subdomains of the global batch),
+checkpoint/restart, elastic re-mesh. The port of
+``repro/runtime/trainer.py``.
 
 With a DP-only mesh (every non-DP axis of size 1) each rank trains on its
 contiguous slice of the global batch, indexed pod-major over the DP axes
@@ -14,7 +15,13 @@ a mesh the step is the plain accumulation. With
 moments are this rank's shards of bucket-wise flat buffers
 (``core/overlap.py``'s ``FsdpLayout``), gathered and reduce-scattered by
 the step (``launch/steps.py``'s ``make_fsdp_train_step``); checkpoints hold
-the global flat buffers under the JAX package's keys. Parameters and
+the global flat buffers under the JAX package's keys. On a mesh with a
+"model" axis of more than one rank (the dense family) each rank holds its
+blocks of the parameters and moments under ``rules_for("train")``
+(``launch/steps.py``'s ``TPPlan``), every rank of a model line trains on
+the same rows (its DP replica's), and checkpoints hold the global arrays
+in the replicated layout, so a checkpoint restores onto any mesh by
+re-cutting (the elastic path). Parameters and
 optimizer state are updated in place on the trainer's device ("cuda"
 unless the caller asks for "cpu"). Encoder-decoder and VLM batches carry
 the reference's frontend stubs (``_augment_frontend``: constant float32
@@ -32,16 +39,19 @@ import torch.distributed as dist
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
                                     restore_checkpoint)
 from repro_torch.checkpoint.checkpointer import _host
+from repro_torch.checkpoint.elastic import unshard_leaf
 from repro_torch.config.base import RunConfig
 from repro_torch.core.cost import CostModel
 from repro_torch.data.pipeline import SyntheticLMDataset
 from repro_torch.core.overlap import (_gather, fsdp_group, fsdp_unshard_full,
                                       shard_slice)
 from repro_torch.launch.mesh import coords_rank, resolve_device
-from repro_torch.launch.steps import (check_ported, explicit_sync_axes,
-                                      fsdp_init_state, make_fsdp_train_step,
-                                      make_train_step)
-from repro_torch.models.layers import ParamTree, tree_leaves, tree_map
+from repro_torch.launch.steps import (TPPlan, check_ported,
+                                      explicit_sync_axes, fsdp_init_state,
+                                      make_fsdp_train_step, make_train_step,
+                                      make_tp_train_step, tp_size)
+from repro_torch.models.layers import (ParamTree, rebuild, tree_leaves,
+                                      tree_map)
 from repro_torch.models.model import ModelOptions, build_model
 from repro_torch.optim import AdamWConfig, adamw_init
 
@@ -53,7 +63,7 @@ class Trainer:
                  options: Optional[ModelOptions] = None,
                  dataset: Optional[SyntheticLMDataset] = None,
                  device="cuda"):
-        check_ported(run.parallel, mesh)
+        check_ported(run.parallel, mesh, run.model.family)
         self.run = run
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(
@@ -74,6 +84,10 @@ class Trainer:
         self.rank = mesh.rank if mesh is not None else (
             dist.get_rank() if dist.is_initialized() else 0)
         self.sync_axes, self.explicit = explicit_sync_axes(run.parallel, mesh)
+        # tensor parallelism: this rank's blocks of every leaf (the plan
+        # creates its process groups here, on every rank in one order)
+        self._tp = (TPPlan(self.model, run.parallel, mesh)
+                    if tp_size(run.parallel, mesh) > 1 else None)
         self.step = 0
         self.params: Optional[ParamTree] = None
         self.opt_state: Optional[PyTree] = None
@@ -98,8 +112,14 @@ class Trainer:
         `params` (e.g. :func:`repro_torch.models.convert.params_from_jax`),
         made trainable; zero optimizer state. Under ZeRO-3 this rank's
         shards (``fsdp_init_state``: drawn bucket by bucket, or cut from
-        `params`)."""
+        `params`); on a TP mesh this rank's blocks (``TPPlan.init_state``:
+        drawn leaf by leaf, or cut from `params`)."""
         seed = self.run.train.seed if seed is None else seed
+        if self._tp is not None:
+            self.params, self.opt_state = self._tp.init_state(
+                seed, params, self.device)
+            self._step_fn = None
+            return
         if self.run.parallel.param_shard:
             self.params, self.opt_state, self._fsdp_layout = fsdp_init_state(
                 self.model, self.run.parallel, self.mesh, seed, params)
@@ -118,11 +138,29 @@ class Trainer:
         """The parameter tree (replicated: every rank holds all of it).
         Under ZeRO-3 it is reassembled from the flat shards, buffer by
         buffer: a collective, every rank of the DP group must call it (for
-        tests and oracles; the step never gathers outside itself)."""
+        tests and oracles; the step never gathers outside itself). On a TP
+        mesh it is all-gathered from the blocks, leaf by leaf (every rank of
+        the mesh calls it)."""
+        if self._tp is not None:
+            return ParamTree(self._unshard(self.params))
         if self._fsdp_layout is None:
             return self.params
         return fsdp_unshard_full(self._global_flat(self.params),
                                  self._fsdp_layout)
+
+    def _unshard(self, blocks: PyTree, host=False) -> PyTree:
+        """The full tree of this rank's TP `blocks` (params or a moment),
+        gathered leaf by leaf; with `host`, rank 0 copies each leaf to the
+        host (numpy, bf16 widened) before the next is gathered and the
+        other ranks keep nothing (None)."""
+        out = {}
+        for i, (path, b) in enumerate(zip(self._tp.paths,
+                                          tree_leaves(blocks))):
+            full = unshard_leaf(b, self._tp.shardings[i], self.mesh)
+            if host:
+                full = _host(full) if self.rank == 0 else None
+            out[path] = full
+        return rebuild(self._tp.spec_tree, out)
 
     def _global_flat(self, flat: Dict[str, torch.Tensor], host=False
                      ) -> Dict[str, Any]:
@@ -143,6 +181,11 @@ class Trainer:
 
     def _build_step(self) -> Callable:
         run = self.run
+        if self._tp is not None:
+            return make_tp_train_step(
+                self.model, run.parallel, self.mesh, self.opt_cfg,
+                warmup_steps=run.train.warmup_steps,
+                total_steps=run.train.total_steps, plan=self._tp)
         if run.parallel.param_shard:
             return make_fsdp_train_step(
                 self.model, run.parallel, self.mesh, self.opt_cfg,
@@ -176,6 +219,26 @@ class Trainer:
                         "step": torch.empty(0, dtype=torch.int32)}})
             tree = tree_map(lambda t: t if t.dim() == 0 else shard_slice(
                 t, self._fsdp_layout.n_shards, index), tree)
+        elif self._tp is not None:
+            # the checkpoint holds global arrays: read them on the host
+            # and cut this rank's blocks of params AND moments (the
+            # elastic path: the mesh it was written on does not matter)
+            cpu = rebuild(self._tp.spec_tree, {
+                p: torch.empty(0, dtype=s.dtype)
+                for p, s in zip(self._tp.paths, self._tp.specs)})
+            f32 = tree_map(lambda _: torch.empty(0), cpu)
+            _, tree, extra = restore_checkpoint(d, {
+                "params": cpu, "opt": {
+                    "m": f32, "v": f32,
+                    "step": torch.empty(0, dtype=torch.int32)}})
+
+            def blocks(full):
+                return [self._tp.block(i, t)
+                        for i, t in enumerate(tree_leaves(full))]
+            tree = {"params": blocks(tree["params"]),
+                    "opt": {"m": blocks(tree["opt"]["m"]),
+                            "v": blocks(tree["opt"]["v"]),
+                            "step": tree["opt"]["step"]}}
         else:
             _, tree, extra = restore_checkpoint(d, target)
         # copy into the live tensors: the step's gradient hooks sit on them
@@ -191,7 +254,12 @@ class Trainer:
         under the JAX package's keys, gathered buffer by buffer to the
         host (every rank takes part in each gather; rank 0 writes)."""
         tree = {"params": self.params, "opt": self.opt_state}
-        if self._fsdp_layout is not None:
+        if self._tp is not None:
+            tree = {"params": self._unshard(self.params, host=True),
+                    "opt": {"m": self._unshard(self.opt_state["m"], True),
+                            "v": self._unshard(self.opt_state["v"], True),
+                            "step": self.opt_state["step"]}}
+        elif self._fsdp_layout is not None:
             tree = {"params": self._global_flat(self.params, host=True),
                     "opt": {"m": self._global_flat(self.opt_state["m"], True),
                             "v": self._global_flat(self.opt_state["v"], True),
@@ -222,8 +290,9 @@ class Trainer:
         """This rank's rows of step `step`'s global batch, with the
         frontend stubs, on the device (token ids as int64): the whole
         batch without an explicit mesh, else the contiguous slice of DP
-        index pod-major over the sync axes."""
-        if self.explicit:
+        index pod-major over the sync axes (on a TP mesh the same rows on
+        every rank of a "model" line)."""
+        if self.explicit or self._tp is not None:
             sizes = [self.mesh.shape[a] for a in self.sync_axes]
             coords = [self.mesh.coords[self.mesh.axis_index(a)]
                       for a in self.sync_axes]

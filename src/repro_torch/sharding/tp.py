@@ -1,0 +1,257 @@
+"""Tensor-parallel collectives of the training step, and the cut of a dense
+model that uses them.
+
+This module has no file to mirror: in the JAX package GSPMD inserts these
+collectives from the placements that ``with_logical`` asks for. Here they
+are written out, the Megatron cut with sequence parallelism, as
+``torch.autograd.Function``s over the mesh's process groups
+(``ProcessMesh.axes_group``):
+
+  :func:`all_gather`      all-gather along a dim; backward reduce-scatter
+  :func:`reduce_scatter`  reduce-scatter along a dim; backward all-gather
+  :func:`grad_all_reduce` identity; backward all-reduce (a leaf replicated
+                          over ranks that compute on different tokens)
+  :func:`take_rows`       this rank's block of a dim; backward pads with
+                          zeros (a narrow)
+
+Every backward follows one convention: the loss autograd differentiates is
+the SUM of the ranks' losses, each rank's over its own tokens. Blocks are
+ordered along a dim as GSPMD orders them: the placed axes of one dim taken
+row-major in the order the spec names them (:func:`block_order`).
+
+:class:`TPCut` is the cut of a dense block under ``DEFAULT_RULES``: between
+blocks each rank holds its (b, s/tp, d) rows; attention and the MLP
+all-gather them over the "model" axis, compute with the rank's heads or
+``d_ff`` columns, and leave through a reduce-scatter back to the rows. A
+block whose heads (or columns) the rules replicate computes every head and
+leaves through :func:`take_rows`: a reduce-scatter would count it tp times.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import coords_rank
+from repro_torch.sharding.rules import ShardingContext, resolve_pspec
+
+
+def block_order(mesh, axes: Sequence[str]) -> List[int]:
+    """The block index each rank of ``mesh.axes_group(axes)`` holds, by
+    group rank. The group's ranks are sorted (row-major over the axes in
+    mesh order); a dim placed on `axes` numbers its blocks row-major over
+    the axes in the order given (GSPMD's)."""
+    ks = [mesh.axis_index(a) for a in axes]
+    sizes = [mesh.sizes[k] for k in ks]
+    in_mesh = sorted(range(len(ks)), key=lambda i: ks[i])
+    out = []
+    for sub in itertools.product(*(range(sizes[i]) for i in in_mesh)):
+        coord = dict(zip(in_mesh, sub))
+        out.append(coords_rank([coord[i] for i in range(len(ks))], sizes))
+    return out
+
+
+def _inverse(order: List[int]) -> List[int]:
+    inv = [0] * len(order)
+    for g, k in enumerate(order):
+        inv[k] = g
+    return inv
+
+
+def _is_identity(order: List[int]) -> bool:
+    return all(g == k for g, k in enumerate(order))
+
+
+def gather_dim(x: torch.Tensor, dim: int, group, order: List[int]
+               ) -> torch.Tensor:
+    """All-gather of every rank's block of `x` along `dim` (blocks by
+    :func:`block_order`); no autograd."""
+    n = len(order)
+    # flat buffers: gloo takes the gathered blocks concatenated on dim 0
+    buf = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(buf, x.detach().contiguous().reshape(-1),
+                                group=group)
+    buf = buf.view((n,) + tuple(x.shape))
+    if not _is_identity(order):
+        buf = buf[_inverse(order)]
+    shape = x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:]
+    return buf.movedim(0, dim).reshape(shape)
+
+
+def scatter_dim(y: torch.Tensor, dim: int, group, order: List[int]
+                ) -> torch.Tensor:
+    """Reduce-scatter of `y` along `dim`: this rank's block of the sum
+    over the group's ranks; no autograd."""
+    n = len(order)
+    size = y.shape[dim] // n
+    parts = y.reshape(y.shape[:dim] + (n, size) + y.shape[dim + 1:])
+    parts = parts.movedim(dim, 0)
+    if not _is_identity(order):
+        parts = parts[order]
+    parts = parts.contiguous()
+    out = torch.empty(parts[0].numel(), dtype=y.dtype, device=y.device)
+    dist.reduce_scatter_tensor(out, parts.reshape(-1), group=group)
+    return out.view(parts.shape[1:])
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, order):
+        ctx.dim, ctx.group, ctx.order = dim, group, order
+        return gather_dim(x, dim, group, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_dim(g, ctx.dim, ctx.group, ctx.order), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, dim, group, order):
+        ctx.dim, ctx.group, ctx.order = dim, group, order
+        return scatter_dim(y, dim, group, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.dim, ctx.group, ctx.order), None, None, None
+
+
+class _GradAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_gather(x: torch.Tensor, dim: int, mesh, axes: Sequence[str]
+               ) -> torch.Tensor:
+    """The blocks of `x` along `dim` over the ranks of `axes`, gathered;
+    the backward reduce-scatters. `x` itself where they are one rank."""
+    group = mesh.axes_group(tuple(axes))
+    if group is None:
+        return x
+    return _AllGather.apply(x, dim, group, block_order(mesh, axes))
+
+
+def reduce_scatter(y: torch.Tensor, dim: int, mesh, axes: Sequence[str]
+                   ) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of `y` over the ranks of
+    `axes`; the backward all-gathers."""
+    group = mesh.axes_group(tuple(axes))
+    if group is None:
+        return y
+    return _ReduceScatter.apply(y, dim, group, block_order(mesh, axes))
+
+
+def grad_all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]
+                    ) -> torch.Tensor:
+    """`x` unchanged; its gradient is summed over the ranks of `axes`."""
+    group = mesh.axes_group(tuple(axes))
+    if group is None:
+        return x
+    return _GradAllReduce.apply(x, group)
+
+
+def take_rows(x: torch.Tensor, dim: int, n: int, index: int
+              ) -> torch.Tensor:
+    """Block `index` of `n` along `dim`; the backward pads with zeros."""
+    size = x.shape[dim] // n
+    return x.narrow(dim, index * size, size)
+
+
+# ------------------------------------------------------------ the dense cut
+@dataclass
+class TPCut:
+    """The tensor-parallel cut of a dense model's blocks on one mesh: its
+    "model" axis (`axis`, `n` ranks, this rank at `index`), and whether
+    the rules shard the query heads, the KV heads and the MLP columns over
+    it (each False where they replicate that dim, and the block follows)."""
+
+    mesh: object
+    axis: str
+    n: int
+    index: int
+    heads: bool
+    kv_heads: bool
+    mlp: bool
+
+    @classmethod
+    def for_model(cls, cfg, mesh, ctx: ShardingContext,
+                  axis: str = "model") -> "TPCut":
+        hd = cfg.resolved_head_dim
+
+        def placed(shape, axes, dim):
+            spec = tuple(resolve_pspec(shape, axes, ctx)) + (None,) * 3
+            e = spec[dim]
+            return e == axis or (isinstance(e, tuple) and axis in e)
+
+        d = cfg.d_model
+        return cls(mesh, axis, mesh.shape[axis],
+                   mesh.coords[mesh.axis_index(axis)],
+                   heads=placed((d, cfg.num_heads, hd),
+                                ("embed", "heads", "head_dim"), 1),
+                   kv_heads=placed((d, cfg.num_kv_heads, hd),
+                                   ("embed", "kv_heads", "head_dim"), 1),
+                   mlp=placed((d, cfg.d_ff), ("embed", "mlp"), 1))
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (dim 1, the sequence) of a (b, s, ...) tensor
+        every rank of the model line holds whole."""
+        if x.shape[1] % self.n:
+            raise ValueError(f"sequence {x.shape[1]} does not divide over "
+                             f"the {self.n} ranks of {self.axis!r}")
+        return take_rows(x, 1, self.n, self.index)
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        return all_gather(x, 1, self.mesh, (self.axis,))
+
+    def leave(self, y: torch.Tensor, sharded: bool) -> torch.Tensor:
+        """A block's output over the whole sequence back to this rank's
+        rows: partial sums over the rank's heads or columns are
+        reduce-scattered; a complete (replicated) output is cut."""
+        if sharded:
+            return reduce_scatter(y, 1, self.mesh, (self.axis,))
+        return take_rows(y, 1, self.n, self.index)
+
+    def kv_read(self, hq: int, hkv: int
+                ) -> Tuple[int, int, Optional[List[int]]]:
+        """Where the rules shard the query heads but replicate the KV heads:
+        (lo, hi, idx), the KV heads [lo, hi) this rank's query heads read,
+        and, when they are not whole groups, the KV head of each local
+        query head (relative to lo), else None."""
+        hl, g = hq // self.n, hq // hkv
+        first = self.index * hl
+        lo, hi = first // g, (first + hl - 1) // g + 1
+        if hl % g == 0 or g % hl == 0:
+            return lo, hi, None
+        return lo, hi, [(first + j) // g - lo for j in range(hl)]
+
+
+def global_norm_by_class(grads: Sequence[torch.Tensor],
+                         classes: Sequence[Tuple[str, ...]], mesh
+                         ) -> torch.Tensor:
+    """sqrt of the float32 sum of squares of the whole tree, over unique
+    elements: each block's square sum is all-reduced over the axes that
+    shard it (`classes[i]`, in mesh order), once per placement class, and
+    never over the axes it is replicated on."""
+    per: dict = {}
+    for g, cls in zip(grads, classes):
+        sq = torch.sum(torch.square(g.float()))
+        per[cls] = sq if cls not in per else per[cls] + sq
+    total = None
+    for cls in sorted(per, key=lambda c: (len(c), c)):
+        sq = per[cls]
+        group = mesh.axes_group(cls) if cls else None
+        if group is not None:
+            dist.all_reduce(sq, group=group)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)

@@ -27,7 +27,14 @@ gathering all and streaming, with the collectives' issue order logged
 (:func:`run_zero3`), and one naming ``zero3_full`` trains a model at its
 published widths under streaming ZeRO-3, timed (:func:`run_zero3_full`);
 one naming ``tp_full`` serves a model at its published widths through the
-TP decode step, timed and traced (:func:`run_tp_full`).
+TP decode step, timed and traced (:func:`run_tp_full`). One naming
+``tp_train`` trains the reduced dense models tensor-parallel on a
+("data", "model") or ("pod", "data", "model") mesh from checkpoints the
+parent wrote (:func:`run_tp_train`), one naming ``tp_elastic`` restores a
+TP trainer's checkpoint onto other meshes and trains on
+(:func:`run_tp_elastic`), and one naming ``tp_train_full`` trains a model
+at its published widths tensor-parallel, timed and traced
+(:func:`run_tp_train_full`).
 """
 from __future__ import annotations
 
@@ -894,6 +901,265 @@ def run_zero3_full(spec, device):
     return out
 
 
+# ------------------------------------------------ tensor-parallel training
+def tp_run(spec, case, ckpt_dir):
+    """(RunConfig, ModelOptions) of a TP-training case: the reduced `arch`
+    (its vocab replaced by ``case["vocab"]`` where given), float32,
+    ``case["scan"]`` layers, ``case["accum"]`` microbatches, remat
+    ``case["remat"]`` (default "none"), the unfused loss where
+    ``case["unfused"]``, restoring from `ckpt_dir`."""
+    import dataclasses
+
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions
+
+    cfg = get_arch(case["arch"]).reduced()
+    if case.get("vocab"):
+        cfg = dataclasses.replace(cfg, vocab_size=case["vocab"])
+    run = RunConfig(
+        model=cfg,
+        parallel=ParallelConfig(accum_steps=case["accum"],
+                                remat=case.get("remat", "none"),
+                                scan_layers=case["scan"]),
+        train=TrainConfig(global_batch=spec["global_batch"],
+                          seq_len=spec["seq_len"], lr=spec["lr"],
+                          warmup_steps=2, total_steps=spec["total_steps"],
+                          checkpoint_every=10 ** 6, seed=3,
+                          checkpoint_dir=str(ckpt_dir)))
+    return run, ModelOptions(dtype=torch.float32, scan_layers=case["scan"],
+                             fused_xent=not case.get("unfused"))
+
+
+def tp_init_key(case) -> str:
+    """The name of a case's initial checkpoint (one per parameter tree)."""
+    return f"{case['arch']}-v{case.get('vocab') or 0}-s{int(case['scan'])}"
+
+
+def flat(tree) -> np.ndarray:
+    """Every leaf of `tree`, flattened in tree order, as float32."""
+    return torch.cat([t.detach().reshape(-1).float().cpu()
+                      for t in tree_leaves(tree)]).numpy()
+
+
+def _private_copy(src: Path, dst: Path, mesh) -> Path:
+    """`src` copied to `dst` by rank 0, seen by every rank after."""
+    import shutil
+
+    if mesh.rank == 0:
+        shutil.copytree(src, dst)
+    if dist.is_initialized():
+        dist.barrier()
+    return dst
+
+
+def _blocks_index(t) -> np.ndarray:
+    return np.array(json.dumps([[[s.start, s.stop] for s in sh.index]
+                                for sh in t._tp.shardings]))
+
+
+def run_tp_train(spec, workdir, device):
+    """Each TP case: a Trainer on the job's mesh restored from its initial
+    checkpoint (``<workdir>/init_<key>``, step 0), its blocks as restored
+    and their index ranges, ``spec["steps"]`` steps, then its losses,
+    grad norms and full parameters (unsharded on every rank). A case with
+    ``save`` trains from a private copy of the checkpoint and saves its
+    state there at the end (``<workdir>/ck_<tag>``). ``spec["seed"]``
+    inits a trainer of that case from seed 5 instead and records its
+    blocks."""
+    from repro_torch.runtime.trainer import Trainer
+
+    mesh = make_mesh(tuple(spec["mesh"]), tuple(spec["axes"]), device)
+    out = {}
+    for case in spec["cases"]:
+        tag = case["tag"]
+        ck = workdir / f"init_{tp_init_key(case)}"
+        if case.get("save"):
+            ck = _private_copy(ck, workdir / f"ck_{tag}", mesh)
+        run, opts = tp_run(spec, case, ck)
+        t = Trainer(run, mesh=mesh, options=opts)
+        assert t.restore_if_available() and t.step == 0
+        out[f"{tag}_blocks0"] = flat(t.params)
+        out[f"{tag}_index"] = _blocks_index(t)
+        t.train(spec["steps"])
+        for key in ("loss", "grad_norm", "lr"):
+            out[f"{tag}_{key}"] = np.array([m[key] for m in t.metrics_log])
+        out[f"{tag}_params"] = flat(t.full_params())
+        if case.get("save"):
+            t.save()
+            t.ckpt.wait()
+    if "seed" in spec:
+        run, opts = tp_run(spec, spec["seed"], workdir / "none")
+        t = Trainer(run, mesh=mesh, options=opts)
+        t.init_state(seed=5)
+        out["seed_blocks"] = flat(t.params)
+        out["seed_index"] = _blocks_index(t)
+        out["seed_full"] = flat(t.full_params())
+    return out
+
+
+def run_tp_elastic(spec, workdir, device):
+    """Restore a TP trainer's checkpoint (``spec["src"]``, saved at step
+    ``spec["at"]``) onto each mesh of ``spec["meshes"]`` over this job's
+    ranks, each from a private copy: the restored full parameters and AdamW
+    moments, then ``spec["steps"]`` more steps' losses, grad norms and full
+    parameters."""
+    from repro_torch.runtime.trainer import Trainer
+
+    case = spec["case"]
+    out = {}
+    for shape in spec["meshes"]:
+        tag = "m" + "x".join(map(str, shape))
+        mesh = make_mesh(tuple(shape), ("data", "model"), device)
+        ck = _private_copy(Path(spec["src"]), workdir / f"ck_{tag}", mesh)
+        run, opts = tp_run(spec, case, ck)
+        t = Trainer(run, mesh=mesh, options=opts)
+        assert t.restore_if_available() and t.step == spec["at"]
+        if t._tp is not None:
+            m, v = (t._unshard(t.opt_state[k]) for k in ("m", "v"))
+        else:
+            m, v = t.opt_state["m"], t.opt_state["v"]
+        out[f"{tag}_restored"] = flat(t.full_params())
+        out[f"{tag}_m"], out[f"{tag}_v"] = flat(m), flat(v)
+        out[f"{tag}_opt_step"] = np.array(int(t.opt_state["step"]))
+        t.train(spec["steps"])
+        for key in ("loss", "grad_norm"):
+            out[f"{tag}_{key}"] = np.array([m_[key] for m_ in t.metrics_log])
+        out[f"{tag}_params"] = flat(t.full_params())
+    return out
+
+
+def tp_full_run(spec, workdir):
+    """(RunConfig, ModelOptions) of the full-width TP job: ``spec["arch"]``
+    at its published widths (reduced where ``spec["reduced"]``, for a
+    rehearsal), bf16 (float32 where ``spec["f32"]``), unrolled, remat
+    "full", AdamW, ``spec["global_batch"]`` x ``spec["seq_len"]`` tokens a
+    step, data seed 3."""
+    from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.model import ModelOptions
+
+    cfg = get_arch(spec["arch"])
+    if spec.get("reduced"):
+        cfg = cfg.reduced()
+    steps = spec["steps"] + 1
+    run = RunConfig(
+        model=cfg, parallel=ParallelConfig(remat="full", scan_layers=False),
+        train=TrainConfig(global_batch=spec["global_batch"],
+                          seq_len=spec["seq_len"], lr=spec["lr"],
+                          warmup_steps=max(1, steps // 10),
+                          total_steps=steps, checkpoint_every=10 ** 9,
+                          seed=3, checkpoint_dir=str(workdir / "ck")))
+    dtype = torch.float32 if spec.get("f32") else torch.bfloat16
+    return run, ModelOptions(dtype=dtype, scan_layers=False, remat="full")
+
+
+def tp_full_reference(spec, device, rows: int = 2) -> dict:
+    """The loss of ``tp_full_run``'s first batch under its seed-0 weights
+    on one device, forward only, `rows` sequences at a time: in the run's
+    dtype ("one") and with the same weights widened to float32 ("f32")."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models.layers import ParamTree, tree_map
+    from repro_torch.models.model import build_model
+
+    run, opts = tp_full_run(spec, Path("."))
+    cfg = run.model
+    opts = dataclasses.replace(opts, remat="none")
+    batch = SyntheticLMDataset(cfg.vocab_size, run.train.seq_len,
+                               run.train.global_batch,
+                               seed=run.train.seed).batch_at(0)
+
+    def loss(model, params) -> float:
+        parts = []
+        with torch.no_grad():
+            for i in range(0, run.train.global_batch, rows):
+                mb = {k: torch.from_numpy(v[i:i + rows]).to(device,
+                                                            torch.int64)
+                      for k, v in batch.items()}
+                parts.append(model.train_loss(params, mb).double())
+        return float(torch.stack(parts).mean())
+
+    model = build_model(cfg, opts)
+    params = model.init(0, device)
+    out = {"one": loss(model, params)}
+    params = ParamTree(tree_map(lambda w: w.float(), params))
+    out["f32"] = loss(build_model(cfg, dataclasses.replace(
+        opts, dtype=torch.float32)), params)
+    return out
+
+
+def run_tp_train_full(spec, workdir, device):
+    """TP training of ``tp_full_run``'s model on each ("data", "model")
+    mesh of ``spec["meshes"]`` in turn, one trainer at a time: init from
+    seed 0 (leaf by leaf, each rank keeping its blocks), ``spec["steps"]``
+    steps (the first a warm-up) with the host clock around each
+    (synchronised), then, with ``spec["trace"]``, one more step traced on
+    every rank (torch.profiler; the NCCL time no compute kernel
+    overlaps). For each mesh: losses, grad norms, step times, and on a
+    card the bytes allocated at rest (params and moments) against the sum
+    of this rank's blocks, and the peak."""
+    import gc
+
+    from repro_torch.runtime.trainer import Trainer
+
+    cuda = torch.device(device).type == "cuda"
+
+    def allocated():
+        return torch.cuda.memory_allocated(device) if cuda else 0
+
+    out = {}
+    for shape in spec["meshes"]:
+        tag = "m" + "x".join(map(str, shape))
+        mesh = make_mesh(tuple(shape), ("data", "model"), device)
+        if cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        base = allocated()
+        run, opts = tp_full_run(spec, workdir)
+        t0 = time.perf_counter()
+        t = Trainer(run, mesh=mesh, options=opts, device=device)
+        t.init_state(seed=0)
+        if cuda:
+            torch.cuda.synchronize(device)
+        out[f"{tag}_init_s"] = np.array(time.perf_counter() - t0)
+        out[f"{tag}_rest_bytes"] = np.array(allocated() - base)
+        out[f"{tag}_block_bytes"] = np.array(sum(
+            x.numel() * x.element_size() for x in tree_leaves(
+                {"p": t.params, "o": t.opt_state})))
+        times = []
+        for _ in range(spec["steps"]):
+            if cuda:
+                torch.cuda.synchronize(device)
+            ts = time.perf_counter()
+            t.train(1)
+            if cuda:
+                torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - ts)
+        out[f"{tag}_peak_bytes"] = np.array(
+            torch.cuda.max_memory_allocated(device) - base if cuda else 0)
+        if spec.get("trace"):
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if cuda else [])
+            with profile(activities=acts) as prof:
+                t.train(1)
+                if cuda:
+                    torch.cuda.synchronize(device)
+            for k, v in nccl_exposure(prof).items():
+                out[f"{tag}_{k}"] = np.array(v)
+        out[f"{tag}_step_s"] = np.array(times)
+        for key in ("loss", "grad_norm"):
+            out[f"{tag}_{key}"] = np.array([m[key] for m in t.metrics_log])
+        del t
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
 def _bucket(key: str) -> int:
     return int(key[1:key.index("_")])
 
@@ -948,6 +1214,12 @@ def run(job, u0, device, workdir=None):
         out.update(run_gradsync(job["gradsync"], device))
     if "train" in job:
         out.update(run_train(job["train"], workdir, device))
+    if "tp_train" in job:
+        out.update(run_tp_train(job["tp_train"], workdir, device))
+    if "tp_train_full" in job:
+        out.update(run_tp_train_full(job["tp_train_full"], workdir, device))
+    if "tp_elastic" in job:
+        out.update(run_tp_elastic(job["tp_elastic"], workdir, device))
     if "iters" not in job:
         return out
     mesh = make_mesh(tuple(job["mesh"]), tuple(job["axes"]), device)

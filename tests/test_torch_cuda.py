@@ -6,7 +6,8 @@ families' training on CUDA against the CPU, and
 (given 4 cards) NCCL ranks against one rank: the solvers, the staged
 all-reduce, MoE expert parallelism, the data-parallel and the ZeRO-3
 trainer, the TP rings and the TP decode step; Qwen3-8B at full width
-trained under streaming ZeRO-3 over 4 cards, and served through the TP
+trained under streaming ZeRO-3 over 4 cards, trained tensor-parallel on
+(1, 4) and (2, 2) ("data", "model") meshes, and served through the TP
 decode step over 4 cards. Marked ``gpu``;
 without a card every test here skips. Imports no jax, so it runs where the
 JAX package is not installed:
@@ -537,6 +538,133 @@ def test_nccl_4_zero3_trains_qwen3_8b_full_width(cuda, tmp_path):
         "traced_step_rank0": {k: float(ranks[0][k]) for k in
                               ("nccl_ms", "compute_ms", "nccl_exposed_ms")},
     }))
+
+
+def test_nccl_4_tp_trains_qwen3_8b_full_width(cuda, tmp_path):
+    """Tensor-parallel training over four NCCL ranks, one card each.
+
+    First, reduced Qwen3-8B (scanned, remat "full") and Granite-3-2B (tied,
+    2 microbatches), float32, on a (2, 2) ("data", "model") mesh for 3
+    steps from the port's init: every rank reports the same, and losses,
+    grad norms and parameters match one card training the global batch at
+    rtol 1e-4, as on gloo.
+
+    Then Qwen3-8B at its published widths (36 layers, d_model 4096, 32/8
+    heads of 128, d_ff 12288, vocab 151936, untied; 98 GB of bf16 params
+    and grads and f32 AdamW moments), bf16, unrolled, remat "full", 8 x
+    2048 tokens a step, trained on (1, 4) and on (2, 2), each from seed 0
+    (every rank drawing leaf by leaf and keeping its blocks): a warm-up
+    step and 3 timed steps, then one traced step. Holds: the losses finite
+    and equal on every rank, every card's peak under 80 GiB, the bytes at
+    rest within 1% above the sum of the rank's blocks (params and
+    moments), and the first loss within a bound B of one card's forward of
+    the same weights on the same batch. B is one bf16 spacing at the
+    loss's magnitude, 2^(floor(log2 L) - 7) for L the loss with the same
+    weights widened to float32 (1/16 at L ~ 12): both runs take the mean
+    of 16384 float32 per-token losses over bf16 activations from the same
+    weights and tokens and differ only in the order of their roundings
+    (the TP run sums its ranks' partial products in bf16), whose errors of
+    either sign average over the tokens, so a whole bf16 spacing of the
+    loss itself marks a fault in the cut, not rounding; the one-card bf16
+    loss is held within B of the float32 one too. Prints one JSON line a
+    mesh: step ms, tokens/s, MFU (6·N·tokens, N the parameters less the
+    embedding, over 989 TFLOP/s a card), peak and at-rest GiB a card, the
+    losses, and rank 0's traced NCCL time that no compute kernel
+    overlaps."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import json
+    import math
+
+    from _torch_dist import (flat, params_close, spawn, tp_full_reference,
+                             tp_init_key, tp_run)
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.trainer import Trainer
+
+    small = dict(steps=3, global_batch=8, seq_len=16, lr=5e-3,
+                 total_steps=6, mesh=[2, 2], axes=["data", "model"],
+                 cases=[dict(tag="q1", arch="qwen3-8b", accum=1, scan=True,
+                             remat="full"),
+                        dict(tag="g2", arch="granite-3-2b", accum=2,
+                             scan=False)])
+    for case in small["cases"]:
+        run, opts = tp_run(small, case, tmp_path)
+        p = build_model(run.model, opts).init(0, "cpu")
+        save_checkpoint(str(tmp_path / f"init_{tp_init_key(case)}"), 0,
+                        {"params": p, "opt": adamw_init(p)},
+                        extra={"data_step": 0})
+    full = dict(arch="qwen3-8b", steps=4, global_batch=8, seq_len=2048,
+                lr=3e-4, meshes=[[1, 4], [2, 2]], trace=True)
+    ranks = spawn(dict(mesh=[4], backend="nccl", tp_train=small,
+                       tp_train_full=full), None, tmp_path, 900)
+    for case in small["cases"]:
+        tag = case["tag"]
+        run, opts = tp_run(small, case,
+                           tmp_path / f"init_{tp_init_key(case)}")
+        one = Trainer(run, options=opts, device=cuda)
+        assert one.restore_if_available()
+        one.train(small["steps"])
+        for out in ranks:
+            for key in ("loss", "grad_norm", "params"):
+                np.testing.assert_array_equal(out[f"{tag}_{key}"],
+                                              ranks[0][f"{tag}_{key}"])
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(ranks[0][f"{tag}_{key}"],
+                                       [m[key] for m in one.metrics_log],
+                                       rtol=1e-4)
+        params_close(ranks[0][f"{tag}_params"], flat(one.params),
+                     tree_leaves(one.params))
+        del one
+    torch.cuda.empty_cache()
+    ref = tp_full_reference(full, cuda)
+    bound = 2.0 ** (math.floor(math.log2(ref["f32"])) - 7)
+    assert abs(ref["one"] - ref["f32"]) <= bound, ref
+    cfg = get_arch("qwen3-8b")
+    tokens = full["global_batch"] * full["seq_len"]
+    n_matmul = cfg.num_params() - cfg.vocab_size * cfg.d_model
+    for shape in full["meshes"]:
+        tag = "m" + "x".join(map(str, shape))
+        for out in ranks:
+            assert np.isfinite(out[f"{tag}_loss"]).all()
+            np.testing.assert_array_equal(out[f"{tag}_loss"],
+                                          ranks[0][f"{tag}_loss"])
+            assert out[f"{tag}_peak_bytes"] < 80 * 2 ** 30
+            rest, blocks = (int(out[f"{tag}_rest_bytes"]),
+                            int(out[f"{tag}_block_bytes"]))
+            assert blocks <= rest <= 1.01 * blocks, (rest, blocks)
+        first = float(ranks[0][f"{tag}_loss"][0])
+        assert abs(first - ref["one"]) <= bound, (first, ref)
+        r0 = ranks[0]
+        step_s = float(np.median(r0[f"{tag}_step_s"][1:]))
+        print(json.dumps({
+            "test": "tp_train_qwen3_8b_full_width", "mesh": shape,
+            "cards": 4, "gpu": torch.cuda.get_device_name(0),
+            "init_s": float(r0[f"{tag}_init_s"]),
+            "step_ms": [1e3 * x for x in r0[f"{tag}_step_s"][1:].tolist()],
+            "step_ms_median": 1e3 * step_s,
+            "warmup_step_ms": 1e3 * float(r0[f"{tag}_step_s"][0]),
+            "tokens_per_s": tokens / step_s,
+            "tokens_per_s_per_card": tokens / step_s / 4,
+            "mfu": 6 * n_matmul * tokens / step_s / (4 * 989e12),
+            "peak_gib": [float(o[f"{tag}_peak_bytes"]) / 2 ** 30
+                         for o in ranks],
+            "rest_gib": [float(o[f"{tag}_rest_bytes"]) / 2 ** 30
+                         for o in ranks],
+            "block_gib": [float(o[f"{tag}_block_bytes"]) / 2 ** 30
+                          for o in ranks],
+            "losses": r0[f"{tag}_loss"].tolist(),
+            "grad_norms": r0[f"{tag}_grad_norm"].tolist(),
+            "first_loss_one_card": ref["one"], "first_loss_f32": ref["f32"],
+            "bound": bound,
+            "traced_step_rank0": {k: float(r0[f"{tag}_{k}"]) for k in
+                                  ("nccl_ms", "compute_ms",
+                                   "nccl_exposed_ms")},
+        }))
 
 
 def test_nccl_4_tp_decode_serves_qwen3_8b_full_width(cuda, tmp_path):

@@ -1,0 +1,368 @@
+"""Tensor-parallel training of the port on gloo ranks against the JAX
+``Trainer`` without a mesh.
+
+Reduced Qwen3-8B (qk-norm, untied; its 2 KV heads replicated at tp 4) and
+reduced Granite-3-2B (tied), and Granite with a vocab of 257 (the rules
+replicate the vocab), train on ("data", "model") meshes (1, 2), (2, 2),
+(1, 4) and on ("pod", "data", "model") (2, 1, 2), at ``accum_steps`` 1
+and 2, scanned and unrolled, remat "none" and "full", the fused and the
+unfused loss, float32: 3 steps
+match the JAX Trainer's losses, grad norms and parameters at rtol 1e-4
+(parameters loaded through ``params_from_jax`` from one numpy draw, as
+``tests/test_torch_trainer.py`` does), every rank reports the same, and
+each rank's blocks are bit-equal to the slices of the one-rank tree.
+
+The elastic path: a (2, 2) TP trainer's checkpoint restores bit for bit
+onto (2, 1), (1, 2) and no mesh, and into the JAX Trainer; 2 more steps on
+each mesh match a one-rank trainer restored from the same checkpoint.
+
+Each spawn (``tests/_torch_dist.py``) has one deadline, so a hung
+collective fails the test instead of hanging it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_dist import (flat, params_close, spawn, tp_init_key, tp_run)
+from _torch_jax import numpy_params
+
+from repro.config.base import ParallelConfig as JaxParallel
+from repro.config.base import RunConfig as JaxRun
+from repro.config.base import TrainConfig as JaxTrain
+from repro.config.registry import get_arch as jax_arch
+from repro.models.model import ModelOptions as JaxOptions
+from repro.models.model import build_model as jax_build
+from repro.optim import adamw_init as jadamw_init
+from repro.runtime.trainer import Trainer as JaxTrainer
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.layers import leaf_paths, tree_leaves
+from repro_torch.models.model import build_model
+from repro_torch.optim import adamw_init
+from repro_torch.runtime.trainer import Trainer
+
+SPAWN_DEADLINE_S = 180
+SPEC = dict(steps=3, global_batch=8, seq_len=16, lr=5e-3, total_steps=6)
+
+
+def _case(tag, arch, accum, scan=False, remat="none", vocab=None, **kw):
+    return dict(tag=tag, arch=arch, accum=accum, scan=scan, remat=remat,
+                vocab=vocab, **kw)
+
+
+Q, G = "qwen3-8b", "granite-3-2b"
+JOBS = {
+    "1x2": dict(mesh=[1, 2], axes=["data", "model"], cases=[
+        _case("q1", Q, 1), _case("g2", G, 2, scan=True),
+        _case("v1", G, 1, vocab=257, unfused=True)]),
+    "2x2": dict(mesh=[2, 2], axes=["data", "model"], cases=[
+        _case("q1", Q, 1, scan=True, remat="full", save=True),
+        _case("q2", Q, 2), _case("g1", G, 1), _case("v2", G, 2, vocab=257)],
+        seed=_case("s", Q, 1, scan=True)),
+    "1x4": dict(mesh=[1, 4], axes=["data", "model"], cases=[
+        _case("q1", Q, 1), _case("q2", Q, 2, scan=True, remat="full"),
+        _case("g1", G, 1), _case("v1", G, 1, vocab=257)],
+        seed=_case("s", Q, 1)),
+    "2x1x2": dict(mesh=[2, 1, 2], axes=["pod", "data", "model"], cases=[
+        _case("q2", Q, 2), _case("g1", G, 1, remat="full")]),
+}
+CASES = [(job, c["tag"]) for job, spec in JOBS.items() for c in spec["cases"]]
+# the (2, 2) trainer whose checkpoint the elastic job restores
+SAVED = ("2x2", "q1")
+ELASTIC_MESHES = [[2, 1], [1, 2]]
+
+
+def _cfgs(case):
+    jcfg, cfg = jax_arch(case["arch"]).reduced(), None
+    run, opts = tp_run(SPEC, case, "unused")
+    if case.get("vocab"):
+        jcfg = dataclasses.replace(jcfg, vocab_size=case["vocab"])
+    return jcfg, run, opts
+
+
+def _numpy_tree(case):
+    """The case's float32 parameters, drawn unrolled with numpy (a scanned
+    draw takes fan_in = the layer count, ROADMAP.md Queue 3)."""
+    jcfg, _, _ = _cfgs(case)
+    return numpy_params(jax_build(jcfg, JaxOptions(dtype=jnp.float32,
+                                                   scan_layers=False)))
+
+
+def _port_params(tree, case):
+    _, run, opts = _cfgs(case)
+    return params_from_jax(tree, run.model, opts, "cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """JAX Trainer (no mesh, unrolled, float32) of each (arch, vocab,
+    accum): losses, grad norms, final numpy parameters."""
+    cache = {}
+
+    def get(case):
+        key = (case["arch"], case.get("vocab"), case["accum"])
+        if key not in cache:
+            jcfg, _, _ = _cfgs(case)
+            train = {k: SPEC[k] for k in ("global_batch", "seq_len", "lr")}
+            jt = JaxTrainer(
+                JaxRun(model=jcfg,
+                       parallel=JaxParallel(accum_steps=case["accum"],
+                                            remat="none", scan_layers=False),
+                       train=JaxTrain(warmup_steps=2,
+                                      total_steps=SPEC["total_steps"],
+                                      checkpoint_every=10 ** 6, seed=3,
+                                      **train)),
+                options=JaxOptions(dtype=jnp.float32, scan_layers=False))
+            jt.init_state()
+            jt.params = jax.tree.map(jnp.asarray, _numpy_tree(case))
+            jt.opt_state = jadamw_init(jt.params)
+            jt.train(SPEC["steps"])
+            cache[key] = ({k: [m[k] for m in jt.metrics_log]
+                           for k in ("loss", "grad_norm", "lr")},
+                          jax.tree.map(np.asarray, jt.params))
+        return cache[key]
+    return get
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tmp_path_factory):
+    """(workdir, per-rank results) of a JOBS job, or of "elastic" (2
+    ranks restoring the SAVED case's checkpoint onto ELASTIC_MESHES);
+    each case's initial checkpoint is written to ``<workdir>/init_<key>``
+    first."""
+    cache = {}
+
+    def get(name):
+        if name in cache:
+            return cache[name]
+        workdir = tmp_path_factory.mktemp(f"tp{name}")
+        if name == "elastic":
+            src_dir, _ = get(SAVED[0])
+            case = next(c for c in JOBS[SAVED[0]]["cases"]
+                        if c["tag"] == SAVED[1])
+            job = dict(mesh=[2], tp_elastic=dict(
+                SPEC, src=str(src_dir / f"ck_{SAVED[1]}"), at=SPEC["steps"],
+                meshes=ELASTIC_MESHES, case=case, steps=2))
+        else:
+            spec = dict(SPEC, **JOBS[name])
+            for case in spec["cases"]:
+                d = workdir / f"init_{tp_init_key(case)}"
+                if not d.exists():
+                    p = _port_params(_numpy_tree(case), case)
+                    save_checkpoint(str(d), 0, {"params": p,
+                                                "opt": adamw_init(p)},
+                                    extra={"data_step": 0})
+            job = dict(mesh=spec["mesh"], tp_train=spec)
+        cache[name] = workdir, spawn(job, None, workdir, SPAWN_DEADLINE_S)
+        return cache[name]
+    return get
+
+
+def _find(job, tag):
+    return next(c for c in JOBS[job]["cases"] if c["tag"] == tag)
+
+
+@pytest.mark.parametrize("job,tag", CASES)
+def test_tp_trainer_matches_jax(tp_runs, jax_runs, job, tag):
+    """3 steps of the TP trainer from the JAX parameters: every rank
+    reports the same losses, grad norms and full parameters, and they
+    match the JAX Trainer without a mesh at rtol 1e-4 (parameters leaf by
+    leaf, relative to each leaf's largest entry)."""
+    _, ranks = tp_runs(job)
+    case = _find(job, tag)
+    for out in ranks[1:]:
+        for key in ("loss", "grad_norm", "lr", "params"):
+            np.testing.assert_array_equal(out[f"{tag}_{key}"],
+                                          ranks[0][f"{tag}_{key}"])
+    want, jparams = jax_runs(case)
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(ranks[0][f"{tag}_{key}"], want[key],
+                                   rtol=1e-4)
+    final = _port_params(jparams, case)
+    params_close(ranks[0][f"{tag}_params"], flat(final),
+                 tree_leaves(final))
+
+
+def _slices(tree, index_json) -> np.ndarray:
+    """`tree`'s leaves cut by each leaf's index ranges, flattened."""
+    index = json.loads(str(index_json))
+    parts = [leaf.detach()[tuple(slice(a, b) for a, b in ix)].reshape(-1)
+             for leaf, ix in zip(tree_leaves(tree), index)]
+    return torch.cat(parts).float().numpy()
+
+
+@pytest.mark.parametrize("job", list(JOBS))
+def test_tp_ranks_hold_their_blocks(tp_runs, job):
+    """Each rank's blocks as restored are bit-equal to its slices of the
+    one-rank tree, and the ranks' blocks differ where the rules shard;
+    drawn from a seed, the blocks are the slices of the one-rank init of
+    that seed (drawn leaf by leaf) and unshard back to it."""
+    _, ranks = tp_runs(job)
+    for case in JOBS[job]["cases"]:
+        tag = case["tag"]
+        full = _port_params(_numpy_tree(case), case)
+        for out in ranks:
+            np.testing.assert_array_equal(
+                out[f"{tag}_blocks0"], _slices(full, out[f"{tag}_index"]))
+        sizes = {len(out[f"{tag}_blocks0"]) for out in ranks}
+        assert max(sizes) < sum(p.numel() for p in tree_leaves(full))
+    if "seed" in JOBS[job]:
+        _, run, opts = _cfgs(JOBS[job]["seed"])
+        one = build_model(run.model, opts).init(5, "cpu")
+        for out in ranks:
+            np.testing.assert_array_equal(out["seed_blocks"],
+                                          _slices(one, out["seed_index"]))
+            np.testing.assert_array_equal(out["seed_full"], flat(one))
+
+
+def _saved(tp_runs):
+    """(case, checkpoint dir, its arrays) of the SAVED case."""
+    workdir, _ = tp_runs(SAVED[0])
+    ck = workdir / f"ck_{SAVED[1]}"
+    with np.load(ck / f"step_{SPEC['steps']}" / "arrays.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    return _find(*SAVED), ck, arrays
+
+
+def _from_arrays(arrays, prefix, like) -> np.ndarray:
+    return np.concatenate([
+        arrays["|".join([prefix, *map(str, p)])].reshape(-1)
+        for p in leaf_paths(like)]).astype(np.float32)
+
+
+def test_tp_checkpoint_restores_onto_smaller_meshes(tp_runs, tmp_path):
+    """The (2, 2) trainer's checkpoint holds its final state; restored onto
+    (2, 1) (data parallel), (1, 2) (tensor parallel) and no mesh, the
+    parameters and AdamW moments are bit-equal to what was saved; 2 more
+    steps on each mesh match a one-rank trainer restored from the same
+    checkpoint at rtol 1e-4."""
+    case, ck, arrays = _saved(tp_runs)
+    _, ranks22 = tp_runs(SAVED[0])
+    _, run, opts = _cfgs(case)
+    like = build_model(run.model, opts).param_specs()
+    saved = {k: _from_arrays(arrays, p, like)
+             for k, p in (("params", "params"), ("m", "opt|m"),
+                          ("v", "opt|v"))}
+    np.testing.assert_array_equal(saved["params"],
+                                  ranks22[0][f"{SAVED[1]}_params"])
+    shutil.copytree(ck, tmp_path / "ck")
+    run, opts = tp_run(SPEC, case, tmp_path / "ck")
+    one = Trainer(run, options=opts, device="cpu")
+    assert one.restore_if_available() and one.step == SPEC["steps"]
+    np.testing.assert_array_equal(flat(one.params), saved["params"])
+    np.testing.assert_array_equal(flat(one.opt_state["m"]), saved["m"])
+    np.testing.assert_array_equal(flat(one.opt_state["v"]), saved["v"])
+    one.train(2)
+    _, ranks = tp_runs("elastic")
+    for shape in ELASTIC_MESHES:
+        tag = "m" + "x".join(map(str, shape))
+        for out in ranks:
+            np.testing.assert_array_equal(out[f"{tag}_restored"],
+                                          saved["params"])
+            np.testing.assert_array_equal(out[f"{tag}_m"], saved["m"])
+            np.testing.assert_array_equal(out[f"{tag}_v"], saved["v"])
+            assert int(out[f"{tag}_opt_step"]) == SPEC["steps"]
+            for key in ("loss", "grad_norm"):
+                np.testing.assert_allclose(
+                    out[f"{tag}_{key}"], [m[key] for m in one.metrics_log],
+                    rtol=1e-4)
+            params_close(out[f"{tag}_params"], flat(one.params),
+                         tree_leaves(one.params))
+
+
+def test_tp_checkpoint_restores_into_the_jax_trainer(tp_runs, tmp_path):
+    """The JAX Trainer restores the (2, 2) TP trainer's checkpoint (the
+    global arrays, scanned layout) bit for bit: parameters, moments, the
+    optimizer step and the data position."""
+    case, ck, arrays = _saved(tp_runs)
+    jcfg, _, _ = _cfgs(case)
+    shutil.copytree(ck, tmp_path / "ck")
+    jt = JaxTrainer(
+        JaxRun(model=jcfg, parallel=JaxParallel(scan_layers=True),
+               train=JaxTrain(checkpoint_dir=str(tmp_path / "ck"),
+                              global_batch=SPEC["global_batch"],
+                              seq_len=SPEC["seq_len"])),
+        options=JaxOptions(dtype=jnp.float32, scan_layers=True))
+    assert jt.restore_if_available() and jt.step == SPEC["steps"]
+    for prefix, tree in (("params", jt.params), ("opt|m", jt.opt_state["m"]),
+                         ("opt|v", jt.opt_state["v"])):
+        flat_j, _ = jax.tree_util.tree_flatten_with_path(tree)
+        assert len(flat_j) == len([k for k in arrays
+                                   if k.startswith(prefix + "|")])
+        for path, leaf in flat_j:
+            key = "|".join([prefix] + [str(getattr(k, "key", getattr(
+                k, "idx", None))) for k in path])
+            np.testing.assert_array_equal(np.asarray(leaf, np.float32),
+                                          arrays[key])
+    assert int(jt.opt_state["step"]) == SPEC["steps"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-780m",
+                                  "recurrentgemma-2b", "whisper-base",
+                                  "llava-next-34b"])
+def test_non_dense_family_on_a_tp_mesh_raises(tmp_path, arch):
+    """Only the dense family trains tensor-parallel: the others raise
+    NotImplementedError naming the ROADMAP item, before any collective."""
+    case = _case("x", arch, 1)
+    run, opts = tp_run(SPEC, case, tmp_path)
+    mesh = ProcessMesh(("data", "model"), (1, 2), 0, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        Trainer(run, mesh=mesh, options=opts, device="cpu")
+
+
+def test_launcher_model_axis_checks_its_width(tmp_path, monkeypatch):
+    """--model-axis needs a production mesh and must divide the ranks."""
+    with pytest.raises(ValueError, match="--model-axis"):
+        launch_train.main(["--arch", "qwen3-8b", "--device", "cpu",
+                           "--model-axis", "2"])
+    for k, v in dict(RANK="0", WORLD_SIZE="4", MASTER_ADDR="localhost",
+                     MASTER_PORT="1").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match="does not divide"):
+        launch_train._launched_mesh(False, "cpu", 3)
+    with pytest.raises(ValueError, match="does not divide"):
+        launch_train._launched_mesh(True, "cpu", 4)
+
+
+def test_launcher_trains_tensor_parallel_under_torchrun(tmp_path):
+    """``torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh
+    production --model-axis 2`` trains the reduced qwen3-8b on a (2, 2)
+    ("data", "model") gloo mesh: every rank prints the same finite losses,
+    and the checkpoint it writes (global arrays) restores into a one-rank
+    Trainer at the step it was written."""
+    import os
+    import re
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(repo / "src")] + [p for p in [
+                       os.environ.get("PYTHONPATH")] if p]))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         "--arch", "qwen3-8b", "--mesh", "production", "--model-axis", "2",
+         "--device", "cpu", "--steps", "2", "--checkpoint-dir",
+         str(tmp_path)],
+        capture_output=True, text=True, timeout=SPAWN_DEADLINE_S, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    # the four ranks' lines may interleave in the shared pipe
+    losses = re.findall(r"\[train\] loss (\S+) -> (\d+\.\d+)", out.stdout)
+    assert len(losses) == 4 and len(set(losses)) == 1, out.stdout
+    assert all(np.isfinite(float(x)) for x in losses[0])
+    run = launch_train.build_run("qwen3-8b", steps=2,
+                                 checkpoint_dir=str(tmp_path))
+    one = Trainer(run, device="cpu")
+    assert one.restore_if_available() and one.step == 2

@@ -286,8 +286,16 @@ def test_what_this_slice_does_not_train_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Trainer(bad, device="cpu")
     tp = ProcessMesh(("data", "model"), (1, 2), 0, torch.device("cpu"))
+    check_ported(run.parallel, tp, "dense")    # trained since
+    for family in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            check_ported(run.parallel, tp, family)
+    odd = ProcessMesh(("data", "expert"), (1, 2), 0, torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_ported(run.parallel, tp)
+        check_ported(run.parallel, odd, "dense")
+    with pytest.raises(ValueError, match="param_shard"):
+        check_ported(dataclasses.replace(run.parallel, param_shard=True), tp,
+                     "dense")
     for arch in ("mamba2-780m", "recurrentgemma-2b"):   # trained since
         rec = dataclasses.replace(run, model=get_arch(arch).reduced())
         t = Trainer(rec, device="cpu")
