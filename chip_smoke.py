@@ -264,6 +264,14 @@ patches; 34.4 B parameters) served, phase 25, last:
               RecurrentGemma 36 + 18), no flash launch (dense attention),
               no call of a plain scan. Then one traced step by op family,
               with the port's kernels by name (the SSD backward's nine).
+ 28. tp_scans  the scans forward and backward at the blocks a rank of
+              tensor-parallel training over 4 cards gives them: ssd_scan
+              and ssd_chunk_bwd at (8, 2048, 12, 64, 128) and (4, 2048,
+              24, 64, 128) bf16 chunk 256 (Mamba-2 780M's 48 heads at (1,
+              4) and (2, 2)), lru_scan and lru_scan_bwd at (8, 2048, 640)
+              and (4, 2048, 1280) f32 (RecurrentGemma-2B's width 2560),
+              each against its plain version with phases 10-11's and 26's
+              tolerances, times and bounds; run after phase 27.
 
 Each phase prints one JSON line (a serve phase one per scheduler and one of
 checks); then the nvidia-smi line, the kernels line and, last,
@@ -337,6 +345,12 @@ SSD_BWD_SHAPE = (8, 2048, 48, 64, 128, 256)   # Mamba-2 780M: b, l, h, p, n,
 SSD_BWD_DTYPES = ("bf16", "f32")              # chunk; bf16 is the training's
 # phase 27: the recurrent families trained at full width
 RECURRENT_TRAIN = ("mamba2-780m", "recurrentgemma-2b")
+# phase 28: the scans at the rank-local shapes of tensor-parallel training
+# over 4 cards (8 x 2048 tokens a step): Mamba-2 780M's 48 SSD heads and
+# RecurrentGemma-2B's LRU width 2560 cut 4 ways at (1, 4) ("data", "model")
+# and 2 ways, over a DP replica's 4 rows, at (2, 2)
+TP_SSD_SHAPES = [(8, 2048, 12, 64, 128, 256), (4, 2048, 24, 64, 128, 256)]
+TP_LRU_SHAPES = [(8, 2048, 640), (4, 2048, 1280)]
 # serving phases: (arch, phase number of the serve rows, of the trace)
 SERVE_ARCHS = [("qwen3-8b", 8, 9), ("recurrentgemma-2b", 12, 13),
                ("mamba2-780m", 14, 15), ("qwen3-moe-30b-a3b", 20, 21)]
@@ -1157,10 +1171,12 @@ def lru_launch_only(lru_ops, a, x, h0):
     return run
 
 
-def lru_case(lru_ops, dev, card, b, l, w, b_dtype, with_h0) -> dict:
+def lru_case(lru_ops, dev, card, b, l, w, b_dtype, with_h0,
+             tag=None) -> dict:
     """The lru_scan kernel against its plain version at one shape:
     CUDA-event times (time_ms); bound from the bytes (a and b read, h
-    written, h0 read and h_last written once)."""
+    written, h0 read and h_last written once). `tag` adds keys to the
+    row (a later phase's name and number)."""
     dtype = torch.bfloat16 if b_dtype == "bf16" else torch.float32
     gen = torch.Generator(device=dev).manual_seed(l + w + b)
     a = 0.5 + 0.49 * torch.rand((b, l, w), generator=gen, device=dev)
@@ -1195,7 +1211,7 @@ def lru_case(lru_ops, dev, card, b, l, w, b_dtype, with_h0) -> dict:
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "mbytes": nbytes / 1e6, "kernel_gb_per_s": nbytes / k_ms / 1e6,
-           "gpu": card}
+           "gpu": card, **(tag or {})}
     emit(row)
     return row
 
@@ -1214,9 +1230,10 @@ def y_diag_f64(xc, dtc, A, Bc, Cc):
 
 
 def ssd_case(ssd_ops, ssd_ref, dev, card, b, l, h, p, n, chunk,
-             dtype_name) -> dict:
+             dtype_name, tag=None) -> dict:
     """ops.ssd through the kernel against the plain version (y and the
-    final state), and the within-chunk terms alone timed both ways."""
+    final state), and the within-chunk terms alone timed both ways. `tag`
+    adds keys to the row."""
     import torch.nn.functional as F
 
     dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
@@ -1279,7 +1296,7 @@ def ssd_case(ssd_ops, ssd_ref, dev, card, b, l, h, p, n, chunk,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-           "kernel_tflops": flops / k_ms / 1e9, "gpu": card}
+           "kernel_tflops": flops / k_ms / 1e9, "gpu": card, **(tag or {})}
     emit(row)
     return row
 
@@ -2287,7 +2304,8 @@ def plain_bwd_ms(forward, leaves, cots) -> float:
     return ms
 
 
-def lru_bwd_case(lru_ops, lru_ref, dev, card, b, l, w, with_h0) -> dict:
+def lru_bwd_case(lru_ops, lru_ref, dev, card, b, l, w, with_h0,
+                 tag=None) -> dict:
     """Phase 26: lru_scan_bwd against the plain backward (autograd of the
     plain version) on the same inputs and cotangents: each gradient within
     LRU_TOL of its largest magnitude, two calls bit-equal; CUDA-event
@@ -2331,7 +2349,7 @@ def lru_bwd_case(lru_ops, lru_ref, dev, card, b, l, w, with_h0) -> dict:
            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "mbytes": nbytes / 1e6, "kernel_gb_per_s": nbytes / k_ms / 1e6,
-           "gpu": card}
+           "gpu": card, **(tag or {})}
     emit(row)
     return row
 
@@ -2345,18 +2363,20 @@ def ssd_bwd_flops(b, c, q, h, p, n) -> int:
     return b * c * (3 * qq * n + h * (2 * qq * p + 4 * q * n * p))
 
 
-def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name) -> dict:
+def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name,
+                 shape=SSD_BWD_SHAPE, tag=None) -> dict:
     """Phase 26: ssd_chunk_bwd against the plain backward (autograd of
-    ssd_chunk_terms) at Mamba-2 780M's training shape, random cotangents
+    ssd_chunk_terms) at Mamba-2 780M's training shape (or `shape`: b, l,
+    h, p, n, chunk), random cotangents
     of y_diag, states and decay_in: each gradient within SSD_TOL of its
     largest magnitude, two calls bit-equal; CUDA-event times; bound the
     larger of the bytes (inputs, cotangents, gradients once each) and the
     causal half's products at the input type's peak; the device time of
     each of its kernels (``ssd_bwd::`` names) from one traced backward
-    under autograd."""
+    under autograd. `tag` adds keys to the row."""
     import torch.nn.functional as F
 
-    b, l, h, p, n, chunk = SSD_BWD_SHAPE
+    b, l, h, p, n, chunk = shape
     c = l // chunk
     dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
     gen = torch.Generator(device=dev).manual_seed(l + h + p + n)
@@ -2421,7 +2441,7 @@ def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name) -> dict:
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
            "kernel_tflops": flops / k_ms / 1e9, "device_kernels": device,
-           "gpu": card}
+           "gpu": card, **(tag or {})}
     emit(row)
     return row
 
@@ -2551,6 +2571,29 @@ def recurrent_train_phase(arch: str, dev, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"row": row, "launches": counts}
+
+
+def tp_scans_phase(lru_ops, lru_ref, ssd_ops, ssd_ref, dev, card) -> None:
+    """Phase 28: each scan kernel, forward and backward, at the blocks a
+    rank of tensor-parallel training over 4 cards gives it
+    (TP_SSD_SHAPES, bf16; TP_LRU_SHAPES, f32), held against its plain
+    version as in phases 10-11 and 26, each row with its time and bound
+    (tagged ``"n": 28`` and the mesh it stands for). The launches made
+    here are comparisons, not the main path's."""
+    for shape, mesh in zip(TP_SSD_SHAPES, ("1x4", "2x2")):
+        tag = {"n": 28, "tp_mesh": mesh}
+        ssd_case(ssd_ops, ssd_ref, dev, card, *shape, "bf16",
+                 tag=dict(tag, phase="tp_ssd"))
+        ssd_bwd_case(ssd_ops, ssd_ref, dev, card, "bf16", shape,
+                     tag=dict(tag, phase="tp_ssd_bwd"))
+    for (b, l, w), mesh in zip(TP_LRU_SHAPES, ("1x4", "2x2")):
+        tag = {"n": 28, "tp_mesh": mesh}
+        lru_case(lru_ops, dev, card, b, l, w, "f32", False,
+                 tag=dict(tag, phase="tp_lru"))
+        lru_bwd_case(lru_ops, lru_ref, dev, card, b, l, w, False,
+                     tag=dict(tag, phase="tp_lru_bwd"))
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
@@ -2820,15 +2863,22 @@ def main() -> int:
     emit({"phase": "recurrent_seconds", "n": [26, 27], "phase26_s": bwd_s,
           "phase27_s": rtrain_s})
 
+    # --- 28. the scans forward and backward at the rank-local shapes of
+    # tensor-parallel training over 4 cards
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, tp_scans_s = timed(lambda: tp_scans_phase(
+        lru_ops, lru_ref, ssd_ops, ssd_ref, dev, card))
+
     # ---- 25. LLaVA-NeXT-34B (64 GiB of weights): last, on a freed card
     gc.collect()
     torch.cuda.empty_cache()
     llava, llava_s = timed(lambda: frontend_serve_phase(
         "llava-next-34b", 25, dev, card))
     served["llava-next-34b"] = llava["launches"]
-    emit({"phase": "frontend_seconds", "n": [23, 24, 25],
+    emit({"phase": "frontend_seconds", "n": [23, 24, 25, 28],
           "phase23_s": whisper_s, "phase24_s": wtrain_s,
-          "phase25_s": llava_s})
+          "phase25_s": llava_s, "phase28_s": tp_scans_s})
 
     # -------------------------------------------------------------- results
     flash_launches = sum(v.get("flash_attention", 0) for v in served.values())

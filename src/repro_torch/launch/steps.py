@@ -10,7 +10,7 @@ whose DP replicas are one rank) the gradients are the plain accumulation.
 
 On a mesh whose "model" axis (``ParallelConfig.tp_axis``) has more than one
 rank, ``make_train_step`` returns the tensor-parallel step
-(:func:`make_tp_train_step`, the dense family): the parameters and AdamW
+(:func:`make_tp_train_step`, every family but moe): the parameters and AdamW
 moments at rest are this rank's blocks under ``rules_for("train")``
 (:class:`TPPlan`), the forward and backward run the Megatron cut with
 sequence parallelism (:mod:`repro_torch.sharding.tp`), and where the JAX
@@ -66,9 +66,9 @@ def check_ported(parallel: ParallelConfig, mesh=None,
     explicit DP-only mesh (``ValueError``, as in the JAX package: it never
     quietly replicates, so ``param_shard`` with a TP axis raises too);
     ``NotImplementedError`` for chunked MoE all-to-alls (expert parallelism
-    inside a trained model), a TP axis of more than one rank under a family
-    other than ``family="dense"``, and any other non-DP axis of more than
-    one rank. ``collective_matmul`` and
+    inside a trained model), a TP axis of more than one rank under
+    ``family="moe"`` (both ``ROADMAP.md`` Queue 1 item 10), and any other
+    non-DP axis of more than one rank. ``collective_matmul`` and
     ``grad_compression`` are read nowhere, as in the JAX package, whose
     trainer trains the same step with either set (the TP rings serve
     decode: ``models/decode_tp.py``; the int8 codec serves
@@ -78,9 +78,8 @@ def check_ported(parallel: ParallelConfig, mesh=None,
     if parallel.moe_a2a_chunks > 1:
         raise _not_ported(
             "moe_a2a_chunks > 1 in training: expert parallelism inside the "
-            "model (moe_apply_ep over a2a_scan) needs a 'model' axis, and "
-            "training on one waits for tensor parallelism of the other "
-            "layers")
+            "model (moe_apply_ep over a2a_scan, its all-to-alls under "
+            "autograd; ROADMAP.md, Queue 1 item 10)")
     if mesh is not None:
         big = {a: s for a, s in mesh.shape.items()
                if a not in parallel.dp_axes and s > 1}
@@ -88,11 +87,12 @@ def check_ported(parallel: ParallelConfig, mesh=None,
         if other:
             raise _not_ported(f"a mesh with non-DP, non-TP axes of size > 1 "
                               f"{other}")
-        if big and family is not None and family != "dense":
+        if big and family == "moe":
             raise _not_ported(
-                f"tensor-parallel training of the {family!r} family over "
-                f"{parallel.tp_axis!r} {big} (ROADMAP.md, Queue 1 item 9.1: "
-                f"the dense family trains on a TP mesh)")
+                f"tensor-parallel training of the 'moe' family over "
+                f"{parallel.tp_axis!r} {big} (ROADMAP.md, Queue 1 item 10: "
+                f"expert parallelism in training; every other family "
+                f"trains on a TP mesh)")
 
 
 def explicit_sync_axes(parallel: ParallelConfig, mesh

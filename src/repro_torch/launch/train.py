@@ -9,14 +9,15 @@ ranks a launcher such as ``torchrun`` started (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``; one card per rank, ``LOCAL_RANK``):
 ("data", "model") of (world, 1), or ("pod", "data", "model") of (2,
 world / 2, 1). ``--model-axis M`` gives the "model" axis M ranks instead
-of 1: (world / M, M), or (2, world / (2 M), M), and the dense family then
-trains tensor-parallel (the JAX package's production mesh has a 16-wide
+of 1: (world / M, M), or (2, world / (2 M), M), and every family but moe
+then trains tensor-parallel (the JAX package's production mesh has a 16-wide
 "model" axis, which a few ranks cannot hold, so the width is stated).
 ``--restarts N`` runs the fault-tolerant runner: a failed step restarts
 from the latest checkpoint, up to N times.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --device cpu --steps 4
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen3-8b --mesh production --model-axis 2 --device cpu --steps 2
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch mamba2-780m --mesh production --model-axis 2 --device cpu --steps 2
 """
 from __future__ import annotations
 

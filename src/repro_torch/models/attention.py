@@ -150,6 +150,20 @@ def self_attention_tp(p, x_rows, cfg: ModelConfig, tp, window=None
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q = project_q(p, x, cfg, positions)
+    pk, idx = _kv_block(p, cfg, tp)
+    k, v = project_kv(pk, x, cfg, positions)
+    if idx is not None:
+        k, v = k[:, :, idx], v[:, :, idx]
+    out = _sdpa_dense(q, k, v, positions, positions, True, window)
+    return tp.leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp.heads)
+
+
+def _kv_block(p, cfg: ModelConfig, tp):
+    """(the key and value weights this rank projects, the KV head of each
+    local query head or None): its KV heads where the rules shard them;
+    where they shard the query heads but replicate the KV heads, the KV
+    heads its query heads read (:meth:`~repro_torch.sharding.tp.TPCut.
+    kv_read`), with the map when those are not whole groups."""
     pk = {"wk": p["wk"], "wv": p["wv"]}
     if cfg.qk_norm:
         pk["k_norm"] = p["k_norm"]
@@ -157,11 +171,7 @@ def self_attention_tp(p, x_rows, cfg: ModelConfig, tp, window=None
     if tp.heads and not tp.kv_heads:
         lo, hi, idx = tp.kv_read(cfg.num_heads, cfg.num_kv_heads)
         pk["wk"], pk["wv"] = pk["wk"][:, lo:hi], pk["wv"][:, lo:hi]
-    k, v = project_kv(pk, x, cfg, positions)
-    if idx is not None:
-        k, v = k[:, :, idx], v[:, :, idx]
-    out = _sdpa_dense(q, k, v, positions, positions, True, window)
-    return tp.leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp.heads)
+    return pk, idx
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -293,6 +303,34 @@ def cross_attention(p, x, enc_kv: Tuple[torch.Tensor, torch.Tensor],
     k_pos = torch.arange(k.shape[1], device=x.device).expand(b, k.shape[1])
     out = _sdpa_dense(q, k, v, q_pos, k_pos, causal=False, window=None)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_attention_tp(p, x_rows, enc_out: torch.Tensor, cfg: ModelConfig,
+                       tp) -> torch.Tensor:
+    """:func:`cross_attention` under the tensor-parallel cut (``tp``, a
+    :class:`~repro_torch.sharding.tp.TPCut`): `x_rows` are this rank's
+    (b, s/tp, d) decoder rows and `enc_out` the whole encoder output
+    (b, enc_seq, d), every rank's the same. The rows are all-gathered;
+    the queries take the rank's heads, the keys and values the rank's
+    heads (or the KV heads they read) over the whole encoder output;
+    ``wo`` contracts the rank's heads and the partial sums are
+    reduce-scattered back to the rows (where the rules replicate the
+    heads, every head is computed and the rank takes its rows). Plain
+    attention, as in the reference."""
+    x = tp.gather_seq(x_rows)
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    pk, idx = _kv_block(p, cfg, tp)
+    k, v = encode_cross_kv(pk, enc_out, cfg)
+    if idx is not None:
+        k, v = k[:, :, idx], v[:, :, idx]
+    t = k.shape[1]
+    q_pos = torch.arange(s, device=x.device).expand(b, s)
+    k_pos = torch.arange(t, device=x.device).expand(b, t)
+    out = _sdpa_dense(q, k, v, q_pos, k_pos, causal=False, window=None)
+    return tp.leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp.heads)
 
 
 def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig

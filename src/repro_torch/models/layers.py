@@ -213,6 +213,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
                       eps).to(x.dtype)
 
 
+def rms_norm_split(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                   width: int, reduce) -> torch.Tensor:
+    """:func:`rms_norm` over a last dim split across ranks: `x` and
+    `weight` hold this rank's columns, `width` is the whole dim, and
+    `reduce` sums a tensor over the ranks (``TPCut.all_reduce``). The
+    float32 sum of squares of the rank's columns is summed over the
+    ranks and divided by the whole width, as GSPMD computes the mean
+    of a split dim with a partial sum."""
+    xf = x.float()
+    ss = reduce(torch.sum(xf * xf, dim=-1, keepdim=True))
+    return (xf * torch.rsqrt(ss / width + eps) * weight.float()).to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm (Whisper's, with bias) in f32, rounded once to x's dtype:

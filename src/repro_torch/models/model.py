@@ -141,14 +141,18 @@ class LanguageModel:
         return layers_from_specs(self.param_specs())
 
     # ------------------------------------------------------------- embeddings
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor, start: int = 0,
+               total: Optional[int] = None) -> torch.Tensor:
+        """The scaled embedding of `tokens`, rows ``start..start+s-1`` of
+        a sequence of `total` (default s) rows: a tensor-parallel rank
+        embeds its block of the rows."""
         # F.embedding: a gather whose backward is deterministic on the card
         x = torch.nn.functional.embedding(tokens, params["embed"])
         if self.cfg.family == "encdec":
             # rows 0..s-1 of the sinusoid: a decode step (s = 1) adds row 0
             # whatever its position, as the reference does
-            x = x + sinusoidal_embedding(tokens.shape[1], self.cfg.d_model,
-                                         x.device).to(x.dtype)[None]
+            x = x + _sinusoid_rows(start, tokens.shape[1], total,
+                                   self.cfg.d_model, x)
         # the scale is rounded to the activation dtype first, as in the JAX
         # package (11.3125 in bf16 at d_model 128)
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
@@ -162,26 +166,34 @@ class LanguageModel:
             logits = x @ params["lm_head"]
         return logits.float()
 
-    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params, frames: torch.Tensor, tp=None
+                ) -> torch.Tensor:
         """Whisper's encoder over stub frame embeddings (b, enc_seq,
         d_model): the projection plus the sinusoid, the encoder layers
         (block "attn" of this family: LayerNorm, causal roped
         self-attention through ``attn_impl``, as in the reference; not
         rematerialized) and the final LayerNorm. It runs in the wider of
         the frames' and the weights' dtypes, each product promoting its
-        weights as ``jnp.result_type`` would."""
+        weights as ``jnp.result_type`` would. With `tp` the encoder runs
+        under the cut on this rank's rows of the frames (and returns
+        those rows): the dense attention of ``layer_apply``'s cut."""
         cfg = self.cfg
+        t = frames.shape[1]
+        start, total, impl = 0, t, self.opt.attn_impl
+        if tp is not None:
+            frames, impl = tp.rows(frames), "dense"
+            start, t = tp.index * (t // tp.n), t // tp.n
         x = (promoted_einsum("bsd,de->bse", frames, params["audio_proj"])
-             + sinusoidal_embedding(frames.shape[1], cfg.d_model,
-                                    frames.device).to(frames.dtype)[None])
-        b, t, _ = x.shape
-        pos = torch.arange(t, device=x.device).expand(b, t)
+             + _sinusoid_rows(start, t, total, cfg.d_model, frames))
+        b = x.shape[0]
+        pos = (None if tp is not None
+               else torch.arange(t, device=x.device).expand(b, t))
         enc_cfg = self._enc_cfg()
         for p_l in params["encoder"]:
             p_l = tree_map(lambda w: w.to(torch.promote_types(w.dtype,
                                                               x.dtype)), p_l)
             x, _, _ = tfm.layer_apply(p_l, x, enc_cfg, "attn", pos, "train",
-                                      None, None, self.opt.attn_impl)
+                                      None, None, impl, tp=tp)
         return layer_norm(x, params["enc_norm"], params["enc_norm_b"],
                           cfg.norm_eps)
 
@@ -232,11 +244,12 @@ class LanguageModel:
         loss, as the reference does; the VLM's patch positions are not in
         the loss.
 
-        With `tp` (a :class:`~repro_torch.sharding.tp.TPCut`, the dense
-        family), `params` holds this rank's blocks with the embedding and
-        head whole (the train step gathers them over the vocab), `batch`
-        the model line's rows, and the result is the mean over this rank's
-        rows only: its sequence block (:meth:`_train_loss_tp`)."""
+        With `tp` (a :class:`~repro_torch.sharding.tp.TPCut`; every
+        family but moe), `params` holds this rank's blocks with the
+        embedding and head whole (the train step gathers them over the
+        vocab), `batch` the model line's rows, and the result is this
+        rank's share of the loss: the ranks' results times ``1/tp`` sum
+        to the mean (:meth:`_train_loss_tp`)."""
         if tp is not None:
             return self._train_loss_tp(params, batch, tp)
         x, _, aux = self._forward(params, batch, "train")
@@ -253,33 +266,81 @@ class LanguageModel:
         return loss if aux is None else loss + aux.to(loss.dtype)
 
     def _train_loss_tp(self, params, batch: Dict, tp) -> torch.Tensor:
-        """The tensor-parallel loss: this rank's tokens (its block of the
-        sequence, sequence parallelism between the blocks) are looked up
-        in the whole table, run through the stack's cut
+        """The tensor-parallel loss: this rank's block of the sequence
+        (sequence parallelism between the blocks) is embedded from the
+        whole table, run through the stack's cut
         (:func:`~repro_torch.models.transformer.stack_apply` with `tp`),
         and scored against the whole head (a tied head is the same
-        table), the logits never leaving the rank's rows."""
-        if self.cfg.family != "dense":
-            raise tfm._not_ported(
-                f"tensor-parallel training of the {self.cfg.family!r} "
-                f"family (ROADMAP.md, Queue 1 item 9.1)")
-        tokens, targets = tp.rows(batch["tokens"]), tp.rows(batch["targets"])
-        x = self._embed(params, tokens)
-        x, _, _ = tfm.stack_apply(params["layers"], x, self.cfg, None,
-                                  "train", None, None, "dense",
-                                  remat=self.opt.remat, tp=tp)
-        if not self.opt.fused_xent:
-            return self._xent(params, x, targets)
-        x = tfm._norm(params, x, self.cfg, "final_norm")
-        w = (params["embed"].t() if self.cfg.tie_embeddings
-             else params["lm_head"])
-        return linear_xent(x, w, targets)
+        table), the logits never leaving the rank's rows: the mean over
+        them, which is the rank's share of the mean over every row.
 
-    def _xent(self, params, x, targets) -> torch.Tensor:
-        """The unfused loss: log-softmax of the f32 logits."""
+        Whisper adds the sinusoid's rows of the rank's block, and runs
+        its encoder under the cut on the rank's rows of the frames; the
+        encoder's output is all-gathered once for the decoder's
+        cross-attention (the backward reduce-scatters). The VLM puts its
+        patches before the text first, so a rank's block may hold
+        patches, text or both; only the text rows are scored, their sum
+        over the rank divided by ``b * text / tp``, so that the ranks'
+        shares still make the JAX loss, the mean over the text."""
+        cfg = self.cfg
+        if cfg.family == "moe":
+            raise tfm._not_ported(
+                "tensor-parallel training of the 'moe' family (ROADMAP.md, "
+                "Queue 1 item 10: expert parallelism in training)")
+        tokens, targets = batch["tokens"], batch["targets"]
+        enc_out, denom = None, None
+        if cfg.family == "vlm":
+            x, targets, skip = self._vlm_rows(params, batch, tp)
+            denom = targets.shape[0] * tokens.shape[1] / tp.n
+        else:
+            tokens, targets = tp.rows(tokens), tp.rows(targets)
+            x = self._embed(params, tokens, tp.index * tokens.shape[1],
+                            batch["tokens"].shape[1])
+        if cfg.family == "encdec":
+            enc_out = tp.gather_seq(self._encode(params, batch["frames"], tp))
+        x, _, _ = tfm.stack_apply(params["layers"], x, cfg, None, "train",
+                                  None, None, "dense", remat=self.opt.remat,
+                                  enc_out=enc_out, tp=tp)
+        if cfg.family == "vlm":
+            x = x[:, skip:]
+        if not self.opt.fused_xent:
+            return self._xent(params, x, targets, denom)
+        x = tfm._norm(params, x, cfg, "final_norm")
+        w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+        return linear_xent(x, w, targets, denom)
+
+    def _vlm_rows(self, params, batch: Dict, tp
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """This rank's rows [lo, hi) of the VLM's sequence, the projected
+        patches then the text: (their embeddings, the targets of the text
+        rows, the number of patch rows before them). Either part may be
+        empty; it still takes part in the graph."""
+        n_p = self.cfg.num_vision_patches
+        tokens = batch["tokens"]
+        total = n_p + tokens.shape[1]
+        if total % tp.n:
+            raise ValueError(f"sequence {total} ({n_p} patches and the "
+                             f"text) does not divide over the {tp.n} ranks "
+                             f"of {tp.axis!r}")
+        rows = total // tp.n
+        lo, hi = tp.index * rows, (tp.index + 1) * rows
+        t0, t1 = max(lo, n_p) - n_p, max(hi, n_p) - n_p
+        x = self._embed(params, tokens[:, t0:t1])
+        patches = promoted_einsum("bsd,de->bse",
+                                  batch["patches"][:, lo:min(hi, n_p)],
+                                  params["vision_proj"])
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        return x, batch["targets"][:, t0:t1], patches.shape[1]
+
+    def _xent(self, params, x, targets, denom: Optional[float] = None
+              ) -> torch.Tensor:
+        """The unfused loss: log-softmax of the f32 logits; their mean, or
+        their sum over `denom`."""
         logp = torch.log_softmax(self._unembed(params, x), dim=-1)
         ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-        return -torch.mean(ll)
+        if denom is None:
+            return -torch.mean(ll)
+        return -torch.sum(ll) / denom
 
     def train_loss_streamed(self, pflat, batch: Dict, stream) -> torch.Tensor:
         """Streaming-ZeRO-3 train loss: `pflat` holds this rank's per-bucket
@@ -374,6 +435,16 @@ class LanguageModel:
 
     def init_caches(self, batch: int, max_len: int, device="cuda") -> PyTree:
         return init_from_specs(self.cache_specs(batch, max_len), 0, device)
+
+
+def _sinusoid_rows(start: int, rows: int, total: Optional[int], dim: int,
+                   like: torch.Tensor) -> torch.Tensor:
+    """Rows ``start..start+rows-1`` of the (total, dim) sinusoid (total
+    default ``rows``), in `like`'s dtype and on its device, with a
+    leading batch dim: the rows one rank of a sequence split adds."""
+    total = rows if total is None else total
+    emb = sinusoidal_embedding(total, dim, like.device)
+    return emb[start:start + rows].to(like.dtype)[None]
 
 
 # ------------------------------------------------------------------- factories

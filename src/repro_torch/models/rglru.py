@@ -9,6 +9,8 @@
 The linear recurrence runs through :mod:`repro_torch.kernels.lru_scan` (the
 CUDA kernel on the card, its plain version on the CPU); the one-token
 decode step stays plain PyTorch, as in the JAX package.
+:func:`rglru_train_tp` is the block under the tensor-parallel cut (the
+rank's block of the LRU width), which GSPMD derives in the JAX package.
 """
 from __future__ import annotations
 
@@ -50,9 +52,16 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 def _gates(p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(a, gated input), both float32."""
     xf = x.float()
-    r = torch.sigmoid(xf @ p["wr"].float() + p["br"])
-    i = torch.sigmoid(xf @ p["wi"].float() + p["bi"])
-    log_a = -_C * F.softplus(p["a_log"]) * r                  # (b,l,w)
+    return _gate_values(xf, xf @ p["wr"].float(), xf @ p["wi"].float(),
+                        p["br"], p["bi"], p["a_log"])
+
+
+def _gate_values(xf, r_pre, i_pre, br, bi, a_log
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, gated input) from the gates' products before their biases."""
+    r = torch.sigmoid(r_pre + br)
+    i = torch.sigmoid(i_pre + bi)
+    log_a = -_C * F.softplus(a_log) * r                       # (b,l,w)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
     return a, gated
@@ -91,6 +100,38 @@ def rglru_prefill(p, x: torch.Tensor, cfg: ModelConfig, impl: str = "auto"
     y = gate.float() * h.float()
     out = y.to(x.dtype) @ p["w_out"]
     return out, {"h": h_last, "conv": conv_tail(u, cfg.hybrid.conv_kernel)}
+
+
+def rglru_train_tp(p, x_rows: torch.Tensor, cfg: ModelConfig, tp
+                   ) -> torch.Tensor:
+    """The full-sequence block under the tensor-parallel cut (``tp``, a
+    :class:`~repro_torch.sharding.tp.TPCut`; JAX ``rglru.py:46-75`` under
+    GSPMD): `x_rows` are this rank's (b, l/tp, d) rows and `p` its blocks.
+    The rows are all-gathered; ``w_gate``, ``w_in`` and ``conv`` give the
+    rank's block of the LRU width. ``wr`` and ``wi`` are placed on their
+    input dim (``("lru", None)``), so the rank's product is a partial sum
+    over the whole width: it is reduce-scattered along the width, each
+    rank keeping its block of the gates' pre-activations (the backward
+    all-gathers). The replicated biases and ``a_log`` are cut to the
+    block, the scan (:func:`~repro_torch.kernels.lru_scan.ops.lru_scan`,
+    kernels forward and backward on the card) runs on the rank's (b, l,
+    w/tp) block, and ``w_out``'s rows leave through a reduce-scatter.
+    Where the rules replicate the width, the rank computes the whole
+    block and takes its rows."""
+    x = tp.gather_seq(x_rows)
+    gate = _gelu(x @ p["w_gate"])
+    u = _conv1d(x @ p["w_in"], p["conv"])
+    if tp.lru:
+        uf = u.float()
+        a, b = _gate_values(uf, tp.scatter_cols(uf @ p["wr"].float()),
+                            tp.scatter_cols(uf @ p["wi"].float()),
+                            tp.cols(p["br"]), tp.cols(p["bi"]),
+                            tp.cols(p["a_log"]))
+    else:
+        a, b = _gates(p, u)
+    h, _ = lru_ops.lru_scan(a, b)
+    y = gate.float() * h.float()
+    return tp.leave(y.to(x.dtype) @ p["w_out"], tp.lru)
 
 
 def rglru_cache_specs(cfg: ModelConfig, batch: int, dtype=torch.bfloat16):

@@ -5,7 +5,9 @@ Separate z/x/B/C/dt projections, as in the JAX package (its parameter
 tree is loaded unchanged). The SSD scan of a full sequence runs through
 :mod:`repro_torch.kernels.ssd_scan` (the CUDA kernel for the within-chunk
 terms on the card, the plain version on the CPU); the one-token decode
-step stays plain PyTorch, as in the JAX package.
+step stays plain PyTorch, as in the JAX package. :func:`ssm_train_tp` is
+the block under the tensor-parallel cut (the rank's ``d_inner`` columns
+and SSD heads), which GSPMD derives in the JAX package.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.models.layers import ParamSpec, conv_tail, rms_norm
+from repro_torch.models.layers import (ParamSpec, conv_tail, rms_norm,
+                                      rms_norm_split)
 
 
 def ssm_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
@@ -99,6 +102,46 @@ def ssm_prefill(p, u: torch.Tensor, cfg: ModelConfig, impl: str = "auto"
     cache = {"state": final, "conv_x": conv_tail(x, k),
              "conv_B": conv_tail(B, k), "conv_C": conv_tail(C, k)}
     return _out(p, y, xh, z, cfg), cache
+
+
+def ssm_train_tp(p, u_rows: torch.Tensor, cfg: ModelConfig, tp
+                 ) -> torch.Tensor:
+    """The full-sequence block under the tensor-parallel cut (``tp``, a
+    :class:`~repro_torch.sharding.tp.TPCut`; JAX ``ssm.py:75-95`` under
+    GSPMD): `u_rows` are this rank's (b, l/tp, d) rows and `p` its blocks.
+    The rows are all-gathered; ``wz``, ``wx`` and ``conv_x`` give the
+    rank's ``d_inner`` columns, ``wdt`` its heads, the replicated ``wB``
+    and ``wC`` the whole B and C; the SSD scan (:func:`~repro_torch.
+    kernels.ssd_scan.ops.ssd`, kernels forward and backward on the card)
+    runs on the rank's heads; the gated norm over the whole ``d_inner``
+    sums its square sums over the ranks; ``wo``'s rows leave through a
+    reduce-scatter. Where the rules place ``d_inner`` but replicate the
+    heads, the rank's columns are not whole heads: it gathers the conv's
+    output over the columns, scans every head and takes its columns of
+    the result. Where they replicate both, the rank computes the whole
+    block and takes its rows."""
+    s = cfg.ssm
+    u = tp.gather_seq(u_rows)
+    b, l, d = u.shape
+    z, x, B, C, dt, A = _project(p, u, cfg)
+    xc = _causal_depthwise_conv(x, p["conv_x"])
+    Bc = _causal_depthwise_conv(B, p["conv_B"])
+    Cc = _causal_depthwise_conv(C, p["conv_C"])
+    split = tp.inner and not tp.ssm_heads
+    if split:
+        xc = tp.gather_cols(xc)
+    xh = xc.reshape(b, l, -1, s.head_dim)
+    y, _ = ssd_ops.ssd(xh, dt, A, Bc, Cc, min(s.chunk_size, l))
+    y = (y + xh * p["D"][:, None].to(xh.dtype)).reshape(b, l, -1)
+    if split:
+        y = tp.cols(y)
+    y = y * F.silu(z)
+    if tp.inner:
+        y = rms_norm_split(y, p["norm"], cfg.norm_eps, s.d_inner(d),
+                           tp.all_reduce)
+    else:
+        y = rms_norm(y, p["norm"], cfg.norm_eps)
+    return tp.leave(y @ p["wo"], tp.inner)
 
 
 def ssm_apply(p, u: torch.Tensor, cfg: ModelConfig,

@@ -136,12 +136,15 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     aux), the cache updated in place, aux the block's f32 MoE aux loss
     (None for the other kinds).
 
-    `tp` (a :class:`~repro_torch.sharding.tp.TPCut`, "train" mode, kind
-    "attn"): `x` is this rank's rows and `p` its blocks. Each norm runs on
-    the rows; attention (:func:`~repro_torch.models.attention.
-    self_attention_tp`) and the MLP gather the rows over the "model"
-    axis, compute with the rank's heads or columns and reduce-scatter
-    back to the rows (or take them, where the rules replicate)."""
+    `tp` (a :class:`~repro_torch.sharding.tp.TPCut`, "train" mode, every
+    kind but "attn_moe"): `x` is this rank's rows and `p` its blocks.
+    Each norm runs on the rows; the mixers (:func:`~repro_torch.models.
+    attention.self_attention_tp`, :func:`~repro_torch.models.attention.
+    cross_attention_tp` over the whole `enc_out`, :func:`~repro_torch.
+    models.ssm.ssm_train_tp`, :func:`~repro_torch.models.rglru.
+    rglru_train_tp`) and the MLP gather the rows over the "model" axis,
+    compute with the rank's heads or columns and reduce-scatter back to
+    the rows (or take them, where the rules replicate)."""
     if kind not in PORTED_KINDS:
         raise _not_ported(f"block kind {kind!r}")
     if mode not in ("train", "prefill", "decode"):
@@ -149,13 +152,10 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     aux = None
     h = _norm(p, x, cfg, "norm1")
     if tp is not None:
-        if kind != "attn" or mode != "train":
+        if kind == "attn_moe" or mode != "train":
             raise _not_ported(f"tensor-parallel {mode} of block kind "
                               f"{kind!r}")
-        window = cfg.sliding_window
-        x = x + attn.self_attention_tp(p["attn"], h, cfg, tp, window)
-        h = tp.gather_seq(_norm(p, x, cfg, "norm2"))
-        return x + tp.leave(mlp_apply(p["mlp"], h), tp.mlp), cache, aux
+        return _layer_tp(p, x, h, cfg, kind, tp, enc_out), cache, aux
     if kind in ("ssm", "rglru"):
         y, cache = _recurrent(p, h, cfg, kind, mode, cache)
         x = x + y
@@ -191,6 +191,24 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
         y, aux = moe_mod.moe_apply(p["moe"], h, cfg, mesh)
         return x + y, cache, aux
     return x + mlp_apply(p["mlp"], h), cache, aux
+
+
+def _layer_tp(p, x, h, cfg: ModelConfig, kind: str, tp, enc_out):
+    """A block's train forward under the tensor-parallel cut: `x` its
+    input rows and `h` their first norm."""
+    if kind == "ssm":
+        return x + ssm_mod.ssm_train_tp(p["ssm"], h, cfg, tp)
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_train_tp(p["rglru"], h, cfg, tp)
+    else:
+        window = (cfg.hybrid.local_window if kind == "local_attn"
+                  else cfg.sliding_window)
+        x = x + attn.self_attention_tp(p["attn"], h, cfg, tp, window)
+    if kind == "decoder":
+        h = _norm(p, x, cfg, "norm_cross")
+        x = x + attn.cross_attention_tp(p["cross"], h, enc_out, cfg, tp)
+    h = tp.gather_seq(_norm(p, x, cfg, "norm2"))
+    return x + tp.leave(mlp_apply(p["mlp"], h), tp.mlp)
 
 
 def _recurrent(p, h, cfg: ModelConfig, kind: str, mode: str, cache):

@@ -21,6 +21,8 @@ tensor cores.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -35,13 +37,16 @@ def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class _LinearXent(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, targets):
+    def forward(ctx, x, w, targets, denom):
         with torch.profiler.record_function("linear_xent"):
             logits = _logits(x, w)
             lse = torch.logsumexp(logits, dim=-1)                  # (b, s)
             ll = torch.gather(logits, -1, targets[..., None])[..., 0]
             ctx.save_for_backward(x, w, targets, lse)
-            return torch.mean(lse - ll)
+            ctx.denom = denom
+            if denom is None:
+                return torch.mean(lse - ll)
+            return torch.sum(lse - ll) / denom
 
     @staticmethod
     def backward(ctx, g):
@@ -51,7 +56,7 @@ class _LinearXent(torch.autograd.Function):
 
 def _backward(ctx, g):
     x, w, targets, lse = ctx.saved_tensors
-    n = targets.numel()
+    n = targets.numel() if ctx.denom is None else ctx.denom
     p = _logits(x, w).sub_(lse[..., None]).exp_()                  # recompute
     iota = torch.arange(p.shape[-1], device=p.device)
     # where(iota == t, p - 1, p), in place (the mask read as 0/1 bytes;
@@ -63,14 +68,16 @@ def _backward(ctx, g):
         dx = torch.einsum("bsv,dv->bsd", dlogits, w)
     if ctx.needs_input_grad[1]:
         dw = torch.einsum("bsd,bsv->dv", x, dlogits).to(w.dtype)
-    return dx, dw, None
+    return dx, dw, None, None
 
 
-def linear_xent(x: torch.Tensor, w: torch.Tensor,
-                targets: torch.Tensor) -> torch.Tensor:
+def linear_xent(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+                denom: Optional[float] = None) -> torch.Tensor:
     """x: (b, s, d) activations; w: (d, V); targets: (b, s) int64.
-    Returns the mean cross-entropy over all positions (0-d float32)."""
-    return _LinearXent.apply(x, w, targets)
+    Returns the mean cross-entropy over all positions (0-d float32), or,
+    given `denom`, their sum divided by it (a rank's share of a mean over
+    positions that other ranks hold too; s may then be 0)."""
+    return _LinearXent.apply(x, w, targets, denom)
 
 
 def xent_ref(x: torch.Tensor, w: torch.Tensor,

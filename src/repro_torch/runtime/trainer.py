@@ -16,7 +16,7 @@ moments are this rank's shards of bucket-wise flat buffers
 (``core/overlap.py``'s ``FsdpLayout``), gathered and reduce-scattered by
 the step (``launch/steps.py``'s ``make_fsdp_train_step``); checkpoints hold
 the global flat buffers under the JAX package's keys. On a mesh with a
-"model" axis of more than one rank (the dense family) each rank holds its
+"model" axis of more than one rank (every family but moe) each rank holds its
 blocks of the parameters and moments under ``rules_for("train")``
 (``launch/steps.py``'s ``TPPlan``), every rank of a model line trains on
 the same rows (its DP replica's), and checkpoints hold the global arrays

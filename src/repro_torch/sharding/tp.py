@@ -1,4 +1,4 @@
-"""Tensor-parallel collectives of the training step, and the cut of a dense
+"""Tensor-parallel collectives of the training step, and the cut of a
 model that uses them.
 
 This module has no file to mirror: in the JAX package GSPMD inserts these
@@ -11,6 +11,9 @@ are written out, the Megatron cut with sequence parallelism, as
   :func:`reduce_scatter`  reduce-scatter along a dim; backward all-gather
   :func:`grad_all_reduce` identity; backward all-reduce (a leaf replicated
                           over ranks that compute on different tokens)
+  :func:`all_reduce`      sum over the ranks; backward sum (a statistic
+                          every rank reads whole, e.g. a norm's square sum
+                          over a split width)
   :func:`take_rows`       this rank's block of a dim; backward pads with
                           zeros (a narrow)
 
@@ -19,12 +22,13 @@ the SUM of the ranks' losses, each rank's over its own tokens. Blocks are
 ordered along a dim as GSPMD orders them: the placed axes of one dim taken
 row-major in the order the spec names them (:func:`block_order`).
 
-:class:`TPCut` is the cut of a dense block under ``DEFAULT_RULES``: between
-blocks each rank holds its (b, s/tp, d) rows; attention and the MLP
-all-gather them over the "model" axis, compute with the rank's heads or
-``d_ff`` columns, and leave through a reduce-scatter back to the rows. A
-block whose heads (or columns) the rules replicate computes every head and
-leaves through :func:`take_rows`: a reduce-scatter would count it tp times.
+:class:`TPCut` is the cut of a block under ``DEFAULT_RULES``: between
+blocks each rank holds its (b, s/tp, d) rows; attention, the MLP and the
+recurrent mixers all-gather them over the "model" axis, compute with the
+rank's heads or columns (``d_ff``, Mamba-2's ``d_inner``, the RG-LRU's
+width) and leave through a reduce-scatter back to the rows. A block whose
+heads (or columns) the rules replicate computes every head and leaves
+through :func:`take_rows`: a reduce-scatter would count it tp times.
 """
 from __future__ import annotations
 
@@ -127,9 +131,26 @@ class _GradAllReduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _summed(g, ctx.group), None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    """A contiguous copy of `x` summed over `group` (NCCL refuses a
+    strided tensor, such as a gradient that reaches a leaf transposed)."""
+    x = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def all_gather(x: torch.Tensor, dim: int, mesh, axes: Sequence[str]
@@ -161,6 +182,15 @@ def grad_all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]
     return _GradAllReduce.apply(x, group)
 
 
+def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The sum of `x` over the ranks of `axes`; every rank's loss reads
+    the sum, so the backward sums the gradient over them too."""
+    group = mesh.axes_group(tuple(axes))
+    if group is None:
+        return x
+    return _AllReduce.apply(x, group)
+
+
 def take_rows(x: torch.Tensor, dim: int, n: int, index: int
               ) -> torch.Tensor:
     """Block `index` of `n` along `dim`; the backward pads with zeros."""
@@ -168,13 +198,16 @@ def take_rows(x: torch.Tensor, dim: int, n: int, index: int
     return x.narrow(dim, index * size, size)
 
 
-# ------------------------------------------------------------ the dense cut
+# ------------------------------------------------------------------ the cut
 @dataclass
 class TPCut:
-    """The tensor-parallel cut of a dense model's blocks on one mesh: its
-    "model" axis (`axis`, `n` ranks, this rank at `index`), and whether
-    the rules shard the query heads, the KV heads and the MLP columns over
-    it (each False where they replicate that dim, and the block follows)."""
+    """The tensor-parallel cut of a model's blocks on one mesh: its
+    "model" axis (`axis`, `n` ranks, this rank at `index`), and whether the
+    rules shard over it the query heads, the KV heads and the MLP columns
+    (``d_ff``), Mamba-2's ``d_inner`` columns (`inner`) and SSD heads
+    (`ssm_heads`), and the RG-LRU's width (`lru`); each False where they
+    replicate that dim, and the block follows. Whisper's encoder layers
+    have the decoder's head counts and ``d_ff``, so one cut serves both."""
 
     mesh: object
     axis: str
@@ -183,6 +216,9 @@ class TPCut:
     heads: bool
     kv_heads: bool
     mlp: bool
+    inner: bool = False
+    ssm_heads: bool = False
+    lru: bool = False
 
     @classmethod
     def for_model(cls, cfg, mesh, ctx: ShardingContext,
@@ -195,13 +231,22 @@ class TPCut:
             return e == axis or (isinstance(e, tuple) and axis in e)
 
         d = cfg.d_model
+        extra = {}
+        if cfg.ssm is not None:
+            extra.update(
+                inner=placed((d, cfg.ssm.d_inner(d)), ("embed", "mlp"), 1),
+                ssm_heads=placed((d, cfg.ssm.num_heads(d)),
+                                 ("embed", "heads"), 1))
+        if cfg.hybrid is not None:
+            extra["lru"] = placed((d, cfg.hybrid.lru_width or d),
+                                  ("embed", "lru"), 1)
         return cls(mesh, axis, mesh.shape[axis],
                    mesh.coords[mesh.axis_index(axis)],
                    heads=placed((d, cfg.num_heads, hd),
                                 ("embed", "heads", "head_dim"), 1),
                    kv_heads=placed((d, cfg.num_kv_heads, hd),
                                    ("embed", "kv_heads", "head_dim"), 1),
-                   mlp=placed((d, cfg.d_ff), ("embed", "mlp"), 1))
+                   mlp=placed((d, cfg.d_ff), ("embed", "mlp"), 1), **extra)
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows (dim 1, the sequence) of a (b, s, ...) tensor
@@ -213,6 +258,25 @@ class TPCut:
 
     def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
         return all_gather(x, 1, self.mesh, (self.axis,))
+
+    def gather_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of the last dim, gathered."""
+        return all_gather(x, x.dim() - 1, self.mesh, (self.axis,))
+
+    def scatter_cols(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the last dim of the sum of `y` over the
+        ranks (partial sums over the rank's rows of a weight placed on
+        its input dim)."""
+        return reduce_scatter(y, y.dim() - 1, self.mesh, (self.axis,))
+
+    def cols(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the last dim of a tensor every rank holds
+        whole (a replicated vector, or a complete output); the backward
+        pads with zeros."""
+        return take_rows(x, x.dim() - 1, self.n, self.index)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce(x, self.mesh, (self.axis,))
 
     def leave(self, y: torch.Tensor, sharded: bool) -> torch.Tensor:
         """A block's output over the whole sequence back to this rank's

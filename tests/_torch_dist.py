@@ -34,10 +34,12 @@ parent wrote (:func:`run_tp_train`), one naming ``tp_elastic`` restores a
 TP trainer's checkpoint onto other meshes and trains on
 (:func:`run_tp_elastic`), and one naming ``tp_train_full`` trains a model
 at its published widths tensor-parallel, timed and traced
-(:func:`run_tp_train_full`).
+(:func:`run_tp_train_full`). One naming ``tp_units`` runs the TP cut's
+building blocks against the same math on one rank (:func:`run_tp_units`).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -902,38 +904,64 @@ def run_zero3_full(spec, device):
 
 
 # ------------------------------------------------ tensor-parallel training
-def tp_run(spec, case, ckpt_dir):
-    """(RunConfig, ModelOptions) of a TP-training case: the reduced `arch`
-    (its vocab replaced by ``case["vocab"]`` where given), float32,
-    ``case["scan"]`` layers, ``case["accum"]`` microbatches, remat
-    ``case["remat"]`` (default "none"), the unfused loss where
-    ``case["unfused"]``, restoring from `ckpt_dir`."""
+CASE_OVERRIDES = ("vocab", "heads", "ssm_head_dim", "ssm_expand")
+
+
+def case_cfg(cfg, case):
+    """`cfg`, a reduced config of either package, with a TP case's
+    overrides: ``vocab`` (the vocab size), ``heads`` (the query heads),
+    ``ssm_head_dim`` and ``ssm_expand`` (Mamba-2's head dim and
+    ``d_inner / d_model``, so its head count)."""
     import dataclasses
 
+    kw, ssm = {}, {}
+    if case.get("vocab"):
+        kw["vocab_size"] = case["vocab"]
+    if case.get("heads"):
+        kw["num_heads"] = case["heads"]
+    if case.get("ssm_head_dim"):
+        ssm["head_dim"] = case["ssm_head_dim"]
+    if case.get("ssm_expand"):
+        ssm["expand"] = case["ssm_expand"]
+    if ssm:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, **ssm)
+    return dataclasses.replace(cfg, **kw)
+
+
+def tp_run(spec, case, ckpt_dir):
+    """(RunConfig, ModelOptions) of a TP-training case: the reduced `arch`
+    with the case's overrides (:func:`case_cfg`), float32,
+    ``case["scan"]`` layers, ``case["accum"]`` microbatches, remat
+    ``case["remat"]`` (default "none"), the unfused loss where
+    ``case["unfused"]``, ``case["seq"]`` tokens a row where given (else
+    the spec's), restoring from `ckpt_dir`."""
     from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
     from repro_torch.config.registry import get_arch
     from repro_torch.models.model import ModelOptions
 
-    cfg = get_arch(case["arch"]).reduced()
-    if case.get("vocab"):
-        cfg = dataclasses.replace(cfg, vocab_size=case["vocab"])
+    cfg = case_cfg(get_arch(case["arch"]).reduced(), case)
     run = RunConfig(
         model=cfg,
         parallel=ParallelConfig(accum_steps=case["accum"],
                                 remat=case.get("remat", "none"),
                                 scan_layers=case["scan"]),
         train=TrainConfig(global_batch=spec["global_batch"],
-                          seq_len=spec["seq_len"], lr=spec["lr"],
+                          seq_len=case.get("seq", spec["seq_len"]),
+                          lr=spec["lr"],
                           warmup_steps=2, total_steps=spec["total_steps"],
                           checkpoint_every=10 ** 6, seed=3,
                           checkpoint_dir=str(ckpt_dir)))
     return run, ModelOptions(dtype=torch.float32, scan_layers=case["scan"],
+                             remat=run.parallel.remat,
                              fused_xent=not case.get("unfused"))
 
 
 def tp_init_key(case) -> str:
     """The name of a case's initial checkpoint (one per parameter tree)."""
-    return f"{case['arch']}-v{case.get('vocab') or 0}-s{int(case['scan'])}"
+    more = "".join(f"-{k}{case[k]}" for k in CASE_OVERRIDES[1:]
+                   if case.get(k))
+    return (f"{case['arch']}-v{case.get('vocab') or 0}-s{int(case['scan'])}"
+            + more)
 
 
 def flat(tree) -> np.ndarray:
@@ -961,7 +989,8 @@ def _blocks_index(t) -> np.ndarray:
 def run_tp_train(spec, workdir, device):
     """Each TP case: a Trainer on the job's mesh restored from its initial
     checkpoint (``<workdir>/init_<key>``, step 0), its blocks as restored
-    and their index ranges, ``spec["steps"]`` steps, then its losses,
+    and their index ranges, ``spec["steps"]`` steps (the scans counted,
+    :func:`scans_counted`), then its losses,
     grad norms and full parameters (unsharded on every rank). A case with
     ``save`` trains from a private copy of the checkpoint and saves its
     state there at the end (``<workdir>/ck_<tag>``). ``spec["seed"]``
@@ -981,7 +1010,10 @@ def run_tp_train(spec, workdir, device):
         assert t.restore_if_available() and t.step == 0
         out[f"{tag}_blocks0"] = flat(t.params)
         out[f"{tag}_index"] = _blocks_index(t)
-        t.train(spec["steps"])
+        with scans_counted() as counts:
+            t.train(spec["steps"])
+        out[f"{tag}_launches"] = np.array(counts["launches"])
+        out[f"{tag}_plain_calls"] = np.array(counts["plain"])
         for key in ("loss", "grad_norm", "lr"):
             out[f"{tag}_{key}"] = np.array([m[key] for m in t.metrics_log])
         out[f"{tag}_params"] = flat(t.full_params())
@@ -1029,12 +1061,124 @@ def run_tp_elastic(spec, workdir, device):
     return out
 
 
+def run_tp_units(spec, device):
+    """The TP cut's building blocks on each ("data", "model") mesh of
+    ``spec["meshes"]``, forward and backward, against the same math on
+    one rank (computed here, without collectives): ``<tag>_<unit>_got``
+    and ``..._want`` for the autograd all-reduce, the width-block narrow
+    (``TPCut.cols``), the grouped RMS norm, the RG-LRU gates'
+    reduce-scatter, and the all-reduces' backward on a strided gradient
+    (contiguous at every ``dist.all_reduce``). Inputs every rank holds whole are drawn from one
+    seed; each rank's own inputs from the seed plus its rank. The
+    gradients of a whole input are summed over the model line, as the
+    train step sums them (the loss is the sum of the ranks' losses)."""
+    from repro_torch.models.layers import rms_norm, rms_norm_split
+    from repro_torch.sharding.tp import TPCut, all_reduce, grad_all_reduce
+
+    def draw(seed, *shape):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn(shape, generator=g)
+
+    out = {}
+    for shape in spec["meshes"]:
+        tag = "m" + "x".join(map(str, shape))
+        mesh = make_mesh(tuple(shape), ("data", "model"), device)
+        n, i = shape[1], mesh.coords[1]
+        line = [mesh.coords[0] * n + k for k in range(n)]
+        cut = TPCut(mesh, "model", n, i, heads=True, kv_heads=True,
+                    mlp=True, inner=True, ssm_heads=True, lru=True)
+        w = 6 * n
+        blk = slice(i * 6, (i + 1) * 6)
+
+        def line_sum(t):
+            return all_reduce(t, mesh, ("model",)).detach()
+
+        # the autograd all-reduce: sum forward, sum backward
+        x = draw(10 + mesh.rank, 3, 4).requires_grad_()
+        y = cut.all_reduce(x)
+        (y * draw(20 + mesh.rank, 3, 4)).sum().backward()
+        out[f"{tag}_allreduce_got"] = torch.cat(
+            [y.detach().reshape(-1), x.grad.reshape(-1)]).numpy()
+        want = [sum(draw(10 + r, 3, 4) for r in line),
+                sum(draw(20 + r, 3, 4) for r in line)]
+        out[f"{tag}_allreduce_want"] = torch.cat(
+            [t.reshape(-1) for t in want]).numpy()
+
+        # the width-block narrow: the rank's block; the backward pads zeros
+        v = draw(30, w).requires_grad_()
+        b = cut.cols(v)
+        g = draw(40 + mesh.rank, 6)
+        (b * g).sum().backward()
+        pad = torch.zeros(w)
+        pad[blk] = g
+        out[f"{tag}_cols_got"] = torch.cat([b.detach(), v.grad]).numpy()
+        out[f"{tag}_cols_want"] = torch.cat([v.detach()[blk], pad]).numpy()
+
+        # the grouped RMS norm over the split width
+        X, wt, G = (draw(50, 2, 5, w).requires_grad_(),
+                    draw(51, w).requires_grad_(), draw(52, 2, 5, w))
+        y = rms_norm_split(cut.cols(X), cut.cols(wt), 1e-6, w,
+                           cut.all_reduce)
+        (y * cut.cols(G)).sum().backward()
+        got = [y.detach(), line_sum(X.grad), line_sum(wt.grad)]
+        X2, wt2 = (t.detach().clone().requires_grad_() for t in (X, wt))
+        y2 = rms_norm(X2, wt2, 1e-6)
+        (y2 * G).sum().backward()
+        want = [y2.detach()[..., blk], X2.grad, wt2.grad]
+        out[f"{tag}_norm_got"] = torch.cat(
+            [t.reshape(-1) for t in got]).numpy()
+        out[f"{tag}_norm_want"] = torch.cat(
+            [t.reshape(-1) for t in want]).numpy()
+
+        # the RG-LRU gates: the rank's rows of wr (placed ("lru", None))
+        # give a partial sum over the width, reduce-scattered to its block
+        U, wr, G = (draw(60, 2, 5, w).requires_grad_(), draw(61, w, w),
+                    draw(62, 2, 5, w))
+        wr_blk = wr[blk].clone().requires_grad_()
+        r = cut.scatter_cols(cut.cols(U) @ wr_blk)
+        (r * cut.cols(G)).sum().backward()
+        got = [r.detach(), line_sum(U.grad), wr_blk.grad]
+        U2, wr2 = (t.detach().clone().requires_grad_() for t in (U, wr))
+        r2 = U2 @ wr2
+        (r2 * G).sum().backward()
+        want = [r2.detach()[..., blk], U2.grad, wr2.grad[blk]]
+        out[f"{tag}_gates_got"] = torch.cat(
+            [t.reshape(-1) for t in got]).numpy()
+        out[f"{tag}_gates_want"] = torch.cat(
+            [t.reshape(-1) for t in want]).numpy()
+
+        # a gradient that reaches the all-reduces strided (here through a
+        # transpose) is summed from a contiguous copy: NCCL refuses a
+        # strided tensor, gloo takes it, so the calls are checked here
+        contiguous = []
+
+        def checked(t, *a, **k):
+            contiguous.append(float(t.is_contiguous()))
+            return reduce_all(t, *a, **k)
+
+        reduce_all, dist.all_reduce = dist.all_reduce, checked
+        try:
+            z1, z2 = (draw(70 + k, 6, 4).requires_grad_() for k in (0, 1))
+            G = draw(80 + mesh.rank, 4, 6)
+            ((grad_all_reduce(z1, mesh, ("model",)).t() * G).sum()
+             + (cut.all_reduce(z2).t() * G).sum()).backward()
+        finally:
+            dist.all_reduce = reduce_all
+        want_g = sum(draw(80 + r, 4, 6) for r in line).t()
+        out[f"{tag}_strided_got"] = np.concatenate(
+            [z1.grad.reshape(-1).numpy(), z2.grad.reshape(-1).numpy(),
+             contiguous])
+        out[f"{tag}_strided_want"] = np.concatenate(
+            [want_g.reshape(-1).numpy()] * 2 + [np.ones(3)])
+    return out
+
+
 def tp_full_run(spec, workdir):
     """(RunConfig, ModelOptions) of the full-width TP job: ``spec["arch"]``
     at its published widths (reduced where ``spec["reduced"]``, for a
-    rehearsal), bf16 (float32 where ``spec["f32"]``), unrolled, remat
-    "full", AdamW, ``spec["global_batch"]`` x ``spec["seq_len"]`` tokens a
-    step, data seed 3."""
+    rehearsal), bf16 (float32 where ``spec["f32"]``), unrolled (scanned
+    where ``spec["scan"]``), remat "full", AdamW, ``spec["global_batch"]``
+    x ``spec["seq_len"]`` tokens a step, data seed 3."""
     from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
     from repro_torch.config.registry import get_arch
     from repro_torch.models.model import ModelOptions
@@ -1043,15 +1187,16 @@ def tp_full_run(spec, workdir):
     if spec.get("reduced"):
         cfg = cfg.reduced()
     steps = spec["steps"] + 1
+    scan = bool(spec.get("scan"))
     run = RunConfig(
-        model=cfg, parallel=ParallelConfig(remat="full", scan_layers=False),
+        model=cfg, parallel=ParallelConfig(remat="full", scan_layers=scan),
         train=TrainConfig(global_batch=spec["global_batch"],
                           seq_len=spec["seq_len"], lr=spec["lr"],
                           warmup_steps=max(1, steps // 10),
                           total_steps=steps, checkpoint_every=10 ** 9,
                           seed=3, checkpoint_dir=str(workdir / "ck")))
     dtype = torch.float32 if spec.get("f32") else torch.bfloat16
-    return run, ModelOptions(dtype=dtype, scan_layers=False, remat="full")
+    return run, ModelOptions(dtype=dtype, scan_layers=scan, remat="full")
 
 
 def tp_full_reference(spec, device, rows: int = 2) -> dict:
@@ -1070,14 +1215,21 @@ def tp_full_reference(spec, device, rows: int = 2) -> dict:
     batch = SyntheticLMDataset(cfg.vocab_size, run.train.seq_len,
                                run.train.global_batch,
                                seed=run.train.seed).batch_at(0)
+    b = run.train.global_batch
+    if cfg.family == "encdec":      # the trainer's frontend stubs
+        batch["frames"] = np.full((b, cfg.encdec.enc_seq, cfg.d_model),
+                                  0.02, np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = np.full((b, cfg.num_vision_patches, cfg.d_model),
+                                   0.02, np.float32)
 
     def loss(model, params) -> float:
         parts = []
         with torch.no_grad():
             for i in range(0, run.train.global_batch, rows):
-                mb = {k: torch.from_numpy(v[i:i + rows]).to(device,
-                                                            torch.int64)
-                      for k, v in batch.items()}
+                mb = {k: torch.from_numpy(v[i:i + rows]).to(
+                          device, torch.int64 if v.dtype.kind in "iu"
+                          else None) for k, v in batch.items()}
                 parts.append(model.train_loss(params, mb).double())
         return float(torch.stack(parts).mean())
 
@@ -1092,14 +1244,17 @@ def tp_full_reference(spec, device, rows: int = 2) -> dict:
 
 def run_tp_train_full(spec, workdir, device):
     """TP training of ``tp_full_run``'s model on each ("data", "model")
-    mesh of ``spec["meshes"]`` in turn, one trainer at a time: init from
+    mesh of ``spec["meshes"]`` in turn (results keyed ``<prefix>m<mesh>``,
+    ``spec["prefix"]`` default ""), one trainer at a time: init from
     seed 0 (leaf by leaf, each rank keeping its blocks), ``spec["steps"]``
     steps (the first a warm-up) with the host clock around each
     (synchronised), then, with ``spec["trace"]``, one more step traced on
     every rank (torch.profiler; the NCCL time no compute kernel
-    overlaps). For each mesh: losses, grad norms, step times, and on a
-    card the bytes allocated at rest (params and moments) against the sum
-    of this rank's blocks, and the peak."""
+    overlaps). For each mesh: losses, grad norms, step times, the scans'
+    kernel launches over the timed steps and the calls of their plain
+    versions (:func:`scans_counted`), and on a card the bytes allocated at rest
+    (params and moments) against the sum of this rank's blocks, and the
+    peak."""
     import gc
 
     from repro_torch.runtime.trainer import Trainer
@@ -1111,7 +1266,7 @@ def run_tp_train_full(spec, workdir, device):
 
     out = {}
     for shape in spec["meshes"]:
-        tag = "m" + "x".join(map(str, shape))
+        tag = spec.get("prefix", "") + "m" + "x".join(map(str, shape))
         mesh = make_mesh(tuple(shape), ("data", "model"), device)
         if cuda:
             torch.cuda.synchronize(device)
@@ -1129,14 +1284,17 @@ def run_tp_train_full(spec, workdir, device):
             x.numel() * x.element_size() for x in tree_leaves(
                 {"p": t.params, "o": t.opt_state})))
         times = []
-        for _ in range(spec["steps"]):
-            if cuda:
-                torch.cuda.synchronize(device)
-            ts = time.perf_counter()
-            t.train(1)
-            if cuda:
-                torch.cuda.synchronize(device)
-            times.append(time.perf_counter() - ts)
+        with scans_counted() as counts:
+            for _ in range(spec["steps"]):
+                if cuda:
+                    torch.cuda.synchronize(device)
+                ts = time.perf_counter()
+                t.train(1)
+                if cuda:
+                    torch.cuda.synchronize(device)
+                times.append(time.perf_counter() - ts)
+        out[f"{tag}_launches"] = np.array(counts["launches"])
+        out[f"{tag}_plain_calls"] = np.array(counts["plain"])
         out[f"{tag}_peak_bytes"] = np.array(
             torch.cuda.max_memory_allocated(device) - base if cuda else 0)
         if spec.get("trace"):
@@ -1158,6 +1316,50 @@ def run_tp_train_full(spec, workdir, device):
         if cuda:
             torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def plain_scans_counted():
+    """While entered, counts the calls of the scans' plain versions (the
+    LRU scan and the SSD chunk terms): a training path on a card must
+    make none."""
+    from repro_torch.kernels.lru_scan import ref as lru_ref
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    calls = {"lru_scan_ref": 0, "ssd_chunk_terms": 0}
+    saved = [(mod, name, getattr(mod, name))
+             for mod, name in ((lru_ref, "lru_scan_ref"),
+                               (ssd_ref, "ssd_chunk_terms"))]
+    for mod, name, fn in saved:
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def scans_counted():
+    """While entered, the scans' wrapper counts start from 0 and the
+    plain versions' calls are counted; on leaving, ``["launches"]`` holds
+    [ssd_scan, ssd_chunk_bwd, lru_scan, lru_scan_bwd] launches and
+    ``["plain"]`` [lru_scan_ref, ssd_chunk_terms] calls."""
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    wrappers = (ssd_ops.ssd, lru_ops.lru_scan)
+    for w in wrappers:
+        w.launches = w.bwd_launches = 0
+    counts = {}
+    with plain_scans_counted() as plain:
+        yield counts
+    counts["launches"] = [n for w in wrappers
+                          for n in (w.launches, w.bwd_launches)]
+    counts["plain"] = [plain["lru_scan_ref"], plain["ssd_chunk_terms"]]
 
 
 def _bucket(key: str) -> int:
@@ -1214,10 +1416,14 @@ def run(job, u0, device, workdir=None):
         out.update(run_gradsync(job["gradsync"], device))
     if "train" in job:
         out.update(run_train(job["train"], workdir, device))
+    if "tp_units" in job:
+        out.update(run_tp_units(job["tp_units"], device))
     if "tp_train" in job:
         out.update(run_tp_train(job["tp_train"], workdir, device))
     if "tp_train_full" in job:
-        out.update(run_tp_train_full(job["tp_train_full"], workdir, device))
+        specs = job["tp_train_full"]
+        for spec in specs if isinstance(specs, list) else [specs]:
+            out.update(run_tp_train_full(spec, workdir, device))
     if "tp_elastic" in job:
         out.update(run_tp_elastic(job["tp_elastic"], workdir, device))
     if "iters" not in job:

@@ -8,7 +8,11 @@ all-reduce, MoE expert parallelism, the data-parallel and the ZeRO-3
 trainer, the TP rings and the TP decode step; Qwen3-8B at full width
 trained under streaming ZeRO-3 over 4 cards, trained tensor-parallel on
 (1, 4) and (2, 2) ("data", "model") meshes, and served through the TP
-decode step over 4 cards. Marked ``gpu``;
+decode step over 4 cards; the reduced Mamba-2, RecurrentGemma, Whisper
+and LLaVA trained tensor-parallel on (2, 2) against one card, and
+Mamba-2 780M and RecurrentGemma-2B (and Whisper-base) at full width on
+4 cards, the scans' kernels on each rank's blocks (their rank-local
+shapes checked on one card too). Marked ``gpu``;
 without a card every test here skips. Imports no jax, so it runs where the
 JAX package is not installed:
 
@@ -665,6 +669,284 @@ def test_nccl_4_tp_trains_qwen3_8b_full_width(cuda, tmp_path):
                                   ("nccl_ms", "compute_ms",
                                    "nccl_exposed_ms")},
         }))
+
+
+def _adam_params_close(got, one, rtol=1e-4):
+    """A flattened parameter vector against a one-card Trainer's tree:
+    within `rtol` of each leaf's largest entry, except where the one
+    card's AdamW second moment is below (1e3 * eps)^2, where an entry may
+    differ by up to the summed learning rates (the rule of
+    test_recurrent_trained_on_card_equals_cpu)."""
+    from repro_torch.models.layers import tree_leaves
+
+    eps, lr_sum = one.opt_cfg.eps, sum(m["lr"] for m in one.metrics_log)
+    off = 0
+    for p, v in zip(tree_leaves(one.params), tree_leaves(one.opt_state["v"])):
+        n = p.numel()
+        a = got[off:off + n]
+        b = p.detach().float().reshape(-1).cpu().numpy()
+        v = v.detach().reshape(-1).cpu().numpy()
+        tiny = (v > 0) & (v < (1e3 * eps) ** 2)
+        np.testing.assert_allclose(a[~tiny], b[~tiny], rtol=rtol,
+                                   atol=rtol * np.abs(b).max())
+        assert (np.abs(a[tiny] - b[tiny]) <= lr_sum).all()
+        off += n
+    assert off == len(got)
+
+
+def _unrolled_init(cfg, opts):
+    """The port's seed-0 parameters drawn unrolled (each layer's leaves
+    with their own fan-in), in `opts`' layout: a scanned draw takes fan_in
+    = the layer count (ROADMAP.md Queue 3), whose large weights amplify
+    the TP run's other rounding order to ~1e-4 in the third step's grad
+    norm (reduced Mamba-2 on the card: 10.28712 against 10.28891), as the
+    gloo tests found for the dense family."""
+    import dataclasses
+
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.layers import leaf_paths, rebuild, tree_leaves
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, dataclasses.replace(opts, scan_layers=False))
+    specs = model.param_specs()
+    arrays = {p: t.detach().numpy() for p, t in
+              zip(leaf_paths(specs), tree_leaves(model.init(0, "cpu")))}
+    return params_from_jax(rebuild(specs, arrays), cfg, opts, "cpu")
+
+
+TP_FAMILY_CASES = [  # reduced, float32, on a (2, 2) ("data", "model") mesh
+    dict(tag="m1", arch="mamba2-780m", accum=1, scan=True, remat="full"),
+    dict(tag="r2", arch="recurrentgemma-2b", accum=2, scan=False),
+    dict(tag="w1", arch="whisper-base", accum=1, scan=False, remat="full"),
+    dict(tag="l1", arch="llava-next-34b", accum=1, scan=False, seq=24)]
+
+
+def test_nccl_2x2_tp_trains_other_families_match_one_card(cuda, tmp_path):
+    """Reduced Mamba-2 (scanned, remat "full"), RecurrentGemma (2
+    microbatches), Whisper-base (remat "full") and LLaVA-NeXT-34B (16
+    patches before 24 tokens, so a rank's rows hold patches and text),
+    float32, trained tensor-parallel over four NCCL ranks on a (2, 2)
+    ("data", "model") mesh for 3 steps from the port's init drawn
+    unrolled (:func:`_unrolled_init`): every rank
+    reports the same losses, grad norms and parameters, and they match
+    one card training the global batch (losses and grad norms at rtol
+    1e-4, parameters as :func:`_adam_params_close` holds them). The scans
+    run their kernels forward and backward on each rank's heads or width
+    block: each rank counts 2 forward launches (remat "full") or 1 and 1
+    backward launch a recurrent layer a microbatch, and no plain scan."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    from _torch_dist import spawn, tp_init_key, tp_run
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models.transformer import block_kinds
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = dict(steps=3, global_batch=8, seq_len=16, lr=5e-3,
+                 total_steps=6, mesh=[2, 2], axes=["data", "model"],
+                 cases=TP_FAMILY_CASES)
+    for case in small["cases"]:
+        run, opts = tp_run(small, case, tmp_path)
+        p = _unrolled_init(run.model, opts)
+        save_checkpoint(str(tmp_path / f"init_{tp_init_key(case)}"), 0,
+                        {"params": p, "opt": adamw_init(p)},
+                        extra={"data_step": 0})
+    ranks = spawn(dict(mesh=[4], backend="nccl", tp_train=small), None,
+                  tmp_path, 600)
+    for case in small["cases"]:
+        tag = case["tag"]
+        run, opts = tp_run(small, case,
+                           tmp_path / f"init_{tp_init_key(case)}")
+        kinds = block_kinds(run.model)
+        per_pass = (2 if case.get("remat") == "full" else 1)
+        micro = small["steps"] * case["accum"]
+        want = [0, 0, 0, 0]      # ssd fwd, ssd bwd, lru fwd, lru bwd
+        for k, at in (("ssm", 0), ("rglru", 2)):
+            n = kinds.count(k)
+            want[at], want[at + 1] = n * per_pass * micro, n * micro
+        for out in ranks:
+            for key in ("loss", "grad_norm", "params"):
+                np.testing.assert_array_equal(out[f"{tag}_{key}"],
+                                              ranks[0][f"{tag}_{key}"])
+            assert out[f"{tag}_launches"].tolist() == want, (tag, want)
+            assert out[f"{tag}_plain_calls"].tolist() == [0, 0], tag
+        one = Trainer(run, options=opts, device=cuda)
+        assert one.restore_if_available()
+        one.train(small["steps"])
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(ranks[0][f"{tag}_{key}"],
+                                       [m[key] for m in one.metrics_log],
+                                       rtol=1e-4)
+        _adam_params_close(ranks[0][f"{tag}_params"], one)
+        del one
+        torch.cuda.empty_cache()
+
+
+TP_FULL = [  # (arch, scanned, meshes, global batch, tokens a row)
+    ("mamba2-780m", True, [[1, 4], [2, 2]], 8, 2048),
+    ("recurrentgemma-2b", False, [[1, 4], [2, 2]], 8, 2048),
+    ("whisper-base", False, [[1, 4]], 16, 448)]
+
+
+def test_nccl_4_tp_trains_recurrent_families_full_width(cuda, tmp_path):
+    """Mamba-2 780M (scanned; 48 SSD heads of 64, 12 a rank at (1, 4) and
+    24 at (2, 2)) and RecurrentGemma-2B (LRU width 2560, 640 or 1280 a
+    rank; its vocab of 256000 placed on "model"; its 10 heads replicated
+    at tp 4, 5 a rank at tp 2) at their published widths, bf16, remat
+    "full", 8 x 2048 tokens a step, trained tensor-parallel over four NCCL
+    ranks on (1, 4) and (2, 2) ("data", "model") meshes, and Whisper-base
+    (16 x 448 tokens, 16 x 1500 float32 stub frames; its vocab of 51865
+    replicated) on (1, 4), each from seed 0: a warm-up step and 3 timed
+    steps, then one traced step. Holds: the losses finite and equal on
+    every rank, every card's peak under 80 GiB, the bytes at rest within
+    1% above the sum of the rank's blocks, the first loss within one bf16
+    spacing of one card's forward of the same weights on the same batch
+    (the bound of test_nccl_4_tp_trains_qwen3_8b_full_width), and on every
+    rank exactly 2 forward launches and 1 backward launch of the scan
+    kernel a recurrent layer a step, and no call of a plain scan. Prints
+    one JSON line a model and mesh: step ms, tokens/s, MFU (6·N·tokens, N
+    the parameters less the embedding, over 989 TFLOP/s a card), peak and
+    at-rest GiB a card, the launches of each rank, the losses, and rank
+    0's traced NCCL time that no compute kernel overlaps."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import json
+    import math
+
+    from _torch_dist import spawn, tp_full_reference
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import block_kinds
+
+    specs = [dict(arch=arch, scan=scan, steps=4, global_batch=gb,
+                  seq_len=seq, lr=3e-4, meshes=meshes, trace=True,
+                  prefix=arch.split("-")[0] + "_")
+             for arch, scan, meshes, gb, seq in TP_FULL]
+    ranks = spawn(dict(mesh=[4], backend="nccl", tp_train_full=specs),
+                  None, tmp_path, 1500)
+    for spec in specs:
+        cfg = get_arch(spec["arch"])
+        torch.cuda.empty_cache()
+        ref = tp_full_reference(spec, cuda)
+        bound = 2.0 ** (math.floor(math.log2(ref["f32"])) - 7)
+        assert abs(ref["one"] - ref["f32"]) <= bound, (spec["arch"], ref)
+        kinds = block_kinds(cfg)
+        steps = spec["steps"]
+        want = [2 * steps * kinds.count("ssm"), steps * kinds.count("ssm"),
+                2 * steps * kinds.count("rglru"),
+                steps * kinds.count("rglru")]
+        tokens = spec["global_batch"] * spec["seq_len"]
+        n_matmul = cfg.num_params() - cfg.vocab_size * cfg.d_model
+        for shape in spec["meshes"]:
+            tag = spec["prefix"] + "m" + "x".join(map(str, shape))
+            for out in ranks:
+                assert np.isfinite(out[f"{tag}_loss"]).all()
+                np.testing.assert_array_equal(out[f"{tag}_loss"],
+                                              ranks[0][f"{tag}_loss"])
+                assert out[f"{tag}_peak_bytes"] < 80 * 2 ** 30
+                rest, blocks = (int(out[f"{tag}_rest_bytes"]),
+                                int(out[f"{tag}_block_bytes"]))
+                assert blocks <= rest <= 1.01 * blocks, (rest, blocks)
+                assert out[f"{tag}_launches"].tolist() == want, tag
+                assert out[f"{tag}_plain_calls"].tolist() == [0, 0], tag
+            r0 = ranks[0]
+            first = float(r0[f"{tag}_loss"][0])
+            assert abs(first - ref["one"]) <= bound, (tag, first, ref)
+            step_s = float(np.median(r0[f"{tag}_step_s"][1:]))
+            print(json.dumps({
+                "test": "tp_train_full_width", "arch": spec["arch"],
+                "mesh": shape, "cards": 4,
+                "gpu": torch.cuda.get_device_name(0),
+                "init_s": float(r0[f"{tag}_init_s"]),
+                "step_ms": [1e3 * x
+                            for x in r0[f"{tag}_step_s"][1:].tolist()],
+                "step_ms_median": 1e3 * step_s,
+                "warmup_step_ms": 1e3 * float(r0[f"{tag}_step_s"][0]),
+                "tokens_per_s": tokens / step_s,
+                "mfu": 6 * n_matmul * tokens / step_s / (4 * 989e12),
+                "n_matmul": n_matmul,
+                "peak_gib": [float(o[f"{tag}_peak_bytes"]) / 2 ** 30
+                             for o in ranks],
+                "rest_gib": [float(o[f"{tag}_rest_bytes"]) / 2 ** 30
+                             for o in ranks],
+                "block_gib": [float(o[f"{tag}_block_bytes"]) / 2 ** 30
+                              for o in ranks],
+                "launches_per_rank": [o[f"{tag}_launches"].tolist()
+                                      for o in ranks],
+                "losses": r0[f"{tag}_loss"].tolist(),
+                "grad_norms": r0[f"{tag}_grad_norm"].tolist(),
+                "first_loss_one_card": ref["one"],
+                "first_loss_f32": ref["f32"], "bound": bound,
+                "traced_step_rank0": {k: float(r0[f"{tag}_{k}"]) for k in
+                                      ("nccl_ms", "compute_ms",
+                                       "nccl_exposed_ms")},
+            }), flush=True)
+
+
+TP_RANK_SCANS = [  # the blocks a rank of the 4-card runs gives each scan
+    ("ssd", (8, 2048, 12, 64, 128)), ("ssd", (4, 2048, 24, 64, 128)),
+    ("lru", (8, 2048, 640)), ("lru", (4, 2048, 1280))]
+
+
+@pytest.mark.parametrize("kind,shape", TP_RANK_SCANS)
+def test_scans_launch_kernels_at_tp_rank_shapes(cuda, kind, shape):
+    """At the rank-local shapes of the 4-card TP runs (Mamba-2's SSD at
+    bf16, chunk 256; the RG-LRU at f32), a wrapper call under autograd on
+    the card launches its forward kernel once and its backward kernel
+    once, calls no plain version, and agrees with autograd of the plain
+    version on the same inputs and cotangents: the SSD within 5e-2 (bf16)
+    and the LRU within 1e-5 of each output's or gradient's largest
+    magnitude (the forward's tolerances)."""
+    from _torch_dist import plain_scans_counted
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    if kind == "ssd":
+        import torch.nn.functional as F
+
+        b, l, h, p, n = shape
+        x = torch.randn((b, l, h, p), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+        dt = F.softplus(torch.randn((b, l, h), generator=gen, device=cuda))
+        A = -torch.exp(0.2 * torch.randn((h,), generator=gen, device=cuda))
+        B, C = (torch.randn((b, l, n), generator=gen,
+                            device=cuda).to(torch.bfloat16) for _ in "BC")
+        leaves = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+        cots = (torch.randn((b, l, h, p), generator=gen,
+                            device=cuda).to(torch.bfloat16),
+                torch.randn((b, h, p, n), generator=gen, device=cuda))
+        wrapper, tol = ssd_ops.ssd, 5e-2
+
+        def call(impl):
+            return ssd_ops.ssd(*leaves, 256, impl=impl)
+    else:
+        b, l, w = shape
+        a = (0.5 + 0.49 * torch.rand((b, l, w), generator=gen,
+                                     device=cuda)).requires_grad_(True)
+        xb = torch.randn((b, l, w), generator=gen,
+                         device=cuda).requires_grad_(True)
+        leaves = [a, xb]
+        cots = (torch.randn((b, l, w), generator=gen, device=cuda),
+                torch.randn((b, w), generator=gen, device=cuda))
+        wrapper, tol = lru_ops.lru_scan, 1e-5
+
+        def call(impl):
+            return lru_ops.lru_scan(a, xb, impl=impl)
+    before = (wrapper.launches, wrapper.bwd_launches)
+    with plain_scans_counted() as plain:
+        outs = call("auto")
+        grads = torch.autograd.grad(outs, leaves, cots)
+        torch.cuda.synchronize()
+    assert (wrapper.launches - before[0],
+            wrapper.bwd_launches - before[1]) == (1, 1)
+    assert plain == {"lru_scan_ref": 0, "ssd_chunk_terms": 0}
+    want_outs = call("plain")
+    want = torch.autograd.grad(want_outs, leaves, cots)
+    for g, w_ in zip((*outs, *grads), (*want_outs, *want)):
+        g, w_ = g.detach(), w_.detach()
+        assert bool(torch.isfinite(g).all())
+        assert _rel_err(g, w_) <= tol
 
 
 def test_nccl_4_tp_decode_serves_qwen3_8b_full_width(cuda, tmp_path):
