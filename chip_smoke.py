@@ -19,7 +19,8 @@ vocab 151936; 30.5 B parameters, 3.35 B active), phases 20-21, run after
 phase 15; Whisper-base (6 + 6 layers, d_model 512, 8 heads of 64, 1500
 frames, vocab 51865, tied) served and trained, phases 23-24; the
 recurrent scans' backward kernels, and Mamba-2 780M and RecurrentGemma-2B
-trained at their published widths, phases 26-27; and LLaVA-NeXT-34B (60
+trained at their published widths, phases 26-27; Qwen3-8B through the
+serving cells (``build_cell``), phase 29; and LLaVA-NeXT-34B (60
 layers, d_model 7168, 56/8 heads of 128, d_ff 20480, vocab 64000, 576
 patches; 34.4 B parameters) served, phase 25, last:
 
@@ -272,6 +273,17 @@ patches; 34.4 B parameters) served, phase 25, last:
               and (4, 2048, 1280) f32 (RecurrentGemma-2B's width 2560),
               each against its plain version with phases 10-11's and 26's
               tolerances, times and bounds; run after phase 27.
+ 29. cells    Qwen3-8B at its published widths through the serving cells
+              (``build_cell`` prefill and decode, ``cell_step``) on a
+              one-rank ("data", "model") mesh: 4 prompts of 2048 tokens
+              into 32768-slot rings (the decode_32k shape's ring at batch
+              4, 19.3 GB), then 32 teacher-forced decode steps; counted
+              (36 flash launches, nothing else); every logit bit-equal to
+              model.prefill / decode_step on the same tree. Prefill
+              tokens/s, decode ms at the 32768-slot ring, GiB of
+              parameters and rings, the peak; run after phase 28, before
+              phase 25. Phase 7 times flash alone at a rank's block of
+              Mixtral-8x7B's prefill cell on (1, 4), (8, 3968, 8/2, 128).
 
 Each phase prints one JSON line (a serve phase one per scheduler and one of
 checks); then the nvidia-smi line, the kernels line and, last,
@@ -323,6 +335,9 @@ FLASH_CASES = [  # (dtype, b, s_q, s_k, hq, hkv, d, causal, window)
     ("bf16", 1, 2048, 2048, 32, 4, 128, True, None),   # GQA group 8 (MoE)
     ("bf16", 8, 1500, 1500, 8, 8, 64, True, None),     # Whisper encoder
     ("bf16", 4, 1088, 1088, 56, 8, 128, True, None),   # LLaVA, GQA group 7
+    # Mixtral-8x7B's prefill cell on a rank of (1, 4): 8 prompts of 3968
+    # tokens, its 32/8 heads cut 4 ways, the 4096-token window
+    ("bf16", 8, 3968, 3968, 8, 2, 128, True, 4096),
 ]
 LRU_CASES = [  # (b, l, w, b dtype, h0)
     (1, 2048, 2560, "f32", False),     # RecurrentGemma admission prefill
@@ -351,6 +366,10 @@ RECURRENT_TRAIN = ("mamba2-780m", "recurrentgemma-2b")
 # and 2 ways, over a DP replica's 4 rows, at (2, 2)
 TP_SSD_SHAPES = [(8, 2048, 12, 64, 128, 256), (4, 2048, 24, 64, 128, 256)]
 TP_LRU_SHAPES = [(8, 2048, 640), (4, 2048, 1280)]
+# phase 29: the serving cells (build_cell) on a one-rank ("data", "model")
+# mesh: Qwen3-8B, 4 prompts of 2048 tokens into 32768-slot rings (the
+# decode_32k shape's ring at batch 4), 32 decode steps
+CELLS = dict(arch="qwen3-8b", batch=4, prompt=2048, ring=32768, steps=32)
 # serving phases: (arch, phase number of the serve rows, of the trace)
 SERVE_ARCHS = [("qwen3-8b", 8, 9), ("recurrentgemma-2b", 12, 13),
                ("mamba2-780m", 14, 15), ("qwen3-moe-30b-a3b", 20, 21)]
@@ -2018,6 +2037,7 @@ def frontend_serve_phase(arch: str, phase: int, dev, card) -> dict:
                                           scan_layers=False))
     torch.cuda.synchronize()
     free_gib = torch.cuda.mem_get_info(dev)[0] / 2**30
+    held_gib = torch.cuda.memory_allocated(dev) / 2**30
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = model.init(0, dev)
@@ -2035,6 +2055,7 @@ def frontend_serve_phase(arch: str, phase: int, dev, card) -> dict:
           "per_prefill": per_prefill(cfg),
           "params": sum(p.numel() for p in params.parameters()),
           "param_gib": param_gib, "free_gib_before": free_gib,
+          "allocated_gib_before": held_gib,
           "init_s": init_s, "layout": "unrolled",
           "requests": requests, "prompt_len": plen,
           "new_tokens": new, "max_len": max_len, "gpu": card})
@@ -2363,17 +2384,9 @@ def ssd_bwd_flops(b, c, q, h, p, n) -> int:
     return b * c * (3 * qq * n + h * (2 * qq * p + 4 * q * n * p))
 
 
-def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name,
-                 shape=SSD_BWD_SHAPE, tag=None) -> dict:
-    """Phase 26: ssd_chunk_bwd against the plain backward (autograd of
-    ssd_chunk_terms) at Mamba-2 780M's training shape (or `shape`: b, l,
-    h, p, n, chunk), random cotangents
-    of y_diag, states and decay_in: each gradient within SSD_TOL of its
-    largest magnitude, two calls bit-equal; CUDA-event times; bound the
-    larger of the bytes (inputs, cotangents, gradients once each) and the
-    causal half's products at the input type's peak; the device time of
-    each of its kernels (``ssd_bwd::`` names) from one traced backward
-    under autograd. `tag` adds keys to the row."""
+def ssd_bwd_inputs(dev, dtype_name, shape):
+    """(x, dt, A, B, C, dy, dst, ddi): the SSD backward's inputs and
+    random cotangents at `shape` (b, l, h, p, n, chunk), seeded by it."""
     import torch.nn.functional as F
 
     b, l, h, p, n, chunk = shape
@@ -2388,6 +2401,63 @@ def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name,
     dy = torch.randn((b, c, chunk, h, p), generator=gen, device=dev)
     dst = torch.randn((b, c, h, n, p), generator=gen, device=dev)
     ddi = torch.randn((b, c, chunk, h), generator=gen, device=dev)
+    return x, dt, A, B, C, dy, dst, ddi
+
+
+def ssd_bwd_device_kernels(ssd_ops, dev, dtype_name, shape) -> list:
+    """The device time of each kernel of ssd_chunk_bwd (``ssd_bwd::``
+    names) in one traced backward under autograd, as training runs it (the
+    profiler ties the ctypes launches to the backward node's range)."""
+    x, dt, A, B, C, dy, dst, ddi = ssd_bwd_inputs(dev, dtype_name, shape)
+    xg = x.detach().requires_grad_(True)
+    outs = ssd_ops.chunk_terms_kernel(xg, dt, A, B, C, shape[-1])
+    torch.autograd.grad(outs, xg, (dy, dst, ddi), retain_graph=True)
+    return [k for k in traced_families(
+        lambda: torch.autograd.grad(outs, xg, (dy, dst, ddi),
+                                    retain_graph=True),
+        recurrent_family)["port_kernels"] if "ssd_bwd" in k["name"]]
+
+
+def fresh_ssd_bwd_kernels(cases) -> dict:
+    """:func:`ssd_bwd_device_kernels` for each (dtype name, shape) of
+    `cases`, each traced in a fresh Python process of its own (the kernels
+    it loads are the ones phase 1 built). In a process that has run many
+    profiler windows the profiler loses the earliest CUDA records of a
+    window: traced inside a whole run, this phase's backward came back
+    with no kernel, and one window of five backwards kept only the last
+    one's later kernels, while a fresh process keeps them all."""
+    out = {}
+    for d, shape in cases:
+        code = (
+            "import json, sys, torch\n"
+            f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
+            "import chip_smoke as cs\n"
+            "from repro_torch.kernels.ssd_scan import ops\n"
+            "print(json.dumps(cs.ssd_bwd_device_kernels(\n"
+            f"    ops, torch.device('cuda', 0), {d!r}, {tuple(shape)!r})))\n")
+        run = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=300)
+        check(run.returncode == 0,
+              f"ssd bwd trace ({d}, {shape}): {run.stderr[-2000:]}")
+        out[(d, tuple(shape))] = json.loads(
+            run.stdout.strip().splitlines()[-1])
+    return out
+
+
+def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name,
+                 shape=SSD_BWD_SHAPE, tag=None, device_kernels=None) -> dict:
+    """Phase 26: ssd_chunk_bwd against the plain backward (autograd of
+    ssd_chunk_terms) at Mamba-2 780M's training shape (or `shape`: b, l,
+    h, p, n, chunk), random cotangents
+    of y_diag, states and decay_in: each gradient within SSD_TOL of its
+    largest magnitude, two calls bit-equal; CUDA-event times; bound the
+    larger of the bytes (inputs, cotangents, gradients once each) and the
+    causal half's products at the input type's peak; `device_kernels`, the
+    device time of each of its kernels (:func:`fresh_ssd_bwd_kernels`),
+    must name some. `tag` adds keys to the row."""
+    b, l, h, p, n, chunk = shape
+    c = l // chunk
+    x, dt, A, B, C, dy, dst, ddi = ssd_bwd_inputs(dev, dtype_name, shape)
     names = ("dx", "ddt", "dA", "dB", "dC")
 
     def kernel():
@@ -2413,15 +2483,8 @@ def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name,
           f"ssd bwd off the plain backward: {errs} ({dtype_name})")
     del got, again, want
     k_ms = time_ms(kernel)
-    # one backward under autograd (as training runs it), so that the
-    # profiler ties the ctypes launches to the backward node's range
-    xg = x.detach().requires_grad_(True)
-    outs = ssd_ops.chunk_terms_kernel(xg, dt, A, B, C, chunk)
-    device = [k for k in traced_families(
-        lambda: torch.autograd.grad(outs, xg, (dy, dst, ddi),
-                                    retain_graph=True),
-        recurrent_family)["port_kernels"] if "ssd_bwd" in k["name"]]
-    del outs, xg
+    check(bool(device_kernels), f"ssd bwd: no kernel in the trace "
+          f"({dtype_name}, {shape})")
     p_ms = plain_bwd_ms(
         lambda *t: [o for i, o in enumerate(ssd_ref.ssd_chunk_terms(*t))
                     if i != 2], parts, cots)
@@ -2440,8 +2503,8 @@ def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name,
            "library_ms": None, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-           "kernel_tflops": flops / k_ms / 1e9, "device_kernels": device,
-           "gpu": card, **(tag or {})}
+           "kernel_tflops": flops / k_ms / 1e9,
+           "device_kernels": device_kernels, "gpu": card, **(tag or {})}
     emit(row)
     return row
 
@@ -2573,7 +2636,8 @@ def recurrent_train_phase(arch: str, dev, card) -> dict:
     return {"row": row, "launches": counts}
 
 
-def tp_scans_phase(lru_ops, lru_ref, ssd_ops, ssd_ref, dev, card) -> None:
+def tp_scans_phase(lru_ops, lru_ref, ssd_ops, ssd_ref, dev, card,
+                   device_kernels) -> None:
     """Phase 28: each scan kernel, forward and backward, at the blocks a
     rank of tensor-parallel training over 4 cards gives it
     (TP_SSD_SHAPES, bf16; TP_LRU_SHAPES, f32), held against its plain
@@ -2585,7 +2649,8 @@ def tp_scans_phase(lru_ops, lru_ref, ssd_ops, ssd_ref, dev, card) -> None:
         ssd_case(ssd_ops, ssd_ref, dev, card, *shape, "bf16",
                  tag=dict(tag, phase="tp_ssd"))
         ssd_bwd_case(ssd_ops, ssd_ref, dev, card, "bf16", shape,
-                     tag=dict(tag, phase="tp_ssd_bwd"))
+                     tag=dict(tag, phase="tp_ssd_bwd"),
+                     device_kernels=device_kernels[("bf16", shape)])
     for (b, l, w), mesh in zip(TP_LRU_SHAPES, ("1x4", "2x2")):
         tag = {"n": 28, "tp_mesh": mesh}
         lru_case(lru_ops, dev, card, b, l, w, "f32", False,
@@ -2594,6 +2659,108 @@ def tp_scans_phase(lru_ops, lru_ref, ssd_ops, ssd_ref, dev, card) -> None:
                      tag=dict(tag, phase="tp_lru_bwd"))
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def cells_phase(flash_ops, dev, card) -> dict:
+    """Phase 29: Qwen3-8B at its published widths (bf16, seed 0, scanned)
+    through the prefill and decode cells of ``build_cell`` on a one-rank
+    ("data", "model") mesh (``cell_step``; the cut's collectives are
+    no-ops on one rank, the blocks are the whole leaves): 4 prompts of
+    2048 tokens (numpy seed 29) into 32768-slot rings, then 32
+    teacher-forced decode steps at a scalar position. Counted: every
+    kernel count set to 0 just before the cells run, read after (36
+    flash launches for the prefill, nothing else). Then the same tokens
+    through ``model.prefill`` / ``decode_step`` on the same tree: every
+    logit bit-equal. Prefill tokens/s and decode ms (host clock, each
+    call ending in a synchronize), GiB of parameters and rings at rest,
+    the peak."""
+    import numpy as np
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.config.shapes import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell, cell_step, relayout
+    from repro_torch.models.model import ModelOptions
+
+    cfg = get_arch(CELLS["arch"])
+    b, plen, ring, steps = (CELLS["batch"], CELLS["prompt"], CELLS["ring"],
+                            CELLS["steps"])
+    opts = ModelOptions(attn_impl="flash", dtype=torch.bfloat16)
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    pre = build_cell(cfg, ShapeConfig("prefill_2k", plen, b, "prefill"),
+                     opts)
+    dec = build_cell(cfg, ShapeConfig("decode_32k", ring, b, "decode"), opts)
+    prefill, decode = cell_step(pre, mesh), cell_step(dec, mesh)
+    model = pre.model
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(0, dev)
+    blocks = prefill.plan.init_params(params=params, device=dev)
+    check(all(x.data_ptr() == y.data_ptr() for x, y in zip(
+        blocks.parameters(), params.parameters())),
+          "cells: a one-rank block is a copy, not the leaf itself")
+    param_gib = (torch.cuda.memory_allocated(dev) - base) / 2**30
+    toks = torch.tensor(np.random.default_rng(29).integers(
+        1, cfg.vocab_size, (b, plen + steps)), device=dev)
+    model.prefill(params, {"tokens": toks[:1, :128]})          # warm-up
+    wrappers = counted_wrappers()
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, caches = prefill(blocks, {"tokens": toks[:, :plen]},
+                             max_len=ring)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    caches = relayout(caches, prefill.plan.cache_shardings(ring),
+                      dec.in_shardings(mesh)[1], mesh)
+    cache_gib = sum(x.numel() * x.element_size()
+                    for x in _leaves(caches)) / 2**30
+    got, times = [logits], []
+    for t in range(steps):
+        t1 = time.perf_counter()
+        lg, caches = decode(blocks, caches, toks[:, plen + t:plen + t + 1],
+                            plen + t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        got.append(lg)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "cells: non-finite logits")
+    check(launches == {"flash_attention": 36, "lru_scan": 0, "ssd_scan": 0},
+          f"cells: launches {launches}")
+    del caches
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        want, wc = model.prefill(params, {"tokens": toks[:, :plen]},
+                                 max_len=ring)
+        equal = [torch.equal(got[0], want)]
+        for t in range(steps):
+            want, wc = model.decode_step(params,
+                                         toks[:, plen + t:plen + t + 1], wc,
+                                         plen + t)
+            equal.append(torch.equal(got[t + 1], want))
+    check(all(equal), f"cells != model.prefill/decode_step: {equal}")
+    row = {"phase": "cells", "n": 29, "arch": cfg.name, "mesh": [1, 1],
+           "batch": b, "prompt_len": plen, "ring": ring, "steps": steps,
+           "prefill_s": prefill_s, "prefill_tokens_per_s": b * plen
+           / prefill_s, "decode_ms_median": 1e3 * statistics.median(times),
+           "decode_ms_first": 1e3 * times[0], "param_gib": param_gib,
+           "ring_gib": cache_gib, "peak_gib": peak, "launches": launches,
+           "bit_equal_steps": sum(equal), "gpu": card}
+    emit(row)
+    del params, blocks, wc, got, want
+    return row
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
@@ -2780,7 +2947,9 @@ def main() -> int:
     for mode in ("two_phase", "hdot"):
         emit(profile_solve(heat2d_solve, u0, grid, mode, card))
 
-    del u, u0, ur, rr, x, parts, ring, zeros   # the serving phases need room
+    # the serving phases need room (a, b, uf and res hold the last mesh's
+    # two 1 GiB grids)
+    del u, u0, ur, rr, x, parts, ring, zeros, a, b, uf, res, r
     torch.cuda.empty_cache()
 
     # -------------------------------------------- 7. flash kernel vs plain
@@ -2849,8 +3018,13 @@ def main() -> int:
     bwd_s0 = time.perf_counter()
     lru_bwd_rows = [lru_bwd_case(lru_ops, lru_ref, dev, card, *c)
                     for c in LRU_BWD_CASES]
-    ssd_bwd_rows = {d: ssd_bwd_case(ssd_ops, ssd_ref, dev, card, d)
-                    for d in SSD_BWD_DTYPES}
+    traced_bwd = fresh_ssd_bwd_kernels(
+        [(d, SSD_BWD_SHAPE) for d in SSD_BWD_DTYPES]
+        + [("bf16", s) for s in TP_SSD_SHAPES])
+    ssd_bwd_rows = {d: ssd_bwd_case(
+        ssd_ops, ssd_ref, dev, card, d,
+        device_kernels=traced_bwd[(d, SSD_BWD_SHAPE)])
+        for d in SSD_BWD_DTYPES}
     bwd_s = time.perf_counter() - bwd_s0
     gc.collect()
     torch.cuda.empty_cache()
@@ -2868,7 +3042,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _, tp_scans_s = timed(lambda: tp_scans_phase(
-        lru_ops, lru_ref, ssd_ops, ssd_ref, dev, card))
+        lru_ops, lru_ref, ssd_ops, ssd_ref, dev, card, traced_bwd))
+
+    # ---- 29. the serving cells (build_cell) on a one-rank mesh, Qwen3-8B
+    gc.collect()
+    torch.cuda.empty_cache()
+    cells, cells_s = timed(lambda: cells_phase(flash_ops, dev, card))
+    served["cells"] = cells["launches"]
 
     # ---- 25. LLaVA-NeXT-34B (64 GiB of weights): last, on a freed card
     gc.collect()
@@ -2876,9 +3056,10 @@ def main() -> int:
     llava, llava_s = timed(lambda: frontend_serve_phase(
         "llava-next-34b", 25, dev, card))
     served["llava-next-34b"] = llava["launches"]
-    emit({"phase": "frontend_seconds", "n": [23, 24, 25, 28],
+    emit({"phase": "frontend_seconds", "n": [23, 24, 25, 28, 29],
           "phase23_s": whisper_s, "phase24_s": wtrain_s,
-          "phase25_s": llava_s, "phase28_s": tp_scans_s})
+          "phase25_s": llava_s, "phase28_s": tp_scans_s,
+          "phase29_s": cells_s})
 
     # -------------------------------------------------------------- results
     flash_launches = sum(v.get("flash_attention", 0) for v in served.values())

@@ -21,34 +21,50 @@ package leaves every collective to GSPMD, the step issues them itself.
 bucket-wise flat buffers sharded over the DP ranks (:func:`fsdp_init_state`,
 one bucket at a time), gathered all at the top of the step and
 reduce-scattered last-backward-first, or, with ``fsdp_streaming``, gathered
-layer by layer inside each layer's remat region (``FsdpStream``). The
-dry-run's ``Cell``/``build_cell`` waits (``ROADMAP.md``).
+layer by layer inside each layer's remat region (``FsdpStream``).
+
+The serve half: ``make_prefill_step``, ``make_decode_step``,
+``opt_state_specs``, ``Cell`` and ``build_cell`` (the reference's cells:
+abstract args as meta-device tensors, their logical axes and donation),
+and, where the reference jits a cell with ``in_shardings`` and lets GSPMD
+place it, :func:`cell_step`: the cell on a ("data", "model") or ("pod",
+"data", "model") mesh, each rank holding only its blocks of the
+parameters and caches under ``rules_for(cell.kind)`` (:class:`ServePlan`)
+and issuing every collective itself. ``Cell.lower`` (the dry run) waits
+(``ROADMAP.md`` Queue 1 item 11).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.config.base import ParallelConfig
+from repro_torch.config.shapes import ShapeConfig
 from repro_torch.core.overlap import (FsdpLayout, GradBuckets, _pack_group,
                                       accumulate_grads, fsdp_all_gather,
                                       fsdp_group, fsdp_layout, fsdp_stream,
                                       grad_sync_fsdp, grad_sync_two_phase,
                                       microbatch_split, pmean, shard_slice,
                                       value_and_grad)
-from repro_torch.checkpoint.elastic import Sharding, block_index, cut
-from repro_torch.models.layers import (ParamTree, init_leaf, leaf_paths,
-                                      rebuild, tree_leaves, tree_map)
-from repro_torch.models.model import LanguageModel
+from repro_torch.checkpoint.elastic import (Sharding, _map2, block_index,
+                                            cut, shardings_for, unshard_leaf)
+from repro_torch.models.layers import (ParamTree, axes_from_specs, init_leaf,
+                                      leaf_paths, rebuild, tree_leaves,
+                                      tree_map)
+from repro_torch.models.model import (LanguageModel, ModelOptions,
+                                     build_model, input_specs)
 from repro_torch.models.transformer import _not_ported
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
 from repro_torch.sharding.rules import (ShardingContext, entry_axes,
                                         resolve_pspec, rules_for)
-from repro_torch.sharding.tp import (TPCut, all_gather, global_norm_by_class,
-                                     grad_all_reduce)
+from repro_torch.sharding.tp import (ServeCut, TPCut, all_gather,
+                                     block_order, gather_dim,
+                                     global_norm_by_class, grad_all_reduce,
+                                     take_rows)
 
 PyTree = Any
 
@@ -478,3 +494,409 @@ def make_fsdp_train_step(model: LanguageModel, parallel: ParallelConfig, mesh,
     step_fn.buckets = None
     step_fn.stream = stream
     return step_fn
+
+
+# --------------------------------------------------------------------- serve
+def make_prefill_step(model: LanguageModel) -> Callable:
+    """(params, batch, max_len=None) -> (logits, caches): ``model.prefill``
+    on one rank. `max_len` sizes the rings for the decode that follows
+    (the reference's cell sizes them to the prompt)."""
+    def prefill_fn(params, batch, max_len=None):
+        return model.prefill(params, batch, max_len)
+
+    return prefill_fn
+
+
+def make_decode_step(model: LanguageModel) -> Callable:
+    """(params, caches, token, pos) -> (logits, caches): ``model.
+    decode_step`` on one rank."""
+    def decode_fn(params, caches, token, pos):
+        logits, new_caches = model.decode_step(params, token, caches, pos)
+        return logits, new_caches
+
+    return decode_fn
+
+
+# ---------------------------------------------------------------- cell build
+def opt_state_specs(model: LanguageModel, moment_dtype=torch.float32
+                    ) -> Tuple[PyTree, PyTree]:
+    """(abstract opt state, logical axes) matching ``adamw_init(params)``:
+    meta-device moments in `moment_dtype`, an int32 step."""
+    p_axes = model.param_axes()
+
+    def mom():
+        return tree_map(lambda s: torch.empty(s.shape, dtype=moment_dtype,
+                                              device="meta"),
+                        model.abstract_params())
+    specs = {"m": mom(), "v": mom(),
+             "step": torch.empty((), dtype=torch.int32, device="meta")}
+    axes = {"m": p_axes, "v": p_axes, "step": ()}
+    return specs, axes
+
+
+@dataclasses.dataclass
+class Cell:
+    """One unit of work: ``fn(*args)`` with the abstract args (meta-device
+    tensors), their logical axes and donation, the port of the
+    reference's ``Cell``. ``fn`` runs on one rank; :func:`cell_step` is
+    the counterpart of calling the jitted cell on a mesh: it takes and
+    returns each rank's blocks under :attr:`rules`. ``Cell.lower`` has no
+    counterpart yet (``ROADMAP.md`` Queue 1 item 11)."""
+
+    name: str
+    fn: Callable
+    arg_specs: Tuple[PyTree, ...]       # meta-tensor trees (positional)
+    arg_axes: Tuple[PyTree, ...]        # logical-axes trees (same structure)
+    donate_argnums: Tuple[int, ...]
+    model: LanguageModel
+    kind: str                           # train | prefill | decode
+    shape: Optional[ShapeConfig] = None
+
+    @property
+    def rules(self):
+        return rules_for(self.kind, self.model.cfg.d_model,
+                         self.model.cfg.family)
+
+    def context(self, mesh) -> ShardingContext:
+        return ShardingContext(mesh, self.rules)
+
+    def in_specs(self, mesh) -> Tuple[PyTree, ...]:
+        """The resolved PartitionSpec of every arg leaf on `mesh` (any
+        object the rules resolve over, a fake mesh included)."""
+        ctx = self.context(mesh)
+        return tuple(_map2(lambda leaf, ax: resolve_pspec(leaf.shape, ax,
+                                                          ctx), s, a)
+                     for s, a in zip(self.arg_specs, self.arg_axes))
+
+    def in_shardings(self, mesh) -> Tuple[PyTree, ...]:
+        """Every arg leaf's :class:`~repro_torch.checkpoint.elastic.
+        Sharding` (spec and this rank's block) on a ProcessMesh."""
+        ctx = self.context(mesh)
+        return tuple(shardings_for(s, a, mesh, ctx)
+                     for s, a in zip(self.arg_specs, self.arg_axes))
+
+
+def build_cell(cfg, shape: ShapeConfig, options: Optional[ModelOptions] = None,
+               parallel: Optional[ParallelConfig] = None,
+               moment_dtype=torch.float32) -> Cell:
+    """The cell of (arch, shape), as the reference's ``build_cell``: its
+    default options take ``"dense"`` attention up to 8192 tokens and
+    ``"blockwise"`` above (which raises until item 11), the stack layout
+    and remat of `parallel`."""
+    parallel = parallel or ParallelConfig()
+    options = options or ModelOptions(
+        attn_impl="blockwise" if shape.seq_len > 8192 else "dense",
+        scan_layers=parallel.scan_layers, remat=parallel.remat)
+    model = build_model(cfg, options)
+    io = input_specs(cfg, shape, options)
+    batch_specs, batch_axes = io["specs"], io["axes"]
+    p_abs = model.abstract_params()
+    p_axes = model.param_axes()
+    name = f"{cfg.name}:{shape.name}"
+    if shape.kind == "train":
+        o_abs, o_axes = opt_state_specs(model, moment_dtype)
+        return Cell(name, make_train_step(model, parallel),
+                    (p_abs, o_abs, batch_specs), (p_axes, o_axes, batch_axes),
+                    (0, 1), model, "train", shape)
+    if shape.kind == "prefill":
+        return Cell(name, make_prefill_step(model), (p_abs, batch_specs),
+                    (p_axes, batch_axes), (), model, "prefill", shape)
+    return Cell(name, make_decode_step(model),
+                (p_abs, batch_specs["caches"], batch_specs["token"],
+                 batch_specs["pos"]),
+                (p_axes, batch_axes["caches"], batch_axes["token"],
+                 batch_axes["pos"]), (1,), model, "decode", shape)
+
+
+# -------------------------------------------------------- serve (the cut)
+def serve_groups(mesh) -> None:
+    """Creates, in one fixed order, every process group the serving cells
+    use on `mesh` (``dist.new_group`` is collective: every rank calls
+    this, in the same order)."""
+    names = mesh.axis_names
+    for axes in (("pod", "data"), ("model", "data"), ("model", "pod"),
+                 ("model", "pod", "data")):
+        axes = tuple(a for a in axes if a in names)
+        if len(axes) > 1:
+            mesh.axes_group(axes)
+
+
+def _model_part(entry, axis: str) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(the `axis` part, the other axes) of a spec entry. `axis` must be
+    its major (first) axis, so that gathering the others leaves the
+    `axis` block."""
+    axes = entry_axes(entry)
+    if axis in axes and axes[0] != axis:
+        raise ValueError(f"placement {entry} puts {axis!r} after another "
+                         f"axis; the cut needs it first")
+    return (axis,) if axis in axes else (), tuple(a for a in axes
+                                                   if a != axis)
+
+
+class ServePlan:
+    """The placement of a serving cell (prefill or decode) on a mesh with
+    a "model" axis: every parameter leaf's spec under ``rules_for(cell.
+    kind)`` and this rank's block (what a rank holds at rest), and what
+    the cell's step gathers at its top to compute under the cut
+    (:class:`~repro_torch.sharding.tp.ServeCut`): the mesh axes other
+    than "model" of each placed dim. A dim placed over ``("model",
+    "data")`` is numbered row-major in that order (``elastic.
+    block_index``), so gathering it over "data" leaves the rank's "model"
+    block; a dim placed over "data" alone (``"embed"``, ``"head_dim"``
+    under ``SERVE_RULES``) is gathered whole. Under ``DEFAULT_RULES`` (the
+    prefill) on a mesh whose DP axes are one rank, and under either rules
+    at (1, 4), nothing is gathered. Caches: the rings (``"kv_seq"``)
+    are used as they rest, sharded flash-decode over their slot block;
+    the other cache leaves are gathered like parameters and cut back
+    after the step. Building a plan creates the process groups it uses,
+    so every rank builds it, in the same order."""
+
+    def __init__(self, cell: Cell, mesh, axis: str = "model"):
+        if cell.kind not in ("prefill", "decode"):
+            raise ValueError(f"a serve plan takes a prefill or decode cell, "
+                             f"not {cell.kind!r}")
+        if axis not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names} have no {axis!r}")
+        self.cell, self.mesh, self.axis = cell, mesh, axis
+        self.model = cell.model
+        self.ctx = cell.context(mesh)
+        self.spec_tree = self.model.param_specs()
+        specs = leaf_paths(self.spec_tree)
+        self.paths, self.specs = list(specs), list(specs.values())
+        self.shardings = [_sharding(s.shape, s.axes, self.ctx, mesh)
+                          for s in self.specs]
+        serve_groups(mesh)
+        self.in_sh = cell.in_shardings(mesh)
+        if cell.kind == "prefill":
+            self.batch = cell.arg_specs[1]["tokens"].shape[0]
+        else:
+            self.batch = cell.arg_specs[2].shape[0]
+            self.cache_axes = cell.arg_axes[1]
+            self.max_len = cell.shape.seq_len
+        self.cut = ServeCut.for_cell(self.model.cfg, mesh, self.ctx,
+                                     self.batch, axis)
+
+    # ------------------------------------------------------------ params
+    def init_params(self, seed: int = 0, params: Optional[PyTree] = None,
+                    device="cuda") -> ParamTree:
+        """This rank's blocks of every parameter. Each leaf is drawn from
+        its path's seed (``models.layers.init_leaf``), or taken from
+        `params` (a whole tree), and cut before the next: the whole tree
+        never exists on a rank, one whole leaf at a time. A block that is
+        the whole leaf is the leaf itself (no copy)."""
+        given = None if params is None else tree_leaves(params)
+        blocks = {}
+        for i, (path, spec) in enumerate(zip(self.paths, self.specs)):
+            full = (init_leaf(seed, path, spec, device) if given is None
+                    else given[i].detach().to(device, spec.dtype))
+            blocks[path] = _block(full, self.shardings[i])
+            del full
+        return ParamTree(rebuild(self.spec_tree, blocks))
+
+    def params_from(self, blocks: PyTree, other: "ServePlan") -> ParamTree:
+        """This rank's blocks under this plan from its blocks under
+        `other` (the other cell's plan of the same model on the same
+        mesh): each leaf whose blocks coincide is kept, any other is
+        gathered whole and cut again (:func:`relayout`; a collective)."""
+        leaves = relayout(tree_leaves(blocks), other.shardings,
+                          self.shardings, self.mesh)
+        return ParamTree(rebuild(self.spec_tree,
+                                 dict(zip(self.paths, leaves))))
+
+    def compute(self, blocks: PyTree) -> PyTree:
+        """The tree the cut computes with: each block with its dims'
+        axes other than "model" gathered."""
+        leaves = [_gather_other(b, sh, a, self.mesh, self.axis)
+                  for b, sh, a in zip(tree_leaves(blocks), self.shardings,
+                                      (s.axes for s in self.specs))]
+        return rebuild(self.spec_tree, dict(zip(self.paths, leaves)))
+
+    def bytes_at_rest(self) -> int:
+        """The bytes of this rank's parameter blocks."""
+        return sum(_numel(sh) * s.dtype.itemsize
+                   for sh, s in zip(self.shardings, self.specs))
+
+    # ------------------------------------------------------------ caches
+    def cache_specs(self, max_len: int) -> PyTree:
+        return self.model.cache_specs(self.batch, max_len)
+
+    def cache_shardings(self, max_len: int) -> PyTree:
+        """The rank's block of every cache leaf of ``w``-slot rings under
+        this cell's rules."""
+        specs = self.cache_specs(max_len)
+        return shardings_for(specs, axes_from_specs(specs), self.mesh,
+                             self.ctx)
+
+    def empty_caches(self, max_len: int, device) -> PyTree:
+        """This rank's blocks of zero-initialised caches (the reference's
+        ``init_caches``)."""
+        specs = self.cache_specs(max_len)
+        return _map2(lambda s, sh: torch.zeros(_shape(sh), dtype=s.dtype,
+                                               device=device),
+                     specs, self.cache_shardings(max_len))
+
+    def cache_view(self, caches: PyTree):
+        """(the caches the decode cut computes with, a function that cuts
+        the gathered leaves back into `caches`)."""
+        pairs = []
+
+        def view(block, sh_ax):
+            sh, ax = sh_ax
+            full = _gather_other(block, sh, ax, self.mesh, self.axis)
+            if full is not block:
+                pairs.append((block, full, sh, ax))
+            return full
+
+        shs = _map2(lambda sh, ax: (sh, ax), self.in_sh[1], self.cache_axes)
+        tree = _map2(view, caches, shs)
+
+        def back():
+            for block, full, sh, ax in pairs:
+                block.copy_(_own_part(full, sh, ax, self.mesh, self.axis))
+        return tree, back
+
+    # ------------------------------------------------------------ inputs
+    def inputs(self, batch: Dict) -> Dict:
+        """The cut's view of this rank's prefill input blocks: dims the
+        rules place on "model" (the tokens' sequence under
+        ``DEFAULT_RULES``) gathered; the batch rows stay this
+        replica's."""
+        out = {}
+        for k, x in batch.items():
+            sh = self.in_sh[1][k]
+            if tuple(x.shape) != _shape(sh):
+                raise ValueError(f"input {k!r}: block {tuple(x.shape)}, the "
+                                 f"cell places {_shape(sh)}")
+            for d, entry in enumerate(sh.spec):
+                part, _ = _model_part(entry, self.axis)
+                if part:
+                    x = all_gather(x, d, self.mesh, part)
+            out[k] = x
+        return out
+
+    def logits_block(self, logits: torch.Tensor, axes) -> torch.Tensor:
+        """The rank's block of the (b, 1, V) logits under the rules, from
+        the cut's (b, 1, V or V/tp): narrowed along the vocabulary."""
+        cfg = self.model.cfg
+        shape = (self.batch, 1, cfg.vocab_size)
+        sh = _sharding(shape, axes, self.ctx, self.mesh)
+        have = sh.index[2]
+        lo = self.cut.index * logits.shape[2] if self.cut.vocab else 0
+        return logits[:, :, have.start - lo:have.stop - lo]
+
+
+def _sharding(shape, axes, ctx, mesh) -> Sharding:
+    spec = resolve_pspec(shape, axes, ctx)
+    return Sharding(tuple(shape), spec, block_index(shape, spec, mesh))
+
+
+def _numel(sh: Sharding) -> int:
+    return math.prod(_shape(sh))
+
+
+def _shape(sh: Sharding) -> Tuple[int, ...]:
+    return tuple(s.stop - s.start for s in sh.index)
+
+
+def _block(full: torch.Tensor, sh: Sharding) -> torch.Tensor:
+    """This rank's block of a whole leaf: a copy, or the leaf itself where
+    the block is all of it."""
+    if _shape(sh) == tuple(full.shape):
+        return full
+    return cut(full, sh)
+
+
+def _gather_other(block: torch.Tensor, sh: Sharding, axes, mesh,
+                  axis: str) -> torch.Tensor:
+    """`block` with the axes other than `axis` of each placed dim
+    gathered (batch rows and ring slots stay as they rest)."""
+    x = block
+    for d, entry in enumerate(sh.spec):
+        if axes[d] in ("batch", "kv_seq"):
+            continue
+        _, other = _model_part(entry, axis)
+        group = mesh.axes_group(other) if other else None
+        if group is not None:
+            x = gather_dim(x, d, group, block_order(mesh, other))
+    return x
+
+
+def _own_part(full: torch.Tensor, sh: Sharding, axes, mesh, axis: str
+              ) -> torch.Tensor:
+    """The inverse of :func:`_gather_other`: this rank's block of a
+    tensor gathered over the other axes."""
+    x = full
+    for d, entry in enumerate(sh.spec):
+        if axes[d] in ("batch", "kv_seq"):
+            continue
+        _, other = _model_part(entry, axis)
+        if other:
+            n = math.prod(mesh.shape[a] for a in other)
+            k = 0
+            for a in other:
+                k = k * mesh.shape[a] + mesh.coords[mesh.axis_index(a)]
+            x = take_rows(x, d, n, k)
+    return x
+
+
+def cell_step(cell: Cell, mesh, plan: Optional[ServePlan] = None
+              ) -> Callable:
+    """The serving cell on `mesh`, the counterpart of calling the jitted
+    cell: every rank calls it with its blocks of each argument (under
+    ``cell.in_shardings(mesh)``) and gets its blocks of the outputs under
+    the same rules, no rank ever holding a whole parameter or cache leaf
+    it does not own. Every collective is the step's own (``sharding/
+    tp.py``); no gradient is kept.
+
+    prefill: ``step(params, batch, max_len=None) -> (logits, caches)``,
+    the caches' rings sized for ``max(prompt, max_len)`` slots
+    (:meth:`ServePlan.cache_shardings` of that size places them).
+    decode: ``step(params, caches, token, pos) -> (logits, caches)`` at a
+    scalar `pos`, the caches updated in place. The logits are the
+    rank's block of ``("batch", "seq", "vocab")``. ``step.plan`` is the
+    plan."""
+    plan = plan or ServePlan(cell, mesh)
+    model = cell.model
+    logit_axes = ("batch", "seq", "vocab")
+
+    if cell.kind == "prefill":
+        def step(params, batch, max_len: Optional[int] = None):
+            with torch.no_grad():
+                batch = plan.inputs(batch)
+                s = batch["tokens"].shape[1] + (
+                    model.cfg.num_vision_patches
+                    if model.cfg.family == "vlm" else 0)
+                plan.cut.max_len = max(s, max_len or 0)
+                caches = plan.empty_caches(plan.cut.max_len,
+                                           batch["tokens"].device)
+                logits, caches = model.prefill_cut(plan.compute(params),
+                                                   batch, caches, plan.cut)
+                return plan.logits_block(logits, logit_axes), caches
+    else:
+        def step(params, caches, token, pos):
+            with torch.no_grad():
+                plan.cut.max_len = plan.max_len
+                view, back = plan.cache_view(caches)
+                logits, _ = model.decode_step_cut(plan.compute(params),
+                                                  token, view, pos, plan.cut)
+                back()
+                return plan.logits_block(logits, logit_axes), caches
+    step.plan = plan
+    return step
+
+
+def relayout(tree: PyTree, src: PyTree, dst: PyTree, mesh) -> PyTree:
+    """This rank's blocks under the `dst` shardings from its blocks under
+    `src` (the same leaves; :class:`~repro_torch.checkpoint.elastic.
+    Sharding` trees): a leaf whose block is the same on both is kept as
+    it is, any other is gathered whole and cut again, leaf by leaf in
+    tree order (a collective: every rank calls it). Between the prefill
+    and the decode cells on a mesh whose "data" axis has more than one
+    rank, the caches' batch and slots move."""
+    def one(x, pair):
+        a, b = pair
+        if a.index == b.index:
+            return x
+        return cut(unshard_leaf(x, a, mesh), b)
+
+    return _map2(one, tree, _map2(lambda a, b: (a, b), src, dst))

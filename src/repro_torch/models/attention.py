@@ -8,9 +8,18 @@ The port of ``repro/models/attention.py``. Implementations (``impl``):
             flash_attention`): the hand-written Hopper kernel for a CUDA
             tensor, its plain version on the CPU
 
-``blockwise`` and the sharded flash-decode wait for later slices
-(``ROADMAP.md``) and raise. Both implementations share the projection, rope
-and mask logic, so they are interchangeable and cross-checked in tests.
+``blockwise`` waits for a later slice (``ROADMAP.md``) and raises. Both
+implementations share the projection, rope and mask logic, so they are
+interchangeable and cross-checked in tests.
+
+Decode against a ring whose slots are split over ranks (the serving cells'
+``"kv_seq"`` placement) is the sharded flash-decode
+(:func:`_flash_decode_sharded`): each rank holds a block of the slots,
+computes a partial softmax over it, and the partials combine with one MAX
+and two SUM all-reduces, the paper's task-level reduction applied to
+attention. The ``*_tp`` functions are the blocks under the
+tensor-parallel cut (``sharding/tp.py``): training's, and the serving
+cells' prefill and decode.
 
 Cross-attention (the encoder-decoder family) is the reference's: plain
 attention over the encoder's keys and values, which prefill computes once
@@ -235,13 +244,19 @@ def prefill_attention(p, x, cfg: ModelConfig, positions, cache: Cache,
 
 
 def decode_attention(p, x, cfg: ModelConfig, cache: Cache, pos,
-                     window=None) -> Tuple[torch.Tensor, Cache]:
+                     window=None, ring=None) -> Tuple[torch.Tensor, Cache]:
     """One-token step against the ring cache. `pos` is a scalar (an int or
     a 0-d tensor: the same position for every sequence in the batch, the
     wave scheduler) or a per-slot (b,) tensor (continuous batching: every
     slot decodes at its own position; the cache then carries a per-slot
-    ``pos`` of shape (b, w)). Single-device path (``_decode_dense``); the
-    sharded flash-decode waits for the multi-card slice."""
+    ``pos`` of shape (b, w)).
+
+    `ring` (a :class:`~repro_torch.sharding.tp.Ring`) says that `cache`
+    holds this rank's block of the ring's slots: at a scalar `pos` over a
+    group of more than one rank, the step is the sharded flash-decode
+    (:func:`_flash_decode_sharded`), as the reference dispatches under a
+    sharding context that places ``"kv_seq"``. Otherwise, and always at a
+    per-slot `pos`, it is ``_decode_dense``."""
     b = x.shape[0]
     if torch.is_tensor(pos) and pos.dim() == 1:
         pos = pos.long()
@@ -252,9 +267,17 @@ def decode_attention(p, x, cfg: ModelConfig, cache: Cache, pos,
                                device=x.device)
     q = project_q(p, x, cfg, positions)
     k, v = project_kv(p, x, cfg, positions)
-    out, cache = _decode_dense(q, k, v, cache, pos, positions, window)
+    out, cache = _decode_any(q, k, v, cache, pos, positions, window, ring)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache
+
+
+def _decode_any(q, k, v, cache: Cache, pos, positions, window, ring
+                ) -> Tuple[torch.Tensor, Cache]:
+    if (ring is not None and ring.group is not None
+            and not torch.is_tensor(pos)):
+        return _flash_decode_sharded(q, k, v, cache, pos, window, ring)
+    return _decode_dense(q, k, v, cache, pos, positions, window)
 
 
 def _decode_dense(q, k, v, cache: Cache, pos, positions, window
@@ -279,6 +302,172 @@ def _decode_dense(q, k, v, cache: Cache, pos, positions, window
     out = _sdpa_dense(q, ck, cv, positions, k_pos, causal=True,
                       window=window, kv_valid=k_pos >= 0)
     return out, cache
+
+
+def _flash_decode_sharded(q, k, v, cache: Cache, pos: int, window, ring
+                          ) -> Tuple[torch.Tensor, Cache]:
+    """Flash-decode over a ring whose slots are split over the ranks of
+    ``ring.group``: the port of the reference's ``_flash_decode_sharded``
+    (its shard_map body), with the collectives written out.
+
+    q, k, v: (b, 1, h, d) with every head (the same on every rank of the
+    group); `cache` this rank's block, slots ``[ring.lo, ring.lo +
+    ring.size)`` of ``ring.w``. The rank that owns slot ``pos % w``
+    writes the new key and value there; the others leave their block
+    alone. Each rank takes the float32 partial softmax over its slots,
+    (m, sum exp, sum exp * v); one MAX all-reduce gives the global m and
+    two SUM all-reduces the sums. A rank with no visible slot (empty,
+    beyond the window or in the future) adds exactly 0: its scores are
+    -inf, and exp(-inf - m) with the finite global m is 0. The wire
+    carries O(b h d) a layer, not the cache."""
+    import torch.distributed as dist
+
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    b, _, hq, hd = q.shape
+    hkv = ck.shape[2]
+    slot = pos % ring.w
+    if ring.lo <= slot < ring.lo + ring.size:
+        j = slot - ring.lo
+        ck[:, j] = k[:, 0].to(ck.dtype)
+        cv[:, j] = v[:, 0].to(cv.dtype)
+        cpos[j] = pos
+    qg = q.reshape(b, 1, hkv, hq // hkv, hd).float()
+    s = torch.einsum("bqhgd,bthd->bhgqt", qg, ck.float()) * (1.0 / math.sqrt(hd))
+    valid = (cpos >= 0) & (cpos <= pos)
+    if window is not None:
+        valid &= cpos > pos - window
+    s = torch.where(valid, s, -math.inf)
+    m = torch.amax(s, dim=-1, keepdim=True)                  # (b,h,g,1,1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=ring.group)
+    e = torch.where(valid, torch.exp(s - m), 0.0)
+    den = torch.sum(e, dim=-1)                                # (b,h,g,1)
+    num = torch.einsum("bhgqt,bthd->bqhgd", e, cv.float())
+    dist.all_reduce(den, group=ring.group)
+    dist.all_reduce(num, group=ring.group)
+    _flash_decode_sharded.calls += 1
+    out = num / torch.clamp(den, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, 1, hq, hd).to(q.dtype), cache
+
+
+_flash_decode_sharded.calls = 0     # calls (3 all-reduces each)
+
+
+# ------------------------------------------------- prefill and decode, cut
+def prefill_attention_tp(p, x_rows, cfg: ModelConfig, cache: Cache, tp,
+                         ring, impl="dense", window=None) -> torch.Tensor:
+    """:func:`prefill_attention` under the serving cut (``tp``, a
+    :class:`~repro_torch.sharding.tp.ServeCut`): `x_rows` are this
+    rank's (b, s/tp, d) rows. They are all-gathered; the queries take the
+    rank's heads, the keys and values its KV heads (every KV head where
+    the rules replicate them: the cache holds them all); attention runs
+    through `impl` (the flash kernel) on the rank's heads and the KV
+    heads they read; ``wo``'s partial sums are reduce-scattered back to
+    the rows. The keys and values of every position are placed into
+    this rank's block of `cache` (`ring`, its placement):
+    :func:`_fill_ring`. Returns the (b, s/tp, d) rows."""
+    x = tp.gather_seq(x_rows)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q = project_q(p, x, cfg, positions)
+    k, v = project_kv(p, x, cfg, positions)
+    out = sdpa(q, _kv_for_heads(k, cfg, tp), _kv_for_heads(v, cfg, tp),
+               positions, positions, causal=True, window=window, impl=impl)
+    y = tp.leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp.heads)
+    _fill_ring(cache, k, v, tp, ring)
+    return y
+
+
+def decode_attention_tp(p, x, cfg: ModelConfig, cache: Cache, pos, tp,
+                        ring, window=None) -> torch.Tensor:
+    """:func:`decode_attention` under the serving cut, at a scalar `pos`:
+    `x` (b, 1, d) is whole on every rank of the line. The rank projects
+    its heads (and KV heads), all-gathers them over the "model" axis so
+    that every rank of the ring's group holds every head, and runs the
+    sharded flash-decode over its block of the slots (``_decode_dense``
+    where `ring` has one rank); it keeps its heads of the output, and
+    ``wo``'s partial sums are all-reduced."""
+    b = x.shape[0]
+    pos = int(pos)
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q = project_q(p, x, cfg, positions)
+    k, v = project_kv(p, x, cfg, positions)
+    if tp.heads:
+        q = tp.gather_heads(q)
+    if tp.kv_heads:
+        k, v = tp.gather_heads(k), tp.gather_heads(v)
+    out, _ = _decode_any(q, k, v, cache, pos, positions, window, ring)
+    if tp.heads:
+        out = tp.heads_block(out)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return tp.all_reduce(y) if tp.heads else y
+
+
+def _kv_for_heads(k, cfg: ModelConfig, tp, whole: bool = False):
+    """The KV heads this rank's query heads read, from `k` (b, s, h, d):
+    the rank's KV heads where the rules shard them (`k` holds just those
+    unless `whole`), else the block :meth:`~repro_torch.sharding.tp.
+    TPCut.kv_read` names (repeated per query head when those are not
+    whole groups), or every head where the query heads are replicated."""
+    if not tp.heads:
+        return k
+    if tp.kv_heads:
+        return tp.heads_block(k) if whole else k
+    lo, hi, idx = tp.kv_read(cfg.num_heads, cfg.num_kv_heads)
+    k = k[:, :, lo:hi]
+    return k if idx is None else k[:, :, idx]
+
+
+def _ring_rows(k, w: int, lo: int, size: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slots ``[lo, lo + size)`` of a ``w``-slot ring filled from `k`
+    (b, s, h, d) at positions 0..s-1 as :func:`prefill_attention` fills
+    it: ((b, size, h, d) rows, (size,) positions). Past s >= w the ring
+    holds the last w positions, position p at slot p % w; below, slot j
+    holds position j and the tail is empty (zeros at position 0, as the
+    zero-initialised cache leaves it)."""
+    s = k.shape[1]
+    j = torch.arange(lo, lo + size, device=k.device)
+    if s >= w:
+        filled = torch.ones_like(j, dtype=torch.bool)
+        p = (s - w) + torch.remainder(j - (s - w), w)
+    else:
+        filled = j < s
+        p = torch.where(filled, j, s)
+    kp = torch.cat([k, k.new_zeros((k.shape[0], 1) + tuple(k.shape[2:]))],
+                   dim=1)
+    return kp[:, p], torch.where(filled, p, 0)
+
+
+def _fill_ring(cache: Cache, k, v, tp, ring) -> None:
+    """Places the prefill's keys and values (b, s, h, d), this rank's KV
+    heads or every one, into this rank's block of the ring (`ring`: its
+    slot block and whether the rules split its heads). Where the rules
+    split the slots over "model" and the KV heads over it too, the rank
+    holds its heads of every position and wants every head of its slots:
+    one all-to-all per tensor over the "model" axis moves each rank's
+    heads of each slot block to the block's owner. Otherwise the rank
+    cuts its block from what it holds (gathering the heads first where
+    it holds a block of them and the ring wants them all)."""
+    kv = (k, v)
+    if tp.kv_heads and ring.slots:
+        out = []
+        for t in kv:
+            send = torch.stack([_ring_rows(t, ring.w, j * ring.size,
+                                           ring.size)[0]
+                                for j in range(tp.n)])
+            out.append(tp.all_to_all(send).permute(1, 2, 0, 3, 4).reshape(
+                send.shape[1], ring.size, -1, send.shape[-1]))
+        _, pos = _ring_rows(k[:, :, :0], ring.w, ring.lo, ring.size)
+    else:
+        if tp.kv_heads and not ring.heads:
+            kv = tuple(tp.gather_heads(t) for t in kv)
+        elif ring.heads and not tp.kv_heads:
+            kv = tuple(tp.heads_block(t) for t in kv)
+        rows = [_ring_rows(t, ring.w, ring.lo, ring.size) for t in kv]
+        out, pos = [r[0] for r in rows], rows[0][1]
+    cache["k"].copy_(out[0])
+    cache["v"].copy_(out[1])
+    cache["pos"].copy_(pos)
 
 
 # ------------------------------------------------------------ cross-attention
@@ -306,31 +495,55 @@ def cross_attention(p, x, enc_kv: Tuple[torch.Tensor, torch.Tensor],
 
 
 def cross_attention_tp(p, x_rows, enc_out: torch.Tensor, cfg: ModelConfig,
-                       tp) -> torch.Tensor:
+                       tp, cache: Optional[Cache] = None) -> torch.Tensor:
     """:func:`cross_attention` under the tensor-parallel cut (``tp``, a
     :class:`~repro_torch.sharding.tp.TPCut`): `x_rows` are this rank's
     (b, s/tp, d) decoder rows and `enc_out` the whole encoder output
     (b, enc_seq, d), every rank's the same. The rows are all-gathered;
-    the queries take the rank's heads, the keys and values the rank's
-    heads (or the KV heads they read) over the whole encoder output;
+    the queries take the rank's heads, the keys and values the rank's KV
+    heads (every KV head where the rules replicate them, of which the
+    rank's query heads read theirs) over the whole encoder output;
     ``wo`` contracts the rank's heads and the partial sums are
     reduce-scattered back to the rows (where the rules replicate the
     heads, every head is computed and the rank takes its rows). Plain
-    attention, as in the reference."""
+    attention, as in the reference. With `cache` (the serving cells'
+    prefill) the keys and values are copied into its ``cross_k`` and
+    ``cross_v`` blocks."""
     x = tp.gather_seq(x_rows)
     b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-    pk, idx = _kv_block(p, cfg, tp)
-    k, v = encode_cross_kv(pk, enc_out, cfg)
-    if idx is not None:
-        k, v = k[:, :, idx], v[:, :, idx]
+    k, v = encode_cross_kv(p, enc_out, cfg)
+    if cache is not None:
+        cache["cross_k"].copy_(k)
+        cache["cross_v"].copy_(v)
+    k, v = _kv_for_heads(k, cfg, tp), _kv_for_heads(v, cfg, tp)
     t = k.shape[1]
     q_pos = torch.arange(s, device=x.device).expand(b, s)
     k_pos = torch.arange(t, device=x.device).expand(b, t)
     out = _sdpa_dense(q, k, v, q_pos, k_pos, causal=False, window=None)
     return tp.leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp.heads)
+
+
+def cross_attention_decode_tp(p, x, enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                              cfg: ModelConfig, tp) -> torch.Tensor:
+    """:func:`cross_attention` of one decode token under the serving cut:
+    `x` (b, 1, d) whole on every rank, `enc_kv` the cached keys and
+    values with every KV head (the decode placement replicates them).
+    The rank's query heads attend to the KV heads they read; ``wo``'s
+    partial sums are all-reduced."""
+    b = x.shape[0]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k, v = (_kv_for_heads(t, cfg, tp, whole=True) for t in enc_kv)
+    t = k.shape[1]
+    q_pos = torch.zeros((b, 1), dtype=torch.int64, device=x.device)
+    k_pos = torch.arange(t, device=x.device).expand(b, t)
+    out = _sdpa_dense(q, k, v, q_pos, k_pos, causal=False, window=None)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return tp.all_reduce(y) if tp.heads else y
 
 
 def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig

@@ -183,6 +183,13 @@ def map_specs(fn, specs: PyTree) -> PyTree:
     return fn(specs)
 
 
+def abstract_from_specs(specs: PyTree) -> PyTree:
+    """Shape-and-dtype stand-ins of every leaf: meta-device tensors (no
+    storage), as the JAX package's ``ShapeDtypeStruct``s."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                           device="meta"), specs)
+
+
 def axes_from_specs(specs: PyTree) -> PyTree:
     """Logical-axes tree (same structure as the params): each leaf's
     ``ParamSpec.axes``, which ``sharding.rules.resolve_pspec`` places."""

@@ -41,6 +41,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     ParamSpec,
     ParamTree,
+    abstract_from_specs,
     axes_from_specs,
     init_from_specs,
     layer_norm,
@@ -128,6 +129,11 @@ class LanguageModel:
     def init(self, seed: int = 0, device="cuda") -> ParamTree:
         return ParamTree(init_from_specs(self.param_specs(), seed, device))
 
+    def abstract_params(self) -> PyTree:
+        """Meta-device stand-ins of :meth:`init`'s params (shapes and
+        dtypes, no storage)."""
+        return abstract_from_specs(self.param_specs())
+
     def param_axes(self) -> PyTree:
         """Logical-axes tree matching :meth:`init`'s params (each leaf's
         ``ParamSpec.axes``; a scanned stack's leaves lead with
@@ -148,15 +154,7 @@ class LanguageModel:
         embeds its block of the rows."""
         # F.embedding: a gather whose backward is deterministic on the card
         x = torch.nn.functional.embedding(tokens, params["embed"])
-        if self.cfg.family == "encdec":
-            # rows 0..s-1 of the sinusoid: a decode step (s = 1) adds row 0
-            # whatever its position, as the reference does
-            x = x + _sinusoid_rows(start, tokens.shape[1], total,
-                                   self.cfg.d_model, x)
-        # the scale is rounded to the activation dtype first, as in the JAX
-        # package (11.3125 in bf16 at d_model 128)
-        return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
-                                device=x.device)
+        return self._embed_rows(x, start, total)
 
     def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
         x = tfm._norm(params, x, self.cfg, "final_norm")
@@ -428,6 +426,96 @@ class LanguageModel:
                                      caches=caches, pos=pos)
         return self._unembed(params, x), caches
 
+    # ------------------------------------------------- entry points, the cut
+    def prefill_cut(self, params, batch: Dict, caches, cut
+                    ) -> Tuple[torch.Tensor, Any]:
+        """:meth:`prefill` under the serving cut (`cut`, a
+        :class:`~repro_torch.sharding.tp.ServeCut`): `params` holds this
+        rank's blocks with every dim the "model" axis does not place
+        whole (``launch/steps.py`` ``ServePlan.compute``), `batch` this
+        data replica's rows with the whole sequence, `caches` this rank's
+        empty cache blocks in the prefill placement, filled in place.
+
+        The embedding is looked up in the rank's block of the vocabulary
+        (zero rows for the other ids) and the partial sums leave through
+        a reduce-scatter onto the rank's rows of the sequence (every
+        other id's row is exactly 0, so the sum is the lookup); the VLM's
+        patches are added by the first rank of the line, Whisper's
+        sinusoid after the sum. The stack runs under the cut
+        (:func:`~repro_torch.models.transformer.stack_apply` with
+        `cut`), the last row of the sequence is gathered from the rank
+        that holds it, and the head gives this rank's block of the
+        vocabulary. Returns ((b, 1, V or V/tp) f32 logits, caches)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        e = self._lookup(params["embed"], tokens, cut)
+        enc_out = None
+        if cfg.family == "vlm":
+            patches = promoted_einsum("bsd,de->bse", batch["patches"],
+                                      params["vision_proj"]).to(e.dtype)
+            if cut.vocab and cut.index:     # added once to the sum
+                patches = torch.zeros_like(patches)
+            x = cut.rows_of_sum(torch.cat([patches, e * _scale(cfg, e)],
+                                          dim=1), cut.vocab)
+        else:
+            x = cut.rows_of_sum(e, cut.vocab)
+            s = tokens.shape[1]
+            x = self._embed_rows(x, cut.index * (s // cut.n), s)
+        if cfg.family == "encdec":
+            enc_out = cut.gather_seq(self._encode(params, batch["frames"],
+                                                  cut))
+        x, caches, _ = tfm.stack_apply(params["layers"], x, cfg, None,
+                                       "prefill", caches, None,
+                                       self.opt.attn_impl, enc_out=enc_out,
+                                       tp=cut)
+        last = cut.gather_seq(x[:, -1:])[:, -1:]
+        return self._unembed(params, last), caches
+
+    def decode_step_cut(self, params, token: torch.Tensor, caches, pos, cut
+                        ) -> Tuple[torch.Tensor, Any]:
+        """:meth:`decode_step` under the serving cut: `params` as in
+        :meth:`prefill_cut`, `token` (b, 1) this replica's rows, `caches`
+        this rank's blocks (the rings' slot blocks as they rest, the
+        other leaves with every dim the "model" axis does not place
+        whole), updated in place, `pos` a scalar. Every block's output is
+        all-reduced over the "model" axis, so each rank of a line holds
+        the whole (b, 1, d) between blocks. Returns ((b, 1, V or V/tp)
+        f32 logits, caches)."""
+        e = self._lookup(params["embed"], token, cut)
+        if cut.vocab:
+            e = cut.all_reduce(e)
+        x = self._embed_rows(e, 0, 1)
+        x, caches, _ = tfm.stack_apply(params["layers"], x, self.cfg, None,
+                                       "decode", caches, pos,
+                                       self.opt.attn_impl, tp=cut)
+        return self._unembed(params, x), caches
+
+    def _embed_rows(self, e: torch.Tensor, start: int = 0,
+                    total: Optional[int] = None) -> torch.Tensor:
+        """:meth:`_embed` after the lookup: looked-up rows `e`, rows
+        ``start..`` of a sequence of `total` (default its own length).
+        Whisper adds those rows of the sinusoid (a decode step adds row 0
+        whatever its position, as the reference does); the scale is
+        rounded to the activation dtype first, as in the JAX package."""
+        if self.cfg.family == "encdec":
+            e = e + _sinusoid_rows(start, e.shape[1], total,
+                                   self.cfg.d_model, e)
+        return e * _scale(self.cfg, e)
+
+    @staticmethod
+    def _lookup(table: torch.Tensor, tokens: torch.Tensor, cut
+                ) -> torch.Tensor:
+        """The embedding rows of `tokens` from `table`, or, where the cut
+        places the vocabulary, from this rank's block of it: a zero row
+        for every id outside the block."""
+        if not cut.vocab:
+            return torch.nn.functional.embedding(tokens, table)
+        vl = table.shape[0]
+        idx = tokens - cut.index * vl
+        inside = (idx >= 0) & (idx < vl)
+        e = torch.nn.functional.embedding(idx.clamp(0, vl - 1), table)
+        return e * inside[..., None].to(e.dtype)
+
     # ----------------------------------------------------------------- caches
     def cache_specs(self, batch: int, max_len: int) -> PyTree:
         return tfm.stack_cache_specs(self.cfg, batch, max_len,
@@ -435,6 +523,13 @@ class LanguageModel:
 
     def init_caches(self, batch: int, max_len: int, device="cuda") -> PyTree:
         return init_from_specs(self.cache_specs(batch, max_len), 0, device)
+
+
+def _scale(cfg: ModelConfig, like: torch.Tensor) -> torch.Tensor:
+    """sqrt(d_model) rounded to `like`'s dtype first, as in the JAX
+    package (11.3125 in bf16 at d_model 128)."""
+    return torch.tensor(cfg.d_model ** 0.5, dtype=like.dtype,
+                        device=like.device)
 
 
 def _sinusoid_rows(start: int, rows: int, total: Optional[int], dim: int,
@@ -457,3 +552,54 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 options: Optional[ModelOptions] = None,
                 device="cuda") -> ParamTree:
     return build_model(cfg, options).init(seed, device)
+
+
+def abstract_params(cfg: ModelConfig, options: Optional[ModelOptions] = None
+                    ) -> PyTree:
+    return build_model(cfg, options).abstract_params()
+
+
+# ------------------------------------------------------------------ input specs
+def input_specs(cfg: ModelConfig, shape, options: Optional[ModelOptions] = None
+                ) -> Dict[str, Any]:
+    """Meta-device stand-ins (+ logical axes) of a cell's inputs, for a
+    :class:`~repro_torch.config.shapes.ShapeConfig` `shape`.
+
+    train/prefill: {'tokens', 'targets'?, 'patches'?, 'frames'?}
+    decode:        {'token', 'caches', 'pos'}
+
+    As the reference's, with the port's integer dtype (int64: tokens,
+    the rings' positions) where the reference has int32."""
+    model = build_model(cfg, options)
+    b, s = shape.global_batch, shape.seq_len
+    i64 = torch.int64
+
+    def meta(*dims, dtype=i64):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    specs: Dict[str, Any] = {}
+    axes: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        s_text = s - (cfg.num_vision_patches if cfg.family == "vlm" else 0)
+        specs["tokens"] = meta(b, s_text)
+        axes["tokens"] = ("batch", "seq")
+        if shape.kind == "train":
+            specs["targets"] = meta(b, s_text)
+            axes["targets"] = ("batch", "seq")
+        if cfg.family == "vlm":
+            specs["patches"] = meta(b, cfg.num_vision_patches, cfg.d_model,
+                                    dtype=torch.bfloat16)
+            axes["patches"] = ("batch", None, None)
+        if cfg.family == "encdec":
+            specs["frames"] = meta(b, cfg.encdec.enc_seq, cfg.d_model,
+                                   dtype=torch.bfloat16)
+            axes["frames"] = ("batch", None, None)
+    else:  # decode
+        specs["token"] = meta(b, 1)
+        axes["token"] = ("batch", None)
+        cspecs = model.cache_specs(b, s)
+        specs["caches"] = abstract_from_specs(cspecs)
+        axes["caches"] = axes_from_specs(cspecs)
+        specs["pos"] = meta(dtype=torch.int32)
+        axes["pos"] = ()
+    return {"specs": specs, "axes": axes}

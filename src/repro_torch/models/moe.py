@@ -173,14 +173,78 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mesh=None
     m = _require_moe(cfg, "moe_apply")
     route = ep_route(mesh, m.num_experts, x.shape)
     if route == "ep":
-        return moe_apply_ep(p, x, cfg, mesh)
+        return moe_apply_ep(expert_block(p, mesh), x, cfg, mesh)
     if route == "ep_batch":
         # decode: one token per sequence, so the batch is the token domain;
         # swapped into the sequence slot, the same EP dispatch applies
-        y, aux = moe_apply_ep(p, x.transpose(0, 1), cfg, mesh,
-                              tokens_on_batch=True)
+        y, aux = moe_apply_ep(expert_block(p, mesh), x.transpose(0, 1), cfg,
+                              mesh, tokens_on_batch=True)
         return y.transpose(0, 1), aux
     return moe_apply_dense(p, x, cfg)
+
+
+def expert_block(p, mesh) -> Dict[str, torch.Tensor]:
+    """`p` (every expert) with its expert leaves narrowed to the experts
+    this rank owns on the mesh's ``"model"`` axis, ``[m·E/n, (m+1)·E/n)``
+    (views: a gradient lands in the whole leaf's rows)."""
+    out = dict(p)
+    if "gate" in p:
+        n = mesh.shape["model"]
+        me = mesh.coords[mesh.axis_index("model")]
+        e = p["gate"].shape[0] // n
+        for k in ("gate", "up", "down"):
+            out[k] = p[k][me * e:(me + 1) * e]
+    return out
+
+
+def moe_apply_cut(p, x: torch.Tensor, cfg: ModelConfig, tp, mode: str
+                  ) -> torch.Tensor:
+    """The MoE block under the serving cut (``tp``, a :class:`~repro_torch.
+    sharding.tp.ServeCut`; the rules place the experts over its "model"
+    axis, so `p` holds the rank's experts): in "prefill" `x` is the
+    rank's (b, s/tp, d) rows, its token block, routed as the reference's
+    expert parallelism routes it (:func:`moe_apply_ep` on the block, at
+    the capacity of s/tp tokens); in "decode" `x` is (b, 1, d), whole on
+    every rank, and the batch is the token domain (``ep_route``'s
+    "ep_batch"); where the batch does not divide, each rank runs the dense
+    capacity dispatch with its experts only and the partial outputs are
+    all-reduced. One rank: :func:`moe_apply_dense`."""
+    m = _require_moe(cfg, "moe_apply_cut")
+    if tp.n == 1:
+        return moe_apply_dense(p, x, cfg)[0]
+    if m.num_experts % tp.n:
+        raise NotImplementedError(
+            f"serving {cfg.name!r} with {m.num_experts} experts over "
+            f"{tp.n} ranks of {tp.axis!r}: the rules replicate the experts "
+            f"and split their columns (expert TP), which is not ported")
+    if mode == "prefill":
+        return moe_apply_ep(p, x, cfg, tp.mesh, block=True)[0]
+    if x.shape[0] % tp.n == 0:
+        y, _ = moe_apply_ep(p, x.transpose(0, 1), cfg, tp.mesh,
+                            tokens_on_batch=True)
+        return y.transpose(0, 1)
+    return tp.all_reduce(_dense_partial(p, x, cfg, tp.index))
+
+
+def _dense_partial(p, x: torch.Tensor, cfg: ModelConfig, me: int
+                   ) -> torch.Tensor:
+    """:func:`moe_apply_dense`'s output restricted to the experts `p`
+    holds (block `me` of the experts): their FFN over their slots, every
+    other expert's slots zero in the combine."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.num_experts, m.top_k
+    e = p["gate"].shape[0]
+    C = capacity(S, E, K, m.capacity_factor)
+    _, weights, assign = _route(x, p["router"], K)
+    gather_ids, rank, keep = _dispatch_tables(assign, E, C)
+    xe = _slots_gather(x, gather_ids)[:, me * e:(me + 1) * e]
+    h = F.silu(torch.einsum("becd,edf->becf", xe, p["gate"]))
+    h = h * torch.einsum("becd,edf->becf", xe, p["up"])
+    ye = x.new_zeros((B, E, C, D))
+    ye[:, me * e:(me + 1) * e] = torch.einsum("becf,efd->becd", h, p["down"])
+    return _combine(ye.reshape(B, E * C, D), assign, rank, keep, weights, C,
+                    x.dtype)
 
 
 # ------------------------------------------------------------ expert parallel
@@ -230,7 +294,7 @@ def _mean_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 def moe_apply_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
                  tokens_on_batch: bool = False, a2a_chunks: int = 1,
-                 log: Optional[list] = None
+                 log: Optional[list] = None, block: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert parallelism over the mesh's ``"model"`` axis of n ranks.
 
@@ -238,13 +302,16 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     (the batch rows of this rank's data-parallel replica). Rank m of the
     line routes its token block ``x[:, m·S/n:(m+1)·S/n]`` with the same
     dispatch tables as the dense path, at the capacity of S/n tokens, and
-    owns experts ``[m·E/n, (m+1)·E/n)`` (of `p`'s leaves, which hold all
-    E). The (n, B, E/n, C, D) slot buffer goes to the owners and
+    owns experts ``[m·E/n, (m+1)·E/n)``: `p`'s expert leaves hold just
+    those E/n (:func:`expert_block` cuts them from a whole tree). The
+    (n, B, E/n, C, D) slot buffer goes to the owners and
     back through :func:`a2a_scan` (chunked `a2a_chunks` ways along C), the
     owners' FFN runs over every rank's slots, and each rank combines its
     block; the blocks are all-gathered, so every rank of the line returns
-    the whole (B, S, D). The aux loss's expert loads are averaged over the
-    ``"model"`` ranks and, unless ``tokens_on_batch`` (decode, `x` arrived
+    the whole (B, S, D). With `block`, `x` is already this rank's token
+    block (B, S/n, D) and so is the result: nothing is gathered. The aux
+    loss's expert loads are averaged over the ``"model"`` ranks and,
+    unless ``tokens_on_batch`` (decode, `x` arrived
     swapped to (1, B, D)), over the mesh's other axes too, as the JAX
     package's ``pmean``s do. With ample capacity (no drops) this is the
     dense function; the per-rank capacity comes from the local token
@@ -262,6 +329,8 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
             f"axis size {n} ({cfg.name!r}); EP shards experts over 'model' — "
             f"use the dense/expert-TP path for this mesh")
     E_loc = E // n
+    if block:
+        S = S * n
     if S % n != 0:
         token_dim = "batch" if tokens_on_batch else "seq"
         raise ValueError(
@@ -276,8 +345,13 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
             f"the expert capacity C={C} (tokens/shard={S_loc}, "
             f"num_experts={E}, top_k={K}, "
             f"capacity_factor={m.capacity_factor}, {cfg.name!r})")
+    if p["gate"].shape[0] != E_loc:
+        raise ValueError(
+            f"moe_apply_ep: the expert leaves hold {p['gate'].shape[0]} "
+            f"experts, not this rank's {E_loc} of {E} (expert_block cuts "
+            f"them from a whole tree)")
     me = mesh.coords[mesh.axis_index("model")]
-    xl = x[:, me * S_loc:(me + 1) * S_loc]                   # (B, S_loc, D)
+    xl = x if block else x[:, me * S_loc:(me + 1) * S_loc]  # (B, S_loc, D)
 
     probs, weights, assign = _route(xl, p["router"], K)
     f_e, p_e = _load(probs, assign, E)
@@ -288,8 +362,7 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     gather_ids, rank, keep = _dispatch_tables(assign, E, C)
     xe = _slots_gather(xl, gather_ids)                       # (B,E,C,D)
     xs = xe.reshape(B, n, E_loc, C, D).movedim(1, 0)         # (n,B,E_loc,C,D)
-    gate, up, down = (p[k][me * E_loc:(me + 1) * E_loc]
-                      for k in ("gate", "up", "down"))
+    gate, up, down = p["gate"], p["up"], p["down"]
 
     def ffn(xr, _k):
         # the owner's FFN over one received capacity slice: (source rank,
@@ -303,4 +376,6 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     ys = a2a_scan(xs, ffn, mesh, "model", chunks=a2a_chunks, dim=3, log=log)
     ye = ys.movedim(0, 1).reshape(B, E * C, D)
     y = _combine(ye, assign, rank, keep, weights, C, x.dtype)
+    if block:
+        return y, aux
     return _GatherTokens.apply(y, mesh.groups["model"], n, me), aux

@@ -118,20 +118,41 @@ def rglru_train_tp(p, x_rows: torch.Tensor, cfg: ModelConfig, tp
     w/tp) block, and ``w_out``'s rows leave through a reduce-scatter.
     Where the rules replicate the width, the rank computes the whole
     block and takes its rows."""
+    return _rglru_cut(p, x_rows, cfg, tp)[0]
+
+
+def rglru_prefill_tp(p, x_rows: torch.Tensor, cfg: ModelConfig, tp
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`rglru_prefill` under the serving cut: :func:`rglru_train_tp`'s
+    block, and the state decode continues from on the rank's block of the
+    width: its h (b, w/tp) f32 and conv inputs."""
+    y, h_last, u = _rglru_cut(p, x_rows, cfg, tp)
+    return y, {"h": h_last, "conv": conv_tail(u, cfg.hybrid.conv_kernel)}
+
+
+def _rglru_cut(p, x_rows, cfg: ModelConfig, tp):
+    """(the rows of the block's output, the scan's last h, the input
+    projection before the conv) under the cut."""
     x = tp.gather_seq(x_rows)
     gate = _gelu(x @ p["w_gate"])
-    u = _conv1d(x @ p["w_in"], p["conv"])
-    if tp.lru:
-        uf = u.float()
-        a, b = _gate_values(uf, tp.scatter_cols(uf @ p["wr"].float()),
-                            tp.scatter_cols(uf @ p["wi"].float()),
-                            tp.cols(p["br"]), tp.cols(p["bi"]),
-                            tp.cols(p["a_log"]))
-    else:
-        a, b = _gates(p, u)
-    h, _ = lru_ops.lru_scan(a, b)
+    u_in = x @ p["w_in"]
+    a, b = _gates_cut(p, _conv1d(u_in, p["conv"]), tp)
+    h, h_last = lru_ops.lru_scan(a, b)
     y = gate.float() * h.float()
-    return tp.leave(y.to(x.dtype) @ p["w_out"], tp.lru)
+    return tp.leave(y.to(x.dtype) @ p["w_out"], tp.lru), h_last, u_in
+
+
+def _gates_cut(p, u: torch.Tensor, tp):
+    """:func:`_gates` on the rank's block of the width: ``wr`` and ``wi``
+    are placed on their input dim, so the rank's products are partial
+    sums over the width, reduce-scattered along it."""
+    if not tp.lru:
+        return _gates(p, u)
+    uf = u.float()
+    return _gate_values(uf, tp.scatter_cols(uf @ p["wr"].float()),
+                        tp.scatter_cols(uf @ p["wi"].float()),
+                        tp.cols(p["br"]), tp.cols(p["bi"]),
+                        tp.cols(p["a_log"]))
 
 
 def rglru_cache_specs(cfg: ModelConfig, batch: int, dtype=torch.bfloat16):
@@ -158,3 +179,19 @@ def rglru_decode_step(p, x: torch.Tensor, cfg: ModelConfig, cache: Dict
     y = gate[:, 0].float() * h
     out = (y.to(x.dtype) @ p["w_out"])[:, None, :]
     return out, {"h": h, "conv": new_conv}
+
+
+def rglru_decode_tp(p, x: torch.Tensor, cfg: ModelConfig, tp, cache: Dict
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`rglru_decode_step` under the serving cut: `x` (b, 1, d)
+    whole on every rank, `cache` the rank's block of the width (as
+    :func:`rglru_prefill_tp` leaves it); ``w_out``'s partial sums are
+    all-reduced."""
+    gate = _gelu(x @ p["w_gate"])
+    u = x @ p["w_in"]
+    new_conv = torch.cat([cache["conv"].to(u.dtype), u], dim=1)[:, 1:]
+    a, b = _gates_cut(p, _conv1d(u, p["conv"], state=cache["conv"]), tp)
+    h = a[:, 0] * cache["h"] + b[:, 0]
+    y = gate[:, 0].float() * h
+    out = (y.to(x.dtype) @ p["w_out"])[:, None, :]
+    return tp.all_reduce(out) if tp.lru else out, {"h": h, "conv": new_conv}

@@ -120,6 +120,25 @@ def ssm_train_tp(p, u_rows: torch.Tensor, cfg: ModelConfig, tp
     output over the columns, scans every head and takes its columns of
     the result. Where they replicate both, the rank computes the whole
     block and takes its rows."""
+    return _ssm_cut(p, u_rows, cfg, tp)[0]
+
+
+def ssm_prefill_tp(p, u_rows: torch.Tensor, cfg: ModelConfig, tp
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`ssm_prefill` under the serving cut: :func:`ssm_train_tp`'s
+    block, and the state decode continues from on the rank's block of
+    it: the final SSD state of the rank's heads (of every head where the
+    rules place ``d_inner`` but not the heads), the conv inputs of its
+    ``d_inner`` columns and the whole B and C."""
+    y, final, x, B, C = _ssm_cut(p, u_rows, cfg, tp)
+    k = cfg.ssm.conv_kernel
+    return y, {"state": final, "conv_x": conv_tail(x, k),
+               "conv_B": conv_tail(B, k), "conv_C": conv_tail(C, k)}
+
+
+def _ssm_cut(p, u_rows, cfg: ModelConfig, tp):
+    """(the rows of the block's output, the final SSD state, the
+    projections x, B and C before their convs) under the cut."""
     s = cfg.ssm
     u = tp.gather_seq(u_rows)
     b, l, d = u.shape
@@ -131,17 +150,24 @@ def ssm_train_tp(p, u_rows: torch.Tensor, cfg: ModelConfig, tp
     if split:
         xc = tp.gather_cols(xc)
     xh = xc.reshape(b, l, -1, s.head_dim)
-    y, _ = ssd_ops.ssd(xh, dt, A, Bc, Cc, min(s.chunk_size, l))
+    y, final = ssd_ops.ssd(xh, dt, A, Bc, Cc, min(s.chunk_size, l))
+    y = _gated_norm(p, y, xh, z, cfg, tp, split)
+    return tp.leave(y @ p["wo"], tp.inner), final, x, B, C
+
+
+def _gated_norm(p, y, xh, z, cfg: ModelConfig, tp, split: bool):
+    """The D skip, the gate by silu(z) and the norm over the whole
+    ``d_inner`` on the rank's columns (gathered heads cut back to them
+    where `split`)."""
+    b, l = z.shape[:2]
     y = (y + xh * p["D"][:, None].to(xh.dtype)).reshape(b, l, -1)
     if split:
         y = tp.cols(y)
     y = y * F.silu(z)
     if tp.inner:
-        y = rms_norm_split(y, p["norm"], cfg.norm_eps, s.d_inner(d),
-                           tp.all_reduce)
-    else:
-        y = rms_norm(y, p["norm"], cfg.norm_eps)
-    return tp.leave(y @ p["wo"], tp.inner)
+        return rms_norm_split(y, p["norm"], cfg.norm_eps,
+                              cfg.ssm.d_inner(cfg.d_model), tp.all_reduce)
+    return rms_norm(y, p["norm"], cfg.norm_eps)
 
 
 def ssm_apply(p, u: torch.Tensor, cfg: ModelConfig,
@@ -191,3 +217,33 @@ def ssm_decode_step(p, u: torch.Tensor, cfg: ModelConfig, cache: Dict
     out = _out(p, y[:, None], xh, z, cfg)
     return out, {"state": new_state, "conv_x": cx, "conv_B": cB,
                  "conv_C": cC}
+
+
+def ssm_decode_tp(p, u: torch.Tensor, cfg: ModelConfig, tp, cache: Dict
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`ssm_decode_step` under the serving cut: `u` (b, 1, d) whole
+    on every rank, `cache` the rank's block of the state (as
+    :func:`ssm_prefill_tp` leaves it). The rank steps its heads over its
+    ``d_inner`` columns (every head where the columns are not whole
+    heads: the conv's output is gathered, as in training), norms over
+    the whole width, and ``wo``'s partial sums are all-reduced."""
+    s = cfg.ssm
+    b = u.shape[0]
+    z, x, B, C, dt, A = _project(p, u, cfg)
+
+    def conv_step(x1, w, st):
+        y = _causal_depthwise_conv(x1, w, state=st)
+        return y, torch.cat([st.to(x1.dtype), x1], dim=1)[:, 1:]
+
+    x, cx = conv_step(x, p["conv_x"], cache["conv_x"])
+    B, cB = conv_step(B, p["conv_B"], cache["conv_B"])
+    C, cC = conv_step(C, p["conv_C"], cache["conv_C"])
+    split = tp.inner and not tp.ssm_heads
+    if split:
+        x = tp.gather_cols(x)
+    xh = x.reshape(b, 1, -1, s.head_dim)
+    y, new_state = ssd_ops.ssd_decode_step(cache["state"], xh[:, 0],
+                                           dt[:, 0], A, B[:, 0], C[:, 0])
+    y = _gated_norm(p, y[:, None], xh, z, cfg, tp, split) @ p["wo"]
+    return (tp.all_reduce(y) if tp.inner else y,
+            {"state": new_state, "conv_x": cx, "conv_B": cB, "conv_C": cC})

@@ -136,15 +136,18 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     aux), the cache updated in place, aux the block's f32 MoE aux loss
     (None for the other kinds).
 
-    `tp` (a :class:`~repro_torch.sharding.tp.TPCut`, "train" mode, every
-    kind but "attn_moe"): `x` is this rank's rows and `p` its blocks.
-    Each norm runs on the rows; the mixers (:func:`~repro_torch.models.
-    attention.self_attention_tp`, :func:`~repro_torch.models.attention.
-    cross_attention_tp` over the whole `enc_out`, :func:`~repro_torch.
-    models.ssm.ssm_train_tp`, :func:`~repro_torch.models.rglru.
-    rglru_train_tp`) and the MLP gather the rows over the "model" axis,
-    compute with the rank's heads or columns and reduce-scatter back to
-    the rows (or take them, where the rules replicate)."""
+    `tp` (a :class:`~repro_torch.sharding.tp.TPCut`; in "train" mode
+    every kind but "attn_moe"): `x` is this rank's rows and `p` its
+    blocks. Each norm runs on the rows; the mixers (:func:`~repro_torch.
+    models.attention.self_attention_tp`, :func:`~repro_torch.models.
+    attention.cross_attention_tp` over the whole `enc_out`,
+    :func:`~repro_torch.models.ssm.ssm_train_tp`, :func:`~repro_torch.
+    models.rglru.rglru_train_tp`) and the MLP gather the rows over the
+    "model" axis, compute with the rank's heads or columns and
+    reduce-scatter back to the rows (or take them, where the rules
+    replicate). In "prefill" and "decode" (the serving cells; `tp` a
+    :class:`~repro_torch.sharding.tp.ServeCut`, every kind) see
+    :func:`_layer_serve`."""
     if kind not in PORTED_KINDS:
         raise _not_ported(f"block kind {kind!r}")
     if mode not in ("train", "prefill", "decode"):
@@ -152,9 +155,12 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     aux = None
     h = _norm(p, x, cfg, "norm1")
     if tp is not None:
-        if kind == "attn_moe" or mode != "train":
-            raise _not_ported(f"tensor-parallel {mode} of block kind "
-                              f"{kind!r}")
+        if mode != "train":
+            return (_layer_serve(p, x, h, cfg, kind, tp, mode, cache, pos,
+                                 attn_impl, enc_out), cache, aux)
+        if kind == "attn_moe":
+            raise _not_ported("tensor-parallel training of block kind "
+                              "'attn_moe' (ROADMAP.md, Queue 1 item 10)")
         return _layer_tp(p, x, h, cfg, kind, tp, enc_out), cache, aux
     if kind in ("ssm", "rglru"):
         y, cache = _recurrent(p, h, cfg, kind, mode, cache)
@@ -209,6 +215,71 @@ def _layer_tp(p, x, h, cfg: ModelConfig, kind: str, tp, enc_out):
         x = x + attn.cross_attention_tp(p["cross"], h, enc_out, cfg, tp)
     h = tp.gather_seq(_norm(p, x, cfg, "norm2"))
     return x + tp.leave(mlp_apply(p["mlp"], h), tp.mlp)
+
+
+def _layer_serve(p, x, h, cfg: ModelConfig, kind: str, tp, mode: str,
+                 cache, pos, attn_impl: str, enc_out):
+    """A block of the serving cells under the cut (`tp`, a
+    :class:`~repro_torch.sharding.tp.ServeCut`), `h` the first norm of
+    `x`. "prefill": `x` is this rank's (b, s/tp, d) rows, as in
+    training; the mixers and the MLP gather the rows, compute with the
+    rank's heads or columns (the flash kernel through `attn_impl`, the
+    scans' kernels) and reduce-scatter back, and the block's cache is
+    written on the rank's block of it. "decode": `x` (b, 1, d) is whole
+    on every rank; each mixer and the MLP compute with the rank's heads
+    or columns and all-reduce their partial sums; the attention ring
+    takes the sharded flash-decode over its slot block. The MoE block
+    routes under expert parallelism (:func:`~repro_torch.models.moe.
+    moe_apply_cut`). Returns the block's output; the cache is updated in
+    place."""
+    prefill = mode == "prefill"
+    if kind in ("ssm", "rglru"):
+        p_k = p[kind]
+        if kind == "ssm":
+            y, new = (ssm_mod.ssm_prefill_tp(p_k, h, cfg, tp) if prefill
+                      else ssm_mod.ssm_decode_tp(p_k, h, cfg, tp, cache))
+        else:
+            y, new = (rglru_mod.rglru_prefill_tp(p_k, h, cfg, tp) if prefill
+                      else rglru_mod.rglru_decode_tp(p_k, h, cfg, tp, cache))
+        for k, val in new.items():
+            cache[k].copy_(val)
+        x = x + y
+        if kind == "ssm":
+            return x
+        return x + _mlp_serve(p["mlp"], _norm(p, x, cfg, "norm2"), tp, mode)
+    window = (cfg.hybrid.local_window if kind == "local_attn"
+              else cfg.sliding_window)
+    self_cache = cache["self"] if kind == "decoder" else cache
+    ring = tp.ring(ring_len(cfg, kind, tp.max_len))
+    if prefill:
+        y = attn.prefill_attention_tp(p["attn"], h, cfg, self_cache, tp,
+                                      ring, attn_impl, window)
+    else:
+        y = attn.decode_attention_tp(p["attn"], h, cfg, self_cache, pos, tp,
+                                     ring, window)
+    x = x + y
+    if kind == "decoder":
+        h = _norm(p, x, cfg, "norm_cross")
+        if prefill:
+            x = x + attn.cross_attention_tp(p["cross"], h, enc_out, cfg, tp,
+                                            cache=cache)
+        else:
+            x = x + attn.cross_attention_decode_tp(
+                p["cross"], h, (cache["cross_k"], cache["cross_v"]), cfg, tp)
+    h = _norm(p, x, cfg, "norm2")
+    if kind == "attn_moe":
+        return x + moe_mod.moe_apply_cut(p["moe"], h, cfg, tp, mode)
+    return x + _mlp_serve(p["mlp"], h, tp, mode)
+
+
+def _mlp_serve(p, h, tp, mode: str) -> torch.Tensor:
+    """The MLP on the rank's ``d_ff`` columns: on the gathered rows, its
+    partial sums reduce-scattered back ("prefill"), or on the whole
+    token, all-reduced ("decode")."""
+    if mode == "prefill":
+        return tp.leave(mlp_apply(p, tp.gather_seq(h)), tp.mlp)
+    y = mlp_apply(p, h)
+    return tp.all_reduce(y) if tp.mlp else y
 
 
 def _recurrent(p, h, cfg: ModelConfig, kind: str, mode: str, cache):
@@ -301,10 +372,11 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
     layer order. Streaming forces remat (without it every gathered buffer
     would live until its backward).
 
-    `tp` ("train" mode) is the tensor-parallel cut
-    (:func:`layer_apply`): `x` holds this rank's rows, and under remat
-    "full" each layer's recompute re-issues its forward collectives in the
-    backward, in the same order on every rank."""
+    `tp` is the tensor-parallel cut (:func:`layer_apply`): in "train"
+    mode `x` holds this rank's rows, and under remat "full" each layer's
+    recompute re-issues its forward collectives in the backward, in the
+    same order on every rank; in "prefill" and "decode" it is the
+    serving cells' cut, `caches` this rank's blocks."""
     if remat not in ("none", "full"):
         if remat == "dots":
             raise NotImplementedError(
@@ -339,12 +411,22 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
         if caches is not None:
             cache_l = caches[i] if is_unrolled(caches) else _layer(caches, i)
         x, _, aux_l = layer_apply(p_l, x, cfg, kind, positions, mode,
-                                  cache_l, pos, attn_impl, mesh, enc_out)
+                                  cache_l, pos, attn_impl, mesh, enc_out, tp)
         aux = add(aux, aux_l)
     return x, caches, aux
 
 
 # ------------------------------------------------------------- cache builders
+def ring_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    """The slots of an attention block's ring: `max_len`, cut to the
+    window of a local-attention block or of a sliding-window model."""
+    if kind == "local_attn":
+        return min(max_len, cfg.hybrid.local_window)
+    if cfg.sliding_window is not None:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
 def stack_cache_specs(cfg: ModelConfig, batch: int, max_len: int, scan: bool,
                       dtype=torch.bfloat16):
     """ParamSpec tree for the per-layer decode caches."""
@@ -357,12 +439,7 @@ def stack_cache_specs(cfg: ModelConfig, batch: int, max_len: int, scan: bool,
             return rglru_mod.rglru_cache_specs(cfg, batch, dtype)
         if kind not in ATTN_KINDS:
             raise _not_ported(f"the decode cache of block kind {kind!r}")
-        w = max_len
-        if kind == "local_attn":
-            w = min(max_len, cfg.hybrid.local_window)
-        elif cfg.sliding_window is not None:
-            w = min(max_len, cfg.sliding_window)
-        c = attn.cache_specs(cfg, batch, w, dtype)
+        c = attn.cache_specs(cfg, batch, ring_len(cfg, kind, max_len), dtype)
         if kind != "decoder":
             return c
         cross = ParamSpec((batch, cfg.encdec.enc_seq, cfg.num_kv_heads,

@@ -29,6 +29,12 @@ rank's heads or columns (``d_ff``, Mamba-2's ``d_inner``, the RG-LRU's
 width) and leave through a reduce-scatter back to the rows. A block whose
 heads (or columns) the rules replicate computes every head and leaves
 through :func:`take_rows`: a reduce-scatter would count it tp times.
+
+:class:`ServeCut` is the same cut for the serving cells (prefill and
+decode on each rank's blocks under ``rules_for(kind)``): prefill keeps
+training's rows between blocks; decode holds the whole token on every
+rank and all-reduces each block's partial sums. :class:`Ring` is where a
+rank's block of an attention ring lies.
 """
 from __future__ import annotations
 
@@ -199,6 +205,13 @@ def take_rows(x: torch.Tensor, dim: int, n: int, index: int
 
 
 # ------------------------------------------------------------------ the cut
+def _places(spec, dim: int, axis: str) -> bool:
+    """Whether a resolved spec places dim `dim` over `axis` (alone or in a
+    tuple of axes)."""
+    e = (tuple(spec) + (None,) * (dim + 1))[dim]
+    return e == axis or (isinstance(e, tuple) and axis in e)
+
+
 @dataclass
 class TPCut:
     """The tensor-parallel cut of a model's blocks on one mesh: its
@@ -226,9 +239,7 @@ class TPCut:
         hd = cfg.resolved_head_dim
 
         def placed(shape, axes, dim):
-            spec = tuple(resolve_pspec(shape, axes, ctx)) + (None,) * 3
-            e = spec[dim]
-            return e == axis or (isinstance(e, tuple) and axis in e)
+            return _places(resolve_pspec(shape, axes, ctx), dim, axis)
 
         d = cfg.d_model
         extra = {}
@@ -298,6 +309,98 @@ class TPCut:
         if hl % g == 0 or g % hl == 0:
             return lo, hi, None
         return lo, hi, [(first + j) // g - lo for j in range(hl)]
+
+
+@dataclass(frozen=True)
+class Ring:
+    """This rank's block of a ``w``-slot attention ring: the mesh axes its
+    slots are split over (`slots`, () where every rank holds them all),
+    its slots ``[lo, lo + size)``, the axes its KV heads are split over
+    (`heads`), and the process group of `slots` (None where that is one
+    rank: the ring is then decoded whole)."""
+
+    w: int
+    slots: Tuple[str, ...]
+    lo: int
+    size: int
+    heads: Tuple[str, ...]
+    group: object = None
+
+
+@dataclass
+class ServeCut(TPCut):
+    """:class:`TPCut` for the serving cells, on a mesh whose rules are the
+    cell's (`ctx`): whether the rules place the vocabulary over the
+    "model" axis (`vocab`: the embedding is then looked up on the rank's
+    block and the head gives the rank's block of the logits), the
+    cell's global `batch`, and the ring length the caches are sized for
+    (`max_len`, set per call), from which :meth:`ring` places each ring
+    as the rules place ``("batch", "kv_seq", "act_kv_heads", None)``."""
+
+    ctx: object = None
+    vocab: bool = False
+    batch: int = 1
+    kv_heads_n: int = 1
+    head_dim: int = 1
+    max_len: int = 0
+
+    def __post_init__(self):
+        self._rings = {}
+
+    @classmethod
+    def for_cell(cls, cfg, mesh, ctx: ShardingContext, batch: int,
+                 axis: str = "model") -> "ServeCut":
+        base = TPCut.for_model(cfg, mesh, ctx, axis)
+        vocab = _places(resolve_pspec((cfg.vocab_size, cfg.d_model),
+                                      ("vocab", "embed"), ctx), 0, axis)
+        fields = {f: getattr(base, f) for f in base.__dataclass_fields__}
+        return cls(**fields, ctx=ctx, vocab=vocab, batch=batch,
+                   kv_heads_n=cfg.num_kv_heads,
+                   head_dim=cfg.resolved_head_dim)
+
+    def ring(self, w: int) -> Ring:
+        """The placement of a ``w``-slot ring on this rank (its process
+        group created beforehand: ``launch/steps.py`` ``serve_groups``)."""
+        if w not in self._rings:
+            from repro_torch.checkpoint.elastic import block_index
+            from repro_torch.sharding.rules import entry_axes
+
+            shape = (self.batch, w, self.kv_heads_n, self.head_dim)
+            spec = tuple(resolve_pspec(
+                shape, ("batch", "kv_seq", "act_kv_heads", None),
+                self.ctx)) + (None,) * 4
+            idx = block_index(shape, spec, self.mesh)
+            slots = entry_axes(spec[1])
+            self._rings[w] = Ring(
+                w, slots, idx[1].start, idx[1].stop - idx[1].start,
+                entry_axes(spec[2]),
+                self.mesh.axes_group(slots) if slots else None)
+        return self._rings[w]
+
+    def rows_of_sum(self, x: torch.Tensor, summed: bool) -> torch.Tensor:
+        """This rank's rows of a (b, s, ...) tensor: of the sum of the
+        ranks' `x` where they are partial sums (`summed`), else of `x`."""
+        if summed:
+            return reduce_scatter(x, 1, self.mesh, (self.axis,))
+        return self.rows(x)
+
+    def gather_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's heads (dim 2) of a (b, s, h, d) tensor."""
+        return all_gather(x, 2, self.mesh, (self.axis,))
+
+    def heads_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the heads (dim 2)."""
+        return take_rows(x, 2, self.n, self.index)
+
+    def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        """``send[j]`` to rank j of the line; block i of the result came
+        from rank i."""
+        group = self.mesh.groups[self.axis]
+        if group is None:
+            return send
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send.contiguous(), group=group)
+        return out
 
 
 def global_norm_by_class(grads: Sequence[torch.Tensor],

@@ -36,6 +36,8 @@ TP trainer's checkpoint onto other meshes and trains on
 at its published widths tensor-parallel, timed and traced
 (:func:`run_tp_train_full`). One naming ``tp_units`` runs the TP cut's
 building blocks against the same math on one rank (:func:`run_tp_units`).
+Ones naming ``serve_cells``, ``flash_decode`` or ``serve_full`` run the
+serving cells (``tests/_torch_serve.py``).
 """
 from __future__ import annotations
 
@@ -257,7 +259,8 @@ def run_moe(spec, device):
         p = {k: torch.from_numpy(v).to(device).requires_grad_()
              for k, v in p_np.items()}
         log = []
-        y, aux = moe.moe_apply_ep(p, x, cfg, mesh, a2a_chunks=q, log=log)
+        y, aux = moe.moe_apply_ep(moe.expert_block(p, mesh), x, cfg, mesh,
+                                  a2a_chunks=q, log=log)
         loss = (y * y).sum() / mesh.shape["model"] + aux / world
         loss.backward()
         total = loss.detach().clone()
@@ -1426,6 +1429,15 @@ def run(job, u0, device, workdir=None):
             out.update(run_tp_train_full(spec, workdir, device))
     if "tp_elastic" in job:
         out.update(run_tp_elastic(job["tp_elastic"], workdir, device))
+    if "serve_cells" in job:
+        from _torch_serve import run_serve_cells
+        out.update(run_serve_cells(job["serve_cells"], workdir, device))
+    if "flash_decode" in job:
+        from _torch_serve import run_flash_decode
+        out.update(run_flash_decode(job["flash_decode"], device))
+    if "serve_full" in job:
+        from _torch_serve import run_serve_full
+        out.update(run_serve_full(job["serve_full"], workdir, device))
     if "iters" not in job:
         return out
     mesh = make_mesh(tuple(job["mesh"]), tuple(job["axes"]), device)

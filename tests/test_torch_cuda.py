@@ -1051,6 +1051,166 @@ def test_nccl_4_tp_decode_serves_qwen3_8b_full_width(cuda, tmp_path):
         print(json.dumps(row))
 
 
+SERVE_FAMILIES = {"dense": "qwen3-8b", "moe": "mixtral-8x7b",
+                  "ssm": "mamba2-780m", "hybrid": "recurrentgemma-2b",
+                  "encdec": "whisper-base", "vlm": "llava-next-34b"}
+
+
+def test_nccl_2x2_serve_cells_match_one_card(cuda, tmp_path):
+    """The prefill and decode cells (``build_cell``, ``cell_step``) of every
+    family's reduced model, float32, over four NCCL ranks on a (2, 2)
+    ("data", "model") mesh, each rank holding its blocks under
+    ``rules_for(kind)`` (the caches and parameters re-laid between the
+    cells): 2 prompts of 12 tokens into 16-slot rings, 8 teacher-forced
+    decode steps past the wrap (``tests/_torch_serve.py``). On every
+    rank the gathered logits match ``model.prefill`` / ``decode_step`` on
+    its own card at rtol 1e-4 (atol 1e-4), and every leaf it holds is its
+    block. The gloo version against the JAX package is
+    ``tests/test_torch_serve_cells.py``."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    from _torch_dist import spawn
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import ModelOptions, build_model
+
+    cases = []
+    for fam, arch in SERVE_FAMILIES.items():
+        case = dict(tag=fam, arch=arch, factor=4.0 if fam == "moe" else None)
+        cfg = get_arch(arch).reduced()
+        if case["factor"]:
+            import dataclasses
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=case["factor"]))
+        p = build_model(cfg, ModelOptions(dtype=torch.float32,
+                                          scan_layers=False)).init(0, "cpu")
+        np.savez(tmp_path / f"{fam}.npz",
+                 **{f"leaf{i}": t.numpy() for i, t in
+                    enumerate(tree_leaves(p))})
+        cases.append(case)
+    spec = dict(mesh=[2, 2], axes=["data", "model"], cases=cases, one=True)
+    ranks = spawn(dict(mesh=[4], backend="nccl", serve_cells=spec), None,
+                  tmp_path, 300)
+    for fam in SERVE_FAMILIES:
+        for r, out in enumerate(ranks):
+            np.testing.assert_allclose(out[f"{fam}_logits"],
+                                       out[f"{fam}_one"], rtol=1e-4,
+                                       atol=1e-4, err_msg=f"{fam} rank {r}")
+            assert out[f"{fam}_param_blocks_ok"], (fam, r)
+            assert out[f"{fam}_cache_blocks_ok"], (fam, r)
+
+
+SERVE_FULL = dict(arch="mixtral-8x7b", mesh=[1, 4], batch=8, prompt=3968,
+                  ring=4096, steps=256, check=True, check_prompt=1000,
+                  check_ring=1024, check_steps=32, check_factor=4.0)
+
+
+def test_nccl_4_serve_cells_mixtral_8x7b_full_width(cuda, tmp_path):
+    """Mixtral-8x7B at its published widths (32 layers, d_model 4096, 32/8
+    heads of 128, 8 experts top-2 of d_ff 14336, vocab 32000, window
+    4096; 46.7 B parameters, 87 GiB in bf16, which no card holds) served
+    through the prefill and decode cells over four NCCL ranks on a
+    (1, 4) ("data", "model") mesh: bf16, unrolled, each leaf drawn from
+    seed 0 and cut before the next; 8 prompts of 3968 tokens into
+    4096-slot rings, then 256 greedy decode steps at a scalar position
+    (the ring wraps by 128). At (1, 4) the two cells' blocks coincide for
+    every parameter and cache leaf (asserted: nothing moves between
+    them), each rank holds 2 of the 8 experts and a quarter of every
+    other large leaf.
+
+    Holds: GiB at rest within 1% of the rank's blocks (parameters and
+    caches); the flash kernel launched 32 times a prefill on every rank
+    (on its 8 query and 2 KV heads); every decode step one sharded
+    flash-decode a layer and 2 all-to-alls a layer (the experts' dispatch
+    and combine over the batch); the ids finite and in range. First, the
+    oracle: a 2-layer cut at the same widths in float32 (its capacity
+    factor 4, so that expert parallelism's per-rank capacity drops
+    nothing, as the reduced tests do) through the same cells against
+    ``model.prefill`` / ``decode_step`` on each rank's own card with the
+    same parameters (1000-token prompts, 1024-slot rings, 32 steps past
+    the wrap): the largest logit difference within 1e-3; and the sharded
+    flash-decode alone against ``_decode_dense`` over the gathered ring on
+    the same ranks (2e-4). Prints one JSON line: the cards' names and
+    power limits, GiB at rest and blocks, the peak a card (init included),
+    prefill tokens/s, decode ms a step (median), the collectives a step,
+    flash launches a rank, one traced decode step on rank 0 (NCCL ms, the
+    part no compute overlaps)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import json
+    import statistics
+    import subprocess
+
+    from _torch_dist import spawn
+
+    ranks = spawn(dict(mesh=[4], backend="nccl", serve_full=SERVE_FULL,
+                       flash_decode={"windows": [None, 32]}), None,
+                  tmp_path, 780)
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    layers, vocab = 32, 32000
+    for r, out in enumerate(ranks):
+        assert float(out["check_max_abs"].max()) <= 1e-3, (r, out[
+            "check_max_abs"])
+        for w in (None, 32):
+            assert float(out[f"fd_w{w}_vs_dense"]) < 2e-4, (r, w)
+        assert out["param_blocks_coincide"] and out["cache_blocks_coincide"]
+        rest = float(out["params_at_rest"]) + float(out["caches_at_rest"])
+        blocks = float(out["params_blocks"]) + float(out["cache_blocks"])
+        assert abs(rest - blocks) <= 0.01 * blocks, (r, rest, blocks)
+        assert int(out["flash"]) == layers, (r, int(out["flash"]))
+        steps = len(out["step_s"])
+        assert int(out["flash_decode_calls"]) == layers * steps
+        assert int(out["decode_a2a"]) == 2 * layers * steps
+        assert bool(out["finite"])
+        assert ((out["ids"] >= 0) & (out["ids"] < vocab)).all()
+    r0 = ranks[0]
+    step_s = r0["step_s"]
+    nccl, exposed = float(r0["nccl_ms"]), float(r0["nccl_exposed_ms"])
+    print(json.dumps({
+        "test": "serve_cells_mixtral_8x7b_full_width", "mesh": [1, 4],
+        "gpu": gpu,
+        "gib_at_rest": [(float(o["params_at_rest"])
+                         + float(o["caches_at_rest"])) / 2**30
+                        for o in ranks],
+        "gib_params_at_rest": [float(o["params_at_rest"]) / 2**30
+                               for o in ranks],
+        "gib_param_blocks": float(r0["params_blocks"]) / 2**30,
+        "gib_caches_at_rest": [float(o["caches_at_rest"]) / 2**30
+                               for o in ranks],
+        "gib_cache_blocks": float(r0["cache_blocks"]) / 2**30,
+        "peak_gib": [float(o["peak"]) / 2**30 for o in ranks],
+        "init_peak_gib": [float(o["init_peak"]) / 2**30 for o in ranks],
+        "init_s": float(r0["init_s"]),
+        "prefill_s": float(r0["prefill_s"]),
+        "prefill_tokens_per_s": SERVE_FULL["batch"] * SERVE_FULL["prompt"]
+        / float(r0["prefill_s"]),
+        "decode_steps": len(step_s),
+        "decode_ms_median": 1e3 * statistics.median(step_s),
+        "decode_ms_min": 1e3 * float(min(step_s)),
+        "a2a_prefill": int(r0["prefill_a2a"]),
+        "a2a_per_step": int(r0["decode_a2a"]) / len(step_s),
+        "flash_decode_allreduces_per_step":
+            3 * int(r0["flash_decode_calls"]) / len(step_s),
+        "flash_launches_per_rank": [int(o["flash"]) for o in ranks],
+        "check_max_abs": float(max(o["check_max_abs"].max()
+                                   for o in ranks)),
+        "check_logit_scale": float(r0["check_logit_scale"]),
+        "flash_decode_vs_dense": float(max(
+            float(o[f"fd_w{w}_vs_dense"]) for o in ranks
+            for w in (None, 32))),
+        "traced_step_rank0": {
+            "wall_ms": 1e3 * float(r0["traced_s"]), "nccl_ms": nccl,
+            "compute_ms": float(r0["compute_ms"]),
+            "nccl_exposed_ms": exposed,
+            "device_idle_share": 1 - (float(r0["compute_ms"]) + exposed)
+            / (1e3 * float(r0["traced_s"])),
+            "host_top_self_ms": json.loads(str(r0["host_top"])),
+            "runtime_calls": json.loads(str(r0["runtime_calls"]))}}))
+
+
 FLASH_CASES = [  # (b, sq, sk, hq, hkv, d, causal, window)
     (1, 1, 1, 4, 4, 64, True, None),           # one query, one key
     (2, 63, 63, 8, 2, 64, True, None),         # ragged, GQA 4:1
