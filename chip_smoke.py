@@ -296,6 +296,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -370,6 +371,15 @@ TP_LRU_SHAPES = [(8, 2048, 640), (4, 2048, 1280)]
 # mesh: Qwen3-8B, 4 prompts of 2048 tokens into 32768-slot rings (the
 # decode_32k shape's ring at batch 4), 32 decode steps
 CELLS = dict(arch="qwen3-8b", batch=4, prompt=2048, ring=32768, steps=32)
+# phase 30: Qwen3-30B-A3B trained at its published widths on one card, 4 of
+# its 48 layers (the depth cut: all 48 hold ~366 GB of training state),
+# unrolled, 8 x 2048 tokens a step, remat "full" then "dots"
+MOE_TRAIN = dict(arch="qwen3-moe-30b-a3b", layers=4, steps=4)
+MOE_REMATS = ("full", "dots")
+# phase 31: Qwen3-8B's prefill_32k cell (build_cell picks blockwise
+# attention above 8192 tokens) on a one-rank ("data", "model") mesh, 1
+# prompt of the shape's 32 (the batch cut)
+BLOCKWISE = dict(arch="qwen3-8b", shape="prefill_32k", batch=1)
 # serving phases: (arch, phase number of the serve rows, of the trace)
 SERVE_ARCHS = [("qwen3-8b", 8, 9), ("recurrentgemma-2b", 12, 13),
                ("mamba2-780m", 14, 15), ("qwen3-moe-30b-a3b", 20, 21)]
@@ -1498,12 +1508,13 @@ ZERO3_NORM_RTOL = 1e-5                   # the grad norm is summed by flat
 def train_run(overlap: str, mesh_axes, accum=1, seq=TRAIN_SEQ, dev=None,
               arch=TRAIN_ARCH, reduced=False, dtype=None, scan=True,
               steps=TRAIN_STEPS, ckpt=None, every=10 ** 9, zero3=None,
-              fused=True, **parallel):
+              fused=True, layers=None, **parallel):
     """A Trainer as ``launch/train.py``'s ``build_run`` sets one up (AdamW
     with the JAX defaults, warmup max(1, steps // 10), remat "full" at full
     width), on a one-rank mesh of `mesh_axes` (None: no mesh). `zero3`
     names a setup of ZERO3_SETUPS (phase 22: unrolled, remat "full", the
-    unfused loss); `parallel` sets other ParallelConfig fields."""
+    unfused loss); `layers` cuts the depth; `parallel` sets other
+    ParallelConfig fields."""
     from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
     from repro_torch.config.registry import get_arch
     from repro_torch.launch.mesh import make_mesh
@@ -1511,6 +1522,8 @@ def train_run(overlap: str, mesh_axes, accum=1, seq=TRAIN_SEQ, dev=None,
     from repro_torch.runtime.trainer import Trainer
 
     cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     if zero3 is not None:
         parallel = dict(ZERO3_SETUPS[zero3], **parallel)
         scan, fused = False, False
@@ -2420,28 +2433,29 @@ def ssd_bwd_device_kernels(ssd_ops, dev, dtype_name, shape) -> list:
 
 def fresh_ssd_bwd_kernels(cases) -> dict:
     """:func:`ssd_bwd_device_kernels` for each (dtype name, shape) of
-    `cases`, each traced in a fresh Python process of its own (the kernels
-    it loads are the ones phase 1 built). In a process that has run many
-    profiler windows the profiler loses the earliest CUDA records of a
-    window: traced inside a whole run, this phase's backward came back
-    with no kernel, and one window of five backwards kept only the last
-    one's later kernels, while a fresh process keeps them all."""
-    out = {}
-    for d, shape in cases:
-        code = (
-            "import json, sys, torch\n"
-            f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
-            "import chip_smoke as cs\n"
-            "from repro_torch.kernels.ssd_scan import ops\n"
-            "print(json.dumps(cs.ssd_bwd_device_kernels(\n"
-            f"    ops, torch.device('cuda', 0), {d!r}, {tuple(shape)!r})))\n")
-        run = subprocess.run([sys.executable, "-c", code],
-                             capture_output=True, text=True, timeout=300)
-        check(run.returncode == 0,
-              f"ssd bwd trace ({d}, {shape}): {run.stderr[-2000:]}")
-        out[(d, tuple(shape))] = json.loads(
-            run.stdout.strip().splitlines()[-1])
-    return out
+    `cases`, all traced in one fresh Python process (the kernels it loads
+    are the ones phase 1 built). In a process that has run many profiler
+    windows the profiler loses the earliest CUDA records of a window:
+    traced inside a whole run, this phase's backward came back with no
+    kernel, and one window of five backwards kept only the last one's
+    later kernels, while a fresh process keeps them all. One process for
+    all the cases (a window each) starts the card once, not once a
+    case; :func:`ssd_bwd_case` still fails on a row that names no
+    kernel."""
+    listed = [(d, list(s)) for d, s in cases]
+    code = (
+        "import json, sys, torch\n"
+        f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
+        "import chip_smoke as cs\n"
+        "from repro_torch.kernels.ssd_scan import ops\n"
+        "dev = torch.device('cuda', 0)\n"
+        "print(json.dumps([cs.ssd_bwd_device_kernels(ops, dev, d, tuple(s))\n"
+        f"                  for d, s in {listed!r}]))\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    check(run.returncode == 0, f"ssd bwd traces: {run.stderr[-2000:]}")
+    rows = json.loads(run.stdout.strip().splitlines()[-1])
+    return {(d, tuple(shape)): row for (d, shape), row in zip(cases, rows)}
 
 
 def ssd_bwd_case(ssd_ops, ssd_ref, dev, card, dtype_name,
@@ -2755,6 +2769,188 @@ def cells_phase(flash_ops, dev, card) -> dict:
     return row
 
 
+def moe_active_params(cfg) -> int:
+    """N_active of a MoE config: the parameters a token's forward
+    multiplies, top-k of the experts counted, the embedding lookup left
+    out (the untied head counted)."""
+    return cfg.active_params() - cfg.vocab_size * cfg.d_model
+
+
+def moe_train_phase(dev, card, kernel_ops) -> dict:
+    """Phase 30: Qwen3-30B-A3B at its published widths (d_model 2048, 32/4
+    heads of 128, 128 experts of 768, top-8, capacity 1.25, vocab 151936)
+    with 4 of its 48 layers, bf16, seed 0, unrolled, AdamW, 8 x 2048
+    tokens of phase 18's data a step, no mesh (one rank: the dense
+    capacity dispatch, as the reference takes on one device), trained
+    through the Trainer under remat "full" and then "dots": a warm-up and
+    3 timed steps each (host clock around each step's read-back). Step
+    ms, tokens/s, MFU on N_active, peak GiB, the share of routed
+    assignments capacity dropped in the warm-up step (:class:`MoeProbe`;
+    the recompute routes again and counts again, the share is the same),
+    and whether the two remats' losses are bit-equal (the
+    first step's must be: the same forward; later ones follow gradients
+    whose scatter-adds sum in no fixed order on the card). No kernel of
+    the port is on the path (dense attention): the launch counts must
+    not move."""
+    rows = {}
+    for remat in MOE_REMATS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = launch_counts(kernel_ops)
+        t = train_run("hdot", None, dev=dev, arch=MOE_TRAIN["arch"],
+                      scan=False, steps=MOE_TRAIN["steps"],
+                      layers=MOE_TRAIN["layers"], remat=remat)
+        t.init_state(seed=0)
+        cfg = t.run.model
+        with MoeProbe() as probe:
+            times = [timed(lambda: t.train(1))[1]]
+        times += [timed(lambda: t.train(1))[1]
+                  for _ in range(MOE_TRAIN["steps"] - 1)]
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        launches = launch_counts(kernel_ops) - before
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        step_s = statistics.median(times[1:])
+        n_active = moe_active_params(cfg)
+        log = t.metrics_log
+        row = {"phase": "moe_train", "n": 30, "arch": cfg.name,
+               "layers": cfg.num_layers, "layers_published": 48,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": remat,
+               "scan_layers": False, "attn_impl": t.options.attn_impl,
+               "dispatch": "dense (one rank)",
+               "step_ms_median": 1e3 * step_s,
+               "step_ms": [1e3 * x for x in times[1:]],
+               "warmup_step_ms": 1e3 * times[0],
+               "tokens_per_s": tokens / step_s, "n_active": n_active,
+               "mfu": 6 * n_active * tokens / step_s / BF16_FLOPS,
+               "mfu_note": "6·N_active·tokens over 989 TFLOP/s: 8 of the "
+                           "128 experts a token, the embedding left out, "
+                           "the head counted; misses capacity padding, "
+                           "dense attention's scores and the recompute",
+               "peak_mem_gib": peak,
+               "losses": [m["loss"] for m in log],
+               "grad_norms": [m["grad_norm"] for m in log],
+               "ln_vocab": math.log(cfg.vocab_size),
+               "dropped_share_warmup": int(probe.dropped)
+               / max(probe.routed, 1),
+               "kernel_launches": launches, "gpu": card}
+        emit(row)
+        check(all(math.isfinite(x) for x in row["losses"]
+                  + row["grad_norms"]), f"moe train {remat}: non-finite")
+        check(abs(row["losses"][0] - row["ln_vocab"]) <= 1.0,
+              f"moe train {remat}: first loss {row['losses'][0]}")
+        check(launches == 0, f"moe train {remat}: a kernel of the port "
+              f"launched ({launches})")
+        rows[remat] = row
+        del t
+    full, dots = (rows[r]["losses"] for r in MOE_REMATS)
+    check(full[0] == dots[0], f"moe train: first losses differ {full[0]} "
+          f"{dots[0]}")
+    out = {"phase": "moe_train_remats", "n": 30,
+           "losses_bit_equal": full == dots,
+           "first_loss_bit_equal": full[0] == dots[0],
+           "peak_gib": {r: rows[r]["peak_mem_gib"] for r in MOE_REMATS},
+           "step_ms": {r: rows[r]["step_ms_median"] for r in MOE_REMATS},
+           "gpu": card}
+    emit(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def blockwise_cell_phase(flash_ops, dev, card) -> dict:
+    """Phase 31: Qwen3-8B at its published widths (bf16, seed 0) through
+    its ``prefill_32k`` cell as ``build_cell`` makes it (blockwise
+    attention: chunks of 1024 query rows against every key, dense f32
+    scores) on a one-rank ("data", "model") mesh, with 1 prompt of the
+    shape's 32 (numpy seed 31; 32768 tokens into a 32768-slot ring);
+    every kernel count set to 0 just before, read after (none: blockwise
+    runs no kernel). Prefill tokens/s (host clock around the call and a
+    synchronize) and the peak GiB over the parameters. Then
+    ``model.prefill`` with ``attn_impl="flash"`` on the same tree and
+    prompt (36 flash launches): the logits within the bf16 bounds of two
+    full-width runs."""
+    import numpy as np
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.config.shapes import SHAPES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell, cell_step
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch(BLOCKWISE["arch"])
+    shape = dataclasses.replace(SHAPES[BLOCKWISE["shape"]],
+                                global_batch=BLOCKWISE["batch"])
+    cell = build_cell(cfg, shape)
+    model = cell.model
+    check(model.opt.attn_impl == "blockwise",
+          f"blockwise: build_cell chose {model.opt.attn_impl!r}")
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    step = cell_step(cell, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    params = model.init(0, dev)
+    blocks = step.plan.init_params(params=params, device=dev)
+    param_gib = (torch.cuda.memory_allocated(dev) - base) / 2**30
+    s = shape.seq_len
+    toks = torch.tensor(np.random.default_rng(31).integers(
+        1, cfg.vocab_size, (shape.global_batch, s)), device=dev)
+    wrappers = counted_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, caches = step(blocks, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    del caches
+    torch.cuda.empty_cache()
+    flash = build_model(cfg, dataclasses.replace(model.opt,
+                                                 attn_impl="flash"))
+    for fn in wrappers.values():
+        fn.launches = 0
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        want, wc = flash.prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        flash_s = time.perf_counter() - t1
+    flash_launches = {k: fn.launches for k, fn in wrappers.items()}
+    del wc
+    diff = logit_diff(logits, want)
+    row = {"phase": "blockwise_cell", "n": 31, "arch": cfg.name,
+           "shape": shape.name, "batch": shape.global_batch,
+           "batch_published": SHAPES[BLOCKWISE["shape"]].global_batch,
+           "prompt_len": s, "attn_impl": model.opt.attn_impl,
+           "scan_layers": model.opt.scan_layers, "mesh": [1, 1],
+           "prefill_s": prefill_s, "prefill_tokens_per_s":
+           shape.global_batch * s / prefill_s, "param_gib": param_gib,
+           "peak_gib_over_params": peak - param_gib, "peak_gib": peak,
+           "launches": launches, "flash_prefill_s": flash_s,
+           "flash_launches": flash_launches, "vs_flash": diff,
+           "bounds": {"mean_abs": LOGIT_MEAN_BOUND,
+                      "max_abs": LOGIT_MAX_BOUND}, "gpu": card}
+    emit(row)
+    check(bool(torch.isfinite(logits).all()), "blockwise: non-finite logits")
+    check(tuple(logits.shape) == (shape.global_batch, 1, cfg.vocab_size),
+          f"blockwise: logits {tuple(logits.shape)}")
+    check(not any(launches.values()),
+          f"blockwise: a kernel launched in the cell: {launches}")
+    check(flash_launches["flash_attention"] == cfg.num_layers,
+          f"blockwise: flash prefill launches {flash_launches}")
+    within_bounds(diff, "blockwise cell vs flash prefill")
+    del params, blocks, logits, want, flash
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -3050,16 +3246,25 @@ def main() -> int:
     cells, cells_s = timed(lambda: cells_phase(flash_ops, dev, card))
     served["cells"] = cells["launches"]
 
+    # ---- 30. Qwen3-30B-A3B trained at full width, 4 layers, one card
+    _, moe_train_s = timed(lambda: moe_train_phase(dev, card, kernel_ops))
+
+    # ---- 31. Qwen3-8B's prefill_32k cell: blockwise attention
+    blockwise, blockwise_s = timed(lambda: blockwise_cell_phase(
+        flash_ops, dev, card))
+    served["blockwise_flash"] = blockwise["flash_launches"]
+
     # ---- 25. LLaVA-NeXT-34B (64 GiB of weights): last, on a freed card
     gc.collect()
     torch.cuda.empty_cache()
     llava, llava_s = timed(lambda: frontend_serve_phase(
         "llava-next-34b", 25, dev, card))
     served["llava-next-34b"] = llava["launches"]
-    emit({"phase": "frontend_seconds", "n": [23, 24, 25, 28, 29],
+    emit({"phase": "frontend_seconds", "n": [23, 24, 25, 28, 29, 30, 31],
           "phase23_s": whisper_s, "phase24_s": wtrain_s,
           "phase25_s": llava_s, "phase28_s": tp_scans_s,
-          "phase29_s": cells_s})
+          "phase29_s": cells_s, "phase30_s": moe_train_s,
+          "phase31_s": blockwise_s})
 
     # -------------------------------------------------------------- results
     flash_launches = sum(v.get("flash_attention", 0) for v in served.values())

@@ -3,17 +3,15 @@
 Pure Python, no torch.
 
 The fields, defaults and ``__post_init__`` checks are the JAX package's.
-Every family's config is served by the port. The trainer
-(``runtime/trainer.py``) trains the dense, MoE, encoder-decoder and VLM
-families, data-parallel or ZeRO-3 (``param_shard``, ``fsdp_streaming``;
-on a DP-only mesh, else ``ValueError``), and honours every field of
-:class:`ParallelConfig` but ``moe_a2a_chunks > 1`` (expert parallelism
-inside a trained model waits for tensor parallelism: on a data-parallel
-mesh MoE takes the dense dispatch), which
-:func:`repro_torch.launch.steps.check_ported` rejects with
-``NotImplementedError``. ``collective_matmul`` and ``grad_compression``
-are read nowhere, in the JAX package too: a trainer trains the same step
-with either set.
+Every family's config is served and trained by the port (``runtime/
+trainer.py``): data-parallel, ZeRO-3 (``param_shard``, ``fsdp_streaming``;
+on a DP-only mesh, else ``ValueError``) or tensor-parallel on a "model"
+axis. ``moe_a2a_chunks`` is read where the MoE blocks run expert
+parallelism (a "model" axis of more than one rank that divides the
+experts); on a data-parallel mesh MoE takes the dense dispatch and
+ignores it, as in the JAX package. ``collective_matmul`` and
+``grad_compression`` are read nowhere, in the JAX package too: a trainer
+trains the same step with either set.
 """
 from __future__ import annotations
 

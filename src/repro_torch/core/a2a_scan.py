@@ -25,7 +25,15 @@ elementwise, as the expert FFN does (its products contract only the
 feature dims).
 
 Both all-to-alls are differentiable: the backward of an all-to-all with
-equal splits is the same all-to-all of the gradient.
+equal splits is the same all-to-all of the gradient, issued synchronously
+where autograd reaches it. Every rank builds the same graph, and the
+engine runs the ready node created last first, so every rank reaches the
+backward all-to-alls in one order: under ``chunks=Q`` the combines'
+gradients from slice Q-1 down, then the dispatches' from slice Q-1 down.
+Under remat ("full" or "dots") the recompute issues the forward's
+all-to-alls again before them. A double-buffered backward (slice k+1's
+gradient all-to-all in flight under slice k's FFN backward) is not
+written yet.
 """
 from __future__ import annotations
 
@@ -38,11 +46,13 @@ import torch.distributed as dist
 class _AllToAll(torch.autograd.Function):
     """``dist.all_to_all_single`` over `group`; with a `pending` list the
     call is asynchronous and its work handle is appended there (the caller
-    waits it before reading the result)."""
+    waits it before reading the result). The backward's all-to-all of the
+    gradient appends ``(tag + "_bwd", k)`` to `log` (a list, or None) as
+    it is issued."""
 
     @staticmethod
-    def forward(ctx, x, group, pending):
-        ctx.group = group
+    def forward(ctx, x, group, pending, log, tag):
+        ctx.group, ctx.log, ctx.tag = group, log, tag
         out = torch.empty_like(x)
         work = dist.all_to_all_single(out, x, group=group,
                                       async_op=pending is not None)
@@ -55,14 +65,16 @@ class _AllToAll(torch.autograd.Function):
         g = g.contiguous()
         out = torch.empty_like(g)
         dist.all_to_all_single(out, g, group=ctx.group)
-        return out, None, None
+        if ctx.log is not None:
+            ctx.log.append((ctx.tag[0] + "_bwd", ctx.tag[1]))
+        return out, None, None, None, None
 
 
-def _a2a(x: torch.Tensor, group, pending: Optional[list] = None
-         ) -> torch.Tensor:
+def _a2a(x: torch.Tensor, group, pending: Optional[list],
+         log: Optional[List], tag) -> torch.Tensor:
     if group is None:       # an axis of one rank: the all-to-all is a no-op
         return x
-    return _AllToAll.apply(x.contiguous(), group, pending)
+    return _AllToAll.apply(x.contiguous(), group, pending, log, tag)
 
 
 def a2a_scan(x: torch.Tensor,
@@ -83,7 +95,9 @@ def a2a_scan(x: torch.Tensor,
                  divide ``x.shape[dim]``.
     dim        : the dim to over-decompose (not dim 0).
     log        : if a list, ``("dispatch" | "compute" | "combine", k)`` is
-                 appended as each is issued.
+                 appended as each is issued, and ``("dispatch_bwd" |
+                 "combine_bwd", k)`` as the backward issues the all-to-all
+                 of that one's gradient (nothing on an axis of one rank).
     """
     group = mesh.groups[axis_name]
 
@@ -92,11 +106,11 @@ def a2a_scan(x: torch.Tensor,
             log.append((what, k))
 
     if chunks == 1:
-        recv = _a2a(x, group)
+        recv = _a2a(x, group, None, log, ("dispatch", 0))
         note("dispatch", 0)
         y = compute_fn(recv, 0)
         note("compute", 0)
-        out = _a2a(y, group)
+        out = _a2a(y, group, None, log, ("combine", 0))
         note("combine", 0)
         return out
     n = x.shape[dim]
@@ -108,7 +122,8 @@ def a2a_scan(x: torch.Tensor,
 
     def dispatch(k: int):
         pending: list = []
-        recv = _a2a(x.narrow(dim, k * q, q), group, pending)
+        recv = _a2a(x.narrow(dim, k * q, q), group, pending, log,
+                    ("dispatch", k))
         note("dispatch", k)
         return recv, pending
 
@@ -123,7 +138,7 @@ def a2a_scan(x: torch.Tensor,
         note("compute", k)
         # slice k streams back while slice k+1 computes; the last combine
         # is the drain
-        outs.append(_a2a(y, group, combines))
+        outs.append(_a2a(y, group, combines, log, ("combine", k)))
         note("combine", k)
         if nxt is not None:
             recv, pending = nxt

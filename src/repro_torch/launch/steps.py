@@ -10,11 +10,13 @@ whose DP replicas are one rank) the gradients are the plain accumulation.
 
 On a mesh whose "model" axis (``ParallelConfig.tp_axis``) has more than one
 rank, ``make_train_step`` returns the tensor-parallel step
-(:func:`make_tp_train_step`, every family but moe): the parameters and AdamW
-moments at rest are this rank's blocks under ``rules_for("train")``
-(:class:`TPPlan`), the forward and backward run the Megatron cut with
-sequence parallelism (:mod:`repro_torch.sharding.tp`), and where the JAX
-package leaves every collective to GSPMD, the step issues them itself.
+(:func:`make_tp_train_step`, every family; the MoE blocks under expert
+parallelism, each all-to-all in ``moe_a2a_chunks`` slices): the
+parameters and AdamW moments at rest are this rank's blocks under
+``rules_for("train")`` (:class:`TPPlan`), the forward and backward run
+the Megatron cut with sequence parallelism (:mod:`repro_torch.sharding.
+tp`), and where the JAX package leaves every collective to GSPMD, the
+step issues them itself.
 
 ``make_fsdp_train_step`` is the ZeRO-3 composition
 (``ParallelConfig.param_shard``): params and AdamW moments live as
@@ -51,6 +53,7 @@ from repro_torch.core.overlap import (FsdpLayout, GradBuckets, _pack_group,
                                       value_and_grad)
 from repro_torch.checkpoint.elastic import (Sharding, _map2, block_index,
                                             cut, shardings_for, unshard_leaf)
+from repro_torch.launch.mesh import coords_rank
 from repro_torch.models.layers import (ParamTree, axes_from_specs, init_leaf,
                                       leaf_paths, rebuild, tree_leaves,
                                       tree_map)
@@ -76,39 +79,27 @@ def tp_size(parallel: ParallelConfig, mesh) -> int:
     return mesh.shape.get(parallel.tp_axis, 1)
 
 
-def check_ported(parallel: ParallelConfig, mesh=None,
-                 family: Optional[str] = None) -> None:
+def check_ported(parallel: ParallelConfig, mesh=None) -> None:
     """Raise for what the train steps do not honour. ZeRO-3 needs an
     explicit DP-only mesh (``ValueError``, as in the JAX package: it never
     quietly replicates, so ``param_shard`` with a TP axis raises too);
-    ``NotImplementedError`` for chunked MoE all-to-alls (expert parallelism
-    inside a trained model), a TP axis of more than one rank under
-    ``family="moe"`` (both ``ROADMAP.md`` Queue 1 item 10), and any other
-    non-DP axis of more than one rank. ``collective_matmul`` and
-    ``grad_compression`` are read nowhere, as in the JAX package, whose
-    trainer trains the same step with either set (the TP rings serve
-    decode: ``models/decode_tp.py``; the int8 codec serves
-    ``core/reduction.py``'s staged all-reduce)."""
+    ``NotImplementedError`` for a non-DP axis of more than one rank other
+    than the TP axis. Every family trains on a TP axis; ``moe_a2a_chunks``
+    is read only where the MoE blocks run expert parallelism (a TP axis of
+    more than one rank), as in the JAX package, and a mesh without one
+    ignores it. ``collective_matmul`` and ``grad_compression`` are read
+    nowhere, as in the JAX package, whose trainer trains the same step
+    with either set (the TP rings serve decode: ``models/decode_tp.py``;
+    the int8 codec serves ``core/reduction.py``'s staged all-reduce)."""
     if parallel.param_shard:
         _require_explicit_mesh(parallel, mesh)
-    if parallel.moe_a2a_chunks > 1:
-        raise _not_ported(
-            "moe_a2a_chunks > 1 in training: expert parallelism inside the "
-            "model (moe_apply_ep over a2a_scan, its all-to-alls under "
-            "autograd; ROADMAP.md, Queue 1 item 10)")
     if mesh is not None:
-        big = {a: s for a, s in mesh.shape.items()
-               if a not in parallel.dp_axes and s > 1}
-        other = {a: s for a, s in big.items() if a != parallel.tp_axis}
+        other = {a: s for a, s in mesh.shape.items()
+                 if a not in parallel.dp_axes and a != parallel.tp_axis
+                 and s > 1}
         if other:
             raise _not_ported(f"a mesh with non-DP, non-TP axes of size > 1 "
                               f"{other}")
-        if big and family == "moe":
-            raise _not_ported(
-                f"tensor-parallel training of the 'moe' family over "
-                f"{parallel.tp_axis!r} {big} (ROADMAP.md, Queue 1 item 10: "
-                f"expert parallelism in training; every other family "
-                f"trains on a TP mesh)")
 
 
 def explicit_sync_axes(parallel: ParallelConfig, mesh
@@ -137,7 +128,7 @@ def make_train_step(model: LanguageModel, parallel: ParallelConfig,
     those same tensors. On a mesh with a TP axis of more than one rank it
     is :func:`make_tp_train_step` (the params are then this rank's
     blocks)."""
-    check_ported(parallel, mesh, model.cfg.family)
+    check_ported(parallel, mesh)
     if tp_size(parallel, mesh) > 1:
         return make_tp_train_step(model, parallel, mesh, opt_cfg,
                                   warmup_steps, total_steps)
@@ -206,7 +197,12 @@ class TPPlan:
     with each leaf.
 
     The DP axes place only "embed" dims (FSDP over ("pod", "data")); the
-    TP axis places "heads", "kv_heads", "mlp" and "vocab". At the top of a
+    TP axis places "heads", "kv_heads", "mlp", "vocab" and "experts" (an
+    expert leaf's "expert_mlp" then stays whole: the axis is taken). The
+    expert leaves are blocks of the TP axis, so their gradients are not
+    all-reduced over it; the router, ``("embed", None)``, is FSDP over the
+    DP axes and replicated on the TP axis, its gradient a partial sum over
+    the rank's tokens, all-reduced like a norm weight's. At the top of a
     step :meth:`gather_data` all-gathers the data-placed dims (its backward
     reduce-scatters the gradient over the DP replicas) and marks the DP
     axes a leaf is replicated on (its gradient all-reduced there): every
@@ -228,6 +224,10 @@ class TPPlan:
         self.data_axes = tuple(a for a in parallel.dp_axes
                                if a in mesh.axis_names)
         self.dp = math.prod(mesh.shape[a] for a in self.data_axes)
+        # this rank's DP replica, pod-major over the DP axes
+        self.dp_index = coords_rank(
+            [mesh.coords[mesh.axis_index(a)] for a in self.data_axes],
+            [mesh.shape[a] for a in self.data_axes])
         self.axis = parallel.tp_axis
         self.tp = mesh.shape[self.axis]
         self.shardings, self.classes = [], []
@@ -314,7 +314,9 @@ def make_tp_train_step(model: LanguageModel, parallel: ParallelConfig, mesh,
     (:meth:`TPPlan.gather_data`), runs the forward and backward of each of
     ``accum_steps`` microbatches under the cut (``train_loss(..., tp)``,
     each rank's loss over its own rows divided by the TP rank count, so a
-    model line's losses sum to its mean) and accumulates the gradients of
+    model line's losses sum to its mean; the MoE aux loss, the same on
+    every rank, enters each rank's loss whole, so the line counts it once)
+    and accumulates the gradients of
     the TP blocks, then takes them back through the data gathers once:
     each rank holds the gradient of its own block, summed over every rank
     that touched it, divided by the DP replica count as the DP step does.
@@ -323,7 +325,7 @@ def make_tp_train_step(model: LanguageModel, parallel: ParallelConfig, mesh,
     the blocks. The loss is the mean over every token (one all-reduce).
     ``parallel.overlap`` is read nowhere here, as in the JAX package,
     where the partitioner schedules the reductions."""
-    check_ported(parallel, mesh, model.cfg.family)
+    check_ported(parallel, mesh)
     opt_cfg = opt_cfg or AdamWConfig()
     plan = plan or TPPlan(model, parallel, mesh)
     inv_tp = 1.0 / plan.tp
@@ -581,12 +583,13 @@ def build_cell(cfg, shape: ShapeConfig, options: Optional[ModelOptions] = None,
                moment_dtype=torch.float32) -> Cell:
     """The cell of (arch, shape), as the reference's ``build_cell``: its
     default options take ``"dense"`` attention up to 8192 tokens and
-    ``"blockwise"`` above (which raises until item 11), the stack layout
-    and remat of `parallel`."""
+    ``"blockwise"`` above, the stack layout, remat and MoE all-to-all
+    chunks of `parallel`."""
     parallel = parallel or ParallelConfig()
     options = options or ModelOptions(
         attn_impl="blockwise" if shape.seq_len > 8192 else "dense",
-        scan_layers=parallel.scan_layers, remat=parallel.remat)
+        scan_layers=parallel.scan_layers, remat=parallel.remat,
+        moe_a2a_chunks=parallel.moe_a2a_chunks)
     model = build_model(cfg, options)
     io = input_specs(cfg, shape, options)
     batch_specs, batch_axes = io["specs"], io["axes"]

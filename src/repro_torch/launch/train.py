@@ -9,9 +9,10 @@ ranks a launcher such as ``torchrun`` started (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``; one card per rank, ``LOCAL_RANK``):
 ("data", "model") of (world, 1), or ("pod", "data", "model") of (2,
 world / 2, 1). ``--model-axis M`` gives the "model" axis M ranks instead
-of 1: (world / M, M), or (2, world / (2 M), M), and every family but moe
-then trains tensor-parallel (the JAX package's production mesh has a 16-wide
-"model" axis, which a few ranks cannot hold, so the width is stated).
+of 1: (world / M, M), or (2, world / (2 M), M), and every family then
+trains tensor-parallel, the MoE family's experts over the M ranks (the
+JAX package's production mesh has a 16-wide "model" axis, which a few
+ranks cannot hold, so the width is stated).
 ``--restarts N`` runs the fault-tolerant runner: a failed step restarts
 from the latest checkpoint, up to N times.
 

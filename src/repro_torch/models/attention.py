@@ -3,14 +3,16 @@ and cross-attention.
 
 The port of ``repro/models/attention.py``. Implementations (``impl``):
 
-  dense  -- full-score einsum attention (oracle; decode path)
-  flash  -- the flash attention kernel (:mod:`repro_torch.kernels.
-            flash_attention`): the hand-written Hopper kernel for a CUDA
-            tensor, its plain version on the CPU
+  dense      -- full-score einsum attention (oracle; decode path)
+  blockwise  -- dense attention one chunk of query rows at a time
+                (:func:`_sdpa_blockwise`; ``blockwise_unrolled`` is the
+                same loop: torch has no ``lax.map``)
+  flash      -- the flash attention kernel (:mod:`repro_torch.kernels.
+                flash_attention`): the hand-written Hopper kernel for a
+                CUDA tensor, its plain version on the CPU
 
-``blockwise`` waits for a later slice (``ROADMAP.md``) and raises. Both
-implementations share the projection, rope and mask logic, so they are
-interchangeable and cross-checked in tests.
+The implementations share the projection, rope and mask logic, so they
+are interchangeable and cross-checked in tests.
 
 Decode against a ring whose slots are split over ranks (the serving cells'
 ``"kv_seq"`` placement) is the sharded flash-decode
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.launch.mesh import resolve_device
-from repro_torch.models.layers import (ParamSpec, apply_rope,
+from repro_torch.models.layers import (ParamSpec, apply_rope, project,
                                       promoted_einsum, rms_norm)
 
 Cache = Dict[str, torch.Tensor]
@@ -67,7 +69,7 @@ def attention_specs(cfg: ModelConfig,
 
 # ---------------------------------------------------------------- projections
 def project_q(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = project("bsd,dhk->bshk", x, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     return apply_rope(q, positions, cfg.rope_theta)
@@ -75,8 +77,8 @@ def project_q(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
 
 def project_kv(p, x, cfg: ModelConfig, positions
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = project("bsd,dhk->bshk", x, p["wk"])
+    v = project("bsd,dhk->bshk", x, p["wv"])
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return apply_rope(k, positions, cfg.rope_theta), v
@@ -114,20 +116,36 @@ def _sdpa_dense(q, k, v, q_pos, k_pos, causal, window,
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
+def _sdpa_blockwise(q, k, v, q_pos, k_pos, causal, window,
+                    chunk: int = 1024) -> torch.Tensor:
+    """:func:`_sdpa_dense` over `chunk` query rows at a time against every
+    key, so the scores held at once are (b, h, chunk, sk), not (b, h, sq,
+    sk); the dense function itself where `chunk` does not divide sq, as
+    in the reference. The reference's "blockwise" maps the chunks with
+    ``lax.map`` and its "blockwise_unrolled" unrolls them; torch has no
+    ``lax.map``, so both names run this one Python loop."""
+    sq = q.shape[1]
+    chunk = min(chunk, sq)
+    if sq % chunk:
+        return _sdpa_dense(q, k, v, q_pos, k_pos, causal, window)
+    return torch.cat([
+        _sdpa_dense(q[:, i:i + chunk], k, v, q_pos[..., i:i + chunk], k_pos,
+                    causal, window)
+        for i in range(0, sq, chunk)], dim=1)
+
+
 def sdpa(q, k, v, q_pos, k_pos, causal=True, window=None, impl="dense",
-         kv_valid=None) -> torch.Tensor:
+         kv_valid=None, chunk: int = 1024) -> torch.Tensor:
     if impl == "dense":
         return _sdpa_dense(q, k, v, q_pos, k_pos, causal, window, kv_valid)
+    if impl in ("blockwise", "blockwise_unrolled"):
+        return _sdpa_blockwise(q, k, v, q_pos, k_pos, causal, window, chunk)
     if impl == "flash":
         from repro_torch.kernels.flash_attention import ops as flash_ops
 
         # positions are arange on both sides, as in the JAX package's flash
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          window=window)
-    if impl in ("blockwise", "blockwise_unrolled"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 11)")
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
@@ -139,7 +157,7 @@ def self_attention(p, x, cfg: ModelConfig, positions, causal=True,
     k, v = project_kv(p, x, cfg, positions)
     out = sdpa(q, k, v, positions, positions, causal=causal, window=window,
                impl=impl)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return project("bshk,hkd->bsd", out, p["wo"])
 
 
 def self_attention_tp(p, x_rows, cfg: ModelConfig, tp, window=None
@@ -164,7 +182,7 @@ def self_attention_tp(p, x_rows, cfg: ModelConfig, tp, window=None
     if idx is not None:
         k, v = k[:, :, idx], v[:, :, idx]
     out = _sdpa_dense(q, k, v, positions, positions, True, window)
-    return tp.leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp.heads)
+    return tp.leave(project("bshk,hkd->bsd", out, p["wo"]), tp.heads)
 
 
 def _kv_block(p, cfg: ModelConfig, tp):
@@ -220,7 +238,7 @@ def prefill_attention(p, x, cfg: ModelConfig, positions, cache: Cache,
     k, v = project_kv(p, x, cfg, positions)
     out = sdpa(q, k, v, positions, positions, causal=True, window=window,
                impl=impl)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = project("bshk,hkd->bsd", out, p["wo"])
 
     w = cache["k"].shape[1]
     s = k.shape[1]
@@ -268,7 +286,7 @@ def decode_attention(p, x, cfg: ModelConfig, cache: Cache, pos,
     q = project_q(p, x, cfg, positions)
     k, v = project_kv(p, x, cfg, positions)
     out, cache = _decode_any(q, k, v, cache, pos, positions, window, ring)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = project("bshk,hkd->bsd", out, p["wo"])
     return y, cache
 
 
@@ -372,7 +390,7 @@ def prefill_attention_tp(p, x_rows, cfg: ModelConfig, cache: Cache, tp,
     k, v = project_kv(p, x, cfg, positions)
     out = sdpa(q, _kv_for_heads(k, cfg, tp), _kv_for_heads(v, cfg, tp),
                positions, positions, causal=True, window=window, impl=impl)
-    y = tp.leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp.heads)
+    y = tp.leave(project("bshk,hkd->bsd", out, p["wo"]), tp.heads)
     _fill_ring(cache, k, v, tp, ring)
     return y
 
@@ -398,7 +416,7 @@ def decode_attention_tp(p, x, cfg: ModelConfig, cache: Cache, pos, tp,
     out, _ = _decode_any(q, k, v, cache, pos, positions, window, ring)
     if tp.heads:
         out = tp.heads_block(out)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = project("bshk,hkd->bsd", out, p["wo"])
     return tp.all_reduce(y) if tp.heads else y
 
 
@@ -484,14 +502,14 @@ def cross_attention(p, x, enc_kv: Tuple[torch.Tensor, torch.Tensor],
     reference, whatever the model's ``attn_impl``; its output is in x's
     dtype whatever the keys' (the reference's ``q.dtype``)."""
     b, s, _ = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = project("bsd,dhk->bshk", x, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     k, v = enc_kv
     q_pos = torch.arange(s, device=x.device).expand(b, s)
     k_pos = torch.arange(k.shape[1], device=x.device).expand(b, k.shape[1])
     out = _sdpa_dense(q, k, v, q_pos, k_pos, causal=False, window=None)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return project("bshk,hkd->bsd", out, p["wo"])
 
 
 def cross_attention_tp(p, x_rows, enc_out: torch.Tensor, cfg: ModelConfig,
@@ -511,7 +529,7 @@ def cross_attention_tp(p, x_rows, enc_out: torch.Tensor, cfg: ModelConfig,
     ``cross_v`` blocks."""
     x = tp.gather_seq(x_rows)
     b, s, _ = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = project("bsd,dhk->bshk", x, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     k, v = encode_cross_kv(p, enc_out, cfg)
@@ -523,7 +541,7 @@ def cross_attention_tp(p, x_rows, enc_out: torch.Tensor, cfg: ModelConfig,
     q_pos = torch.arange(s, device=x.device).expand(b, s)
     k_pos = torch.arange(t, device=x.device).expand(b, t)
     out = _sdpa_dense(q, k, v, q_pos, k_pos, causal=False, window=None)
-    return tp.leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), tp.heads)
+    return tp.leave(project("bshk,hkd->bsd", out, p["wo"]), tp.heads)
 
 
 def cross_attention_decode_tp(p, x, enc_kv: Tuple[torch.Tensor, torch.Tensor],
@@ -534,7 +552,7 @@ def cross_attention_decode_tp(p, x, enc_kv: Tuple[torch.Tensor, torch.Tensor],
     The rank's query heads attend to the KV heads they read; ``wo``'s
     partial sums are all-reduced."""
     b = x.shape[0]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = project("bsd,dhk->bshk", x, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     k, v = (_kv_for_heads(t, cfg, tp, whole=True) for t in enc_kv)
@@ -542,7 +560,7 @@ def cross_attention_decode_tp(p, x, enc_kv: Tuple[torch.Tensor, torch.Tensor],
     q_pos = torch.zeros((b, 1), dtype=torch.int64, device=x.device)
     k_pos = torch.arange(t, device=x.device).expand(b, t)
     out = _sdpa_dense(q, k, v, q_pos, k_pos, causal=False, window=None)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = project("bshk,hkd->bsd", out, p["wo"])
     return tp.all_reduce(y) if tp.heads else y
 
 

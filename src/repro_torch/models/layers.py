@@ -263,12 +263,33 @@ def sinusoidal_embedding(seq: int, dim: int, device=None) -> torch.Tensor:
     return emb
 
 
+_PROJECTING = [0]
+
+
+def project(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` for a weight projection, a product with
+    no batch dims. einsum lowers it to a ``bmm`` of batch 1, which
+    :func:`projecting` marks while it runs, so that remat "dots" can tell
+    it from a batched product (``models/transformer.py``)."""
+    _PROJECTING[0] += 1
+    try:
+        return torch.einsum(eq, x, w)
+    finally:
+        _PROJECTING[0] -= 1
+
+
+def projecting() -> bool:
+    """Whether a :func:`project` product is running."""
+    return _PROJECTING[0] > 0
+
+
 def promoted_einsum(eq: str, x: torch.Tensor, w: torch.Tensor
                     ) -> torch.Tensor:
-    """``einsum`` over operands of two dtypes, computed in the wider one,
-    as ``jnp.einsum`` and ``@`` promote them (torch refuses the mix)."""
+    """:func:`project` over operands of two dtypes, computed in the wider
+    one, as ``jnp.einsum`` and ``@`` promote them (torch refuses the
+    mix)."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    return torch.einsum(eq, x.to(dt), w.to(dt))
+    return project(eq, x.to(dt), w.to(dt))
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -58,9 +58,10 @@ PyTree = Any
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
-    attn_impl: str = "dense"          # dense | flash
+    # dense | blockwise | blockwise_unrolled | flash
+    attn_impl: str = "dense"
     scan_layers: bool = True
-    remat: str = "none"               # none | full (train mode)
+    remat: str = "none"               # none | full | dots (train mode)
     # fused linear + cross-entropy (models/xent.py): the (b, s, V) logits
     # are not kept for the backward
     fused_xent: bool = True
@@ -68,6 +69,10 @@ class ModelOptions:
     # MoE blocks: the ProcessMesh whose "model" axis shards the experts
     # (None, or no such axis: the dense capacity dispatch on this rank)
     mesh: Optional[Any] = None
+    # MoE expert parallelism: the over-decomposition degree Q of the
+    # dispatch and combine all-to-alls (core/a2a_scan.py), Q capacity
+    # slices; 1 = the monolithic pair. Read only where EP runs.
+    moe_a2a_chunks: int = 1
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -230,7 +235,8 @@ class LanguageModel:
         return tfm.stack_apply(params["layers"], x, self.cfg, positions, mode,
                                caches, pos, self.opt.attn_impl,
                                remat=self.opt.remat, mesh=self.opt.mesh,
-                               enc_out=enc_out)
+                               enc_out=enc_out,
+                               a2a_chunks=self.opt.moe_a2a_chunks)
 
     # ------------------------------------------------------------ entry points
     def train_loss(self, params, batch: Dict, tp=None) -> torch.Tensor:
@@ -243,11 +249,11 @@ class LanguageModel:
         the loss.
 
         With `tp` (a :class:`~repro_torch.sharding.tp.TPCut`; every
-        family but moe), `params` holds this rank's blocks with the
-        embedding and head whole (the train step gathers them over the
-        vocab), `batch` the model line's rows, and the result is this
-        rank's share of the loss: the ranks' results times ``1/tp`` sum
-        to the mean (:meth:`_train_loss_tp`)."""
+        family), `params` holds this rank's blocks with the embedding and
+        head whole (the train step gathers them over the vocab), `batch`
+        the model line's rows, and the result is this rank's share of the
+        loss: the ranks' results times ``1/tp`` sum to the mean
+        (:meth:`_train_loss_tp`)."""
         if tp is not None:
             return self._train_loss_tp(params, batch, tp)
         x, _, aux = self._forward(params, batch, "train")
@@ -279,12 +285,14 @@ class LanguageModel:
         patches before the text first, so a rank's block may hold
         patches, text or both; only the text rows are scored, their sum
         over the rank divided by ``b * text / tp``, so that the ranks'
-        shares still make the JAX loss, the mean over the text."""
+        shares still make the JAX loss, the mean over the text.
+
+        The MoE family routes each rank's rows under expert parallelism
+        (:func:`~repro_torch.models.moe.moe_apply_tp`, its all-to-alls
+        chunked ``moe_a2a_chunks`` ways); the aux loss is the same on
+        every rank (its expert loads are averaged over the mesh), so each
+        rank adds it whole: times ``1/tp``, a model line counts it once."""
         cfg = self.cfg
-        if cfg.family == "moe":
-            raise tfm._not_ported(
-                "tensor-parallel training of the 'moe' family (ROADMAP.md, "
-                "Queue 1 item 10: expert parallelism in training)")
         tokens, targets = batch["tokens"], batch["targets"]
         enc_out, denom = None, None
         if cfg.family == "vlm":
@@ -296,16 +304,20 @@ class LanguageModel:
                             batch["tokens"].shape[1])
         if cfg.family == "encdec":
             enc_out = tp.gather_seq(self._encode(params, batch["frames"], tp))
-        x, _, _ = tfm.stack_apply(params["layers"], x, cfg, None, "train",
-                                  None, None, "dense", remat=self.opt.remat,
-                                  enc_out=enc_out, tp=tp)
+        x, _, aux = tfm.stack_apply(params["layers"], x, cfg, None, "train",
+                                    None, None, "dense", remat=self.opt.remat,
+                                    enc_out=enc_out, tp=tp,
+                                    a2a_chunks=self.opt.moe_a2a_chunks)
         if cfg.family == "vlm":
             x = x[:, skip:]
         if not self.opt.fused_xent:
-            return self._xent(params, x, targets, denom)
-        x = tfm._norm(params, x, cfg, "final_norm")
-        w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-        return linear_xent(x, w, targets, denom)
+            loss = self._xent(params, x, targets, denom)
+        else:
+            x = tfm._norm(params, x, cfg, "final_norm")
+            w = (params["embed"].t() if cfg.tie_embeddings
+                 else params["lm_head"])
+            loss = linear_xent(x, w, targets, denom)
+        return loss if aux is None else loss + aux.to(loss.dtype)
 
     def _vlm_rows(self, params, batch: Dict, tp
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -395,7 +407,8 @@ class LanguageModel:
         x, _, aux = tfm.stack_apply(stack_flat, x, cfg, positions, "train",
                                     None, None, self.opt.attn_impl,
                                     remat=self.opt.remat, mesh=self.opt.mesh,
-                                    stream=layer_stream)
+                                    stream=layer_stream,
+                                    a2a_chunks=self.opt.moe_a2a_chunks)
         if cfg.family == "vlm":
             x = x[:, cfg.num_vision_patches:]
         loss = self._xent(stream.materialize(pflat, *head_depths), x,
@@ -467,7 +480,8 @@ class LanguageModel:
         x, caches, _ = tfm.stack_apply(params["layers"], x, cfg, None,
                                        "prefill", caches, None,
                                        self.opt.attn_impl, enc_out=enc_out,
-                                       tp=cut)
+                                       tp=cut,
+                                       a2a_chunks=self.opt.moe_a2a_chunks)
         last = cut.gather_seq(x[:, -1:])[:, -1:]
         return self._unembed(params, last), caches
 
@@ -487,7 +501,8 @@ class LanguageModel:
         x = self._embed_rows(e, 0, 1)
         x, caches, _ = tfm.stack_apply(params["layers"], x, self.cfg, None,
                                        "decode", caches, pos,
-                                       self.opt.attn_impl, tp=cut)
+                                       self.opt.attn_impl, tp=cut,
+                                       a2a_chunks=self.opt.moe_a2a_chunks)
         return self._unembed(params, x), caches
 
     def _embed_rows(self, e: torch.Tensor, start: int = 0,

@@ -14,7 +14,11 @@ tables, sends each expert's slots to the rank that owns the expert and
 back (:func:`~repro_torch.core.a2a_scan.a2a_scan`, optionally chunked along
 the capacity dim), and combines. :func:`moe_apply` picks between them
 where the JAX package does; the JAX package reads its sharding context,
-the port takes the mesh as an argument.
+the port takes the mesh as an argument. :func:`moe_apply_tp` (training)
+and :func:`moe_apply_cut` (the serving cells) are the block under the
+tensor-parallel cut, where each rank already holds its token block and
+its experts. Every EP path takes the over-decomposition degree Q of the
+all-to-alls (``ModelOptions.moe_a2a_chunks``).
 """
 from __future__ import annotations
 
@@ -164,21 +168,24 @@ def ep_route(mesh, num_experts: int, shape) -> str:
     return "dense"
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mesh=None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D). Expert parallelism (:func:`moe_apply_ep`, monolithic
-    all-to-alls) where `mesh` has a ``"model"`` axis of n > 1 ranks that
-    divides the experts and the sequence (or, at decode, the batch); the
-    dense capacity dispatch everywhere else. Returns (output, aux)."""
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+              a2a_chunks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D). Expert parallelism (:func:`moe_apply_ep`, its
+    all-to-alls chunked `a2a_chunks` ways) where `mesh` has a ``"model"``
+    axis of n > 1 ranks that divides the experts and the sequence (or, at
+    decode, the batch); the dense capacity dispatch everywhere else, which
+    reads no `a2a_chunks`. Returns (output, aux)."""
     m = _require_moe(cfg, "moe_apply")
     route = ep_route(mesh, m.num_experts, x.shape)
     if route == "ep":
-        return moe_apply_ep(expert_block(p, mesh), x, cfg, mesh)
+        return moe_apply_ep(expert_block(p, mesh), x, cfg, mesh,
+                            a2a_chunks=a2a_chunks)
     if route == "ep_batch":
         # decode: one token per sequence, so the batch is the token domain;
         # swapped into the sequence slot, the same EP dispatch applies
         y, aux = moe_apply_ep(expert_block(p, mesh), x.transpose(0, 1), cfg,
-                              mesh, tokens_on_batch=True)
+                              mesh, tokens_on_batch=True,
+                              a2a_chunks=a2a_chunks)
         return y.transpose(0, 1), aux
     return moe_apply_dense(p, x, cfg)
 
@@ -197,8 +204,38 @@ def expert_block(p, mesh) -> Dict[str, torch.Tensor]:
     return out
 
 
-def moe_apply_cut(p, x: torch.Tensor, cfg: ModelConfig, tp, mode: str
-                  ) -> torch.Tensor:
+def _expert_tp_raise(cfg: ModelConfig, tp, what: str):
+    raise NotImplementedError(
+        f"{what} {cfg.name!r} with {cfg.moe.num_experts} experts over "
+        f"{tp.n} ranks of {tp.axis!r}: the rules replicate the experts "
+        f"and split their columns (expert TP), which is not ported")
+
+
+def moe_apply_tp(p, x: torch.Tensor, cfg: ModelConfig, tp,
+                 a2a_chunks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block under the training cut (``tp``, a :class:`~repro_torch.
+    sharding.tp.TPCut` whose rules place the experts over its "model"
+    axis, so `p` holds the rank's experts): `x` is this rank's (b, s/tp,
+    d) rows, which is the token block the reference's ``shard_map`` gives
+    model rank m (``P(batch axes, "model", None)``). They are routed by
+    :func:`moe_apply_ep` on the block, at the capacity of s/tp tokens, the
+    all-to-alls chunked `a2a_chunks` ways along the capacity; the expert
+    loads of the aux loss are averaged over every rank of the mesh, so
+    each rank returns the same aux. Returns (the rank's (b, s/tp, d)
+    rows, aux). One rank: :func:`moe_apply_dense`. Experts that do not
+    divide the axis (the rules then split their columns) raise
+    ``NotImplementedError``."""
+    _require_moe(cfg, "moe_apply_tp")
+    if tp.n == 1:
+        return moe_apply_dense(p, x, cfg)
+    if not tp.experts:
+        _expert_tp_raise(cfg, tp, "training")
+    return moe_apply_ep(p, x, cfg, tp.mesh, a2a_chunks=a2a_chunks,
+                        log=tp.a2a_log, block=True)
+
+
+def moe_apply_cut(p, x: torch.Tensor, cfg: ModelConfig, tp, mode: str,
+                  a2a_chunks: int = 1) -> torch.Tensor:
     """The MoE block under the serving cut (``tp``, a :class:`~repro_torch.
     sharding.tp.ServeCut`; the rules place the experts over its "model"
     axis, so `p` holds the rank's experts): in "prefill" `x` is the
@@ -208,20 +245,20 @@ def moe_apply_cut(p, x: torch.Tensor, cfg: ModelConfig, tp, mode: str
     every rank, and the batch is the token domain (``ep_route``'s
     "ep_batch"); where the batch does not divide, each rank runs the dense
     capacity dispatch with its experts only and the partial outputs are
-    all-reduced. One rank: :func:`moe_apply_dense`."""
+    all-reduced. Both EP branches chunk their all-to-alls `a2a_chunks`
+    ways. One rank: :func:`moe_apply_dense`."""
     m = _require_moe(cfg, "moe_apply_cut")
     if tp.n == 1:
         return moe_apply_dense(p, x, cfg)[0]
     if m.num_experts % tp.n:
-        raise NotImplementedError(
-            f"serving {cfg.name!r} with {m.num_experts} experts over "
-            f"{tp.n} ranks of {tp.axis!r}: the rules replicate the experts "
-            f"and split their columns (expert TP), which is not ported")
+        _expert_tp_raise(cfg, tp, "serving")
     if mode == "prefill":
-        return moe_apply_ep(p, x, cfg, tp.mesh, block=True)[0]
+        return moe_apply_ep(p, x, cfg, tp.mesh, a2a_chunks=a2a_chunks,
+                            log=tp.a2a_log, block=True)[0]
     if x.shape[0] % tp.n == 0:
         y, _ = moe_apply_ep(p, x.transpose(0, 1), cfg, tp.mesh,
-                            tokens_on_batch=True)
+                            tokens_on_batch=True, a2a_chunks=a2a_chunks,
+                            log=tp.a2a_log)
         return y.transpose(0, 1)
     return tp.all_reduce(_dense_partial(p, x, cfg, tp.index))
 

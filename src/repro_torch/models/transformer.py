@@ -14,7 +14,9 @@ unrolled. In "train" mode a scanned stack is unbound into its layers once
 per call (so its stacked gradient is assembled once, when layer 0's
 backward ends), and
 ``remat="full"`` recomputes each layer in the backward
-(``torch.utils.checkpoint``, as ``jax.checkpoint`` does). A block returns
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` does); ``remat="dots"``
+keeps the outputs of the layer's projections and recomputes the rest
+(:func:`_dots_policy`). A block returns
 its MoE aux loss (None for the other kinds) and the stack sums it over
 the layers, as the reference's scan carry does.
 
@@ -29,11 +31,13 @@ package returns new cache trees instead.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -47,6 +51,7 @@ from repro_torch.models.layers import (
     map_specs,
     mlp_apply,
     mlp_specs,
+    projecting,
     rms_norm,
     tag_layer,
 )
@@ -127,9 +132,11 @@ def layer_specs(cfg: ModelConfig, kind: str,
 # ---------------------------------------------------------------------- apply
 def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, mode: str, cache, pos,
-                attn_impl: str, mesh=None, enc_out=None, tp=None):
+                attn_impl: str, mesh=None, enc_out=None, tp=None,
+                a2a_chunks: int = 1):
     """One block, `mode` "train" (full sequence, no cache), "prefill" or
-    "decode". `mesh` reaches an "attn_moe" block's
+    "decode". `mesh` and `a2a_chunks` (the over-decomposition of the
+    expert-parallel all-to-alls) reach an "attn_moe" block's
     :func:`~repro_torch.models.moe.moe_apply`; `enc_out` (train and
     prefill) is the encoder's output a "decoder" block cross-attends to
     (decode reads its keys and values from the cache). Returns (x, cache,
@@ -137,16 +144,17 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     (None for the other kinds).
 
     `tp` (a :class:`~repro_torch.sharding.tp.TPCut`; in "train" mode
-    every kind but "attn_moe"): `x` is this rank's rows and `p` its
-    blocks. Each norm runs on the rows; the mixers (:func:`~repro_torch.
-    models.attention.self_attention_tp`, :func:`~repro_torch.models.
-    attention.cross_attention_tp` over the whole `enc_out`,
-    :func:`~repro_torch.models.ssm.ssm_train_tp`, :func:`~repro_torch.
-    models.rglru.rglru_train_tp`) and the MLP gather the rows over the
-    "model" axis, compute with the rank's heads or columns and
-    reduce-scatter back to the rows (or take them, where the rules
-    replicate). In "prefill" and "decode" (the serving cells; `tp` a
-    :class:`~repro_torch.sharding.tp.ServeCut`, every kind) see
+    every kind): `x` is this rank's rows and `p` its blocks. Each norm
+    runs on the rows; the mixers (:func:`~repro_torch.models.attention.
+    self_attention_tp`, :func:`~repro_torch.models.attention.
+    cross_attention_tp` over the whole `enc_out`, :func:`~repro_torch.
+    models.ssm.ssm_train_tp`, :func:`~repro_torch.models.rglru.
+    rglru_train_tp`) and the MLP gather the rows over the "model" axis,
+    compute with the rank's heads or columns and reduce-scatter back to
+    the rows (or take them, where the rules replicate); the MoE block
+    routes the rows under expert parallelism (:func:`~repro_torch.models.
+    moe.moe_apply_tp`). In "prefill" and "decode" (the serving cells; `tp`
+    a :class:`~repro_torch.sharding.tp.ServeCut`, every kind) see
     :func:`_layer_serve`."""
     if kind not in PORTED_KINDS:
         raise _not_ported(f"block kind {kind!r}")
@@ -157,11 +165,9 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     if tp is not None:
         if mode != "train":
             return (_layer_serve(p, x, h, cfg, kind, tp, mode, cache, pos,
-                                 attn_impl, enc_out), cache, aux)
-        if kind == "attn_moe":
-            raise _not_ported("tensor-parallel training of block kind "
-                              "'attn_moe' (ROADMAP.md, Queue 1 item 10)")
-        return _layer_tp(p, x, h, cfg, kind, tp, enc_out), cache, aux
+                                 attn_impl, enc_out, a2a_chunks), cache, aux)
+        x, aux = _layer_tp(p, x, h, cfg, kind, tp, enc_out, a2a_chunks)
+        return x, cache, aux
     if kind in ("ssm", "rglru"):
         y, cache = _recurrent(p, h, cfg, kind, mode, cache)
         x = x + y
@@ -194,16 +200,18 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
         x = x + attn.cross_attention(p["cross"], h, kv, cfg)
     h = _norm(p, x, cfg, "norm2")
     if kind == "attn_moe":
-        y, aux = moe_mod.moe_apply(p["moe"], h, cfg, mesh)
+        y, aux = moe_mod.moe_apply(p["moe"], h, cfg, mesh, a2a_chunks)
         return x + y, cache, aux
     return x + mlp_apply(p["mlp"], h), cache, aux
 
 
-def _layer_tp(p, x, h, cfg: ModelConfig, kind: str, tp, enc_out):
+def _layer_tp(p, x, h, cfg: ModelConfig, kind: str, tp, enc_out,
+              a2a_chunks: int):
     """A block's train forward under the tensor-parallel cut: `x` its
-    input rows and `h` their first norm."""
+    input rows and `h` their first norm. Returns (the output rows, the
+    MoE aux loss or None)."""
     if kind == "ssm":
-        return x + ssm_mod.ssm_train_tp(p["ssm"], h, cfg, tp)
+        return x + ssm_mod.ssm_train_tp(p["ssm"], h, cfg, tp), None
     if kind == "rglru":
         x = x + rglru_mod.rglru_train_tp(p["rglru"], h, cfg, tp)
     else:
@@ -213,12 +221,15 @@ def _layer_tp(p, x, h, cfg: ModelConfig, kind: str, tp, enc_out):
     if kind == "decoder":
         h = _norm(p, x, cfg, "norm_cross")
         x = x + attn.cross_attention_tp(p["cross"], h, enc_out, cfg, tp)
-    h = tp.gather_seq(_norm(p, x, cfg, "norm2"))
-    return x + tp.leave(mlp_apply(p["mlp"], h), tp.mlp)
+    h = _norm(p, x, cfg, "norm2")
+    if kind == "attn_moe":
+        y, aux = moe_mod.moe_apply_tp(p["moe"], h, cfg, tp, a2a_chunks)
+        return x + y, aux
+    return x + tp.leave(mlp_apply(p["mlp"], tp.gather_seq(h)), tp.mlp), None
 
 
 def _layer_serve(p, x, h, cfg: ModelConfig, kind: str, tp, mode: str,
-                 cache, pos, attn_impl: str, enc_out):
+                 cache, pos, attn_impl: str, enc_out, a2a_chunks: int):
     """A block of the serving cells under the cut (`tp`, a
     :class:`~repro_torch.sharding.tp.ServeCut`), `h` the first norm of
     `x`. "prefill": `x` is this rank's (b, s/tp, d) rows, as in
@@ -230,8 +241,8 @@ def _layer_serve(p, x, h, cfg: ModelConfig, kind: str, tp, mode: str,
     or columns and all-reduce their partial sums; the attention ring
     takes the sharded flash-decode over its slot block. The MoE block
     routes under expert parallelism (:func:`~repro_torch.models.moe.
-    moe_apply_cut`). Returns the block's output; the cache is updated in
-    place."""
+    moe_apply_cut`, its all-to-alls chunked `a2a_chunks` ways). Returns
+    the block's output; the cache is updated in place."""
     prefill = mode == "prefill"
     if kind in ("ssm", "rglru"):
         p_k = p[kind]
@@ -268,7 +279,8 @@ def _layer_serve(p, x, h, cfg: ModelConfig, kind: str, tp, mode: str,
                 p["cross"], h, (cache["cross_k"], cache["cross_v"]), cfg, tp)
     h = _norm(p, x, cfg, "norm2")
     if kind == "attn_moe":
-        return x + moe_mod.moe_apply_cut(p["moe"], h, cfg, tp, mode)
+        return x + moe_mod.moe_apply_cut(p["moe"], h, cfg, tp, mode,
+                                         a2a_chunks)
     return x + _mlp_serve(p["mlp"], h, tp, mode)
 
 
@@ -352,16 +364,18 @@ def is_unrolled(layers) -> bool:
 
 def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
                 pos, attn_impl: str, remat: str = "none", mesh=None,
-                stream=None, enc_out=None, tp=None):
+                stream=None, enc_out=None, tp=None, a2a_chunks: int = 1):
     """Run the full stack. `params` matches :func:`stack_specs`' layout
     (stacked tree for scan, list for unrolled), `caches` that of
     :func:`stack_cache_specs` (or None in "train" mode). The caches are
-    written in place through per-layer views. `remat` ("none" | "full")
-    applies in "train" mode: "full" keeps only each layer's input and
-    recomputes the layer in the backward. `mesh` goes to the MoE
-    blocks, `enc_out` (the encoder's output, train and prefill) to the
-    decoder blocks. Returns (x, caches, aux), aux the f32 sum of the
-    layers' MoE aux losses (None for a stack without MoE blocks).
+    written in place through per-layer views. `remat` ("none" | "full" |
+    "dots") applies in "train" mode: "full" keeps only each layer's input
+    and recomputes the layer in the backward; "dots" also keeps the
+    outputs of the layer's projections (:func:`_dots_policy`). `mesh` and
+    `a2a_chunks` go to the MoE blocks, `enc_out` (the encoder's output,
+    train and prefill) to the decoder blocks. Returns (x, caches, aux),
+    aux the f32 sum of the layers' MoE aux losses (None for a stack
+    without MoE blocks).
 
     `stream` is the streaming-ZeRO-3 hook ("train" mode, unrolled): a
     callable ``(i, p_l) -> layer params`` that materializes layer `i`'s
@@ -373,15 +387,11 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
     would live until its backward).
 
     `tp` is the tensor-parallel cut (:func:`layer_apply`): in "train"
-    mode `x` holds this rank's rows, and under remat "full" each layer's
-    recompute re-issues its forward collectives in the backward, in the
-    same order on every rank; in "prefill" and "decode" it is the
-    serving cells' cut, `caches` this rank's blocks."""
-    if remat not in ("none", "full"):
-        if remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save the matmul outputs) is not ported; "
-                "see ROADMAP.md (Queue 1 item 11)")
+    mode `x` holds this rank's rows, and under remat "full" or "dots"
+    each layer's recompute re-issues its forward collectives in the
+    backward, in the same order on every rank; in "prefill" and "decode"
+    it is the serving cells' cut, `caches` this rank's blocks."""
+    if remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {remat!r}")
     kinds = block_kinds(cfg)
     unrolled = is_unrolled(params)
@@ -399,10 +409,15 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
                     p_l = stream(i, p_l)
                 xx, _, aux_l = layer_apply(p_l, xx, cfg, kind, positions,
                                            mode, None, None, attn_impl, mesh,
-                                           enc_out, tp)
+                                           enc_out, tp, a2a_chunks)
                 return xx, aux_l
-            x, aux_l = (checkpoint(f, x, use_reentrant=False)
-                        if remat == "full" or stream is not None else f(x))
+            if remat == "dots":
+                x, aux_l = checkpoint(f, x, use_reentrant=False,
+                                      context_fn=_DOTS_CONTEXT)
+            elif remat == "full" or stream is not None:
+                x, aux_l = checkpoint(f, x, use_reentrant=False)
+            else:
+                x, aux_l = f(x)
             aux = add(aux, aux_l)
         return x, None, aux
     for i, kind in enumerate(kinds):
@@ -411,9 +426,37 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
         if caches is not None:
             cache_l = caches[i] if is_unrolled(caches) else _layer(caches, i)
         x, _, aux_l = layer_apply(p_l, x, cfg, kind, positions, mode,
-                                  cache_l, pos, attn_impl, mesh, enc_out, tp)
+                                  cache_l, pos, attn_impl, mesh, enc_out, tp,
+                                  a2a_chunks)
         aux = add(aux, aux_l)
     return x, caches, aux
+
+
+# ------------------------------------------------------------- remat "dots"
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The port of ``jax.checkpoint_policies.
+    checkpoint_dots_with_no_batch_dims``, which saves the output of every
+    product without batch dims and recomputes everything else. Saved:
+    ``aten.mm`` and ``aten.addmm`` (a 3-D activation times a weight
+    matrix: the MLP, the router, the recurrent blocks' projections) and
+    the ``aten.bmm`` that einsum lowers a weight projection to (batch 1;
+    ``models.layers.projecting`` marks those: the attention's q, k, v and
+    output projections, the cross-attention's). Recomputed: every other
+    ``bmm`` (the attention scores and their values, which carry batch and
+    head dims in JAX's einsums, and the experts' products, which carry the
+    expert dim), the norms, softmax, gathers and elementwise work, and the
+    collectives between them (the recompute issues them again)."""
+    if op in _DOTS_SAVED or (op is torch.ops.aten.bmm.default
+                             and projecting()):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
 
 
 # ------------------------------------------------------------- cache builders

@@ -16,12 +16,13 @@ moments are this rank's shards of bucket-wise flat buffers
 (``core/overlap.py``'s ``FsdpLayout``), gathered and reduce-scattered by
 the step (``launch/steps.py``'s ``make_fsdp_train_step``); checkpoints hold
 the global flat buffers under the JAX package's keys. On a mesh with a
-"model" axis of more than one rank (every family but moe) each rank holds its
-blocks of the parameters and moments under ``rules_for("train")``
-(``launch/steps.py``'s ``TPPlan``), every rank of a model line trains on
-the same rows (its DP replica's), and checkpoints hold the global arrays
-in the replicated layout, so a checkpoint restores onto any mesh by
-re-cutting (the elastic path). Parameters and
+"model" axis of more than one rank (every family; the MoE blocks under
+expert parallelism, each all-to-all in ``moe_a2a_chunks`` slices) each
+rank holds its blocks of the parameters and moments under
+``rules_for("train")`` (``launch/steps.py``'s ``TPPlan``), every rank of
+a model line trains on the same rows (its DP replica's), and checkpoints
+hold the global arrays in the replicated layout, so a checkpoint restores
+onto any mesh by re-cutting (the elastic path). Parameters and
 optimizer state are updated in place on the trainer's device ("cuda"
 unless the caller asks for "cpu"). Encoder-decoder and VLM batches carry
 the reference's frontend stubs (``_augment_frontend``: constant float32
@@ -63,7 +64,7 @@ class Trainer:
                  options: Optional[ModelOptions] = None,
                  dataset: Optional[SyntheticLMDataset] = None,
                  device="cuda"):
-        check_ported(run.parallel, mesh, run.model.family)
+        check_ported(run.parallel, mesh)
         self.run = run
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(
@@ -74,7 +75,8 @@ class Trainer:
             grad_clip=run.train.grad_clip)
         self.options = options or ModelOptions(
             attn_impl="dense", scan_layers=run.parallel.scan_layers,
-            remat=run.parallel.remat)
+            remat=run.parallel.remat,
+            moe_a2a_chunks=run.parallel.moe_a2a_chunks)
         self.model = build_model(run.model, self.options)
         self.data = dataset or SyntheticLMDataset(
             vocab_size=run.model.vocab_size, seq_len=run.train.seq_len,
@@ -290,9 +292,20 @@ class Trainer:
         """This rank's rows of step `step`'s global batch, with the
         frontend stubs, on the device (token ids as int64): the whole
         batch without an explicit mesh, else the contiguous slice of DP
-        index pod-major over the sync axes (on a TP mesh the same rows on
-        every rank of a "model" line)."""
-        if self.explicit or self._tp is not None:
+        index pod-major over the sync axes. On a TP mesh (the same rows on
+        every rank of a "model" line) the microbatches are the global
+        batch's, as GSPMD splits them: the rank takes its DP block of each
+        of the ``accum_steps`` microbatches in turn (with one microbatch,
+        the contiguous slice), so that a MoE aux loss, which averages its
+        expert loads over the ranks, averages the same rows as the
+        reference's."""
+        if self._tp is not None:
+            accum = self.run.parallel.accum_steps
+            dp, idx = self._tp.dp, self._tp.dp_index
+            batch = {k: v.reshape(accum, dp, -1, *v.shape[1:])[:, idx]
+                     .reshape(-1, *v.shape[1:])
+                     for k, v in self.data.batch_at(step).items()}
+        elif self.explicit:
             sizes = [self.mesh.shape[a] for a in self.sync_axes]
             coords = [self.mesh.coords[self.mesh.axis_index(a)]
                       for a in self.sync_axes]

@@ -218,9 +218,12 @@ class TPCut:
     "model" axis (`axis`, `n` ranks, this rank at `index`), and whether the
     rules shard over it the query heads, the KV heads and the MLP columns
     (``d_ff``), Mamba-2's ``d_inner`` columns (`inner`) and SSD heads
-    (`ssm_heads`), and the RG-LRU's width (`lru`); each False where they
-    replicate that dim, and the block follows. Whisper's encoder layers
-    have the decoder's head counts and ``d_ff``, so one cut serves both."""
+    (`ssm_heads`), the RG-LRU's width (`lru`) and the MoE experts
+    (`experts`: expert parallelism); each False where they replicate that
+    dim, and the block follows. Whisper's encoder layers have the
+    decoder's head counts and ``d_ff``, so one cut serves both. `a2a_log`
+    (None, or a list) is handed to the MoE blocks' all-to-alls
+    (:func:`~repro_torch.core.a2a_scan.a2a_scan`'s `log`)."""
 
     mesh: object
     axis: str
@@ -232,6 +235,8 @@ class TPCut:
     inner: bool = False
     ssm_heads: bool = False
     lru: bool = False
+    experts: bool = False
+    a2a_log: Optional[list] = None
 
     @classmethod
     def for_model(cls, cfg, mesh, ctx: ShardingContext,
@@ -251,6 +256,10 @@ class TPCut:
         if cfg.hybrid is not None:
             extra["lru"] = placed((d, cfg.hybrid.lru_width or d),
                                   ("embed", "lru"), 1)
+        if cfg.moe is not None:
+            m = cfg.moe
+            extra["experts"] = placed((m.num_experts, d, m.d_ff_expert),
+                                      ("experts", "embed", "expert_mlp"), 0)
         return cls(mesh, axis, mesh.shape[axis],
                    mesh.coords[mesh.axis_index(axis)],
                    heads=placed((d, cfg.num_heads, hd),

@@ -242,8 +242,8 @@ def run_moe(spec, device):
     the same on the n ranks of a "model" line, aux on every rank). It
     saves y, the global loss, the parameter gradients summed over all
     ranks (each rank holds every expert and fills its own experts' rows)
-    and the a2a_scan issue log; then the decode step through moe_apply
-    (the batch in the token slot)."""
+    and the a2a_scan issue log of the forward; then the decode step
+    through moe_apply (the batch in the token slot)."""
     from repro_torch.models import moe
 
     mesh = make_mesh(tuple(spec["mesh"]), tuple(spec["axes"]), device)
@@ -262,6 +262,7 @@ def run_moe(spec, device):
         y, aux = moe.moe_apply_ep(moe.expert_block(p, mesh), x, cfg, mesh,
                                   a2a_chunks=q, log=log)
         loss = (y * y).sum() / mesh.shape["model"] + aux / world
+        fwd = list(log)     # the forward's schedule; the backward's follows
         loss.backward()
         total = loss.detach().clone()
         dist.all_reduce(total)
@@ -271,7 +272,7 @@ def run_moe(spec, device):
             g = v.grad.clone()
             dist.all_reduce(g)
             out[f"moe_grad_{k}_q{q}"] = g.cpu().numpy()
-        out[f"moe_log_q{q}"] = np.array([f"{w}{k}" for w, k in log])
+        out[f"moe_log_q{q}"] = np.array([f"{w}{k}" for w, k in fwd])
     rows = xd_np.shape[0] // n_data
     xd = torch.from_numpy(xd_np[d * rows:(d + 1) * rows]).to(device)
     p = {k: torch.from_numpy(v).to(device) for k, v in p_np.items()}
@@ -704,6 +705,29 @@ def params_close(got, want, leaves, rtol=1e-4):
     assert off == len(want) == len(got)
 
 
+def params_close_tiny_v(got, want, leaves, v, lr_sum, rtol=1e-4):
+    """:func:`params_close`, except where the reference's AdamW second
+    moment `v` (flattened like `want`) is below (1e3 * eps)^2
+    (``tests/test_torch_trainer.py::test_moe_trainer_matches_jax``'s
+    rule): there AdamW divides a gradient of about eps by one of about
+    eps, so last-bit differences of the gradient become O(1) differences
+    of the step, and an entry may differ by up to the summed learning
+    rates `lr_sum`."""
+    from repro_torch.config.base import TrainConfig
+
+    eps = TrainConfig().eps
+    off = 0
+    for p in leaves:
+        n = p.numel()
+        a, b, vv = got[off:off + n], want[off:off + n], v[off:off + n]
+        tiny = (vv > 0) & (vv < (1e3 * eps) ** 2)
+        np.testing.assert_allclose(a[~tiny], b[~tiny], rtol=rtol,
+                                   atol=rtol * np.abs(b).max())
+        assert (np.abs(a[tiny] - b[tiny]) <= lr_sum).all()
+        off += n
+    assert off == len(want) == len(got)
+
+
 def check_issue_order(ranks, spec):
     """Every rank's hdot all-reduces in each step were the buckets of
     make_buckets(order="reverse_topo") in emission order, then the loss's
@@ -907,17 +931,23 @@ def run_zero3_full(spec, device):
 
 
 # ------------------------------------------------ tensor-parallel training
-CASE_OVERRIDES = ("vocab", "heads", "ssm_head_dim", "ssm_expand")
+CASE_OVERRIDES = ("vocab", "heads", "ssm_head_dim", "ssm_expand", "capacity")
+# the overrides that change the parameter tree
+TREE_OVERRIDES = ("heads", "ssm_head_dim", "ssm_expand")
 
 
 def case_cfg(cfg, case):
     """`cfg`, a reduced config of either package, with a TP case's
     overrides: ``vocab`` (the vocab size), ``heads`` (the query heads),
     ``ssm_head_dim`` and ``ssm_expand`` (Mamba-2's head dim and
-    ``d_inner / d_model``, so its head count)."""
+    ``d_inner / d_model``, so its head count), ``capacity`` (the MoE
+    capacity factor)."""
     import dataclasses
 
     kw, ssm = {}, {}
+    if case.get("capacity"):
+        kw["moe"] = dataclasses.replace(cfg.moe,
+                                        capacity_factor=case["capacity"])
     if case.get("vocab"):
         kw["vocab_size"] = case["vocab"]
     if case.get("heads"):
@@ -937,7 +967,8 @@ def tp_run(spec, case, ckpt_dir):
     ``case["scan"]`` layers, ``case["accum"]`` microbatches, remat
     ``case["remat"]`` (default "none"), the unfused loss where
     ``case["unfused"]``, ``case["seq"]`` tokens a row where given (else
-    the spec's), restoring from `ckpt_dir`."""
+    the spec's), ``case["chunks"]`` MoE all-to-all slices (default 1),
+    restoring from `ckpt_dir`."""
     from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
     from repro_torch.config.registry import get_arch
     from repro_torch.models.model import ModelOptions
@@ -947,7 +978,8 @@ def tp_run(spec, case, ckpt_dir):
         model=cfg,
         parallel=ParallelConfig(accum_steps=case["accum"],
                                 remat=case.get("remat", "none"),
-                                scan_layers=case["scan"]),
+                                scan_layers=case["scan"],
+                                moe_a2a_chunks=case.get("chunks", 1)),
         train=TrainConfig(global_batch=spec["global_batch"],
                           seq_len=case.get("seq", spec["seq_len"]),
                           lr=spec["lr"],
@@ -956,13 +988,13 @@ def tp_run(spec, case, ckpt_dir):
                           checkpoint_dir=str(ckpt_dir)))
     return run, ModelOptions(dtype=torch.float32, scan_layers=case["scan"],
                              remat=run.parallel.remat,
-                             fused_xent=not case.get("unfused"))
+                             fused_xent=not case.get("unfused"),
+                             moe_a2a_chunks=run.parallel.moe_a2a_chunks)
 
 
 def tp_init_key(case) -> str:
     """The name of a case's initial checkpoint (one per parameter tree)."""
-    more = "".join(f"-{k}{case[k]}" for k in CASE_OVERRIDES[1:]
-                   if case.get(k))
+    more = "".join(f"-{k}{case[k]}" for k in TREE_OVERRIDES if case.get(k))
     return (f"{case['arch']}-v{case.get('vocab') or 0}-s{int(case['scan'])}"
             + more)
 
@@ -996,7 +1028,10 @@ def run_tp_train(spec, workdir, device):
     :func:`scans_counted`), then its losses,
     grad norms and full parameters (unsharded on every rank). A case with
     ``save`` trains from a private copy of the checkpoint and saves its
-    state there at the end (``<workdir>/ck_<tag>``). ``spec["seed"]``
+    state there at the end (``<workdir>/ck_<tag>``); one with ``log``
+    records its MoE all-to-alls, forward and backward, in issue order
+    (``<tag>_a2a``, JSON of ``TPCut.a2a_log``); one with ``moments`` its
+    final AdamW second moments (``<tag>_v``). ``spec["seed"]``
     inits a trainer of that case from seed 5 instead and records its
     blocks."""
     from repro_torch.runtime.trainer import Trainer
@@ -1013,13 +1048,19 @@ def run_tp_train(spec, workdir, device):
         assert t.restore_if_available() and t.step == 0
         out[f"{tag}_blocks0"] = flat(t.params)
         out[f"{tag}_index"] = _blocks_index(t)
+        if case.get("log"):
+            t._tp.cut.a2a_log = []
         with scans_counted() as counts:
             t.train(spec["steps"])
+        if case.get("log"):
+            out[f"{tag}_a2a"] = np.array(json.dumps(t._tp.cut.a2a_log))
         out[f"{tag}_launches"] = np.array(counts["launches"])
         out[f"{tag}_plain_calls"] = np.array(counts["plain"])
         for key in ("loss", "grad_norm", "lr"):
             out[f"{tag}_{key}"] = np.array([m[key] for m in t.metrics_log])
         out[f"{tag}_params"] = flat(t.full_params())
+        if case.get("moments"):
+            out[f"{tag}_v"] = flat(t._unshard(t.opt_state["v"]))
         if case.get("save"):
             t.save()
             t.ckpt.wait()
@@ -1179,9 +1220,15 @@ def run_tp_units(spec, device):
 def tp_full_run(spec, workdir):
     """(RunConfig, ModelOptions) of the full-width TP job: ``spec["arch"]``
     at its published widths (reduced where ``spec["reduced"]``, for a
-    rehearsal), bf16 (float32 where ``spec["f32"]``), unrolled (scanned
-    where ``spec["scan"]``), remat "full", AdamW, ``spec["global_batch"]``
-    x ``spec["seq_len"]`` tokens a step, data seed 3."""
+    rehearsal), ``spec["layers"]`` of its layers where given (the depth
+    cut), bf16 (float32 where ``spec["f32"]``), unrolled (scanned where
+    ``spec["scan"]``), remat ``spec["remat"]`` (default "full"), AdamW,
+    ``spec["global_batch"]`` x ``spec["seq_len"]`` tokens a step, data
+    seed 3; a MoE model's all-to-alls in ``spec["chunks"]`` slices
+    (default 1) and its capacity factor ``spec["capacity"]`` where
+    given."""
+    import dataclasses
+
     from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
     from repro_torch.config.registry import get_arch
     from repro_torch.models.model import ModelOptions
@@ -1189,23 +1236,33 @@ def tp_full_run(spec, workdir):
     cfg = get_arch(spec["arch"])
     if spec.get("reduced"):
         cfg = cfg.reduced()
+    if spec.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    if spec.get("capacity"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=spec["capacity"]))
     steps = spec["steps"] + 1
     scan = bool(spec.get("scan"))
+    remat, chunks = spec.get("remat", "full"), spec.get("chunks", 1)
     run = RunConfig(
-        model=cfg, parallel=ParallelConfig(remat="full", scan_layers=scan),
+        model=cfg, parallel=ParallelConfig(remat=remat, scan_layers=scan,
+                                           moe_a2a_chunks=chunks),
         train=TrainConfig(global_batch=spec["global_batch"],
                           seq_len=spec["seq_len"], lr=spec["lr"],
                           warmup_steps=max(1, steps // 10),
                           total_steps=steps, checkpoint_every=10 ** 9,
                           seed=3, checkpoint_dir=str(workdir / "ck")))
     dtype = torch.float32 if spec.get("f32") else torch.bfloat16
-    return run, ModelOptions(dtype=dtype, scan_layers=scan, remat="full")
+    return run, ModelOptions(dtype=dtype, scan_layers=scan, remat=remat,
+                             moe_a2a_chunks=chunks)
 
 
 def tp_full_reference(spec, device, rows: int = 2) -> dict:
     """The loss of ``tp_full_run``'s first batch under its seed-0 weights
     on one device, forward only, `rows` sequences at a time: in the run's
-    dtype ("one") and with the same weights widened to float32 ("f32")."""
+    dtype ("one") and with the same weights widened to float32 ("f32").
+    A MoE model's aux loss averages its expert loads over the rows it
+    sees, so it takes `rows` = the whole batch."""
     import dataclasses
 
     from repro_torch.data.pipeline import SyntheticLMDataset
@@ -1252,12 +1309,16 @@ def run_tp_train_full(spec, workdir, device):
     seed 0 (leaf by leaf, each rank keeping its blocks), ``spec["steps"]``
     steps (the first a warm-up) with the host clock around each
     (synchronised), then, with ``spec["trace"]``, one more step traced on
-    every rank (torch.profiler; the NCCL time no compute kernel
-    overlaps). For each mesh: losses, grad norms, step times, the scans'
-    kernel launches over the timed steps and the calls of their plain
-    versions (:func:`scans_counted`), and on a card the bytes allocated at rest
-    (params and moments) against the sum of this rank's blocks, and the
-    peak."""
+    every rank (torch.profiler; the NCCL time no compute kernel overlaps,
+    the traced step's wall time, the host ops with the most self time and
+    the CUDA runtime calls made 32 times or more). For each mesh: losses,
+    grad norms, step times, the scans' kernel launches over the timed
+    steps and the calls of their plain versions (:func:`scans_counted`),
+    a MoE model's all-to-alls a step (forward, recompute and backward:
+    the cut's ``a2a_log``) and the share of routed assignments capacity
+    dropped (:func:`moe_drops_counted`), and on a card the bytes
+    allocated at rest (params and moments) against the sum of this rank's
+    blocks, and the peak."""
     import gc
 
     from repro_torch.runtime.trainer import Trainer
@@ -1287,7 +1348,10 @@ def run_tp_train_full(spec, workdir, device):
             x.numel() * x.element_size() for x in tree_leaves(
                 {"p": t.params, "o": t.opt_state})))
         times = []
-        with scans_counted() as counts:
+        moe = t.run.model.family == "moe"
+        if moe:
+            t._tp.cut.a2a_log = []
+        with scans_counted() as counts, moe_drops_counted() as drops:
             for _ in range(spec["steps"]):
                 if cuda:
                     torch.cuda.synchronize(device)
@@ -1298,6 +1362,12 @@ def run_tp_train_full(spec, workdir, device):
                 times.append(time.perf_counter() - ts)
         out[f"{tag}_launches"] = np.array(counts["launches"])
         out[f"{tag}_plain_calls"] = np.array(counts["plain"])
+        if moe:
+            out[f"{tag}_a2a_per_step"] = np.array(len(
+                [e for e in t._tp.cut.a2a_log if e[0] != "compute"])
+                / spec["steps"])
+            out[f"{tag}_dropped_share"] = np.array(drops["share"])
+            t._tp.cut.a2a_log = None
         out[f"{tag}_peak_bytes"] = np.array(
             torch.cuda.max_memory_allocated(device) - base if cuda else 0)
         if spec.get("trace"):
@@ -1306,11 +1376,21 @@ def run_tp_train_full(spec, workdir, device):
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if cuda else [])
             with profile(activities=acts) as prof:
+                ts = time.perf_counter()
                 t.train(1)
                 if cuda:
                     torch.cuda.synchronize(device)
+                out[f"{tag}_traced_s"] = np.array(time.perf_counter() - ts)
             for k, v in nccl_exposure(prof).items():
                 out[f"{tag}_{k}"] = np.array(v)
+            avg = prof.key_averages()
+            host = sorted(avg, key=lambda e: -e.self_cpu_time_total)[:12]
+            out[f"{tag}_host_top"] = np.array(json.dumps(
+                [[e.key, e.count, e.self_cpu_time_total / 1e3]
+                 for e in host]))
+            out[f"{tag}_runtime_calls"] = np.array(json.dumps(
+                {e.key: [e.count, e.self_cpu_time_total / 1e3] for e in avg
+                 if e.key.startswith("cuda") and e.count >= 32}))
         out[f"{tag}_step_s"] = np.array(times)
         for key in ("loss", "grad_norm"):
             out[f"{tag}_{key}"] = np.array([m[key] for m in t.metrics_log])
@@ -1343,6 +1423,31 @@ def plain_scans_counted():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def moe_drops_counted():
+    """While entered, counts on the device the routed assignments of
+    every MoE dispatch (``moe._dispatch_tables``) and those capacity
+    dropped; on leaving, ``["share"]`` is the dropped share (a remat
+    recompute routes again and counts again: the share is the same)."""
+    from repro_torch.models import moe
+
+    orig = moe._dispatch_tables
+    tally = {"dropped": 0, "routed": 0}
+
+    def counted(assign, e, c):
+        out = orig(assign, e, c)
+        tally["dropped"] = tally["dropped"] + (~out[2]).sum()
+        tally["routed"] += out[2].numel()
+        return out
+    moe._dispatch_tables = counted
+    got = {}
+    try:
+        yield got
+    finally:
+        moe._dispatch_tables = orig
+    got["share"] = int(tally["dropped"]) / max(tally["routed"], 1)
 
 
 @contextlib.contextmanager

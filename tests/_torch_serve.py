@@ -110,8 +110,10 @@ def run_case(case, mesh, device, params_full, inputs) -> dict:
     every rank's logits gathered whole. Also: whether each block held is
     its sharding's shape and equal to the whole leaf's slice, the bytes
     held against the blocks' bytes, whether the two cells' blocks
-    coincide, and the all-to-alls, flash-decode calls and flash kernel
-    launches."""
+    coincide, and the all-to-alls (all of them, and the MoE blocks'
+    dispatches and combines of each cell, ``<tag>_moe_a2a``), flash-decode
+    calls and flash kernel launches. ``case["chunks"]`` is the MoE
+    all-to-alls' slice count (default 1)."""
     from repro_torch.checkpoint.elastic import cut, unshard_leaf
     from repro_torch.config.registry import get_arch
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -122,9 +124,11 @@ def run_case(case, mesh, device, params_full, inputs) -> dict:
 
     cfg = case_cfg(get_arch(case["arch"]).reduced(), case)
     dtype = torch.float32
-    opts = ModelOptions(attn_impl="flash", dtype=dtype, scan_layers=False)
+    opts = ModelOptions(attn_impl="flash", dtype=dtype, scan_layers=False,
+                        moe_a2a_chunks=case.get("chunks", 1))
     pre, dec = cells(cfg, opts, ring=case_lengths(cfg)[1])
     ps, ds = cell_step(pre, mesh), cell_step(dec, mesh)
+    ps.plan.cut.a2a_log, ds.plan.cut.a2a_log = [], []
     blocks = ps.plan.init_params(params=params_full, device=device)
     tag = case["tag"]
     out = {}
@@ -173,6 +177,9 @@ def run_case(case, mesh, device, params_full, inputs) -> dict:
     finally:
         dist.all_to_all_single = orig
     out[f"{tag}_a2a"] = np.array(len(a2a))
+    out[f"{tag}_moe_a2a"] = np.array([
+        sum(what in ("dispatch", "combine") for what, _ in plan.cut.a2a_log)
+        for plan in (ps.plan, ds.plan)])
     out[f"{tag}_flash_decode_calls"] = np.array(
         attention._flash_decode_sharded.calls - fd0)
     out[f"{tag}_flash"] = np.array(flash_ops.flash_attention.launches

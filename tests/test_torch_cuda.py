@@ -49,6 +49,15 @@ from repro_torch.launch.mesh import make_grid_mesh, make_mesh
 pytestmark = pytest.mark.gpu
 
 
+def _gpu_lines() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -885,6 +894,225 @@ def test_nccl_4_tp_trains_recurrent_families_full_width(cuda, tmp_path):
             }), flush=True)
 
 
+TP_MOE_CASES = [  # reduced Qwen3-30B-A3B, float32, ample capacity (E / K)
+    dict(tag="q1", arch="qwen3-moe-30b-a3b", accum=1, scan=False,
+         remat="full", capacity=2.0, chunks=1, log=True),
+    dict(tag="q2", arch="qwen3-moe-30b-a3b", accum=1, scan=False,
+         remat="dots", capacity=2.0, chunks=2, log=True)]
+
+
+def test_nccl_2x2_tp_trains_moe_matches_one_card(cuda, tmp_path):
+    """Reduced Qwen3-30B-A3B (4 experts, top 2, a capacity factor of E / K
+    so no token is dropped and expert parallelism is the dense dispatch),
+    float32, trained tensor-parallel over four NCCL ranks on a (2, 2)
+    ("data", "model") mesh for 3 steps, the experts over "model" (2 a
+    rank), at ``moe_a2a_chunks`` Q = 1 (remat "full") and Q = 2 (remat
+    "dots"), from the port's init drawn unrolled: every rank reports the
+    same losses, grad norms and parameters and logs the same all-to-alls,
+    and they match one card training the global batch (losses and grad
+    norms at rtol 1e-4, parameters as :func:`_adam_params_close` holds
+    them)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    from _torch_dist import spawn, tp_init_key, tp_run
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = dict(steps=3, global_batch=8, seq_len=16, lr=5e-3,
+                 total_steps=6, mesh=[2, 2], axes=["data", "model"],
+                 cases=TP_MOE_CASES)
+    run, opts = tp_run(small, small["cases"][0], tmp_path)
+    p = _unrolled_init(run.model, opts)
+    save_checkpoint(str(tmp_path / f"init_{tp_init_key(small['cases'][0])}"),
+                    0, {"params": p, "opt": adamw_init(p)},
+                    extra={"data_step": 0})
+    ranks = spawn(dict(mesh=[4], backend="nccl", tp_train=small), None,
+                  tmp_path, 600)
+    for case in small["cases"]:
+        tag = case["tag"]
+        for out in ranks:
+            for key in ("loss", "grad_norm", "params", "a2a"):
+                np.testing.assert_array_equal(out[f"{tag}_{key}"],
+                                              ranks[0][f"{tag}_{key}"])
+        run, opts = tp_run(small, case,
+                           tmp_path / f"init_{tp_init_key(case)}")
+        one = Trainer(run, options=opts, device=cuda)
+        assert one.restore_if_available()
+        one.train(small["steps"])
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(ranks[0][f"{tag}_{key}"],
+                                       [m[key] for m in one.metrics_log],
+                                       rtol=1e-4)
+        _adam_params_close(ranks[0][f"{tag}_params"], one)
+        del one
+        torch.cuda.empty_cache()
+
+
+MOE_FULL = dict(arch="qwen3-moe-30b-a3b", layers=24, steps=4, global_batch=8,
+                seq_len=2048, lr=3e-4, meshes=[[1, 4]], trace=True)
+MOE_FULL_RUNS = [("full", 1), ("full", 2), ("dots", 1), ("dots", 2)]
+
+
+def test_nccl_4_tp_trains_qwen3_moe_full_width(cuda, tmp_path):
+    """Qwen3-30B-A3B at its published widths (d_model 2048, 32/4 heads of
+    128, 128 experts of 768, top-8, capacity 1.25, vocab 151936, untied)
+    with 24 of its 48 layers (the depth cut: all 48 hold ~366 GB of
+    training state; 24 hold ~3.9 B parameters a rank, ~47 GB with the
+    AdamW moments), bf16, unrolled, AdamW, 8 x 2048 tokens a step, trained
+    tensor-parallel over four NCCL ranks on (1, 4) ("data", "model"): the
+    experts over "model" (32 a rank) under expert parallelism, each
+    rank's 4096 tokens routed at the capacity of its 512-token blocks.
+    Remat "full" and "dots", each at ``moe_a2a_chunks`` Q = 1 and 2, each
+    from seed 0: a warm-up step and 3 timed steps, then one traced step.
+
+    First the oracle: the same widths with 2 layers, float32, a capacity
+    factor of E / K = 16 (nothing dropped, so expert parallelism is the
+    dense dispatch of one card), 8 x 512 tokens (the sequence cut so that
+    one card's forward holds the whole batch at that capacity: the aux
+    loss averages its expert loads over the batch, so the reference may
+    not split it), one step on (1, 4): its first loss within 1e-4 of the
+    loss's scale of one card's forward of the same weights on the same
+    batch. Holds for the full-width runs: the losses finite and equal on
+    every rank; the first loss (the forward) the same under "full" and
+    "dots" at one Q, bit for bit, and at Q = 2 within one bf16 spacing at
+    the loss's magnitude of Q = 1's (the bound of
+    test_nccl_4_tp_trains_qwen3_8b_full_width: the expert products run
+    on Q slices of the capacity, which cuBLAS may tile otherwise); every
+    card's peak under 80 GiB, the bytes at rest within 1% above the sum
+    of the rank's blocks, and 6Q all-to-alls a layer a step (2Q forward,
+    2Q in the recompute, 2Q backward). Prints
+    one JSON line a run: step ms, tokens/s, MFU (6·N_active·tokens over 4
+    x 989 TFLOP/s; N_active: 8 of the 128 experts a token, the embedding
+    left out, the head counted), peak and at-rest GiB a card, all-to-alls
+    a step, the share of routed assignments capacity dropped, the losses,
+    and rank 0's traced NCCL time that no compute kernel overlaps."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import json
+    import math
+
+    from _torch_dist import spawn, tp_full_reference
+
+    from repro_torch.config.registry import get_arch
+
+    oracle = dict(MOE_FULL, layers=2, steps=1, f32=True, capacity=16.0,
+                  seq_len=512, trace=False, prefix="oracle_")
+    specs = [oracle] + [dict(MOE_FULL, remat=r, chunks=q,
+                             prefix=f"{r}{q}_") for r, q in MOE_FULL_RUNS]
+    ranks = spawn(dict(mesh=[4], backend="nccl", tp_train_full=specs),
+                  None, tmp_path, 2400)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = tp_full_reference(oracle, cuda, rows=oracle["global_batch"])
+    got = float(ranks[0]["oracle_m1x4_loss"][0])
+    assert abs(got - ref["f32"]) <= 1e-4 * abs(ref["f32"]), (got, ref)
+    print(json.dumps({"test": "tp_train_qwen3_moe_oracle", "layers": 2,
+                      "f32": True, "capacity_factor": 16.0,
+                      "tokens": [oracle["global_batch"], oracle["seq_len"]],
+                      "first_loss_tp": got, "first_loss_one_card": ref["f32"],
+                      "rel_diff": abs(got - ref["f32"]) / abs(ref["f32"]),
+                      "gpu": _gpu_lines()}), flush=True)
+    cfg = get_arch(MOE_FULL["arch"])
+    layers = MOE_FULL["layers"]
+    n_active = _moe_active(cfg, layers)
+    tokens = MOE_FULL["global_batch"] * MOE_FULL["seq_len"]
+    first = {(r, q): float(ranks[0][f"{r}{q}_m1x4_loss"][0])
+             for r, q in MOE_FULL_RUNS}
+    bound = 2.0 ** (math.floor(math.log2(first["full", 1])) - 7)
+    for q in (1, 2):
+        assert first["full", q] == first["dots", q], first
+    assert abs(first["full", 2] - first["full", 1]) <= bound, first
+    for spec in specs[1:]:
+        tag = spec["prefix"] + "m1x4"
+        q = spec["chunks"]
+        for out in ranks:
+            assert np.isfinite(out[f"{tag}_loss"]).all()
+            np.testing.assert_array_equal(out[f"{tag}_loss"],
+                                          ranks[0][f"{tag}_loss"])
+            assert out[f"{tag}_peak_bytes"] < 80 * 2 ** 30
+            rest, blocks = (int(out[f"{tag}_rest_bytes"]),
+                            int(out[f"{tag}_block_bytes"]))
+            assert blocks <= rest <= 1.01 * blocks, (rest, blocks)
+            assert float(out[f"{tag}_a2a_per_step"]) == 6 * q * layers
+        r0 = ranks[0]
+        step_s = float(np.median(r0[f"{tag}_step_s"][1:]))
+        print(json.dumps({
+            "test": "tp_train_qwen3_moe_full_width", "mesh": [1, 4],
+            "cards": 4, "gpu": _gpu_lines(),
+            "layers": layers, "layers_published": cfg.num_layers,
+            "remat": spec["remat"], "a2a_chunks": q,
+            "init_s": float(r0[f"{tag}_init_s"]),
+            "step_ms": [1e3 * x for x in r0[f"{tag}_step_s"][1:].tolist()],
+            "step_ms_median": 1e3 * step_s,
+            "warmup_step_ms": 1e3 * float(r0[f"{tag}_step_s"][0]),
+            "tokens_per_s": tokens / step_s, "n_active": n_active,
+            "mfu": 6 * n_active * tokens / step_s / (4 * 989e12),
+            "peak_gib": [float(o[f"{tag}_peak_bytes"]) / 2 ** 30
+                         for o in ranks],
+            "rest_gib": [float(o[f"{tag}_rest_bytes"]) / 2 ** 30
+                         for o in ranks],
+            "block_gib": [float(o[f"{tag}_block_bytes"]) / 2 ** 30
+                          for o in ranks],
+            "a2a_per_step": float(r0[f"{tag}_a2a_per_step"]),
+            "dropped_share": [float(o[f"{tag}_dropped_share"])
+                              for o in ranks],
+            "losses": r0[f"{tag}_loss"].tolist(),
+            "grad_norms": r0[f"{tag}_grad_norm"].tolist(),
+            "ln_vocab": math.log(cfg.vocab_size), "first_loss_bound": bound,
+            "traced_step_rank0": {k: float(r0[f"{tag}_{k}"]) for k in
+                                  ("traced_s", "nccl_ms", "compute_ms",
+                                   "nccl_exposed_ms")},
+            "host_top_rank0": json.loads(str(r0[f"{tag}_host_top"]))[:6],
+        }), flush=True)
+
+
+def _moe_active(cfg, layers: int) -> int:
+    """N_active of `cfg` cut to `layers` layers: the parameters a token's
+    forward multiplies, 8 of the 128 experts counted, the embedding
+    lookup left out, the untied head counted."""
+    import dataclasses
+
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    return cut.active_params() - cut.vocab_size * cut.d_model
+
+
+def test_nccl_4_tp_mamba2_2x2_step_host_profile(cuda, tmp_path):
+    """Mamba-2 780M at its published widths trained tensor-parallel on a
+    (2, 2) ("data", "model") mesh over four NCCL ranks (as in
+    test_nccl_4_tp_trains_recurrent_families_full_width, which found its
+    step at 1135 ms against 412 ms of traced device work): a warm-up and
+    2 timed steps, then one traced step on every rank with its host
+    profile (the host ops with the most self time, the CUDA runtime calls
+    made 32 times or more). Holds the losses finite and equal on every
+    rank; prints one JSON line."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import json
+
+    from _torch_dist import spawn
+
+    spec = dict(arch="mamba2-780m", scan=True, steps=3, global_batch=8,
+                seq_len=2048, lr=3e-4, meshes=[[2, 2]], trace=True)
+    ranks = spawn(dict(mesh=[4], backend="nccl", tp_train_full=spec), None,
+                  tmp_path, 900)
+    for out in ranks:
+        assert np.isfinite(out["m2x2_loss"]).all()
+        np.testing.assert_array_equal(out["m2x2_loss"],
+                                      ranks[0]["m2x2_loss"])
+    print(json.dumps({
+        "test": "tp_mamba2_2x2_host_profile", "gpu": _gpu_lines(),
+        "step_ms": [1e3 * x for x in ranks[0]["m2x2_step_s"][1:].tolist()],
+        "ranks": [{
+            "traced_s": float(o["m2x2_traced_s"]),
+            **{k: float(o[f"m2x2_{k}"]) for k in
+               ("nccl_ms", "compute_ms", "nccl_exposed_ms")},
+            "host_top": json.loads(str(o["m2x2_host_top"])),
+            "runtime_calls": json.loads(str(o["m2x2_runtime_calls"]))}
+            for o in ranks]}), flush=True)
+
+
 TP_RANK_SCANS = [  # the blocks a rank of the 4-card runs gives each scan
     ("ssd", (8, 2048, 12, 64, 128)), ("ssd", (4, 2048, 24, 64, 128)),
     ("lru", (8, 2048, 640)), ("lru", (4, 2048, 1280))]
@@ -979,7 +1207,6 @@ def test_nccl_4_tp_decode_serves_qwen3_8b_full_width(cuda, tmp_path):
         pytest.skip("needs 4 CUDA devices")
     import json
     import statistics
-    import subprocess
 
     from _torch_dist import spawn
 
@@ -992,9 +1219,7 @@ def test_nccl_4_tp_decode_serves_qwen3_8b_full_width(cuda, tmp_path):
     ranks = spawn(dict(mesh=[4], backend="nccl", tp_full=spec), None,
                   tmp_path, 1500)
     cfg = get_arch("qwen3-8b")
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
+    gpu = _gpu_lines()
     r0 = ranks[0]
     tags = ["one"] + [f"{dp}x{tp}_{mode}" for dp, tp in spec["meshes"]
                       for mode in spec["modes"]]
@@ -1140,16 +1365,13 @@ def test_nccl_4_serve_cells_mixtral_8x7b_full_width(cuda, tmp_path):
         pytest.skip("needs 4 CUDA devices")
     import json
     import statistics
-    import subprocess
 
     from _torch_dist import spawn
 
     ranks = spawn(dict(mesh=[4], backend="nccl", serve_full=SERVE_FULL,
                        flash_decode={"windows": [None, 32]}), None,
                   tmp_path, 780)
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
+    gpu = _gpu_lines()
     layers, vocab = 32, 32000
     for r, out in enumerate(ranks):
         assert float(out["check_max_abs"].max()) <= 1e-3, (r, out[

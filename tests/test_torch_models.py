@@ -336,7 +336,8 @@ def test_server_refuses_frontend_families_as_jax():
     the port's BatchServer raises NotImplementedError in both schedulers.
     The reference's run_continuous raises so too; its run_wave fails on
     the missing input with a KeyError (ROADMAP.md Queue 3). Blockwise
-    attention is not ported yet."""
+    attention, ported since, gives the dense result on the same
+    inputs."""
     from repro.runtime.server import BatchServer as JaxServer
     from repro.runtime.server import Request as JaxRequest
     from repro_torch.runtime.server import BatchServer, Request
@@ -354,10 +355,12 @@ def test_server_refuses_frontend_families_as_jax():
             with pytest.raises(NotImplementedError if run == "run_continuous"
                                else KeyError):
                 getattr(jserver, run)()
-    q = torch.zeros(1, 4, 4, 32)
-    kv = torch.zeros(1, 4, 2, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attn.sdpa(q, kv, kv, None, None, impl="blockwise")
+    q = torch.randn(1, 4, 4, 32)
+    kv = torch.randn(1, 4, 2, 32)
+    pos = torch.arange(4)[None]
+    torch.testing.assert_close(
+        attn.sdpa(q, kv, kv, pos, pos, impl="blockwise", chunk=2),
+        attn.sdpa(q, kv, kv, pos, pos, impl="dense"))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])

@@ -131,8 +131,8 @@ def test_cell_specs_and_placements_equal_the_jax_packages(arch, shape):
 
 
 def test_build_cell_defaults_follow_the_reference():
-    """Dense attention up to 8192 tokens, blockwise above (which the port
-    raises for at call time, item 11); decode cells donate the caches."""
+    """Dense attention up to 8192 tokens, blockwise above; decode cells
+    donate the caches."""
     cfg = get_arch("qwen3-8b")
     assert build_cell(cfg, SHAPES["train_4k"]).model.opt.attn_impl == "dense"
     assert build_cell(cfg, SHAPES["decode_32k"]).model.opt.attn_impl == \

@@ -40,7 +40,6 @@ collective fails the test instead of hanging it.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import shutil
 
@@ -63,7 +62,6 @@ from repro.optim import adamw_init as jadamw_init
 from repro.runtime.trainer import Trainer as JaxTrainer
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import leaf_paths, tree_leaves
 from repro_torch.models.model import build_model
@@ -386,30 +384,6 @@ def test_tp_checkpoint_restores_into_the_jax_trainer(tp_runs, tmp_path):
             np.testing.assert_array_equal(np.asarray(leaf, np.float32),
                                           arrays[key])
     assert int(jt.opt_state["step"]) == SPEC["steps"]
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b"])
-def test_non_dense_family_on_a_tp_mesh_raises(tmp_path, arch):
-    """The moe family does not train tensor-parallel: it raises
-    NotImplementedError naming the ROADMAP item, before any collective."""
-    case = _case("x", arch, 1)
-    run, opts = tp_run(SPEC, case, tmp_path)
-    mesh = ProcessMesh(("data", "model"), (1, 2), 0, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        Trainer(run, mesh=mesh, options=opts, device="cpu")
-
-
-def test_moe_a2a_chunks_in_training_raises(tmp_path):
-    """Expert parallelism inside a trained model (``moe_a2a_chunks > 1``)
-    raises NotImplementedError naming the ROADMAP item, with or without a
-    mesh."""
-    run, opts = tp_run(SPEC, _case("x", "qwen3-moe-30b-a3b", 1), tmp_path)
-    run = dataclasses.replace(run, parallel=dataclasses.replace(
-        run.parallel, moe_a2a_chunks=2))
-    mesh = ProcessMesh(("data", "model"), (1, 2), 0, torch.device("cpu"))
-    for m in (None, mesh):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            Trainer(run, mesh=m, options=opts, device="cpu")
 
 
 def test_launcher_model_axis_checks_its_width(tmp_path, monkeypatch):
