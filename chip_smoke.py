@@ -2776,7 +2776,20 @@ def moe_active_params(cfg) -> int:
     return cfg.active_params() - cfg.vocab_size * cfg.d_model
 
 
-def moe_train_phase(dev, card, kernel_ops) -> dict:
+def step_memory(run, dev, base: int, what) -> dict:
+    """The bytes held over `base` just before one more call of `run` (a
+    step) and the most allocated over `base` during it (the peak counter
+    reset just before), for phase 32; `what` is kept beside them."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    run()
+    torch.cuda.synchronize()
+    return {"held": held, "peak": torch.cuda.max_memory_allocated(dev) - base,
+            "what": what}
+
+
+def moe_train_phase(dev, card, kernel_ops, measured) -> dict:
     """Phase 30: Qwen3-30B-A3B at its published widths (d_model 2048, 32/4
     heads of 128, 128 experts of 768, top-8, capacity 1.25, vocab 151936)
     with 4 of its 48 layers, bf16, seed 0, unrolled, AdamW, 8 x 2048
@@ -2791,7 +2804,8 @@ def moe_train_phase(dev, card, kernel_ops) -> dict:
     first step's must be: the same forward; later ones follow gradients
     whose scatter-adds sum in no fixed order on the card). No kernel of
     the port is on the path (dense attention): the launch counts must
-    not move."""
+    not move. Under "full", one more step's memory goes into
+    `measured["moe_train"]` (:func:`step_memory`) for phase 32."""
     rows = {}
     for remat in MOE_REMATS:
         gc.collect()
@@ -2844,6 +2858,10 @@ def moe_train_phase(dev, card, kernel_ops) -> dict:
         check(launches == 0, f"moe train {remat}: a kernel of the port "
               f"launched ({launches})")
         rows[remat] = row
+        if remat == "full":
+            measured["moe_train"] = step_memory(
+                lambda: t.train(1), dev, base,
+                (cfg, t.options, t.run.parallel))
         del t
     full, dots = (rows[r]["losses"] for r in MOE_REMATS)
     check(full[0] == dots[0], f"moe train: first losses differ {full[0]} "
@@ -2860,7 +2878,7 @@ def moe_train_phase(dev, card, kernel_ops) -> dict:
     return out
 
 
-def blockwise_cell_phase(flash_ops, dev, card) -> dict:
+def blockwise_cell_phase(flash_ops, dev, card, measured) -> dict:
     """Phase 31: Qwen3-8B at its published widths (bf16, seed 0) through
     its ``prefill_32k`` cell as ``build_cell`` makes it (blockwise
     attention: chunks of 1024 query rows against every key, dense f32
@@ -2871,7 +2889,9 @@ def blockwise_cell_phase(flash_ops, dev, card) -> dict:
     synchronize) and the peak GiB over the parameters. Then
     ``model.prefill`` with ``attn_impl="flash"`` on the same tree and
     prompt (36 flash launches): the logits within the bf16 bounds of two
-    full-width runs."""
+    full-width runs. The cell step's memory (held before it, its peak,
+    both over the bytes allocated before the parameters) goes into
+    `measured["blockwise_cell"]` for phase 32."""
     import numpy as np
 
     from repro_torch.config.registry import get_arch
@@ -2901,6 +2921,7 @@ def blockwise_cell_phase(flash_ops, dev, card) -> dict:
         1, cfg.vocab_size, (shape.global_batch, s)), device=dev)
     wrappers = counted_wrappers()
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - base
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in wrappers.values():
         fn.launches = 0
@@ -2910,6 +2931,9 @@ def blockwise_cell_phase(flash_ops, dev, card) -> dict:
     prefill_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
     peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    measured["blockwise_cell"] = {
+        "held": held, "peak": torch.cuda.max_memory_allocated(dev) - base,
+        "what": cell}
     del caches
     torch.cuda.empty_cache()
     flash = build_model(cfg, dataclasses.replace(model.opt,
@@ -2949,6 +2973,67 @@ def blockwise_cell_phase(flash_ops, dev, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return row
+
+
+def dryrun_phase(dev, card, measured) -> list:
+    """Phase 32: the dry run's estimate (``Cell.lower(mesh).compile()``:
+    one pass of the cell's step under fake CPU tensors, the bytes of live
+    storages tracked, no card) of phase 30's remat "full" step
+    (Qwen3-30B-A3B, 4 layers, 8 x 2048 tokens, no mesh) and phase 31's
+    ``prefill_32k`` cell at batch 1 (Qwen3-8B, a one-rank mesh), each
+    against what the card allocated in that phase's measured step
+    (:func:`step_memory`): the estimate (arguments + temp) beside
+    ``torch.cuda.max_memory_allocated`` over the bytes held before the
+    phase, the arguments beside the bytes held before the step (the
+    batch is placed inside the step), and the dry run's FLOPs beside
+    6·N_active·tokens. Fails where the estimate misses the measured peak
+    by more than 15%."""
+    from repro_torch.config.shapes import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    cfg, options, parallel = measured["moe_train"]["what"]
+    cells = {"moe_train": build_cell(
+        cfg, ShapeConfig("train_4layers", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        options, parallel), "blockwise_cell": measured["blockwise_cell"][
+            "what"]}
+    rows = []
+    for name, cell in cells.items():
+        m = measured[name]
+        t0 = time.perf_counter()
+        compiled = cell.lower(mesh).compile()
+        seconds = time.perf_counter() - t0
+        mem = compiled.memory_analysis()
+        est = mem.argument_size_in_bytes + mem.temp_size_in_bytes
+        shape = cell.shape
+        tokens = shape.global_batch * shape.seq_len
+        n_active = moe_active_params(cell.model.cfg)
+        model_flops = (6 if cell.kind == "train" else 2) * n_active * tokens
+        flops = compiled.cost_analysis()["flops"]
+        row = {"phase": "dryrun_estimate", "n": 32, "cell": name,
+               "arch": cell.model.cfg.name,
+               "layers": cell.model.cfg.num_layers, "kind": cell.kind,
+               "tokens": tokens, "impl": compiled.notes,
+               "argument_gib": mem.argument_size_in_bytes / 2**30,
+               "temp_gib": mem.temp_size_in_bytes / 2**30,
+               "estimate_gib": est / 2**30,
+               "measured_peak_gib": m["peak"] / 2**30,
+               "held_before_step_gib": m["held"] / 2**30,
+               "rel_err": est / m["peak"] - 1.0,
+               "flops": flops, "model_flops": model_flops,
+               "model_flops_note": f"{6 if cell.kind == 'train' else 2}"
+                                   "·N_active·tokens (N_active: the "
+                                   "embedding lookup left out)",
+               "flops_over_model_flops": flops / model_flops,
+               "collectives": len(compiled.collectives().ops),
+               "seconds": seconds, "gpu": card}
+        emit(row)
+        check(abs(row["rel_err"]) <= 0.15,
+              f"dry run {name}: estimate {row['estimate_gib']:.2f} GiB vs "
+              f"measured {row['measured_peak_gib']:.2f} GiB")
+        rows.append(row)
+    return rows
 
 
 def _leaves(tree) -> list:
@@ -3247,12 +3332,18 @@ def main() -> int:
     served["cells"] = cells["launches"]
 
     # ---- 30. Qwen3-30B-A3B trained at full width, 4 layers, one card
-    _, moe_train_s = timed(lambda: moe_train_phase(dev, card, kernel_ops))
+    measured = {}
+    _, moe_train_s = timed(lambda: moe_train_phase(dev, card, kernel_ops,
+                                                   measured))
 
     # ---- 31. Qwen3-8B's prefill_32k cell: blockwise attention
     blockwise, blockwise_s = timed(lambda: blockwise_cell_phase(
-        flash_ops, dev, card))
+        flash_ops, dev, card, measured))
     served["blockwise_flash"] = blockwise["flash_launches"]
+
+    # ---- 32. the dry run's estimate of phases 30 and 31 (no card)
+    _, dryrun_s = timed(lambda: dryrun_phase(dev, card, measured))
+    del measured
 
     # ---- 25. LLaVA-NeXT-34B (64 GiB of weights): last, on a freed card
     gc.collect()
@@ -3260,11 +3351,12 @@ def main() -> int:
     llava, llava_s = timed(lambda: frontend_serve_phase(
         "llava-next-34b", 25, dev, card))
     served["llava-next-34b"] = llava["launches"]
-    emit({"phase": "frontend_seconds", "n": [23, 24, 25, 28, 29, 30, 31],
+    emit({"phase": "frontend_seconds",
+          "n": [23, 24, 25, 28, 29, 30, 31, 32],
           "phase23_s": whisper_s, "phase24_s": wtrain_s,
           "phase25_s": llava_s, "phase28_s": tp_scans_s,
           "phase29_s": cells_s, "phase30_s": moe_train_s,
-          "phase31_s": blockwise_s})
+          "phase31_s": blockwise_s, "phase32_s": dryrun_s})
 
     # -------------------------------------------------------------- results
     flash_launches = sum(v.get("flash_attention", 0) for v in served.values())

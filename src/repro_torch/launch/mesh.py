@@ -195,3 +195,36 @@ def make_grid_mesh(*shape: int, axes: Optional[Tuple[str, ...]] = None,
     if len(axes) != len(shape):
         raise ValueError(f"mesh shape {shape} and axes {axes} disagree")
     return make_mesh(tuple(shape), tuple(axes), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> ProcessMesh:
+    """The reference's production mesh: ("data", "model") (16, 16), or
+    with `multi_pod` ("pod", "data", "model") (2, 16, 16), over an
+    initialised process group of 256 or 512 ranks (NCCL ranks, or the
+    fake group of a dry run). Axis roles: "pod" the slowest hop (only
+    gradient and MoE collectives cross it), "data" the DP/FSDP axis,
+    "model" the TP/SP/EP axis."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def describe(mesh) -> str:
+    return " x ".join(f"{n}={s}" for n, s in zip(mesh.axis_names,
+                                                  mesh.sizes))
+
+
+def mesh_axis_size(mesh, name: str) -> int:
+    return dict(zip(mesh.axis_names, mesh.sizes)).get(name, 1)
+
+
+def validate_production_mesh(mesh, *, multi_pod: bool) -> None:
+    # a validator that compiles away under `python -O` validates nothing
+    want = (2, 16, 16) if multi_pod else (16, 16)
+    if tuple(mesh.sizes) != want:
+        raise ValueError(f"production mesh must be {want}, "
+                         f"got {tuple(mesh.sizes)}")
+    if math.prod(mesh.sizes) != (512 if multi_pod else 256):
+        raise ValueError(f"production mesh has {math.prod(mesh.sizes)} "
+                         f"devices")

@@ -32,8 +32,11 @@ and, where the reference jits a cell with ``in_shardings`` and lets GSPMD
 place it, :func:`cell_step`: the cell on a ("data", "model") or ("pod",
 "data", "model") mesh, each rank holding only its blocks of the
 parameters and caches under ``rules_for(cell.kind)`` (:class:`ServePlan`)
-and issuing every collective itself. ``Cell.lower`` (the dry run) waits
-(``ROADMAP.md`` Queue 1 item 11).
+and issuing every collective itself. ``Cell.lower`` is the dry run's
+lowering: this rank's step on fake blocks (:class:`Lowered`), whose
+``compile()`` runs it once under fake tensors and answers the reference's
+``cost_analysis()`` and ``memory_analysis()`` (``analysis/fake_run.py``,
+:class:`Compiled`).
 """
 from __future__ import annotations
 
@@ -198,7 +201,9 @@ class TPPlan:
 
     The DP axes place only "embed" dims (FSDP over ("pod", "data")); the
     TP axis places "heads", "kv_heads", "mlp", "vocab" and "experts" (an
-    expert leaf's "expert_mlp" then stays whole: the axis is taken). The
+    expert leaf's "expert_mlp" then stays whole: the axis is taken), or,
+    where the experts do not divide it, "expert_mlp" (expert TP: every
+    expert's columns of the rank). The
     expert leaves are blocks of the TP axis, so their gradients are not
     all-reduced over it; the router, ``("embed", None)``, is FSDP over the
     DP axes and replicated on the TP axis, its gradient a partial sum over
@@ -542,8 +547,8 @@ class Cell:
     tensors), their logical axes and donation, the port of the
     reference's ``Cell``. ``fn`` runs on one rank; :func:`cell_step` is
     the counterpart of calling the jitted cell on a mesh: it takes and
-    returns each rank's blocks under :attr:`rules`. ``Cell.lower`` has no
-    counterpart yet (``ROADMAP.md`` Queue 1 item 11)."""
+    returns each rank's blocks under :attr:`rules`; :meth:`lower` is the
+    dry run's."""
 
     name: str
     fn: Callable
@@ -553,6 +558,7 @@ class Cell:
     model: LanguageModel
     kind: str                           # train | prefill | decode
     shape: Optional[ShapeConfig] = None
+    parallel: Optional[ParallelConfig] = None
 
     @property
     def rules(self):
@@ -577,6 +583,114 @@ class Cell:
         return tuple(shardings_for(s, a, mesh, ctx)
                      for s, a in zip(self.arg_specs, self.arg_axes))
 
+    def lower(self, mesh) -> "Lowered":
+        """The dry run's counterpart of ``jax.jit(fn, in_shardings=...)
+        .lower(*arg_specs)``: this rank's step on `mesh` (a ProcessMesh over
+        a real or a fake process group) with fake tensors (no data, no
+        storage) for its blocks of every argument, each made directly in
+        its block's shape from :meth:`in_shardings` (no whole leaf is
+        made). The step is the rank's part of the cell: a train cell's
+        :func:`make_tp_train_step` where the mesh's TP axis has more than
+        one rank (``fn`` itself on one rank), a serving cell's
+        :func:`cell_step`. ``compile()`` runs it once (:class:`Compiled`).
+        Fake CPU tensors take the scans' plain versions (``ref.py``), as
+        the reference's dry run on XLA-CPU takes ``impl="auto"``'s
+        reference."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        shardings = self.in_shardings(mesh)
+        with mode:
+            # a train cell's parameters are trainable
+            args = tuple(
+                _map2(lambda leaf, sh, grad=self.kind == "train" and i == 0:
+                      torch.empty(_shape(sh), dtype=leaf.dtype)
+                      .requires_grad_(grad), spec, sh)
+                for i, (spec, sh) in enumerate(zip(self.arg_specs,
+                                                   shardings)))
+        return Lowered(self._rank_step(mesh, shardings), args, mode)
+
+    def _rank_step(self, mesh, shardings) -> Callable:
+        if self.kind != "train":
+            step = cell_step(self, mesh)
+            if self.kind == "prefill":
+                return step
+            # the decode step takes a scalar position: the ring's last slot
+            pos = self.shape.seq_len - 1
+            return lambda params, caches, token, _pos: step(params, caches,
+                                                            token, pos)
+        parallel = self.parallel or ParallelConfig()
+        if tp_size(parallel, mesh) == 1:
+            if mesh.size > 1:
+                raise ValueError(
+                    f"the dry run lowers a train cell on one rank or on a "
+                    f"mesh whose {parallel.tp_axis!r} axis has more than one "
+                    f"(got {mesh.shape})")
+            return self.fn
+        fn = make_tp_train_step(self.model, parallel, mesh)
+        axis = parallel.tp_axis
+        batch_sh = shardings[2]
+
+        def step(params, opt_state, batch):
+            # the TP step takes its DP replica's whole rows: the tokens'
+            # blocks along "model" are gathered (the rules put "seq" there)
+            rows = {}
+            for k, x in batch.items():
+                for d, entry in enumerate(batch_sh[k].spec):
+                    part, _ = _model_part(entry, axis)
+                    if part:
+                        x = all_gather(x, d, mesh, part)
+                rows[k] = x
+            return fn(params, opt_state, rows)
+        return step
+
+
+@dataclasses.dataclass
+class Lowered:
+    """A cell's rank step on fake blocks (:meth:`Cell.lower`)."""
+
+    step: Callable
+    args: Tuple[PyTree, ...]
+    fake_mode: object
+
+    def compile(self) -> "Compiled":
+        """One pass of the step under the fake tensors, counted
+        (``analysis.fake_run.fake_pass``)."""
+        from repro_torch.analysis.fake_run import fake_pass
+
+        return Compiled(fake_pass(self.step, self.args, self.fake_mode))
+
+
+@dataclasses.dataclass
+class Compiled:
+    """What the fake pass of a lowered cell counted, under the names the
+    reference's compiled artifact answers to."""
+
+    run: Any
+
+    def cost_analysis(self) -> Dict[str, float]:
+        """{"flops", "bytes accessed"}: the FLOPs of the rank's step
+        (forward and backward) and the bytes of every non-view aten op's
+        inputs and outputs (unfused: an upper bound)."""
+        return {"flops": self.run.flops,
+                "bytes accessed": self.run.bytes_accessed}
+
+    def memory_analysis(self):
+        """``analysis.fake_run.MemoryStats``: argument, output, alias and
+        temp bytes of the rank's step, from the live storages."""
+        return self.run.memory
+
+    def collectives(self):
+        """``analysis.fake_run.CollectiveSummary`` of the step's
+        collectives, backward ones included."""
+        return self.run.collectives
+
+    def op_counts(self) -> Dict[str, int]:
+        return dict(self.run.op_counts)
+
+    notes = ("fake cpu tensors: the scans and attention take their plain "
+             "versions")
+
 
 def build_cell(cfg, shape: ShapeConfig, options: Optional[ModelOptions] = None,
                parallel: Optional[ParallelConfig] = None,
@@ -600,15 +714,16 @@ def build_cell(cfg, shape: ShapeConfig, options: Optional[ModelOptions] = None,
         o_abs, o_axes = opt_state_specs(model, moment_dtype)
         return Cell(name, make_train_step(model, parallel),
                     (p_abs, o_abs, batch_specs), (p_axes, o_axes, batch_axes),
-                    (0, 1), model, "train", shape)
+                    (0, 1), model, "train", shape, parallel)
     if shape.kind == "prefill":
         return Cell(name, make_prefill_step(model), (p_abs, batch_specs),
-                    (p_axes, batch_axes), (), model, "prefill", shape)
+                    (p_axes, batch_axes), (), model, "prefill", shape,
+                    parallel)
     return Cell(name, make_decode_step(model),
                 (p_abs, batch_specs["caches"], batch_specs["token"],
                  batch_specs["pos"]),
                 (p_axes, batch_axes["caches"], batch_axes["token"],
-                 batch_axes["pos"]), (1,), model, "decode", shape)
+                 batch_axes["pos"]), (1,), model, "decode", shape, parallel)
 
 
 # -------------------------------------------------------- serve (the cut)

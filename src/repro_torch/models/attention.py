@@ -160,13 +160,14 @@ def self_attention(p, x, cfg: ModelConfig, positions, causal=True,
     return project("bshk,hkd->bsd", out, p["wo"])
 
 
-def self_attention_tp(p, x_rows, cfg: ModelConfig, tp, window=None
-                      ) -> torch.Tensor:
+def self_attention_tp(p, x_rows, cfg: ModelConfig, tp, window=None,
+                      impl: str = "dense") -> torch.Tensor:
     """Causal self-attention under the tensor-parallel cut (``tp``, a
     :class:`~repro_torch.sharding.tp.TPCut`): `x_rows` are this rank's
     (b, s/tp, d) rows. They are all-gathered over the "model" axis, the
     queries, keys and values projected with the rank's heads (`p` holds
-    its blocks), attention runs locally over the whole sequence (dense),
+    its blocks), attention runs locally over the whole sequence (`impl`,
+    :func:`sdpa`'s "dense" or "blockwise"),
     and ``wo`` contracts the rank's heads; the partial sums are
     reduce-scattered back to the rows. Where the rules replicate the KV
     heads but shard the query heads, the rank projects only the KV heads
@@ -181,7 +182,7 @@ def self_attention_tp(p, x_rows, cfg: ModelConfig, tp, window=None
     k, v = project_kv(pk, x, cfg, positions)
     if idx is not None:
         k, v = k[:, :, idx], v[:, :, idx]
-    out = _sdpa_dense(q, k, v, positions, positions, True, window)
+    out = sdpa(q, k, v, positions, positions, True, window, impl)
     return tp.leave(project("bshk,hkd->bsd", out, p["wo"]), tp.heads)
 
 

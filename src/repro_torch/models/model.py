@@ -200,6 +200,19 @@ class LanguageModel:
         return layer_norm(x, params["enc_norm"], params["enc_norm_b"],
                           cfg.norm_eps)
 
+    def _encode_cut(self, params, frames: torch.Tensor, tp) -> torch.Tensor:
+        """:meth:`_encode` under the cut with every rank's rows gathered:
+        the whole (b, enc_seq, d_model) output on every rank. Frames whose
+        rows do not divide over the cut's ranks (Whisper's 1500 over 16)
+        are padded at the end with zero rows to the next multiple and the
+        pad rows dropped after the gather: the encoder is causal, so no
+        real row reads a pad row."""
+        t = frames.shape[1]
+        pad = -t % tp.n
+        if pad:
+            frames = torch.nn.functional.pad(frames, (0, 0, 0, pad))
+        return tp.gather_seq(self._encode(params, frames, tp))[:, :t]
+
     def _prepend_frontend(self, params, x: torch.Tensor,
                           batch: Dict) -> torch.Tensor:
         """The VLM's projected patches (cast to the text's dtype) before the
@@ -303,11 +316,11 @@ class LanguageModel:
             x = self._embed(params, tokens, tp.index * tokens.shape[1],
                             batch["tokens"].shape[1])
         if cfg.family == "encdec":
-            enc_out = tp.gather_seq(self._encode(params, batch["frames"], tp))
+            enc_out = self._encode_cut(params, batch["frames"], tp)
         x, _, aux = tfm.stack_apply(params["layers"], x, cfg, None, "train",
-                                    None, None, "dense", remat=self.opt.remat,
-                                    enc_out=enc_out, tp=tp,
-                                    a2a_chunks=self.opt.moe_a2a_chunks)
+                                    None, None, self.opt.attn_impl,
+                                    remat=self.opt.remat, enc_out=enc_out,
+                                    tp=tp, a2a_chunks=self.opt.moe_a2a_chunks)
         if cfg.family == "vlm":
             x = x[:, skip:]
         if not self.opt.fused_xent:
@@ -475,8 +488,7 @@ class LanguageModel:
             s = tokens.shape[1]
             x = self._embed_rows(x, cut.index * (s // cut.n), s)
         if cfg.family == "encdec":
-            enc_out = cut.gather_seq(self._encode(params, batch["frames"],
-                                                  cut))
+            enc_out = self._encode_cut(params, batch["frames"], cut)
         x, caches, _ = tfm.stack_apply(params["layers"], x, cfg, None,
                                        "prefill", caches, None,
                                        self.opt.attn_impl, enc_out=enc_out,

@@ -16,9 +16,12 @@ the capacity dim), and combines. :func:`moe_apply` picks between them
 where the JAX package does; the JAX package reads its sharding context,
 the port takes the mesh as an argument. :func:`moe_apply_tp` (training)
 and :func:`moe_apply_cut` (the serving cells) are the block under the
-tensor-parallel cut, where each rank already holds its token block and
-its experts. Every EP path takes the over-decomposition degree Q of the
-all-to-alls (``ModelOptions.moe_a2a_chunks``).
+tensor-parallel cut, where each rank holds its token block and its
+experts; where the experts do not divide the "model" axis the rules
+replicate them and split their columns instead, and both run expert TP
+(:func:`moe_apply_expert_tp`, the JAX package's ``moe_apply_dense`` as
+GSPMD partitions it). Every EP path takes the over-decomposition degree Q
+of the all-to-alls (``ModelOptions.moe_a2a_chunks``).
 """
 from __future__ import annotations
 
@@ -129,12 +132,16 @@ def _combine(ye: torch.Tensor, assign, rank, keep, weights, C: int,
     return torch.sum(picked * w, dim=2).to(dtype)
 
 
-def moe_apply_dense(p, x: torch.Tensor, cfg: ModelConfig
+def moe_apply_dense(p, x: torch.Tensor, cfg: ModelConfig, load_mean=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity dispatch on one rank; groups are sequences (G=B, T=S). The
     reference semantics, and the path for expert counts the mesh cannot
     shard. Returns (y (B, S, D) in x's dtype, f32 aux load-balancing
-    loss)."""
+    loss). `load_mean` (a function of a tensor) averages the expert loads
+    over other ranks' rows before the aux loss is formed. With `p`'s
+    expert leaves narrowed to a block of the ``d_ff_expert`` columns
+    (``gate``/``up``) and rows (``down``), `y` is that block's partial
+    sum: the combine is linear in the expert outputs."""
     m = _require_moe(cfg, "moe_apply_dense")
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
@@ -142,6 +149,8 @@ def moe_apply_dense(p, x: torch.Tensor, cfg: ModelConfig
 
     probs, weights, assign = _route(x, p["router"], K)
     f_e, p_e = _load(probs, assign, E)      # Switch/GShard: E·Σ f_e·p_e
+    if load_mean is not None:
+        f_e, p_e = load_mean(f_e), load_mean(p_e)
     aux = E * torch.sum(f_e * p_e) * m.router_aux_loss_coef
 
     gather_ids, rank, keep = _dispatch_tables(assign, E, C)
@@ -204,41 +213,63 @@ def expert_block(p, mesh) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _expert_tp_raise(cfg: ModelConfig, tp, what: str):
-    raise NotImplementedError(
-        f"{what} {cfg.name!r} with {cfg.moe.num_experts} experts over "
-        f"{tp.n} ranks of {tp.axis!r}: the rules replicate the experts "
-        f"and split their columns (expert TP), which is not ported")
-
-
 def moe_apply_tp(p, x: torch.Tensor, cfg: ModelConfig, tp,
                  a2a_chunks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE block under the training cut (``tp``, a :class:`~repro_torch.
-    sharding.tp.TPCut` whose rules place the experts over its "model"
-    axis, so `p` holds the rank's experts): `x` is this rank's (b, s/tp,
-    d) rows, which is the token block the reference's ``shard_map`` gives
-    model rank m (``P(batch axes, "model", None)``). They are routed by
-    :func:`moe_apply_ep` on the block, at the capacity of s/tp tokens, the
-    all-to-alls chunked `a2a_chunks` ways along the capacity; the expert
-    loads of the aux loss are averaged over every rank of the mesh, so
-    each rank returns the same aux. Returns (the rank's (b, s/tp, d)
-    rows, aux). One rank: :func:`moe_apply_dense`. Experts that do not
-    divide the axis (the rules then split their columns) raise
-    ``NotImplementedError``."""
+    sharding.tp.TPCut`): `x` is this rank's (b, s/tp, d) rows, which is
+    the token block the reference's ``shard_map`` gives model rank m
+    (``P(batch axes, "model", None)``). Where the rules place the experts
+    over the "model" axis (`p` holds the rank's experts), the block is
+    routed by :func:`moe_apply_ep` at the capacity of s/tp tokens, the
+    all-to-alls chunked `a2a_chunks` ways along the capacity, and the
+    expert loads of the aux loss are averaged over every rank of the mesh;
+    elsewhere it is :func:`moe_apply_expert_tp`. Either way each rank of
+    a model line returns the same aux. Returns (the rank's (b, s/tp, d)
+    rows, aux). One rank: :func:`moe_apply_dense`."""
     _require_moe(cfg, "moe_apply_tp")
     if tp.n == 1:
         return moe_apply_dense(p, x, cfg)
     if not tp.experts:
-        _expert_tp_raise(cfg, tp, "training")
+        return moe_apply_expert_tp(p, x, cfg, tp)
     return moe_apply_ep(p, x, cfg, tp.mesh, a2a_chunks=a2a_chunks,
                         log=tp.a2a_log, block=True)
+
+
+def moe_apply_expert_tp(p, x: torch.Tensor, cfg: ModelConfig, tp
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert TP, the JAX package's ``moe_apply_dense`` as GSPMD
+    partitions it where the experts do not divide the "model" axis (its
+    docstring's "mixtral's 8 experts on a 16-wide model axis"): every rank
+    holds every expert, and the rules split ``d_ff_expert`` over "model"
+    (``tp.expert_cols``: `p`'s ``gate``/``up`` hold the rank's columns
+    ``[m·f/n, (m+1)·f/n)`` and ``down`` the same rows). `x`, this rank's
+    (b, s/tp, d) rows, is all-gathered over the line to (b, s, d) and
+    routed over the whole sequence at the reference's capacity
+    ``capacity(s, E, K, cf)``, so the drops are the reference's. The
+    rank's columns give partial sums of the expert outputs; the combine
+    is linear in them, so each rank combines its partials and one
+    reduce-scatter returns the rows of the sum: it moves (b, s, d), not
+    the (b, E, C, d) slots. Where the rules replicate the columns too,
+    each rank computes the whole block and takes its rows. The aux loss
+    is formed from the gathered rows, its expert loads averaged over the
+    data-parallel replicas. A list `tp.a2a_log` records ``("gather", 0)``
+    and ``("scatter", 0)``, the two forward collectives."""
+    if tp.a2a_log is not None:
+        tp.a2a_log.append(("gather", 0))
+    xg = tp.gather_seq(x)
+    dp = tuple(a for a in tp.mesh.axis_names if a != tp.axis)
+    y, aux = moe_apply_dense(p, xg, cfg,
+                             lambda v: _mean_over(v, tp.mesh, dp))
+    if tp.a2a_log is not None:
+        tp.a2a_log.append(("scatter", 0))
+    return tp.leave(y, tp.expert_cols), aux
 
 
 def moe_apply_cut(p, x: torch.Tensor, cfg: ModelConfig, tp, mode: str,
                   a2a_chunks: int = 1) -> torch.Tensor:
     """The MoE block under the serving cut (``tp``, a :class:`~repro_torch.
-    sharding.tp.ServeCut`; the rules place the experts over its "model"
-    axis, so `p` holds the rank's experts): in "prefill" `x` is the
+    sharding.tp.ServeCut`). Where the rules place the experts over its
+    "model" axis (`p` holds the rank's experts): in "prefill" `x` is the
     rank's (b, s/tp, d) rows, its token block, routed as the reference's
     expert parallelism routes it (:func:`moe_apply_ep` on the block, at
     the capacity of s/tp tokens); in "decode" `x` is (b, 1, d), whole on
@@ -246,12 +277,18 @@ def moe_apply_cut(p, x: torch.Tensor, cfg: ModelConfig, tp, mode: str,
     "ep_batch"); where the batch does not divide, each rank runs the dense
     capacity dispatch with its experts only and the partial outputs are
     all-reduced. Both EP branches chunk their all-to-alls `a2a_chunks`
-    ways. One rank: :func:`moe_apply_dense`."""
-    m = _require_moe(cfg, "moe_apply_cut")
+    ways. Elsewhere expert TP (`p` holds every expert's columns of the
+    rank): the prefill is :func:`moe_apply_expert_tp`, and a decode step
+    runs the dense dispatch on the whole (b, 1, d) with the rank's columns
+    and all-reduces the partial sums. One rank: :func:`moe_apply_dense`."""
+    _require_moe(cfg, "moe_apply_cut")
     if tp.n == 1:
         return moe_apply_dense(p, x, cfg)[0]
-    if m.num_experts % tp.n:
-        _expert_tp_raise(cfg, tp, "serving")
+    if not tp.experts:
+        if mode == "prefill":
+            return moe_apply_expert_tp(p, x, cfg, tp)[0]
+        y = moe_apply_dense(p, x, cfg)[0]
+        return tp.all_reduce(y) if tp.expert_cols else y
     if mode == "prefill":
         return moe_apply_ep(p, x, cfg, tp.mesh, a2a_chunks=a2a_chunks,
                             log=tp.a2a_log, block=True)[0]

@@ -166,7 +166,8 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
         if mode != "train":
             return (_layer_serve(p, x, h, cfg, kind, tp, mode, cache, pos,
                                  attn_impl, enc_out, a2a_chunks), cache, aux)
-        x, aux = _layer_tp(p, x, h, cfg, kind, tp, enc_out, a2a_chunks)
+        x, aux = _layer_tp(p, x, h, cfg, kind, tp, enc_out, a2a_chunks,
+                           attn_impl)
         return x, cache, aux
     if kind in ("ssm", "rglru"):
         y, cache = _recurrent(p, h, cfg, kind, mode, cache)
@@ -206,9 +207,10 @@ def layer_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 
 def _layer_tp(p, x, h, cfg: ModelConfig, kind: str, tp, enc_out,
-              a2a_chunks: int):
+              a2a_chunks: int, attn_impl: str):
     """A block's train forward under the tensor-parallel cut: `x` its
-    input rows and `h` their first norm. Returns (the output rows, the
+    input rows and `h` their first norm, self-attention through
+    `attn_impl` ("dense" or "blockwise"). Returns (the output rows, the
     MoE aux loss or None)."""
     if kind == "ssm":
         return x + ssm_mod.ssm_train_tp(p["ssm"], h, cfg, tp), None
@@ -217,7 +219,8 @@ def _layer_tp(p, x, h, cfg: ModelConfig, kind: str, tp, enc_out,
     else:
         window = (cfg.hybrid.local_window if kind == "local_attn"
                   else cfg.sliding_window)
-        x = x + attn.self_attention_tp(p["attn"], h, cfg, tp, window)
+        x = x + attn.self_attention_tp(p["attn"], h, cfg, tp, window,
+                                       attn_impl)
     if kind == "decoder":
         h = _norm(p, x, cfg, "norm_cross")
         x = x + attn.cross_attention_tp(p["cross"], h, enc_out, cfg, tp)

@@ -218,9 +218,10 @@ class TPCut:
     "model" axis (`axis`, `n` ranks, this rank at `index`), and whether the
     rules shard over it the query heads, the KV heads and the MLP columns
     (``d_ff``), Mamba-2's ``d_inner`` columns (`inner`) and SSD heads
-    (`ssm_heads`), the RG-LRU's width (`lru`) and the MoE experts
-    (`experts`: expert parallelism); each False where they replicate that
-    dim, and the block follows. Whisper's encoder layers have the
+    (`ssm_heads`), the RG-LRU's width (`lru`), the MoE experts
+    (`experts`: expert parallelism) and, where they do not, the experts'
+    ``d_ff_expert`` columns (`expert_cols`: expert TP); each False where
+    they replicate that dim, and the block follows. Whisper's encoder layers have the
     decoder's head counts and ``d_ff``, so one cut serves both. `a2a_log`
     (None, or a list) is handed to the MoE blocks' all-to-alls
     (:func:`~repro_torch.core.a2a_scan.a2a_scan`'s `log`)."""
@@ -236,6 +237,7 @@ class TPCut:
     ssm_heads: bool = False
     lru: bool = False
     experts: bool = False
+    expert_cols: bool = False
     a2a_log: Optional[list] = None
 
     @classmethod
@@ -258,8 +260,10 @@ class TPCut:
                                   ("embed", "lru"), 1)
         if cfg.moe is not None:
             m = cfg.moe
-            extra["experts"] = placed((m.num_experts, d, m.d_ff_expert),
-                                      ("experts", "embed", "expert_mlp"), 0)
+            shape = (m.num_experts, d, m.d_ff_expert)
+            axes = ("experts", "embed", "expert_mlp")
+            extra["experts"] = placed(shape, axes, 0)
+            extra["expert_cols"] = placed(shape, axes, 2)
         return cls(mesh, axis, mesh.shape[axis],
                    mesh.coords[mesh.axis_index(axis)],
                    heads=placed((d, cfg.num_heads, hd),

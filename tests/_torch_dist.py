@@ -931,9 +931,10 @@ def run_zero3_full(spec, device):
 
 
 # ------------------------------------------------ tensor-parallel training
-CASE_OVERRIDES = ("vocab", "heads", "ssm_head_dim", "ssm_expand", "capacity")
+CASE_OVERRIDES = ("vocab", "heads", "ssm_head_dim", "ssm_expand", "capacity",
+                  "experts", "enc_seq")
 # the overrides that change the parameter tree
-TREE_OVERRIDES = ("heads", "ssm_head_dim", "ssm_expand")
+TREE_OVERRIDES = ("heads", "ssm_head_dim", "ssm_expand", "experts")
 
 
 def case_cfg(cfg, case):
@@ -941,13 +942,20 @@ def case_cfg(cfg, case):
     overrides: ``vocab`` (the vocab size), ``heads`` (the query heads),
     ``ssm_head_dim`` and ``ssm_expand`` (Mamba-2's head dim and
     ``d_inner / d_model``, so its head count), ``capacity`` (the MoE
-    capacity factor)."""
+    capacity factor), ``experts`` (the MoE expert count), ``enc_seq``
+    (the encoder-decoder's frame count)."""
     import dataclasses
 
-    kw, ssm = {}, {}
+    kw, ssm, moe = {}, {}, {}
     if case.get("capacity"):
-        kw["moe"] = dataclasses.replace(cfg.moe,
-                                        capacity_factor=case["capacity"])
+        moe["capacity_factor"] = case["capacity"]
+    if case.get("experts"):
+        moe["num_experts"] = case["experts"]
+    if moe:
+        kw["moe"] = dataclasses.replace(cfg.moe, **moe)
+    if case.get("enc_seq"):
+        kw["encdec"] = dataclasses.replace(cfg.encdec,
+                                           enc_seq=case["enc_seq"])
     if case.get("vocab"):
         kw["vocab_size"] = case["vocab"]
     if case.get("heads"):
@@ -1225,8 +1233,8 @@ def tp_full_run(spec, workdir):
     ``spec["scan"]``), remat ``spec["remat"]`` (default "full"), AdamW,
     ``spec["global_batch"]`` x ``spec["seq_len"]`` tokens a step, data
     seed 3; a MoE model's all-to-alls in ``spec["chunks"]`` slices
-    (default 1) and its capacity factor ``spec["capacity"]`` where
-    given."""
+    (default 1), its capacity factor ``spec["capacity"]`` and its expert
+    count ``spec["experts"]`` where given."""
     import dataclasses
 
     from repro_torch.config.base import ParallelConfig, RunConfig, TrainConfig
@@ -1238,9 +1246,11 @@ def tp_full_run(spec, workdir):
         cfg = cfg.reduced()
     if spec.get("layers"):
         cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
-    if spec.get("capacity"):
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=spec["capacity"]))
+    moe = {k: spec[f] for k, f in (("capacity_factor", "capacity"),
+                                    ("num_experts", "experts")) if spec.get(f)}
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
     steps = spec["steps"] + 1
     scan = bool(spec.get("scan"))
     remat, chunks = spec.get("remat", "full"), spec.get("chunks", 1)
@@ -1318,7 +1328,9 @@ def run_tp_train_full(spec, workdir, device):
     the cut's ``a2a_log``) and the share of routed assignments capacity
     dropped (:func:`moe_drops_counted`), and on a card the bytes
     allocated at rest (params and moments) against the sum of this rank's
-    blocks, and the peak."""
+    blocks, the peak, and the last timed step's bytes held before it
+    (``_step_held``) and its peak (``_step_peak``, the counter reset
+    just before it), both over the bytes allocated before the trainer."""
     import gc
 
     from repro_torch.runtime.trainer import Trainer
@@ -1352,9 +1364,13 @@ def run_tp_train_full(spec, workdir, device):
         if moe:
             t._tp.cut.a2a_log = []
         with scans_counted() as counts, moe_drops_counted() as drops:
-            for _ in range(spec["steps"]):
+            for i in range(spec["steps"]):
                 if cuda:
                     torch.cuda.synchronize(device)
+                if cuda and i == spec["steps"] - 1:
+                    out[f"{tag}_step_held"] = np.array(allocated() - base)
+                    init_peak = torch.cuda.max_memory_allocated(device)
+                    torch.cuda.reset_peak_memory_stats(device)
                 ts = time.perf_counter()
                 t.train(1)
                 if cuda:
@@ -1368,8 +1384,13 @@ def run_tp_train_full(spec, workdir, device):
                 / spec["steps"])
             out[f"{tag}_dropped_share"] = np.array(drops["share"])
             t._tp.cut.a2a_log = None
-        out[f"{tag}_peak_bytes"] = np.array(
-            torch.cuda.max_memory_allocated(device) - base if cuda else 0)
+        if cuda:
+            step_peak = torch.cuda.max_memory_allocated(device)
+            out[f"{tag}_step_peak"] = np.array(step_peak - base)
+            out[f"{tag}_peak_bytes"] = np.array(max(init_peak, step_peak)
+                                                - base)
+        else:
+            out[f"{tag}_peak_bytes"] = np.array(0)
         if spec.get("trace"):
             from torch.profiler import ProfilerActivity, profile
 
@@ -1543,6 +1564,10 @@ def run(job, u0, device, workdir=None):
     if "serve_full" in job:
         from _torch_serve import run_serve_full
         out.update(run_serve_full(job["serve_full"], workdir, device))
+    if "expert_tp_full" in job:
+        from _torch_serve import run_expert_tp_full
+        out.update(run_expert_tp_full(job["expert_tp_full"], workdir,
+                                      device))
     if "iters" not in job:
         return out
     mesh = make_mesh(tuple(job["mesh"]), tuple(job["axes"]), device)

@@ -3,7 +3,9 @@ decode cells (``launch/steps.py`` ``build_cell``, ``cell_step``) on its
 blocks under ``rules_for(kind)``. Imports no jax; a job of
 ``tests/_torch_dist.py`` names ``serve_cells`` (reduced models from the
 parent's parameters), ``flash_decode`` (the sharded flash-decode alone) or
-``serve_full`` (a model at its published widths, on cards).
+``serve_full`` (a model at its published widths, on cards) or
+``expert_tp_full`` (a MoE model at its published widths whose experts do
+not divide the "model" axis, against one card).
 
 A case's parameters come from ``<workdir>/<tag>.npz`` (``leaf<i>`` in tree
 order, the parent's float32 numpy draw); its tokens and stub frontend
@@ -27,10 +29,19 @@ B, S, L, T = 2, 12, 16, 8
 def case_cfg(cfg, case):
     """A reduced config of either package with the case's overrides: MoE
     capacity factor ``factor`` (ample, so that expert parallelism's
-    per-rank capacity drops nothing and matches one device)."""
+    per-rank capacity drops nothing and matches one device), expert
+    count ``experts`` and encoder frame count ``enc_seq``."""
+    moe = {}
     if case.get("factor"):
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=case["factor"]))
+        moe["capacity_factor"] = case["factor"]
+    if case.get("experts"):
+        moe["num_experts"] = case["experts"]
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    if case.get("enc_seq"):
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, enc_seq=case["enc_seq"]))
     return cfg
 
 
@@ -111,7 +122,8 @@ def run_case(case, mesh, device, params_full, inputs) -> dict:
     its sharding's shape and equal to the whole leaf's slice, the bytes
     held against the blocks' bytes, whether the two cells' blocks
     coincide, and the all-to-alls (all of them, and the MoE blocks'
-    dispatches and combines of each cell, ``<tag>_moe_a2a``), flash-decode
+    dispatches and combines of each cell, ``<tag>_moe_a2a``; each cell's
+    whole ``a2a_log``, ``<tag>_cut_log``), flash-decode
     calls and flash kernel launches. ``case["chunks"]`` is the MoE
     all-to-alls' slice count (default 1)."""
     from repro_torch.checkpoint.elastic import cut, unshard_leaf
@@ -180,6 +192,8 @@ def run_case(case, mesh, device, params_full, inputs) -> dict:
     out[f"{tag}_moe_a2a"] = np.array([
         sum(what in ("dispatch", "combine") for what, _ in plan.cut.a2a_log)
         for plan in (ps.plan, ds.plan)])
+    out[f"{tag}_cut_log"] = np.array(json.dumps(
+        [plan.cut.a2a_log for plan in (ps.plan, ds.plan)]))
     out[f"{tag}_flash_decode_calls"] = np.array(
         attention._flash_decode_sharded.calls - fd0)
     out[f"{tag}_flash"] = np.array(flash_ops.flash_attention.launches
@@ -547,3 +561,86 @@ def full_width_check(cfg, spec, mesh, device) -> dict:
     scale = float(want.abs().max())
     return {"check_max_abs": np.array(diff), "check_logit_scale":
             np.array(scale)}
+
+
+def run_expert_tp_full(spec, workdir, device) -> dict:
+    """``spec["arch"]`` (a MoE model) at its published widths, cut to
+    ``spec["layers"]`` layers and ``spec["experts"]`` experts (so that the
+    job's "model" ranks do not divide them: expert TP), bf16, unrolled,
+    served through the cells on the job's ("data", "model") mesh: each
+    leaf drawn from seed 0 and cut before the next; ``spec["batch"]``
+    prompts of ``spec["prompt"]`` tokens (numpy seed 2) into
+    ``spec["ring"]``-slot rings, then ``spec["steps"]`` decode steps
+    teacher-forced from the same draw; every step's logits gathered whole.
+    Then, on this rank's own card, the same parameters whole
+    (``model.init(0)``) through ``model.prefill`` / ``decode_step`` on the
+    same tokens: the mean and largest absolute logit difference of each
+    step. Records the bytes allocated at rest against the blocks, whether
+    each block held has its sharding's shape, and the expert count each
+    expert leaf holds."""
+    from repro_torch.checkpoint.elastic import cut, unshard_leaf
+    from repro_torch.config.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import cell_step, relayout
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import ModelOptions, build_model
+
+    mesh = make_mesh(tuple(spec["mesh"]), ("data", "model"), device)
+    cfg = get_arch(spec["arch"])
+    if spec.get("reduced"):     # a rehearsal of the job on the CPU
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(
+        cfg, num_layers=spec["layers"],
+        moe=dataclasses.replace(cfg.moe, num_experts=spec["experts"]))
+    b, s, ring, steps = (spec["batch"], spec["prompt"], spec["ring"],
+                         spec["steps"])
+    opts = ModelOptions(attn_impl="flash", dtype=torch.bfloat16,
+                        scan_layers=False)
+    pre, dec = cells(cfg, opts, b, s, ring)
+    ps, ds = cell_step(pre, mesh), cell_step(dec, mesh)
+    out = {"experts_placed": np.array([ps.plan.cut.experts,
+                                       ps.plan.cut.expert_cols,
+                                       ds.plan.cut.experts,
+                                       ds.plan.cut.expert_cols])}
+    _sync(device)
+    base = _allocated(device)
+    blocks = ps.plan.init_params(seed=0, device=device)
+    _sync(device)
+    out["params_at_rest"] = np.array(_allocated(device) - base)
+    out["params_blocks"] = np.array(ps.plan.bytes_at_rest())
+    out["param_blocks_ok"] = np.array(_held(blocks, ps.plan.shardings)[0])
+    out["expert_leaf_experts"] = np.array([
+        x.shape[0] for path, x in zip(ps.plan.paths, tree_leaves(blocks))
+        if path[-2:-1] == ("moe",) and path[-1] != "router"])
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (b, s + steps))).to(device)
+    logits, caches = ps(blocks, _cut_batch({"tokens": toks[:, :s]},
+                                           ps.plan.in_sh[1]), max_len=ring)
+    psh, lsh = _logits_sharding(ps.plan), _logits_sharding(ds.plan)
+    got = [unshard_leaf(logits, psh, mesh)]
+    caches = relayout(caches, ps.plan.cache_shardings(ring),
+                      dec.in_shardings(mesh)[1], mesh)
+    blocks = ds.plan.params_from(blocks, ps.plan)
+    tsh = ds.plan.in_sh[2]
+    for t in range(steps):
+        lg, caches = ds(blocks, caches, cut(toks[:, s + t:s + t + 1], tsh),
+                        s + t)
+        got.append(unshard_leaf(lg, lsh, mesh))
+    del blocks, caches
+    _empty_cache(device)
+    model = build_model(cfg, opts)
+    params = model.init(0, device)
+    with torch.no_grad():
+        want, wc = model.prefill(params, {"tokens": toks[:, :s]},
+                                 max_len=ring)
+        diffs = [(got[0].float() - want.float()).abs()]
+        for t in range(steps):
+            want, wc = model.decode_step(params, toks[:, s + t:s + t + 1],
+                                         wc, s + t)
+            diffs.append((got[t + 1].float() - want.float()).abs())
+    out["logit_mean_abs"] = np.array([float(d.mean()) for d in diffs])
+    out["logit_max_abs"] = np.array([float(d.max()) for d in diffs])
+    out["finite"] = np.array(all(bool(torch.isfinite(g).all()) for g in got))
+    del params, wc
+    _empty_cache(device)
+    return out

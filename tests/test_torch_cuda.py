@@ -12,7 +12,9 @@ decode step over 4 cards; the reduced Mamba-2, RecurrentGemma, Whisper
 and LLaVA trained tensor-parallel on (2, 2) against one card, and
 Mamba-2 780M and RecurrentGemma-2B (and Whisper-base) at full width on
 4 cards, the scans' kernels on each rank's blocks (their rank-local
-shapes checked on one card too). Marked ``gpu``;
+shapes checked on one card too); expert TP (Mixtral's widths, experts
+that do not divide the 4 ranks) served and trained on 4 cards against
+one, beside the dry run's memory estimate. Marked ``gpu``;
 without a card every test here skips. Imports no jax, so it runs where the
 JAX package is not installed:
 
@@ -1066,6 +1068,136 @@ def test_nccl_4_tp_trains_qwen3_moe_full_width(cuda, tmp_path):
                                    "nccl_exposed_ms")},
             "host_top_rank0": json.loads(str(r0[f"{tag}_host_top"]))[:6],
         }), flush=True)
+
+
+ETP_SERVE = dict(arch="mixtral-8x7b", mesh=[1, 4], layers=2, experts=6,
+                 batch=8, prompt=2048, ring=4096, steps=32)
+ETP_TRAIN = dict(arch="mixtral-8x7b", layers=2, experts=6, steps=2,
+                 global_batch=8, seq_len=512, lr=3e-4, meshes=[[1, 4]],
+                 f32=True, trace=False, prefix="etp_")
+
+
+def _dryrun_peak(cfg, seq: int, batch: int, dtype, mesh_shape) -> dict:
+    """``Cell.lower(mesh).compile()`` of a train cell (unrolled, remat
+    "full", the all-to-alls in one slice) for rank 0 of a fake process
+    group of ``prod(mesh_shape)`` ranks on ("data", "model"), in this
+    process on the CPU (no card): its argument and temp bytes."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.config.base import ParallelConfig
+    from repro_torch.config.shapes import ShapeConfig
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.model import ModelOptions
+
+    fake_group(math.prod(mesh_shape))
+    try:
+        mesh = make_mesh(tuple(mesh_shape), ("data", "model"), "cpu")
+        cell = build_cell(
+            cfg, ShapeConfig("train", seq, batch, "train"),
+            ModelOptions(dtype=dtype, scan_layers=False, remat="full"),
+            ParallelConfig(remat="full", scan_layers=False))
+        mem = cell.lower(mesh).compile().memory_analysis()
+    finally:
+        dist.destroy_process_group()
+    return {"argument_gib": mem.argument_size_in_bytes / 2 ** 30,
+            "temp_gib": mem.temp_size_in_bytes / 2 ** 30,
+            "estimate_gib": mem.peak_bytes / 2 ** 30}
+
+
+def test_nccl_4_expert_tp_mixtral_full_width(cuda, tmp_path):
+    """Expert TP on four NCCL ranks at (1, 4) ("data", "model"): Mixtral-8x7B
+    at its published widths (d_model 4096, 32/8 heads of 128, top-2
+    experts of d_ff 14336, vocab 32000, window 4096) with two cuts, the
+    experts from 8 to 6 (so that the 4 ranks do not divide them: the rules
+    replicate the experts and split their columns) and the depth from 32
+    layers to 2.
+
+    Served (bf16, unrolled, each leaf drawn from seed 0 and cut before the
+    next): 8 prompts of 2048 tokens into 4096-slot rings, then 32
+    teacher-forced decode steps; every step's gathered logits against the
+    same parameters whole on each rank's own card (``model.prefill`` /
+    ``decode_step``) within the bf16 bounds of two full-width runs (mean
+    0.1, max 1.0); each rank holds all 6 experts, its blocks' shapes, and
+    at rest the bytes of its blocks within 1%. Trained (f32, remat
+    "full", 8 x 512 tokens, 2 steps): the first loss within 1e-4 of the
+    loss's scale of one card's forward of the same weights on the same
+    batch; the losses finite and equal on every rank; at rest within 1%
+    above the blocks.
+
+    Then the dry run (``Cell.lower``, fake groups, on the CPU of this
+    process) of that training cell beside rank 0's measured step peak,
+    and of the test_nccl_4_tp_trains_qwen3_moe_full_width cell
+    (Qwen3-30B-A3B, 24 layers, bf16, 8 x 2048 tokens, (1, 4)) beside the
+    peak that test measured (50.36 GiB a card, init included, on an
+    NVIDIA H100 80GB HBM3 at 700 W). Prints one JSON line."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import dataclasses
+    import json
+
+    from _torch_dist import spawn, tp_full_reference
+
+    from repro_torch.config.registry import get_arch
+
+    ranks = spawn(dict(mesh=[4], backend="nccl", expert_tp_full=ETP_SERVE,
+                       tp_train_full=[ETP_TRAIN]), None, tmp_path, 1500)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = tp_full_reference(ETP_TRAIN, cuda, rows=ETP_TRAIN["global_batch"])
+    tag = "etp_m1x4"
+    got = float(ranks[0][f"{tag}_loss"][0])
+    assert abs(got - ref["f32"]) <= 1e-4 * abs(ref["f32"]), (got, ref)
+    for r, out in enumerate(ranks):
+        assert out["experts_placed"].tolist() == [False, True, False, True]
+        assert (out["expert_leaf_experts"] == ETP_SERVE["experts"]).all()
+        assert bool(out["param_blocks_ok"]) and bool(out["finite"])
+        rest, blocks = int(out["params_at_rest"]), int(out["params_blocks"])
+        assert blocks <= rest <= 1.01 * blocks, (r, rest, blocks)
+        assert float(out["logit_mean_abs"].max()) <= 0.1, r
+        assert float(out["logit_max_abs"].max()) <= 1.0, r
+        np.testing.assert_array_equal(out[f"{tag}_loss"],
+                                      ranks[0][f"{tag}_loss"])
+        assert np.isfinite(out[f"{tag}_loss"]).all()
+        rest, blocks = (int(out[f"{tag}_rest_bytes"]),
+                        int(out[f"{tag}_block_bytes"]))
+        assert blocks <= rest <= 1.01 * blocks, (r, rest, blocks)
+    mixtral = get_arch("mixtral-8x7b")
+    etp_cfg = dataclasses.replace(mixtral, num_layers=2, moe=dataclasses
+                                  .replace(mixtral.moe, num_experts=6))
+    etp = _dryrun_peak(etp_cfg, ETP_TRAIN["seq_len"],
+                       ETP_TRAIN["global_batch"], torch.float32, [1, 4])
+    r0 = ranks[0]
+    etp["measured_step_peak_gib"] = float(r0[f"{tag}_step_peak"]) / 2 ** 30
+    etp["measured_held_gib"] = float(r0[f"{tag}_step_held"]) / 2 ** 30
+    qwen = _dryrun_peak(dataclasses.replace(
+        get_arch(MOE_FULL["arch"]), num_layers=MOE_FULL["layers"]),
+        MOE_FULL["seq_len"], MOE_FULL["global_batch"], torch.bfloat16,
+        [1, 4])
+    qwen["measured_peak_gib_qwen3_moe_test"] = 50.36
+    print(json.dumps({
+        "test": "expert_tp_mixtral_full_width", "mesh": [1, 4],
+        "cards": 4, "gpu": _gpu_lines(), "layers": 2,
+        "layers_published": mixtral.num_layers, "experts": 6,
+        "experts_published": mixtral.moe.num_experts,
+        "serve_logit_mean_abs": [float(o["logit_mean_abs"].max())
+                                 for o in ranks],
+        "serve_logit_max_abs": [float(o["logit_max_abs"].max())
+                                for o in ranks],
+        "params_at_rest_gib": [float(o["params_at_rest"]) / 2 ** 30
+                               for o in ranks],
+        "param_blocks_gib": float(r0["params_blocks"]) / 2 ** 30,
+        "first_loss_tp": got, "first_loss_one_card": ref["f32"],
+        "rel_diff": abs(got - ref["f32"]) / abs(ref["f32"]),
+        "losses": r0[f"{tag}_loss"].tolist(),
+        "train_rest_gib": [float(o[f"{tag}_rest_bytes"]) / 2 ** 30
+                           for o in ranks],
+        "train_step_ms": [1e3 * x for x in r0[f"{tag}_step_s"].tolist()],
+        "dryrun_expert_tp_train": etp,
+        "dryrun_qwen3_moe_24_layers": qwen}), flush=True)
+    assert abs(etp["estimate_gib"] / etp["measured_step_peak_gib"] - 1) \
+        <= 0.15, etp
 
 
 def _moe_active(cfg, layers: int) -> int:

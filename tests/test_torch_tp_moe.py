@@ -65,11 +65,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import leaf_paths, tree_leaves
-from repro_torch.models.moe import moe_apply_tp
 from repro_torch.models.model import ModelOptions, build_model
 from repro_torch.optim import adamw_init
 from repro_torch.runtime.trainer import Trainer
-from repro_torch.sharding.tp import TPCut
 from tests.test_system import run_devices
 
 SPAWN_DEADLINE_S = 180
@@ -465,18 +463,6 @@ def test_moe_trains_where_it_raised(tmp_path):
         got.append((t.metrics_log, flat(t.params)))
     assert [m["loss"] for m in got[0][0]] == [m["loss"] for m in got[1][0]]
     np.testing.assert_array_equal(got[0][1], got[1][1])
-
-
-def test_expert_tp_raises_in_training():
-    """Experts that do not divide the "model" axis: the rules replicate
-    them and split their columns (expert TP), which is not ported;
-    ``moe_apply_tp`` raises before any collective."""
-    cfg = get_arch(A).reduced()
-    cut = TPCut(None, "model", 2, 0, heads=True, kv_heads=True, mlp=True,
-                experts=False)
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="expert TP"):
-        moe_apply_tp({}, x, cfg, cut)
 
 
 # --------------------------------------------------- (e) blockwise
