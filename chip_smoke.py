@@ -284,6 +284,14 @@ patches; 34.4 B parameters) served, phase 25, last:
               parameters and rings, the peak; run after phase 28, before
               phase 25. Phase 7 times flash alone at a rank's block of
               Mixtral-8x7B's prefill cell on (1, 4), (8, 3968, 8/2, 128).
+ 33. lint     the schedule linter (``python -m
+              repro_torch.analysis.schedule_lint``'s targets) with every
+              target's tensors on the card: each runs once for rank 0 of
+              a fake process group of 4 or 8 ranks (the calls recorded,
+              not made), its issue-order log linted; every canonical
+              target must pass and every broken one trip exactly its own
+              rules; the counts on one line; under 60 s. Run after phase
+              32, before phase 25.
 
 Each phase prints one JSON line (a serve phase one per scheduler and one of
 checks); then the nvidia-smi line, the kernels line and, last,
@@ -3036,6 +3044,41 @@ def dryrun_phase(dev, card, measured) -> list:
     return rows
 
 
+def lint_phase(card) -> dict:
+    """Phase 33: the schedule linter over every target, the targets'
+    tensors on the card (``analysis.lint_targets``, ``analysis.
+    schedule_lint``). Fails where a canonical target does not pass, a
+    broken one does not trip exactly its own rules, or the phase takes
+    60 s or more."""
+    from repro_torch.analysis import lint_targets
+    from repro_torch.analysis.schedule_lint import lint_target
+
+    t0 = time.perf_counter()
+    canonical, broken = {}, {}
+    for name in lint_targets.all_targets():
+        rep = lint_target(name, device="cuda")
+        check(rep.ok, f"lint target {name} failed:\n{rep.render()[:3000]}")
+        canonical[name] = [rep.n_collectives, rep.n_events]
+    for name in lint_targets.broken_targets():
+        rep = lint_target(name, device="cuda")
+        got = sorted({f.rule for f in rep.errors})
+        want = sorted(lint_targets.TRIPS[name])
+        check(got == want, f"broken lint target {name} tripped {got}, "
+                           f"not {want}")
+        broken[name] = got
+    seconds = time.perf_counter() - t0
+    row = {"phase": "schedule_lint", "n": 33,
+           "canonical_passed": len(canonical),
+           "canonical": len(lint_targets.all_targets()),
+           "broken_tripped": len(broken),
+           "broken": len(lint_targets.broken_targets()),
+           "collectives_events": canonical, "tripped": broken,
+           "seconds": seconds, "torch": torch.__version__, "gpu": card}
+    emit(row)
+    check(seconds < 60, f"phase 33 took {seconds:.1f} s")
+    return row
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -3345,6 +3388,11 @@ def main() -> int:
     _, dryrun_s = timed(lambda: dryrun_phase(dev, card, measured))
     del measured
 
+    # ---- 33. the schedule linter's targets, their tensors on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, lint_s = timed(lambda: lint_phase(card))
+
     # ---- 25. LLaVA-NeXT-34B (64 GiB of weights): last, on a freed card
     gc.collect()
     torch.cuda.empty_cache()
@@ -3352,11 +3400,12 @@ def main() -> int:
         "llava-next-34b", 25, dev, card))
     served["llava-next-34b"] = llava["launches"]
     emit({"phase": "frontend_seconds",
-          "n": [23, 24, 25, 28, 29, 30, 31, 32],
+          "n": [23, 24, 25, 28, 29, 30, 31, 32, 33],
           "phase23_s": whisper_s, "phase24_s": wtrain_s,
           "phase25_s": llava_s, "phase28_s": tp_scans_s,
           "phase29_s": cells_s, "phase30_s": moe_train_s,
-          "phase31_s": blockwise_s, "phase32_s": dryrun_s})
+          "phase31_s": blockwise_s, "phase32_s": dryrun_s,
+          "phase33_s": lint_s})
 
     # -------------------------------------------------------------- results
     flash_launches = sum(v.get("flash_attention", 0) for v in served.values())

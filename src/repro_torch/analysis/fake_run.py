@@ -57,6 +57,7 @@ class CollectiveOp:
     wire_bytes: float          # ring-model per-rank wire traffic
     group_size: int
     dtype: str = ""
+    axes: Tuple[str, ...] = ()  # the mesh axes of its group, where known
 
     @property
     def wire_bytes_bf16eq(self) -> float:
@@ -91,6 +92,15 @@ class CollectiveSummary:
             out[o.kind] = (n + 1, b + o.wire_bytes)
         return out
 
+    def by_axes(self) -> Dict[str, Tuple[int, float]]:
+        """{mesh axes of the group ("-" unknown): (calls, wire bytes)}."""
+        out: Dict[str, Tuple[int, float]] = {}
+        for o in self.ops:
+            k = ",".join(o.axes) or "-"
+            n, b = out.get(k, (0, 0.0))
+            out[k] = (n + 1, b + o.wire_bytes)
+        return out
+
     def __str__(self) -> str:
         rows = [f"  {k:20s} n={n:4d}  wire={b/1e9:10.3f} GB"
                 for k, (n, b) in sorted(self.by_kind().items())]
@@ -110,57 +120,152 @@ class _Done:
         return True
 
 
+class _Logged:
+    """A call's handle whose first ``wait`` is logged (``comm_log``)
+    before the call's own handle, if it was made, is waited on."""
+
+    def __init__(self, work, log, index: int):
+        self._work, self._log, self._index = work, log, index
+        self._waited = False
+
+    def wait(self, *a, **k):
+        if not self._waited:
+            self._waited = True
+            self._log.add("wait", handle=self._index)
+        return True if self._work is None else self._work.wait(*a, **k)
+
+    def __getattr__(self, name):
+        return getattr(self._work, name)
+
+
+def group_axes(mesh) -> Dict[int, Tuple[str, ...]]:
+    """{id(process group): the mesh axes it spans} of `mesh`'s groups."""
+    out = {}
+    for key, g in mesh.groups.items():
+        if g is not None:
+            out[id(g)] = (key,) if isinstance(key, str) else tuple(key)
+    return out
+
+
 @contextlib.contextmanager
-def recorded_collectives():
+def recorded_collectives(log=None, make: bool = False, mesh=None):
     """While entered, the ``torch.distributed`` collectives the port calls
     are recorded into the yielded :class:`CollectiveSummary` instead of
-    being made (their output buffers are left as they are)."""
+    being made (their output buffers are left as they are). With `log`
+    (a ``comm_log.CommLog``) each call is also logged, with its group's
+    mesh axes, a send's or receive's peer and the storages it reads and
+    writes, and so is the first ``wait`` of each asynchronous handle; with
+    `make` the calls are made as well (real ranks). With `mesh` (or a
+    `log` that has one) each summary entry names its group's mesh axes."""
     summary = CollectiveSummary()
+    saved: Dict[str, Callable] = {}
+    mesh = mesh if mesh is not None else getattr(log, "mesh", None)
+    axes_of = group_axes(mesh) if mesh is not None else {}
+    world = tuple(mesh.axis_names) if mesh is not None else ()
 
-    def add(kind, result, operand, group, dtype):
+    def log_call(kind, group, dtype, async_op, ins, outs, peer=None):
+        from repro_torch.analysis.comm_log import hlo_dtype
+
+        axes = (log.peer_axes(peer) if peer is not None
+                else log.group_axes(group))
+        return log.add(kind, dtype=hlo_dtype(dtype),
+                       elements=sum(t.numel() for t in outs or ins),
+                       axes=axes,
+                       group_size=dist.get_world_size(group), peer=peer,
+                       async_op=bool(async_op),
+                       reads=frozenset(log.storage(t) for t in ins),
+                       writes=frozenset(log.storage(t) for t in outs))
+
+    def add(kind, result, operand, group, dtype, async_op=False, ins=(),
+            outs=()):
         g = dist.get_world_size(group)
         summary.ops.append(CollectiveOp(
             kind, float(result), float(operand),
             collective_wire_bytes(kind, result, g), g,
-            str(dtype).replace("torch.", "")))
+            str(dtype).replace("torch.", ""),
+            world if group is None else axes_of.get(id(group), ())))
+        if log is None:
+            return None
+        return log_call(kind, group, dtype, async_op, ins, outs)
 
-    def done(async_op):
-        return _Done() if async_op else None
+    def done(name, index, is_async, *args, **kwargs):
+        work = saved[name](*args, **kwargs) if make else None
+        if not is_async:
+            return work if make else None
+        if index is None:
+            return work if make else _Done()
+        return _Logged(work, log, index)
 
     def all_gather_into_tensor(out, inp, group=None, async_op=False):
-        add("all-gather", _nbytes(out), _nbytes(inp), group, out.dtype)
-        return done(async_op)
+        i = add("all-gather", _nbytes(out), _nbytes(inp), group, out.dtype,
+                async_op, (inp,), (out,))
+        return done("all_gather_into_tensor", i, async_op, out, inp,
+                    group=group, async_op=async_op)
 
     def all_gather(outs, inp, group=None, async_op=False):
-        add("all-gather", sum(_nbytes(o) for o in outs), _nbytes(inp), group,
-            inp.dtype)
-        return done(async_op)
+        i = add("all-gather", sum(_nbytes(o) for o in outs), _nbytes(inp),
+                group, inp.dtype, async_op, (inp,), tuple(outs))
+        return done("all_gather", i, async_op, outs, inp, group=group,
+                    async_op=async_op)
 
-    def reduce_scatter_tensor(out, inp, op=None, group=None, async_op=False):
-        add("reduce-scatter", _nbytes(out), _nbytes(inp), group, out.dtype)
-        return done(async_op)
+    def reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM, group=None,
+                              async_op=False):
+        i = add("reduce-scatter", _nbytes(out), _nbytes(inp), group,
+                out.dtype, async_op, (inp,), (out,))
+        return done("reduce_scatter_tensor", i, async_op, out, inp, op=op,
+                    group=group, async_op=async_op)
 
-    def all_reduce(t, op=None, group=None, async_op=False):
-        add("all-reduce", _nbytes(t), _nbytes(t), group, t.dtype)
-        return done(async_op)
+    def reduce_scatter(out, inputs, op=dist.ReduceOp.SUM, group=None,
+                       async_op=False):
+        i = add("reduce-scatter", _nbytes(out),
+                sum(_nbytes(t) for t in inputs), group, out.dtype, async_op,
+                tuple(inputs), (out,))
+        return done("reduce_scatter", i, async_op, out, inputs, op=op,
+                    group=group, async_op=async_op)
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        i = add("all-reduce", _nbytes(t), _nbytes(t), group, t.dtype,
+                async_op, (t,), (t,))
+        return done("all_reduce", i, async_op, t, op=op, group=group,
+                    async_op=async_op)
 
     def all_to_all_single(out, inp, *a, group=None, async_op=False, **k):
-        add("all-to-all", _nbytes(out), _nbytes(inp), group, out.dtype)
-        return done(async_op)
+        i = add("all-to-all", _nbytes(out), _nbytes(inp), group, out.dtype,
+                async_op, (inp,), (out,))
+        return done("all_to_all_single", i, async_op, out, inp, *a,
+                    group=group, async_op=async_op, **k)
+
+    def broadcast(t, src, group=None, async_op=False):
+        i = add("broadcast", _nbytes(t), _nbytes(t), group, t.dtype,
+                async_op, (t,), (t,))
+        return done("broadcast", i, async_op, t, src, group=group,
+                    async_op=async_op)
 
     def batch_isend_irecv(ops):
+        idx = []
         for o in ops:
-            if o.op is dist.isend:
-                add("collective-permute", _nbytes(o.tensor),
-                    _nbytes(o.tensor), o.group, o.tensor.dtype)
-        return [_Done() for _ in ops]
+            send = o.op is dist.isend
+            if send:
+                summary.ops.append(CollectiveOp(
+                    "collective-permute", float(_nbytes(o.tensor)),
+                    float(_nbytes(o.tensor)), float(_nbytes(o.tensor)),
+                    dist.get_world_size(o.group),
+                    str(o.tensor.dtype).replace("torch.", "")))
+            idx.append(None if log is None else log_call(
+                "send" if send else "recv", o.group, o.tensor.dtype, True,
+                (o.tensor,) if send else (), () if send else (o.tensor,),
+                peer=o.peer))
+        works = saved["batch_isend_irecv"](ops) if make else [None] * len(ops)
+        return [(w if make else _Done()) if i is None else _Logged(w, log, i)
+                for w, i in zip(works, idx)]
 
     patched = dict(all_gather_into_tensor=all_gather_into_tensor,
                    all_gather=all_gather,
                    reduce_scatter_tensor=reduce_scatter_tensor,
+                   reduce_scatter=reduce_scatter,
                    all_reduce=all_reduce, all_to_all_single=all_to_all_single,
-                   batch_isend_irecv=batch_isend_irecv)
-    saved = {k: getattr(dist, k) for k in patched}
+                   broadcast=broadcast, batch_isend_irecv=batch_isend_irecv)
+    saved.update({k: getattr(dist, k) for k in patched})
     for k, fn in patched.items():
         setattr(dist, k, fn)
     try:
@@ -321,16 +426,18 @@ def _storages(tree) -> Dict[int, int]:
     return out
 
 
-def fake_pass(step: Callable, args: tuple, fake_mode) -> FakePass:
+def fake_pass(step: Callable, args: tuple, fake_mode,
+              mesh=None) -> FakePass:
     """Run ``step(*args)`` once under `fake_mode` (the
     ``FakeTensorMode`` the fake `args` were made in), counting FLOPs,
-    bytes accessed, aten ops, the collectives (recorded, not made) and
-    the live storages (see the module docstring)."""
+    bytes accessed, aten ops, the collectives (recorded, not made; by the
+    axes of `mesh` where given) and the live storages (see the module
+    docstring)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     arg_st = _storages(args)
     tally = _Tally(set(arg_st))
-    with fake_mode, recorded_collectives() as coll, \
+    with fake_mode, recorded_collectives(mesh=mesh) as coll, \
             FlopCounterMode(display=False) as flops, tally:
         out = step(*args)
     out_st = _storages(out)

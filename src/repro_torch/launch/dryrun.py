@@ -102,6 +102,7 @@ def _extract(compiled) -> Dict[str, Any]:
         "coll_wire_bytes_bf16eq": coll.total_wire_bytes_bf16eq,
         "coll_operand_bytes": coll.total_operand_bytes,
         "coll_by_kind": {k: [n, b] for k, (n, b) in coll.by_kind().items()},
+        "coll_by_axes": {k: [n, b] for k, (n, b) in coll.by_axes().items()},
         "mem": {
             "argument_bytes": mem.argument_size_in_bytes,
             "output_bytes": mem.output_size_in_bytes,
@@ -201,6 +202,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, analysis: bool,
                 per = (metrics[k1][key] - metrics[k0][key]) / (k1 - k0)
                 extrap[key] = metrics[k1][key] + per * (L - k1)
                 extrap[f"{key}_per_layer"] = per
+            # collective wire bytes by the mesh axes of their groups
+            by0, by1 = (metrics[k]["coll_by_axes"] for k in (k0, k1))
+            extrap["coll_wire_bytes_by_axes"] = {
+                a: by1.get(a, [0, 0.0])[1] + (
+                    by1.get(a, [0, 0.0])[1] - by0.get(a, [0, 0.0])[1])
+                / (k1 - k0) * (L - k1) for a in sorted({*by0, *by1})}
             rec.update(ok=True, k0=k0, k1=k1, layers=L,
                        raw={str(k): metrics[k] for k in metrics},
                        extrapolated=extrap)

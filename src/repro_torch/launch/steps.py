@@ -62,7 +62,7 @@ from repro_torch.models.layers import (ParamTree, axes_from_specs, init_leaf,
                                       tree_map)
 from repro_torch.models.model import (LanguageModel, ModelOptions,
                                      build_model, input_specs)
-from repro_torch.models.transformer import _not_ported
+from repro_torch.models.transformer import _not_ported, is_unrolled
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
 from repro_torch.sharding.rules import (ShardingContext, entry_axes,
@@ -207,11 +207,13 @@ class TPPlan:
     expert leaves are blocks of the TP axis, so their gradients are not
     all-reduced over it; the router, ``("embed", None)``, is FSDP over the
     DP axes and replicated on the TP axis, its gradient a partial sum over
-    the rank's tokens, all-reduced like a norm weight's. At the top of a
-    step :meth:`gather_data` all-gathers the data-placed dims (its backward
+    the rank's tokens, all-reduced like a norm weight's.
+    :meth:`gather_data` all-gathers the data-placed dims (its backward
     reduce-scatters the gradient over the DP replicas) and marks the DP
-    axes a leaf is replicated on (its gradient all-reduced there): every
-    leaf becomes its TP block. Per microbatch :meth:`model_view` gathers
+    axes a leaf is replicated on (its gradient all-reduced there): the
+    leaf becomes its TP block, at the top of a step for the leaves
+    outside the layer stack and inside each layer's remat region for the
+    stack's (:meth:`layer_view`). Per microbatch :meth:`model_view` gathers
     the vocab-placed tables over the TP axis (the backward reduce-scatters
     onto the rank's vocab block) and marks the leaves the TP axis
     replicates (norm weights, ``q_norm``/``k_norm``, and whatever the rules
@@ -259,6 +261,15 @@ class TPPlan:
             axes = {a for _, ax in placed for a in ax}
             self.classes.append(tuple(a for a in mesh.axis_names
                                       if a in axes))
+        # the layer stack's leaves, gathered per layer by :meth:`layer_view`
+        self.index = {p: i for i, p in enumerate(self.paths)}
+        self.scanned = not is_unrolled(self.spec_tree["layers"])
+        self.stack = frozenset(i for i, p in enumerate(self.paths)
+                               if p[0] == "layers")
+        for i in self.stack:
+            if self.scanned and any(d == 0 for d, _ in self._data[i][0]):
+                raise ValueError(f"leaf {self.paths[i]}: the rules place "
+                                 f"its scanned layer dim")
         # every group the step uses, created in one order on every rank
         for data, rest in self._data:
             for _, ax in data:
@@ -273,11 +284,29 @@ class TPPlan:
         """This rank's block of leaf `i` (a copy)."""
         return cut(full, self.shardings[i])
 
-    def gather_data(self, i: int, w: torch.Tensor) -> torch.Tensor:
+    def gather_data(self, i: int, w: torch.Tensor, shift: int = 0
+                    ) -> torch.Tensor:
+        """Leaf `i`'s TP block from `w`, this rank's block of it, or with
+        `shift` 1 of one layer of it (a scanned leaf without its layer
+        dim)."""
         data, rest = self._data[i]
         for d, ax in data:
-            w = all_gather(w, d, self.mesh, ax)
+            w = all_gather(w, d - shift, self.mesh, ax)
         return grad_all_reduce(w, self.mesh, rest) if rest else w
+
+    def layer_view(self, i: int, p_l) -> PyTree:
+        """Layer `i`'s parameters as the cut reads them, from `p_l`, its
+        tree of this rank's blocks (of a scanned stack: their layer-`i`
+        slices): every leaf through :meth:`gather_data` and
+        :meth:`model_view`. The train step calls it inside the layer's
+        remat region (``stack_apply``'s `stream`)."""
+        prefix = ("layers",) if self.scanned else ("layers", i)
+        shift = int(self.scanned)
+        out = {}
+        for sub, w in leaf_paths(p_l).items():
+            k = self.index[prefix + sub]
+            out[sub] = self.model_view(k, self.gather_data(k, w, shift))
+        return rebuild(p_l, out)
 
     def model_view(self, i: int, w: torch.Tensor) -> torch.Tensor:
         sharded, vocab = self._model[i]
@@ -315,45 +344,62 @@ def make_tp_train_step(model: LanguageModel, parallel: ParallelConfig, mesh,
     (:meth:`TPPlan.init_state`), updated in place; `batch` holds the rows
     of this rank's DP replica (every rank of a model line the same).
 
-    The step gathers the data-placed dims at its top
-    (:meth:`TPPlan.gather_data`), runs the forward and backward of each of
-    ``accum_steps`` microbatches under the cut (``train_loss(..., tp)``,
-    each rank's loss over its own rows divided by the TP rank count, so a
-    model line's losses sum to its mean; the MoE aux loss, the same on
-    every rank, enters each rank's loss whole, so the line counts it once)
-    and accumulates the gradients of
-    the TP blocks, then takes them back through the data gathers once:
-    each rank holds the gradient of its own block, summed over every rank
-    that touched it, divided by the DP replica count as the DP step does.
-    The grad norm counts unique elements only (one all-reduce of square
-    sums per placement class, over the axes that shard it); AdamW runs on
-    the blocks. The loss is the mean over every token (one all-reduce).
-    ``parallel.overlap`` is read nowhere here, as in the JAX package,
-    where the partitioner schedules the reductions."""
+    The step gathers the data-placed dims (:meth:`TPPlan.gather_data`)
+    of the leaves outside the layer stack at its top: the embedding (a
+    tied one serves the head from the same gathered table, its two
+    gradients summed there before one reduce-scatter), the head, the
+    final norm, Whisper's encoder and audio projection, LLaVA's vision
+    projection. Each layer's leaves are gathered inside that layer's
+    remat region (:meth:`TPPlan.layer_view`, ``stack_apply``'s
+    `stream`, scanned or unrolled): the gathered blocks die after the
+    layer's forward, the backward's recompute gathers them again in
+    reverse layer order, and each gather's backward reduce-scatters the
+    layer's gradient onto this rank's blocks as soon as that layer's
+    backward ends, once a microbatch. Each of ``accum_steps``
+    microbatches runs its forward and backward under the cut
+    (``train_loss(..., tp)``, each rank's loss over its own rows divided
+    by the TP rank count, so a model line's losses sum to its mean; the
+    MoE aux loss, the same on every rank, enters each rank's loss whole,
+    so the line counts it once). The gradients accumulate (in float32
+    over several microbatches) on this rank's blocks of the layers, and on
+    the gathered leaves of the others, which go back through their gathers
+    once after the last microbatch: each rank holds the gradient of its
+    own block, summed over every rank that touched it, divided by the DP
+    replica count as the DP step does. The grad norm counts unique
+    elements only (one all-reduce of square sums per placement class,
+    over the axes that shard it); AdamW runs on the blocks. The loss is the mean over every
+    token (one all-reduce). ``parallel.overlap`` is read nowhere here, as
+    in the JAX package, where the partitioner schedules the
+    reductions."""
     check_ported(parallel, mesh)
     opt_cfg = opt_cfg or AdamWConfig()
     plan = plan or TPPlan(model, parallel, mesh)
     inv_tp = 1.0 / plan.tp
+    stack = plan.stack
 
-    def loss_and_grad(blocks, batch):
-        view = {p: plan.model_view(i, b)
-                for i, (p, b) in enumerate(zip(plan.paths, blocks))}
+    def loss_and_grad(xs, batch):
+        view = {p: x if i in stack else plan.model_view(i, x)
+                for i, (p, x) in enumerate(zip(plan.paths, xs))}
         loss = model.train_loss(rebuild(plan.spec_tree, view), batch,
-                                tp=plan.cut)
-        return loss.detach(), list(torch.autograd.grad(loss * inv_tp, blocks))
+                                tp=plan.cut, stream=plan.layer_view)
+        return loss.detach(), list(torch.autograd.grad(loss * inv_tp, xs))
 
     def step_fn(params, opt_state, batch):
         leaves = tree_leaves(params)
-        full = [plan.gather_data(i, w) for i, w in enumerate(leaves)]
+        top = {i: plan.gather_data(i, w) for i, w in enumerate(leaves)
+               if i not in stack}
         loss, acc = accumulate_grads(
-            loss_and_grad, [f.detach().requires_grad_() for f in full],
+            loss_and_grad,
+            [w if i in stack else top[i].detach().requires_grad_()
+             for i, w in enumerate(leaves)],
             batch, parallel.accum_steps)
         grads = []
-        for f, w, a in zip(full, leaves, acc):
-            if f is not w:      # back through the data gather / all-reduce
+        for i, (w, a) in enumerate(zip(leaves, acc)):
+            f = top.get(i)
+            if f is not None and f is not w:   # back through the gather
                 a = torch.autograd.grad(f, w, a.to(f.dtype))[0]
             grads.append(a.div_(plan.dp) if plan.dp > 1 else a)
-        del full, acc
+        del top, acc
         loss = pmean(loss, mesh, mesh.axis_names)
         gnorm = global_norm_by_class(grads, plan.classes, mesh)
         lr = warmup_cosine(opt_state["step"], opt_cfg.lr, warmup_steps,
@@ -608,7 +654,7 @@ class Cell:
                       .requires_grad_(grad), spec, sh)
                 for i, (spec, sh) in enumerate(zip(self.arg_specs,
                                                    shardings)))
-        return Lowered(self._rank_step(mesh, shardings), args, mode)
+        return Lowered(self._rank_step(mesh, shardings), args, mode, mesh)
 
     def _rank_step(self, mesh, shardings) -> Callable:
         if self.kind != "train":
@@ -652,13 +698,16 @@ class Lowered:
     step: Callable
     args: Tuple[PyTree, ...]
     fake_mode: object
+    mesh: Any = None
 
     def compile(self) -> "Compiled":
         """One pass of the step under the fake tensors, counted
-        (``analysis.fake_run.fake_pass``)."""
+        (``analysis.fake_run.fake_pass``; the collectives by the mesh
+        axes of their groups)."""
         from repro_torch.analysis.fake_run import fake_pass
 
-        return Compiled(fake_pass(self.step, self.args, self.fake_mode))
+        return Compiled(fake_pass(self.step, self.args, self.fake_mode,
+                                  self.mesh))
 
 
 @dataclasses.dataclass

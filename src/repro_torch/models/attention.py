@@ -172,18 +172,22 @@ def self_attention_tp(p, x_rows, cfg: ModelConfig, tp, window=None,
     reduce-scattered back to the rows. Where the rules replicate the KV
     heads but shard the query heads, the rank projects only the KV heads
     its query heads read (and repeats them per query head when those are
-    not whole groups); where they replicate the query heads, every head is
-    computed and the rank takes its rows of the complete output."""
+    not whole groups); where they replicate the query heads, the rank
+    computes every head for the queries of its own rows only, against the
+    whole sequence's keys and values (its rows of the complete output, so
+    its scores are (b, h, s/tp, s), not (b, h, s, s))."""
     x = tp.gather_seq(x_rows)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q = project_q(p, x, cfg, positions)
+    q_pos = positions if tp.heads else tp.rows(positions)
+    q = project_q(p, x if tp.heads else x_rows, cfg, q_pos)
     pk, idx = _kv_block(p, cfg, tp)
     k, v = project_kv(pk, x, cfg, positions)
     if idx is not None:
         k, v = k[:, :, idx], v[:, :, idx]
-    out = sdpa(q, k, v, positions, positions, True, window, impl)
-    return tp.leave(project("bshk,hkd->bsd", out, p["wo"]), tp.heads)
+    out = sdpa(q, k, v, q_pos, positions, True, window, impl)
+    y = project("bshk,hkd->bsd", out, p["wo"])
+    return tp.leave(y, True) if tp.heads else y
 
 
 def _kv_block(p, cfg: ModelConfig, tp):

@@ -252,7 +252,8 @@ class LanguageModel:
                                a2a_chunks=self.opt.moe_a2a_chunks)
 
     # ------------------------------------------------------------ entry points
-    def train_loss(self, params, batch: Dict, tp=None) -> torch.Tensor:
+    def train_loss(self, params, batch: Dict, tp=None, stream=None
+                   ) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["targets"]`` ((b, s) int64), a 0-d float32 tensor. Fused
         (``options.fused_xent``): :func:`~repro_torch.models.xent.
@@ -266,9 +267,16 @@ class LanguageModel:
         head whole (the train step gathers them over the vocab), `batch`
         the model line's rows, and the result is this rank's share of the
         loss: the ranks' results times ``1/tp`` sum to the mean
-        (:meth:`_train_loss_tp`)."""
+        (:meth:`_train_loss_tp`). `stream` (with `tp` only) is
+        ``stack_apply``'s hook: ``params["layers"]`` then holds this
+        rank's blocks of the stack and ``stream(i, p_l)`` makes layer
+        `i`'s TP blocks inside the layer's remat region (the TP step's
+        per-layer gathers, ``TPPlan.layer_view``)."""
         if tp is not None:
-            return self._train_loss_tp(params, batch, tp)
+            return self._train_loss_tp(params, batch, tp, stream)
+        if stream is not None:
+            raise ValueError("train_loss takes `stream` with `tp` only "
+                             "(ZeRO-3 streams through train_loss_streamed)")
         x, _, aux = self._forward(params, batch, "train")
         if self.cfg.family == "vlm":
             x = x[:, self.cfg.num_vision_patches:]
@@ -282,7 +290,8 @@ class LanguageModel:
             loss = self._xent(params, x, targets)
         return loss if aux is None else loss + aux.to(loss.dtype)
 
-    def _train_loss_tp(self, params, batch: Dict, tp) -> torch.Tensor:
+    def _train_loss_tp(self, params, batch: Dict, tp, stream=None
+                       ) -> torch.Tensor:
         """The tensor-parallel loss: this rank's block of the sequence
         (sequence parallelism between the blocks) is embedded from the
         whole table, run through the stack's cut
@@ -319,8 +328,9 @@ class LanguageModel:
             enc_out = self._encode_cut(params, batch["frames"], tp)
         x, _, aux = tfm.stack_apply(params["layers"], x, cfg, None, "train",
                                     None, None, self.opt.attn_impl,
-                                    remat=self.opt.remat, enc_out=enc_out,
-                                    tp=tp, a2a_chunks=self.opt.moe_a2a_chunks)
+                                    remat=self.opt.remat, stream=stream,
+                                    enc_out=enc_out, tp=tp,
+                                    a2a_chunks=self.opt.moe_a2a_chunks)
         if cfg.family == "vlm":
             x = x[:, skip:]
         if not self.opt.fused_xent:

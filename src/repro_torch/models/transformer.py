@@ -380,14 +380,17 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
     aux the f32 sum of the layers' MoE aux losses (None for a stack
     without MoE blocks).
 
-    `stream` is the streaming-ZeRO-3 hook ("train" mode, unrolled): a
-    callable ``(i, p_l) -> layer params`` that materializes layer `i`'s
-    parameters from `p_l`, its flat shard dict (`params` is the list of
-    them), INSIDE the layer's remat region, so the gather is issued just
-    before the consuming compute, the gathered buffer dies after the
-    layer's forward, and the backward's recompute regathers it in reverse
-    layer order. Streaming forces remat (without it every gathered buffer
-    would live until its backward).
+    `stream` is the per-layer gather hook ("train" mode): a callable
+    ``(i, p_l) -> layer params`` that materializes layer `i`'s
+    parameters from `p_l` INSIDE the layer's remat region, so the gather
+    is issued just before the consuming compute, the gathered buffer dies
+    after the layer's forward, and the backward's recompute regathers it
+    in reverse layer order. Streaming ZeRO-3 passes its flat shard dicts
+    (`params` is the list of them, unrolled); the TP step passes this
+    rank's blocks, scanned (`p_l` the layer's slices) or unrolled.
+    Streaming ZeRO-3 forces remat (without it every gathered buffer
+    would live until its backward); the TP step's gathers follow `remat`,
+    so under "none" a layer's gathered blocks live until its backward.
 
     `tp` is the tensor-parallel cut (:func:`layer_apply`): in "train"
     mode `x` holds this rank's rows, and under remat "full" or "dots"
@@ -417,7 +420,7 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
             if remat == "dots":
                 x, aux_l = checkpoint(f, x, use_reentrant=False,
                                       context_fn=_DOTS_CONTEXT)
-            elif remat == "full" or stream is not None:
+            elif remat == "full" or (stream is not None and tp is None):
                 x, aux_l = checkpoint(f, x, use_reentrant=False)
             else:
                 x, aux_l = f(x)

@@ -42,6 +42,7 @@ serving cells (``tests/_torch_serve.py``).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -783,6 +784,8 @@ def zero3_trainer(spec, case, mesh, device):
     cfg = get_arch(spec["arch"])
     if not spec.get("full"):
         cfg = cfg.reduced()
+    if spec.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
     dtype = torch.bfloat16 if spec.get("dtype") == "bf16" else torch.float32
     steps = spec["steps"]
     run = RunConfig(
@@ -1352,6 +1355,12 @@ def run_tp_train_full(spec, workdir, device):
         t0 = time.perf_counter()
         t = Trainer(run, mesh=mesh, options=opts, device=device)
         t.init_state(seed=0)
+        if spec.get("gather_all"):
+            from repro_torch.analysis.lint_targets import gather_all_tp_step
+
+            t._step_fn = gather_all_tp_step(
+                t.model, run.parallel, t._tp, t.opt_cfg,
+                run.train.warmup_steps, run.train.total_steps)
         if cuda:
             torch.cuda.synchronize(device)
         out[f"{tag}_init_s"] = np.array(time.perf_counter() - t0)
@@ -1415,6 +1424,11 @@ def run_tp_train_full(spec, workdir, device):
         out[f"{tag}_step_s"] = np.array(times)
         for key in ("loss", "grad_norm"):
             out[f"{tag}_{key}"] = np.array([m[key] for m in t.metrics_log])
+        if spec.get("lint"):
+            from repro_torch.analysis.lint_targets import tp_train_ctx
+
+            lint_out(out, tag, *logged_step(t, mesh), tp_train_ctx(
+                f"{tag}_tp_train", t._tp, run.model, run.parallel))
         del t
         gc.collect()
         if cuda:
@@ -1533,6 +1547,88 @@ def check_zero3_log(log, keys, streaming: bool, steps: int,
         assert step.index(("rs", b)) < step.index(("ag", b - 2)), (b, step)
 
 
+# ------------------------------------------------ the schedule linter
+def logged_step(t, mesh):
+    """One more step of trainer `t` under the issue-order recorder
+    (``analysis.comm_log.record``), its params and moments the state; a
+    ZeRO-3 trainer's step is built anew inside it, so that its ("ag" |
+    "rs" | "free", key) events land in the log. Returns (log, step)."""
+    from repro_torch.analysis.comm_log import record
+
+    with record(mesh) as log:
+        if t._fsdp_layout is not None:
+            t.fsdp_log, t._step_fn = log.fsdp_sink(), None
+        log.mark_state((t.params, t.opt_state))
+        t.train(1)
+        log.mark_state((t.params, t.opt_state), after=True)
+    return log, t._step_fn
+
+
+def lint_out(out, tag, log, step, ctx):
+    """The linter's report on `log` under `ctx`, into the job's output:
+    ``<tag>_lint_ok``, ``<tag>_lint`` (the report as JSON) and the
+    log's length."""
+    from repro_torch.analysis.schedule_lint import lint_log
+
+    rep = lint_log(log, ctx)
+    out[f"{tag}_lint_ok"] = np.array(rep.ok)
+    out[f"{tag}_lint"] = np.array(json.dumps(rep.to_dict()))
+    out[f"{tag}_lint_events"] = np.array(len(log))
+
+
+def run_lint_steps(spec, device):
+    """The real issue-order logs of two steps on the job's four ranks,
+    linted: streaming ZeRO-3 of ``spec["arch"]`` (``spec["layers"]`` of
+    its layers) on (4,) ("data",) after a warm-up step, and one TP
+    decode step of the same model on ``spec["decode_mesh"]`` (default
+    (1, 4)) ("data", "model") after a
+    warm-up step (which cuts the rank's slices), ``spec["slots"]`` slots
+    in ``spec["max_len"]``-slot rings, the caches its state."""
+    from repro_torch.analysis import lint_targets
+    from repro_torch.analysis.comm_log import record
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.decode_tp import build_decode_step
+    from repro_torch.models.model import ModelOptions, build_model
+    from repro_torch.runtime.server import make_slot_caches
+
+    out = {}
+    mesh = make_mesh((4,), ("data",), device)
+    zspec = dict(spec, full=not spec.get("reduced"),
+                 dtype="bf16" if spec.get("bf16") else "f32")
+    t = zero3_trainer(zspec, "stream", mesh, device)
+    t.init_state(seed=0)
+    t.train(1)
+    log, step = logged_step(t, mesh)
+    lint_out(out, "zero3", log, step, lint_targets.streaming_ctx(
+        "zero3_stream", t._fsdp_layout, step.stream,
+        t.run.parallel.fsdp_working_set, t.model))
+    del t, log, step
+    cfg = get_arch(spec["arch"])
+    if spec.get("reduced"):
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    model = build_model(cfg, ModelOptions(attn_impl="dense",
+                                          dtype=torch.bfloat16))
+    params = model.init(0, device)
+    mesh = make_mesh(tuple(spec.get("decode_mesh", (1, 4))),
+                     ("data", "model"), device)
+    slots = spec["slots"]
+    step = build_decode_step(model, mesh)
+    caches = make_slot_caches(model, slots, spec["max_len"], device)
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (slots, 1), generator=gen
+                        ).to(device)
+    pos = torch.arange(slots, device=device)
+    step(params, tok, caches, pos)
+    with record(mesh) as log:
+        log.mark_state(caches)
+        _, caches = step(params, tok, caches, pos + 1)
+        log.mark_state(caches, after=True)
+    lint_out(out, "decode", log, step, lint_targets.decode_ctx(
+        "tp_decode", cfg, slots, mesh))
+    return out
+
+
 def run(job, u0, device, workdir=None):
     out = run_apps(job, device)
     if "tp_full" in job:
@@ -1553,6 +1649,8 @@ def run(job, u0, device, workdir=None):
         specs = job["tp_train_full"]
         for spec in specs if isinstance(specs, list) else [specs]:
             out.update(run_tp_train_full(spec, workdir, device))
+    if "lint_steps" in job:
+        out.update(run_lint_steps(job["lint_steps"], device))
     if "tp_elastic" in job:
         out.update(run_tp_elastic(job["tp_elastic"], workdir, device))
     if "serve_cells" in job:

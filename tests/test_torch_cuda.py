@@ -1107,6 +1107,124 @@ def _dryrun_peak(cfg, seq: int, batch: int, dtype, mesh_shape) -> dict:
             "estimate_gib": mem.peak_bytes / 2 ** 30}
 
 
+TP_2X2 = dict(arch="qwen3-8b", steps=4, global_batch=8, seq_len=2048,
+              lr=3e-4, meshes=[[2, 2]], trace=False)
+
+
+def test_nccl_4_tp_qwen3_8b_2x2_gathers_per_layer(cuda, tmp_path):
+    """Qwen3-8B at its published widths (36 layers, bf16, unrolled, remat
+    "full", 8 x 2048 tokens a step) trained tensor-parallel on (2, 2)
+    ("data", "model") over four NCCL ranks four times, each from seed 0,
+    in the order A B B A: A with every leaf's data blocks gathered at the
+    top of the step and the whole-block gradients taken back through the
+    gathers once (the schedule the per-layer gathers replaced,
+    ``analysis.lint_targets.gather_all_tp_step``), B with the step as it
+    is (each layer's blocks gathered inside its remat region). A warm-up
+    step and 3 timed steps each; the first B run then logs one more
+    step's issue order (``analysis.comm_log.record``) and lints it
+    (``tp_train_ctx``: no sends, the state updated in place, at most two
+    layers' data gathers live at once). Holds: the losses equal on every
+    rank and in every run of a schedule, the first loss (the forward)
+    bit-equal between the two schedules, the per-layer step's peak below
+    the gather-all's, the lint clean on every rank, and the dry run's
+    estimate of the per-layer cell (``Cell.lower`` on a fake group of 4,
+    this process's CPU) within 10% of the measured peak of the last
+    timed step. Prints one JSON line: each run's step ms and peak GiB,
+    the estimate and the lint."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import json
+
+    from _torch_dist import spawn
+
+    from repro_torch.config.registry import get_arch
+
+    runs = [("ga_", True), ("pl_", False), ("pl2_", False), ("ga2_", True)]
+    specs = [dict(TP_2X2, prefix=p, gather_all=g, lint=p == "pl_")
+             for p, g in runs]
+    ranks = spawn(dict(mesh=[4], backend="nccl", tp_train_full=specs),
+                  None, tmp_path, 1500)
+    tags = [p + "m2x2" for p, _ in runs]
+    for tag in tags:
+        for out in ranks:
+            assert np.isfinite(out[f"{tag}_loss"]).all()
+            np.testing.assert_array_equal(out[f"{tag}_loss"],
+                                          ranks[0][f"{tag}_loss"])
+            assert out[f"{tag}_peak_bytes"] < 80 * 2 ** 30
+    r0 = ranks[0]
+    for a, b in (("ga_m2x2", "ga2_m2x2"), ("pl_m2x2", "pl2_m2x2")):
+        np.testing.assert_array_equal(r0[f"{a}_loss"], r0[f"{b}_loss"])
+    assert r0["ga_m2x2_loss"][0] == r0["pl_m2x2_loss"][0]
+    for out in ranks:
+        assert bool(out["pl_m2x2_lint_ok"]), str(out["pl_m2x2_lint"])
+        for ga, pl in (("ga_m2x2", "pl_m2x2"), ("ga2_m2x2", "pl2_m2x2")):
+            assert out[f"{pl}_step_peak"] < out[f"{ga}_step_peak"]
+    est = _dryrun_peak(get_arch("qwen3-8b"), TP_2X2["seq_len"],
+                       TP_2X2["global_batch"], torch.bfloat16, (2, 2))
+    peak_gib = max(float(o["pl_m2x2_step_peak"]) for o in ranks) / 2 ** 30
+    err = est["estimate_gib"] / peak_gib - 1
+    report = json.loads(str(r0["pl_m2x2_lint"]))
+    print(json.dumps({
+        "test": "tp_qwen3_8b_2x2_gathers_per_layer", "mesh": [2, 2],
+        "cards": 4, "gpu": _gpu_lines(),
+        "order": [t.split("_")[0] for t in tags],
+        "step_ms": {t: [1e3 * x for x in r0[f"{t}_step_s"][1:].tolist()]
+                    for t in tags},
+        "step_ms_median": {t: 1e3 * float(np.median(r0[f"{t}_step_s"][1:]))
+                           for t in tags},
+        "step_peak_gib": {t: [float(o[f"{t}_step_peak"]) / 2 ** 30
+                              for o in ranks] for t in tags},
+        "rest_gib": [float(o["pl_m2x2_rest_bytes"]) / 2 ** 30
+                     for o in ranks],
+        "losses": {"gather_all": r0["ga_m2x2_loss"].tolist(),
+                   "per_layer": r0["pl_m2x2_loss"].tolist()},
+        "dryrun": est, "dryrun_rel_err": err,
+        "lint": {"ok": report["ok"], "events": int(r0["pl_m2x2_lint_events"]),
+                 "collectives": report["n_collectives"]},
+    }), flush=True)
+    assert abs(err) <= 0.10, (est, peak_gib)
+
+
+LINT_STEPS = dict(arch="qwen3-8b", layers=8, steps=2, global_batch=8,
+                  seq_len=1024, lr=3e-4, bf16=True, slots=8, max_len=256)
+LINT_MOE = dict(arch="qwen3-moe-30b-a3b", layers=4, steps=1,
+                global_batch=8, seq_len=1024, lr=3e-4, meshes=[[1, 4]],
+                chunks=2, trace=False, lint=True, prefix="moe_")
+
+
+def test_nccl_4_lints_real_logs(cuda, tmp_path):
+    """The schedule linter on the real issue order of four NCCL ranks, one
+    card each: one logged step each of streaming ZeRO-3 (Qwen3-8B at its
+    widths, 8 of its 36 layers, bf16, (4,) "data"), the TP decode step
+    (the same model, (1, 4), 8 slots) and the TP train step of a MoE model
+    under expert parallelism with ``a2a_scan`` at Q = 2 (Qwen3-30B-A3B at
+    its widths, 4 of its 48 layers, (1, 4)); the dense TP train step is
+    linted in ``test_nccl_4_tp_qwen3_8b_2x2_gathers_per_layer``. Each
+    rank's log lints clean under the expectations the CPU targets use
+    (``analysis.lint_targets``: ``streaming_ctx``, ``decode_ctx``,
+    ``tp_train_ctx``). Prints one JSON line: each log's length,
+    collectives and findings on rank 0."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    import json
+
+    from _torch_dist import spawn
+
+    ranks = spawn(dict(mesh=[4], backend="nccl", lint_steps=LINT_STEPS,
+                       tp_train_full=[LINT_MOE]), None, tmp_path, 900)
+    reports = {}
+    for tag in ("zero3", "decode", "moe_m1x4"):
+        for out in ranks:
+            assert bool(out[f"{tag}_lint_ok"]), str(out[f"{tag}_lint"])
+        rep = json.loads(str(ranks[0][f"{tag}_lint"]))
+        reports[tag] = {"events": int(ranks[0][f"{tag}_lint_events"]),
+                        "collectives": rep["n_collectives"],
+                        "findings": rep["findings"]}
+    print(json.dumps({"test": "lints_real_logs", "cards": 4,
+                      "gpu": _gpu_lines(), "torch": torch.__version__,
+                      "logs_rank0": reports}), flush=True)
+
+
 def test_nccl_4_expert_tp_mixtral_full_width(cuda, tmp_path):
     """Expert TP on four NCCL ranks at (1, 4) ("data", "model"): Mixtral-8x7B
     at its published widths (d_model 4096, 32/8 heads of 128, top-2

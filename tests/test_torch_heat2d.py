@@ -399,6 +399,9 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(examples) == 5
+    files += examples
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):
