@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.layers import leaf_paths, rebuild, tree_leaves, tree_map
+from repro_torch.runtime.tracing import span, step_bwd
 
 PyTree = Any
 
@@ -339,11 +340,14 @@ def value_and_grad(loss_fn: Callable) -> Callable:
     """``(params, batch) -> (loss, grads)``: the loss (detached) and its
     gradients w.r.t. every leaf of `params` (a tree of nested dicts and
     lists, zeros where the loss does not reach a leaf), by
-    ``torch.autograd.grad`` (``.grad`` is not touched)."""
+    ``torch.autograd.grad`` (``.grad`` is not touched). The loss runs in
+    the span ``step.fwd``, its backward in ``step.bwd``
+    (``runtime/tracing.py``)."""
     def f(params, batch):
         paths = leaf_paths(params)
-        loss = loss_fn(params, batch)
-        gs = torch.autograd.grad(loss, list(paths.values()),
+        with span("step.fwd"):
+            loss = loss_fn(params, batch)
+        gs = torch.autograd.grad(step_bwd(loss), list(paths.values()),
                                  allow_unused=True)
         grads = {p: torch.zeros_like(v) if g is None else g
                  for (p, v), g in zip(paths.items(), gs)}

@@ -65,6 +65,7 @@ from repro_torch.models.model import (LanguageModel, ModelOptions,
 from repro_torch.models.transformer import _not_ported, is_unrolled
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
+from repro_torch.runtime.tracing import span, step_bwd
 from repro_torch.sharding.rules import (ShardingContext, entry_axes,
                                         resolve_pspec, rules_for)
 from repro_torch.sharding.tp import (ServeCut, TPCut, all_gather,
@@ -160,8 +161,9 @@ def make_train_step(model: LanguageModel, parallel: ParallelConfig,
         loss_acc = 0.0
         for j, mb in enumerate(micro):
             buckets.last = j == accum - 1
-            loss = model.train_loss(params, mb)
-            loss.backward()
+            with span("step.fwd"):
+                loss = model.train_loss(params, mb)
+            step_bwd(loss).backward()
             loss_acc = loss_acc + loss.detach().float()
         loss = loss_acc if accum == 1 else loss_acc * (1.0 / accum)
         return loss, buckets.finish()

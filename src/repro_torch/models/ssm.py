@@ -20,6 +20,7 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import (ParamSpec, conv_tail, rms_norm,
                                       rms_norm_split)
+from repro_torch.runtime.tracing import region
 
 
 def ssm_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
@@ -62,6 +63,12 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out)
 
 
+def _convs(p, x, B, C):
+    return (_causal_depthwise_conv(x, p["conv_x"]),
+            _causal_depthwise_conv(B, p["conv_B"]),
+            _causal_depthwise_conv(C, p["conv_C"]))
+
+
 def _project(p, u: torch.Tensor, cfg: ModelConfig):
     z = u @ p["wz"]
     x = u @ p["wx"]
@@ -76,32 +83,38 @@ def _project(p, u: torch.Tensor, cfg: ModelConfig):
     return z, x, B, C, dt, A
 
 
-def _out(p, y, xh, z, cfg: ModelConfig):
-    """D skip, gate by silu(z), norm, out projection."""
+def _gate_norm(p, y, xh, z, cfg: ModelConfig):
+    """D skip, gate by silu(z), norm (:func:`_gated_norm` on one rank)."""
     b, l = z.shape[:2]
     y = y + xh * p["D"][:, None].to(xh.dtype)
     y = y.reshape(b, l, -1)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["wo"]
+    return rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+
+
+def _out(p, y, xh, z, cfg: ModelConfig):
+    """D skip, gate by silu(z), norm, out projection."""
+    return _gate_norm(p, y, xh, z, cfg) @ p["wo"]
 
 
 def ssm_prefill(p, u: torch.Tensor, cfg: ModelConfig, impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba-2 block and the state decode continues from:
-    the final SSD state (b, h, p, n) f32 and the conv inputs (b, k-1, .)."""
+    the final SSD state (b, h, p, n) f32 and the conv inputs (b, k-1, .).
+    Its parts are the spans ``ssm.proj`` (the five input projections and
+    ``wo``'s), ``ssm.conv``, ``ssm.scan`` and ``ssm.gate_norm``
+    (``runtime/tracing.py``)."""
     s = cfg.ssm
     b, l, d = u.shape
-    z, x, B, C, dt, A = _project(p, u, cfg)
-    xc = _causal_depthwise_conv(x, p["conv_x"])
-    Bc = _causal_depthwise_conv(B, p["conv_B"])
-    Cc = _causal_depthwise_conv(C, p["conv_C"])
+    z, x, B, C, dt, A = region("ssm.proj", _project, p, u, cfg)
+    xc, Bc, Cc = region("ssm.conv", _convs, p, x, B, C)
     xh = xc.reshape(b, l, s.num_heads(d), s.head_dim)
-    y, final = ssd_ops.ssd(xh, dt, A, Bc, Cc, min(s.chunk_size, l),
-                           impl=impl)
+    y, final = region("ssm.scan", ssd_ops.ssd, xh, dt, A, Bc, Cc,
+                      min(s.chunk_size, l), impl=impl)
     k = s.conv_kernel
     cache = {"state": final, "conv_x": conv_tail(x, k),
              "conv_B": conv_tail(B, k), "conv_C": conv_tail(C, k)}
-    return _out(p, y, xh, z, cfg), cache
+    y = region("ssm.gate_norm", _gate_norm, p, y, xh, z, cfg)
+    return region("ssm.proj", torch.matmul, y, p["wo"]), cache
 
 
 def ssm_train_tp(p, u_rows: torch.Tensor, cfg: ModelConfig, tp
@@ -138,21 +151,22 @@ def ssm_prefill_tp(p, u_rows: torch.Tensor, cfg: ModelConfig, tp
 
 def _ssm_cut(p, u_rows, cfg: ModelConfig, tp):
     """(the rows of the block's output, the final SSD state, the
-    projections x, B and C before their convs) under the cut."""
+    projections x, B and C before their convs) under the cut, in the
+    spans of :func:`ssm_prefill` (the collectives outside them)."""
     s = cfg.ssm
     u = tp.gather_seq(u_rows)
     b, l, d = u.shape
-    z, x, B, C, dt, A = _project(p, u, cfg)
-    xc = _causal_depthwise_conv(x, p["conv_x"])
-    Bc = _causal_depthwise_conv(B, p["conv_B"])
-    Cc = _causal_depthwise_conv(C, p["conv_C"])
+    z, x, B, C, dt, A = region("ssm.proj", _project, p, u, cfg)
+    xc, Bc, Cc = region("ssm.conv", _convs, p, x, B, C)
     split = tp.inner and not tp.ssm_heads
     if split:
         xc = tp.gather_cols(xc)
     xh = xc.reshape(b, l, -1, s.head_dim)
-    y, final = ssd_ops.ssd(xh, dt, A, Bc, Cc, min(s.chunk_size, l))
-    y = _gated_norm(p, y, xh, z, cfg, tp, split)
-    return tp.leave(y @ p["wo"], tp.inner), final, x, B, C
+    y, final = region("ssm.scan", ssd_ops.ssd, xh, dt, A, Bc, Cc,
+                      min(s.chunk_size, l))
+    y = region("ssm.gate_norm", _gated_norm, p, y, xh, z, cfg, tp, split)
+    y = region("ssm.proj", torch.matmul, y, p["wo"])
+    return tp.leave(y, tp.inner), final, x, B, C
 
 
 def _gated_norm(p, y, xh, z, cfg: ModelConfig, tp, split: bool):

@@ -55,6 +55,7 @@ from repro_torch.models.layers import (
     rms_norm,
     tag_layer,
 )
+from repro_torch.runtime.tracing import layer_span
 
 PORTED_KINDS = ("attn", "attn_moe", "local_attn", "ssm", "rglru", "decoder")
 ATTN_KINDS = ("attn", "attn_moe", "local_attn", "decoder")
@@ -396,7 +397,11 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
     mode `x` holds this rank's rows, and under remat "full" or "dots"
     each layer's recompute re-issues its forward collectives in the
     backward, in the same order on every rank; in "prefill" and "decode"
-    it is the serving cells' cut, `caches` this rank's blocks."""
+    it is the serving cells' cut, `caches` this rank's blocks.
+
+    In "train" mode each layer runs in the span ``layer.fwd``, or
+    ``layer.recompute`` when the backward recomputes it
+    (``runtime/tracing.py``)."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {remat!r}")
     kinds = block_kinds(cfg)
@@ -411,11 +416,12 @@ def stack_apply(params, x, cfg: ModelConfig, positions, mode: str, caches,
         layers = params if unrolled else _unbind(params)
         for i, (p_l, kind) in enumerate(zip(layers, kinds)):
             def f(xx, p_l=p_l, kind=kind, i=i):
-                if stream is not None:
-                    p_l = stream(i, p_l)
-                xx, _, aux_l = layer_apply(p_l, xx, cfg, kind, positions,
-                                           mode, None, None, attn_impl, mesh,
-                                           enc_out, tp, a2a_chunks)
+                with layer_span():
+                    if stream is not None:
+                        p_l = stream(i, p_l)
+                    xx, _, aux_l = layer_apply(
+                        p_l, xx, cfg, kind, positions, mode, None, None,
+                        attn_impl, mesh, enc_out, tp, a2a_chunks)
                 return xx, aux_l
             if remat == "dots":
                 x, aux_l = checkpoint(f, x, use_reentrant=False,

@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.runtime.tracing import span
+
 
 def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(b, s, d) @ (d, V) -> (b, s, V) float32."""
@@ -38,7 +40,7 @@ def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 class _LinearXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, targets, denom):
-        with torch.profiler.record_function("linear_xent"):
+        with span("linear_xent"):
             logits = _logits(x, w)
             lse = torch.logsumexp(logits, dim=-1)                  # (b, s)
             ll = torch.gather(logits, -1, targets[..., None])[..., 0]
@@ -50,7 +52,7 @@ class _LinearXent(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.profiler.record_function("linear_xent_backward"):
+        with span("linear_xent_backward"):
             return _backward(ctx, g)
 
 

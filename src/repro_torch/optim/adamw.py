@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.runtime.tracing import span
 
 PyTree = Any
 
@@ -70,9 +71,9 @@ def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
     temporaries to one layer's worth. `group`: the DP group over which
     `grads` are sharded (ZeRO-3), for the global norm. `gnorm`: the
     global norm, already computed (the tensor-parallel step's, over unique
-    elements of blocks placed in several ways). Its work is one profiler
-    range, "adamw_update"."""
-    with torch.profiler.record_function("adamw_update"):
+    elements of blocks placed in several ways). Its work is one span,
+    "adamw_update" (``runtime/tracing.py``)."""
+    with span("adamw_update"):
         return _update(grads, state, params, cfg, lr, chunk_leading, group,
                        gnorm)
 

@@ -55,6 +55,7 @@ from repro_torch.models.layers import (ParamTree, rebuild, tree_leaves,
                                       tree_map)
 from repro_torch.models.model import ModelOptions, build_model
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.runtime.tracing import span
 
 PyTree = Any
 
@@ -321,7 +322,12 @@ class Trainer:
     def train(self, num_steps: int,
               failure_hook: Optional[Callable[[int], None]] = None) -> Dict:
         """Run `num_steps` steps from the current position. `failure_hook`
-        lets tests inject faults (raises) at chosen steps."""
+        lets tests inject faults (raises) at chosen steps. A step's body
+        is four spans end to end (``runtime/tracing.py``):
+        ``trainer.place_batch``, ``trainer.step`` (the step number its
+        argument), ``trainer.readback`` (the metrics' ``float()``) and
+        ``trainer.log`` (the cost model, the rebalance hook, the
+        checkpoint and the log)."""
         if self.params is None:
             if not self.restore_if_available():
                 self.init_state()
@@ -330,24 +336,29 @@ class Trainer:
         t0 = time.time()
         rebalance_every = self.run.parallel.rebalance_every
         for _ in range(num_steps):
-            if failure_hook is not None:
-                failure_hook(self.step)
-            batch = self._place_batch(self.step)
-            ts = time.perf_counter()
-            self.params, self.opt_state, metrics = self._step_fn(
-                self.params, self.opt_state, batch)
+            with span("trainer.place_batch"):
+                if failure_hook is not None:
+                    failure_hook(self.step)
+                batch = self._place_batch(self.step)
+            with span("trainer.step", str(self.step)):
+                ts = time.perf_counter()
+                self.params, self.opt_state, metrics = self._step_fn(
+                    self.params, self.opt_state, batch)
             # float() waits for the step's outputs, so the measured span is
             # the step's compute, not its launches
-            metrics = {k: float(v) for k, v in metrics.items()}
-            self.cost_model.record((self.rank,), time.perf_counter() - ts,
-                                   cells=self.run.train.global_batch)
-            self.step += 1
-            if (rebalance_every and self.rebalance_hook is not None
-                    and self.step % rebalance_every == 0):
-                self.rebalance_hook(self.cost_model, self.step)
-            if self.step % self.run.train.checkpoint_every == 0:
-                self.save()
-            self.metrics_log.append(metrics | {"step": self.step})
+            with span("trainer.readback"):
+                metrics = {k: float(v) for k, v in metrics.items()}
+            with span("trainer.log"):
+                self.cost_model.record((self.rank,),
+                                       time.perf_counter() - ts,
+                                       cells=self.run.train.global_batch)
+                self.step += 1
+                if (rebalance_every and self.rebalance_hook is not None
+                        and self.step % rebalance_every == 0):
+                    self.rebalance_hook(self.cost_model, self.step)
+                if self.step % self.run.train.checkpoint_every == 0:
+                    self.save()
+                self.metrics_log.append(metrics | {"step": self.step})
         self.ckpt.wait()
         return {"steps": num_steps, "seconds": time.time() - t0,
                 "final": self.metrics_log[-1] if self.metrics_log else {}}
